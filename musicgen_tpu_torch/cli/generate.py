@@ -14,7 +14,9 @@ length+300 tokens and write generated_{band}_{model}_{i}.mid.
 --decode-skip N decodes stream[N:]; --greedy is deterministic.
 
 Runs on the GPU when there is one (decode kernels unless --fused-decode off),
-else on the CPU with the plain versions.
+else on the CPU with the plain versions. --fused-decode int8 / int8w run the
+decode kernels on an int8 pack (W8A8 / W8A16); resident / resident-int8w
+run the whole token loop in one kernel launch (bf16 / W8A16).
 """
 from __future__ import annotations
 
@@ -32,9 +34,22 @@ from ..midi import decode, note_to_midi
 from ..sample.sampler import generate
 
 _MODELS = ["mamba", "xlstm", "transformer"]
-# The JAX CLI's --fused-decode values; only auto/on/off are ported so far.
-_FUSED = {"auto": None, "on": True, "off": False}
-_FUSED_NOT_PORTED = ["int8", "int8w", "int8w-gptq", "resident", "resident-int8w", "sb16", "int8w-sb16"]
+# --fused-decode value -> (fused, quant, resident), as musicgen_tpu/cli/generate.py maps them.
+_FUSED = {
+    "auto": (None, "bf16", False),
+    "on": (True, "bf16", False),
+    "off": (False, "bf16", False),
+    "int8": (True, "int8", False),
+    "int8w": (True, "int8w", False),
+    "resident": (True, "bf16", True),
+    "resident-int8w": (True, "int8w", True),
+}
+# The JAX CLI's other values, and what they wait for.
+_FUSED_NOT_PORTED = {
+    "int8w-gptq": "GPTQ calibration (ops/gptq.collect_hessians, ROADMAP queue 1 item 12)",
+    "sb16": "bf16 storage of the xLSTM matrix memory (the xLSTM family)",
+    "int8w-sb16": "bf16 storage of the xLSTM matrix memory (the xLSTM family)",
+}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -54,10 +69,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="prompt crop length (default: the training block, 2048)")
     p.add_argument("--decode-skip", type=int, default=None,
                    help="decode stream[skip:] instead of the last length+300 tokens")
-    p.add_argument("--fused-decode", choices=list(_FUSED) + _FUSED_NOT_PORTED, default="auto",
+    p.add_argument("--fused-decode", choices=list(_FUSED) + list(_FUSED_NOT_PORTED), default="auto",
                    help="auto: decode kernels on the GPU, plain PyTorch on the CPU; "
-                        "on/off force either; the int8 and resident variants are not "
-                        "yet ported")
+                        "on/off force either; int8 (W8A8) and int8w (W8A16) run them on "
+                        "an int8 pack; resident and resident-int8w run the whole loop "
+                        "in one kernel; int8w-gptq, sb16 and int8w-sb16 are not yet ported")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
@@ -67,10 +83,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
     args = parse_args(argv)
     if args.model != "mamba":
         raise NotImplementedError(f"--model {args.model} is not yet ported to musicgen_tpu_torch")
-    if args.fused_decode not in _FUSED:
+    if args.fused_decode in _FUSED_NOT_PORTED:
         raise NotImplementedError(
-            f"--fused-decode {args.fused_decode} is not yet ported to musicgen_tpu_torch"
+            f"--fused-decode {args.fused_decode} is not yet ported to musicgen_tpu_torch: "
+            f"it needs {_FUSED_NOT_PORTED[args.fused_decode]}"
         )
+    fused, quant, resident = _FUSED[args.fused_decode]
     device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     model = load_model(load_checkpoint(args.ckpt), device)
 
@@ -104,7 +122,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
         generator = torch.Generator(device=device).manual_seed(args.seed)
         streams = generate(
             model, args.model, src, meta, args.length, block_len, generator,
-            greedy=args.greedy, fused=_FUSED[args.fused_decode],
+            greedy=args.greedy, fused=fused, quant=quant, resident=resident,
         ).cpu().numpy()
         results[band] = streams
         for i in range(streams.shape[0]):

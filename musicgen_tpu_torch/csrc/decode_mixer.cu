@@ -14,48 +14,20 @@
 // heads and batches with one-hot matmuls, because Mosaic cannot reshape
 // lanes into sublanes. Here the same layout is kept (so the packs and
 // states are interchangeable with the plain version) but read directly: one
-// block owns one (batch, head) pair, each warp 8 rows p of the head, each
-// lane the state columns n and n + 32, so every row is one coalesced 256-byte
-// read and write. The state is updated IN PLACE; no two blocks touch the same
-// entries. y = h C is a warp reduction per row.
-#include "common.cuh"
+// block owns one (batch, head) pair (decode_ops.cuh mixer_item), each warp 8
+// rows p of the head, each lane the state columns n and n + 32, so every row
+// is one coalesced 256-byte read and write. The state is updated IN PLACE;
+// no two blocks touch the same entries. y = h C is a warp reduction per row.
+#include "decode_ops.cuh"
+
+using namespace mg;
 
 namespace {
 
-constexpr int P = 64;   // headdim
-constexpr int N = 64;   // d_state
-constexpr int NT = 256;
-constexpr int ROWS_PER_WARP = P / (NT / 32);
-
-__global__ void __launch_bounds__(NT) mixer_state_kernel(
-    const float* __restrict__ zx, int nz, int di, int nh, const float* __restrict__ a_h,
-    const float* __restrict__ d_h, float* __restrict__ ssm, float* __restrict__ g, int R) {
-  const int b = blockIdx.x / nh, h = blockIdx.x % nh;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const float* row = zx + (size_t)b * nz;
-  const int dc = di + 2 * N;
-  const float dtv = row[di + dc + h];
-  const float decay = expf(dtv * a_h[h]);
-  const float dd = d_h[h];
-  const float b0 = row[2 * di + lane], b1 = row[2 * di + lane + 32];
-  const float c0 = row[2 * di + N + lane], c1 = row[2 * di + N + lane + 32];
-
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int ch = h * P + warp * ROWS_PER_WARP + i;
-    const float xv = row[di + ch];
-    const float dtx = xv * dtv;
-    float* srow = ssm + (size_t)ch * R * N + (size_t)b * N;
-    const float s0 = srow[lane] * decay + dtx * b0;
-    const float s1 = srow[lane + 32] * decay + dtx * b1;
-    srow[lane] = s0;
-    srow[lane + 32] = s1;
-    const float yv = warp_sum(s0 * c0 + s1 * c1);
-    if (lane == 0) {
-      const float z = row[ch];
-      g[(size_t)b * di + ch] = (yv + xv * dd) * (z * sigmoidf_(z));
-    }
-  }
+__global__ void __launch_bounds__(TEAM) mixer_state_kernel(const float* zx, int nz, int di, int nh,
+                                                           const float* a_h, const float* d_h,
+                                                           float* ssm, float* g, int R) {
+  mixer_item(zx, nz, di, a_h, d_h, ssm, g, R, blockIdx.x / nh, blockIdx.x % nh, threadIdx.x);
 }
 
 }  // namespace
@@ -63,8 +35,9 @@ __global__ void __launch_bounds__(NT) mixer_state_kernel(
 MG_EXPORT int mg_mixer_state(const float* zx, int nz, int di, int nh, int headdim, int d_state,
                              const float* a_h, const float* d_h, float* ssm, float* g, int R,
                              void* stream) {
-  if (headdim != P || d_state != N || nh * P != di || nz < 2 * di + 2 * N + nh || R < 1)
+  if (headdim != MIX_P || d_state != MIX_N || nh * MIX_P != di || nz < 2 * di + 2 * MIX_N + nh ||
+      R < 1)
     return (int)cudaErrorInvalidValue;
-  mixer_state_kernel<<<R * nh, NT, 0, (cudaStream_t)stream>>>(zx, nz, di, nh, a_h, d_h, ssm, g, R);
+  mixer_state_kernel<<<R * nh, TEAM, 0, (cudaStream_t)stream>>>(zx, nz, di, nh, a_h, d_h, ssm, g, R);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,17 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every `*.cu` file under `musicgen_tpu_torch/csrc/` is compiled by `nvcc` for
-`sm_90a` into one shared library with a plain C interface, in
+Every `*.cu` file under `musicgen_tpu_torch/csrc/` is compiled by its own
+`nvcc` for `sm_90a` (all started together), and the objects are linked into
+one shared library with a plain C interface, in
 `build/musicgen_tpu_torch/<hash>/` at the root of the checkout. The hash
 covers the sources and the flags, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is. Nothing is compiled at import time: the
 first call of a kernel wrapper on a CUDA tensor builds and loads the library.
+
+`-fmad=false`: no multiply and add is contracted by the compiler (explicit
+`fmaf` still is), so a device function shared by two kernels computes the
+same bits in both (csrc/decode_ops.cuh). Cooperative launches need no
+`-rdc` on CUDA 11 and later.
 """
 from __future__ import annotations
 
@@ -22,19 +28,21 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "musicgen_tpu_torch"
 LIB_NAME = "libmusicgen_tpu_torch.so"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes; every entry point returns the cudaError_t of its launch.
 SIGNATURES = {
     "mg_ssd_scan": [_P] * 7 + [_I] * 6 + [_P],
-    "mg_in_proj_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "mg_in_proj_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "mg_mixer_state": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    "mg_out_proj_rms": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "mg_lm_head_ln": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "mg_out_proj_rms": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "mg_lm_head_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mg_sample_tail": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    # (pointer array, its length, int array, its length, grid size out, stream)
+    **{f"mg_generate_resident_{fmt}": [_P, _I, _P, _I, _P, _P] for fmt in ("bf16", "w8a16", "w8a8")},
 }
 
 
@@ -71,22 +79,37 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the library if it is not built yet; returns its path.
 
-    The compiler's output (ptxas register and shared-memory counts) is kept
-    beside the library as `build.log`."""
+    One nvcc per source, run in parallel, then one link. The compilers'
+    output (ptxas register and shared-memory counts) is kept beside the
+    library as `build.log`."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    (out.parent / "build.log").write_text(
-        log + f"\nexit {proc.returncode} after {time.perf_counter() - t0:.2f} s\n"
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], False
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{text}exit {proc.returncode}\n")
+        failed |= proc.returncode != 0
+    if not failed:
+        tmp = out.with_suffix(f".{tag}")
+        cmd = [nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}exit {proc.returncode}\n")
+        failed = proc.returncode != 0
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = "".join(log)
+    (out.parent / "build.log").write_text(text + f"\nbuilt in {time.perf_counter() - t0:.2f} s\n")
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text[-6000:]}")
     os.replace(tmp, out)
     return out
 

@@ -1,20 +1,24 @@
-"""Kernel B: the one-token decode step of the whole Mamba stack, with the
-sampler tail, as hand-written CUDA kernels (csrc/decode_*.cu).
+"""Kernels B and B': the one-token decode step of the whole Mamba stack, with
+the sampler tail, as hand-written CUDA kernels (csrc/decode_*.cu).
 
 Replaces musicgen_tpu/ops/pallas_decode.py (`_decode_kernel` via
-`fused_decode_step`, `fused_logits_step` and `fused_sample_step`, bf16 pack).
-The TPU kernel ran the step as ONE pallas_call whose grid walked the layers.
-Here a step is a sequence of launches on one stream:
+`fused_decode_step`, `fused_logits_step` and `fused_sample_step`) in its
+three weight formats: bf16, W8A8 (`_qdot`) and W8A16 (`_w8dot`). The TPU
+kernel ran the step as ONE pallas_call whose grid walked the layers. Here a
+step is a sequence of launches on one stream:
 
   for each of the L layers:
-    in_proj_conv   bf16 GEMV + conv step + silu + softplus  (decode_gemv.cu)
+    in_proj_conv   GEMV + conv step + silu + softplus       (decode_gemv.cu)
     mixer_state    SSM state update + readout + gate        (decode_mixer.cu)
-    out_proj_rms   gated RMSNorm + bf16 GEMV                (decode_gemv.cu)
-  lm_head_ln       LayerNorm + bf16 GEMV + bias             (decode_gemv.cu)
+    out_proj_rms   gated RMSNorm + GEMV                     (decode_gemv.cu)
+  lm_head_ln       LayerNorm + GEMV + bias                  (decode_gemv.cu)
   sample_tail      grammar, penalty, exact top-3            (decode_tail.cu)
 
-Fusing the layers into one persistent launch is the business of the
-whole-generation kernel (the port of ops/pallas_generate), still to come.
+The whole-generation kernel (ops/generate_kernel.py) runs the same device
+code for every token of a generation in one launch.
+
+`quant` names how a product runs, as in the TPU kernel: "none" (bf16 pack),
+"w8a8" or "w8a16" (int8 pack with K-grouped scales; see QUANT_MODES).
 
 The conv state (L, B, 3, conv_dim) and the SSM state (L, d_inner, B*N), laid
 out S[h*P+p, b*N+n] as in the TPU kernel, are updated IN PLACE by both the
@@ -24,10 +28,12 @@ same points as the TPU kernel (`_mixer_math`, `_head_math`), so the plain
 versions below agree with the JAX bodies.
 
 Every wrapper takes the plain version for CPU tensors; for CUDA tensors it
-launches its kernel or raises. Each counts its launches in `.launches`.
+launches its kernel or raises. Each launch adds one to LAUNCHES[name], where
+the name carries the format of an int8 launch (e.g. "in_proj_conv_w8a16").
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Tuple
 
@@ -44,6 +50,12 @@ RMS_EPS = 1e-5
 LN_EPS = 1e-6  # flax LayerNorm's default, kept by the reference port
 _LN_101 = 0.00995033085316808  # ln 1.01: pitch penalty base
 _LN_102 = 0.019802627296179712  # ln 1.02: dynamic penalty base
+QUANT_GROUP = 256  # int8 K-group: rows of W^T under one scale
+# The pack a --fused-decode quant builds -> how its products run.
+QUANT_MODES = {"bf16": "none", "int8": "w8a8", "int8w": "w8a16"}
+_FMT = {"none": 0, "w8a16": 1, "w8a8": 2}  # csrc/decode_ops.cuh weight formats
+
+LAUNCHES: collections.Counter = collections.Counter()
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (conv (L,B,3,dc), ssm (L,di,B*N))
 
@@ -95,14 +107,38 @@ class DecodeDims:
 # ---------------------------------------------------------------------------
 
 
+def quantize_cols(w: torch.Tensor, group: int = QUANT_GROUP) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K-grouped per-output-column symmetric int8 (pallas_decode._quantize_cols).
+
+    w (N, K) in torch's (out, in) layout. Returns (q (N, K) int8,
+    s (G, N) f32) with G = K / group: each scale covers `group` consecutive
+    k of one column, s = max|w| / 127 (floor 1e-20), q = clip(round(w / s),
+    -127, 127), rounded half to even. K not a multiple of `group` takes one
+    group."""
+    n, k = w.shape
+    if k % group:
+        group = k
+    wg = w.to(torch.float32).reshape(n, k // group, group)
+    s = torch.clamp(wg.abs().amax(dim=2) / 127.0, min=1e-20)  # (N, G)
+    q = torch.clamp(torch.round(wg / s[:, :, None]), -127.0, 127.0)
+    return q.to(torch.int8).reshape(n, k).contiguous(), s.t().contiguous()
+
+
 @torch.no_grad()
-def build_decode_params(model, batch: int) -> dict:
-    """Pack a MambaLM's weights for the decode kernels (bf16 pack).
+def build_decode_params(model, batch: int, quant: str = "bf16") -> dict:
+    """Pack a MambaLM's weights for the decode kernels.
 
     Matrices stay in torch's (out, in) layout, which is K-contiguous: a warp
     streams one output column. lm_head is padded from vocab to padded_vocab
     rows (zero weights, zero bias; the tail never selects pad ids). Per-head
-    vectors stay per head. Built once per generation, on the model's device."""
+    vectors stay per head. Built once per generation, on the model's device.
+
+    quant="bf16" stores bf16 matrices; "int8" and "int8w" store in_proj,
+    out_proj and lm_head as int8 with (K / 256, N) group scales `w_in_s`,
+    `w_out_s` and `lm_s` (quantize_cols). The int8 pack is the same for
+    both; W8A8 and W8A16 differ only in how the products run."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {sorted(QUANT_MODES)}, got {quant!r}")
     cfg = model.cfg
     dims = DecodeDims.create(cfg, batch)
     L, v, vp = cfg.n_layers, cfg.vocab_size, dims.padded_vocab
@@ -113,13 +149,13 @@ def build_decode_params(model, batch: int) -> dict:
         return torch.stack([fn(layers[i]) for i in range(L)]).to(dtype).contiguous()
 
     dev = model.token_embedding.weight.device
-    lm_w = torch.zeros(vp, cfg.d_model, dtype=bf16, device=dev)
-    lm_w[:v] = model.output_layer.weight.to(bf16)
+    lm_w = torch.zeros(vp, cfg.d_model, dtype=f32, device=dev)
+    lm_w[:v] = model.output_layer.weight
     lm_b = torch.zeros(vp, dtype=f32, device=dev)
     lm_b[:v] = model.output_layer.bias
     gram = torch.zeros(5, vp, dtype=f32, device=dev)
     gram[:, :v] = grammar_mask(device=dev)
-    return {
+    dp = {
         "w_in": stack(lambda m: m.in_proj.weight, bf16),  # (L, d_in_proj, d_model)
         "w_out": stack(lambda m: m.out_proj.weight, bf16),  # (L, d_model, d_inner)
         "conv_w": stack(lambda m: m.conv_w),  # (L, 4, conv_dim)
@@ -130,11 +166,28 @@ def build_decode_params(model, batch: int) -> dict:
         "norm_w": stack(lambda m: m.norm.weight),  # (L, d_inner)
         "ln_w": model.norm.weight.detach().to(f32).contiguous(),
         "ln_b": model.norm.bias.detach().to(f32).contiguous(),
-        "lm_w": lm_w,  # (padded_vocab, d_model)
+        "lm_w": lm_w.to(bf16),  # (padded_vocab, d_model)
         "lm_b": lm_b,  # (padded_vocab,)
         "embed": model.token_embedding.weight.detach().to(f32).contiguous(),  # (vocab, d_model)
         "gram": gram,  # (5, padded_vocab) grammar rows by previous-token field
     }
+    if quant != "bf16":
+        def pack(mats):
+            qs = [quantize_cols(w.detach()) for w in mats]
+            return torch.stack([q for q, _ in qs]), torch.stack([sc for _, sc in qs])
+
+        dp["w_in"], dp["w_in_s"] = pack([m.in_proj.weight for m in layers])  # (L, G, d_in_proj)
+        dp["w_out"], dp["w_out_s"] = pack([m.out_proj.weight for m in layers])  # (L, G, d_model)
+        dp["lm_w"], dp["lm_s"] = quantize_cols(lm_w)  # (G, padded_vocab)
+    return dp
+
+
+def check_pack(dp: dict, quant: str) -> None:
+    """Raise unless the pack's weight format is the one `quant` runs."""
+    if quant not in _FMT:
+        raise ValueError(f"quant must be one of {sorted(_FMT)}, got {quant!r}")
+    if ("w_in_s" in dp) != (quant != "none"):
+        raise ValueError(f"quant {quant!r} does not match a {'int8' if 'w_in_s' in dp else 'bf16'} pack")
 
 
 def stack_states(states) -> Carry:
@@ -168,11 +221,53 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def in_proj_conv_plain(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims: DecodeDims):
+def qdot(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """W8A8 product (pallas_decode._qdot): x (M, K) f32, wq (N, K) int8,
+    s (G, N) group scales -> (M, N) f32. Each (row, K-group) of x is
+    quantised with its own scale s_x = max(max|x|, 1e-20) / 127, rounded half
+    to even and clipped to +-127; the group's integer sum is exact, then
+    acc += part * s_x * s[g] group by group."""
+    g_n, k = s.shape[0], wq.shape[1]
+    gsz = k // g_n
+    acc = torch.zeros(x.shape[0], wq.shape[0], dtype=torch.float32, device=x.device)
+    for g in range(g_n):
+        xg = x[:, g * gsz:(g + 1) * gsz]
+        s_x = torch.clamp(xg.abs().amax(dim=1, keepdim=True), min=1e-20) * (1.0 / 127.0)
+        xq = torch.clamp(torch.round(xg / s_x), -127.0, 127.0)
+        # Integer products summed in f64 are exact (|sum| < 2^53).
+        part = xq.double() @ wq[:, g * gsz:(g + 1) * gsz].double().t()
+        acc = acc + part.to(torch.float32) * s_x * s[g]
+    return acc
+
+
+def w8dot(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """W8A16 product (pallas_decode._w8dot): int8 weights promoted to bf16
+    (exactly), activations rounded to bf16, f32 sums per K-group, each
+    multiplied by its (G, N) scale and added group by group."""
+    g_n, k = s.shape[0], wq.shape[1]
+    gsz = k // g_n
+    acc = torch.zeros(x.shape[0], wq.shape[0], dtype=torch.float32, device=x.device)
+    for g in range(g_n):
+        part = F.linear(_bf16(x[:, g * gsz:(g + 1) * gsz]), wq[:, g * gsz:(g + 1) * gsz].to(torch.float32))
+        acc = acc + part * s[g]
+    return acc
+
+
+def _product(h: torch.Tensor, w: torch.Tensor, w_s, quant: str) -> torch.Tensor:
+    """h @ W^T in the pack's format, at the points the TPU kernel rounds."""
+    if quant == "w8a8":
+        return qdot(h, w, w_s)
+    if quant == "w8a16":
+        return w8dot(h, w, w_s)
+    return F.linear(_bf16(h), w.to(torch.float32))
+
+
+def in_proj_conv_plain(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims: DecodeDims,
+                       w_s=None, quant: str = "none"):
     """zx = [z | silu(conv step) | softplus(dt + dt_bias)] from in_proj(x);
     conv_state (B, 3, conv_dim) advances in place."""
     di, dc, nh = dims.d_inner, dims.conv_dim, dims.nheads
-    zx = F.linear(_bf16(x), w_in.to(torch.float32))
+    zx = _product(x, w_in, w_s, quant)
     xbc_new = zx[:, di:di + dc]
     cs = conv_state
     y = cs[:, 0] * conv_w[0] + cs[:, 1] * conv_w[1] + cs[:, 2] * conv_w[2] + xbc_new * conv_w[3] + conv_b
@@ -200,19 +295,19 @@ def mixer_state_plain(zx, a_h, d_h, ssm_state, dims: DecodeDims):
     return (y * (z * torch.sigmoid(z))).contiguous()
 
 
-def out_proj_rms_plain(g, norm_w, w_out, dims: DecodeDims):
+def out_proj_rms_plain(g, norm_w, w_out, dims: DecodeDims, w_s=None, quant: str = "none"):
     """out_proj(g * rsqrt(mean(g^2) + 1e-5) * norm_w)."""
     var = torch.mean(g * g, dim=-1, keepdim=True)
-    return F.linear(_bf16(g * torch.rsqrt(var + RMS_EPS) * norm_w), w_out.to(torch.float32))
+    return _product(g * torch.rsqrt(var + RMS_EPS) * norm_w, w_out, w_s, quant)
 
 
-def lm_head_ln_plain(x, ln_w, ln_b, lm_w, lm_b, dims: DecodeDims):
+def lm_head_ln_plain(x, ln_w, ln_b, lm_w, lm_b, dims: DecodeDims, w_s=None, quant: str = "none"):
     """lm_head(LayerNorm(x)) + bias, var = E[x^2] - mean^2 as in `_head_math`."""
     mean = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(x * x, dim=-1, keepdim=True) - mean * mean
     h = (x - mean) * torch.rsqrt(var + LN_EPS)
     h = h * ln_w + ln_b
-    return F.linear(_bf16(h), lm_w.to(torch.float32), lm_b)
+    return _product(h, lm_w, w_s, quant) + lm_b
 
 
 def sample_tail_plain(logits, gram, hist, bucket, dims: DecodeDims):
@@ -263,14 +358,34 @@ def _kernel_dims(dims: DecodeDims, b: int) -> None:
         raise ValueError(f"decode kernels take 1..{MAX_ROWS} rows, got {b}")
 
 
-def in_proj_conv(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims: DecodeDims):
+def _weights(w, w_s, quant: str, n: int, k: int, dev) -> int:
+    """Check a GEMV's packed weights; returns the scales' pointer (0 for
+    bf16)."""
+    if quant not in _FMT:
+        raise ValueError(f"quant must be one of {sorted(_FMT)}, got {quant!r}")
+    if quant == "none":
+        _need(w, "w", torch.bfloat16, (n, k), dev)
+        return 0
+    if k % (2 * QUANT_GROUP):
+        raise ValueError(f"int8 GEMV kernels need K % {2 * QUANT_GROUP} == 0, got K = {k}")
+    _need(w, "w", torch.int8, (n, k), dev)
+    _need(w_s, "w_s", torch.float32, (k // QUANT_GROUP, n), dev)
+    return w_s.data_ptr()
+
+
+def _count(base: str, quant: str = "none") -> None:
+    LAUNCHES[base if quant == "none" else f"{base}_{quant}"] += 1
+
+
+def in_proj_conv(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims: DecodeDims,
+                 w_s=None, quant: str = "none"):
     if not x.is_cuda:
-        return in_proj_conv_plain(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims)
+        return in_proj_conv_plain(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims, w_s, quant)
     b, dev = x.shape[0], x.device
     _kernel_dims(dims, b)
     x = x.to(torch.float32).contiguous()
     _need(x, "x", torch.float32, (b, dims.d_model), dev)
-    _need(w_in, "w_in", torch.bfloat16, (dims.d_in_proj, dims.d_model), dev)
+    s_ptr = _weights(w_in, w_s, quant, dims.d_in_proj, dims.d_model, dev)
     _need(conv_w, "conv_w", torch.float32, (4, dims.conv_dim), dev)
     _need(conv_b, "conv_b", torch.float32, (dims.conv_dim,), dev)
     _need(dt_bias, "dt_bias", torch.float32, (dims.nheads,), dev)
@@ -278,12 +393,12 @@ def in_proj_conv(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims: DecodeDims)
     zx = torch.empty(b, dims.d_in_proj, dtype=torch.float32, device=dev)
     lib = load_library()
     err = lib.mg_in_proj_conv(
-        x.data_ptr(), w_in.data_ptr(), zx.data_ptr(), b, dims.d_model, dims.d_in_proj,
+        x.data_ptr(), w_in.data_ptr(), s_ptr, zx.data_ptr(), b, dims.d_model, dims.d_in_proj,
         dims.d_inner, dims.conv_dim, dims.nheads, conv_w.data_ptr(), conv_b.data_ptr(),
-        dt_bias.data_ptr(), conv_state.data_ptr(), stream_ptr(x),
+        dt_bias.data_ptr(), conv_state.data_ptr(), _FMT[quant], stream_ptr(x),
     )
     check(lib, err, "in_proj_conv")
-    in_proj_conv.launches += 1
+    _count("in_proj_conv", quant)
     return zx
 
 
@@ -304,49 +419,49 @@ def mixer_state(zx, a_h, d_h, ssm_state, dims: DecodeDims):
         a_h.data_ptr(), d_h.data_ptr(), ssm_state.data_ptr(), g.data_ptr(), b, stream_ptr(zx),
     )
     check(lib, err, "mixer_state")
-    mixer_state.launches += 1
+    _count("mixer_state")
     return g
 
 
-def out_proj_rms(g, norm_w, w_out, dims: DecodeDims):
+def out_proj_rms(g, norm_w, w_out, dims: DecodeDims, w_s=None, quant: str = "none"):
     if not g.is_cuda:
-        return out_proj_rms_plain(g, norm_w, w_out, dims)
+        return out_proj_rms_plain(g, norm_w, w_out, dims, w_s, quant)
     b, dev = g.shape[0], g.device
     _kernel_dims(dims, b)
     g = g.contiguous()
     _need(g, "g", torch.float32, (b, dims.d_inner), dev)
     _need(norm_w, "norm_w", torch.float32, (dims.d_inner,), dev)
-    _need(w_out, "w_out", torch.bfloat16, (dims.d_model, dims.d_inner), dev)
+    s_ptr = _weights(w_out, w_s, quant, dims.d_model, dims.d_inner, dev)
     out = torch.empty(b, dims.d_model, dtype=torch.float32, device=dev)
     lib = load_library()
     err = lib.mg_out_proj_rms(
-        g.data_ptr(), norm_w.data_ptr(), w_out.data_ptr(), out.data_ptr(), b, dims.d_inner,
-        dims.d_model, RMS_EPS, stream_ptr(g),
+        g.data_ptr(), norm_w.data_ptr(), w_out.data_ptr(), s_ptr, out.data_ptr(), b, dims.d_inner,
+        dims.d_model, RMS_EPS, _FMT[quant], stream_ptr(g),
     )
     check(lib, err, "out_proj_rms")
-    out_proj_rms.launches += 1
+    _count("out_proj_rms", quant)
     return out
 
 
-def lm_head_ln(x, ln_w, ln_b, lm_w, lm_b, dims: DecodeDims):
+def lm_head_ln(x, ln_w, ln_b, lm_w, lm_b, dims: DecodeDims, w_s=None, quant: str = "none"):
     if not x.is_cuda:
-        return lm_head_ln_plain(x, ln_w, ln_b, lm_w, lm_b, dims)
+        return lm_head_ln_plain(x, ln_w, ln_b, lm_w, lm_b, dims, w_s, quant)
     b, dev, vp = x.shape[0], x.device, dims.padded_vocab
     _kernel_dims(dims, b)
     x = x.contiguous()
     _need(x, "x", torch.float32, (b, dims.d_model), dev)
     _need(ln_w, "ln_w", torch.float32, (dims.d_model,), dev)
     _need(ln_b, "ln_b", torch.float32, (dims.d_model,), dev)
-    _need(lm_w, "lm_w", torch.bfloat16, (vp, dims.d_model), dev)
+    s_ptr = _weights(lm_w, w_s, quant, vp, dims.d_model, dev)
     _need(lm_b, "lm_b", torch.float32, (vp,), dev)
     logits = torch.empty(b, vp, dtype=torch.float32, device=dev)
     lib = load_library()
     err = lib.mg_lm_head_ln(
-        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), lm_w.data_ptr(), lm_b.data_ptr(),
-        logits.data_ptr(), b, dims.d_model, vp, LN_EPS, stream_ptr(x),
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), lm_w.data_ptr(), s_ptr, lm_b.data_ptr(),
+        logits.data_ptr(), b, dims.d_model, vp, LN_EPS, _FMT[quant], stream_ptr(x),
     )
     check(lib, err, "lm_head_ln")
-    lm_head_ln.launches += 1
+    _count("lm_head_ln", quant)
     return logits
 
 
@@ -367,18 +482,16 @@ def sample_tail(logits, gram, hist, bucket, dims: DecodeDims):
         dims.dyn_start, dims.length_start, vals.data_ptr(), idxs.data_ptr(), stream_ptr(logits),
     )
     check(lib, err, "sample_tail")
-    sample_tail.launches += 1
+    _count("sample_tail")
     return vals, idxs
 
 
-KERNELS = (in_proj_conv, mixer_state, out_proj_rms, lm_head_ln, sample_tail)
-for _k in KERNELS:
-    _k.launches = 0
-
-StepOps = Tuple[Callable, Callable, Callable, Callable]
-KERNEL_OPS: StepOps = (in_proj_conv, mixer_state, out_proj_rms, lm_head_ln)
-# The chain of plain versions on any device: what the kernels are held to.
-PLAIN_OPS: StepOps = (in_proj_conv_plain, mixer_state_plain, out_proj_rms_plain, lm_head_ln_plain)
+StepOps = Tuple[Callable, Callable, Callable, Callable, Callable]
+# (in_proj, mixer, out_proj, head, tail): the kernels, or the chain of plain
+# versions on any device that the kernels are held to.
+KERNEL_OPS: StepOps = (in_proj_conv, mixer_state, out_proj_rms, lm_head_ln, sample_tail)
+PLAIN_OPS: StepOps = (in_proj_conv_plain, mixer_state_plain, out_proj_rms_plain, lm_head_ln_plain,
+                      sample_tail_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -387,29 +500,35 @@ PLAIN_OPS: StepOps = (in_proj_conv_plain, mixer_state_plain, out_proj_rms_plain,
 
 
 def decode_logits(dp: dict, token: torch.Tensor, carry: Carry, dims: DecodeDims,
-                  ops: StepOps = KERNEL_OPS) -> torch.Tensor:
+                  ops: StepOps = KERNEL_OPS, quant: str = "none") -> torch.Tensor:
     """Embed `token` (B,) and run the stack one step: (B, padded_vocab)
-    logits with bias. `carry` advances in place."""
-    in_proj, mixer, out_proj, head = ops
+    logits with bias. `carry` advances in place. `quant` must match the
+    pack (check_pack)."""
+    check_pack(dp, quant)
+    in_proj, mixer, out_proj, head = ops[:4]
     conv, ssm = carry
+    s_in, s_out = dp.get("w_in_s"), dp.get("w_out_s")
     x = F.embedding(token, dp["embed"])
     for i in range(dims.n_layers):
-        zx = in_proj(x, dp["w_in"][i], dp["conv_w"][i], dp["conv_b"][i], dp["dt_bias"][i], conv[i], dims)
+        zx = in_proj(x, dp["w_in"][i], dp["conv_w"][i], dp["conv_b"][i], dp["dt_bias"][i], conv[i], dims,
+                     None if s_in is None else s_in[i], quant)
         g = mixer(zx, dp["a_h"][i], dp["d_h"][i], ssm[i], dims)
-        x = out_proj(g, dp["norm_w"][i], dp["w_out"][i], dims)
-    return head(x, dp["ln_w"], dp["ln_b"], dp["lm_w"], dp["lm_b"], dims)
+        x = out_proj(g, dp["norm_w"][i], dp["w_out"][i], dims, None if s_out is None else s_out[i], quant)
+    return head(x, dp["ln_w"], dp["ln_b"], dp["lm_w"], dp["lm_b"], dims, dp.get("lm_s"), quant)
 
 
-def fused_logits_step(dp: dict, token: torch.Tensor, carry: Carry, dims: DecodeDims):
+def fused_logits_step(dp: dict, token: torch.Tensor, carry: Carry, dims: DecodeDims,
+                      quant: str = "none"):
     """One decode step: (logits (B, vocab), carry). Matches MambaLM.step at
-    bf16 tolerance."""
-    logits = decode_logits(dp, token, carry, dims)
+    bf16 tolerance (int8 packs: at their quantisation noise)."""
+    logits = decode_logits(dp, token, carry, dims, quant=quant)
     return logits[:, :dims.vocab_size], carry
 
 
 def fused_sample_step(dp: dict, token: torch.Tensor, carry: Carry, hist: torch.Tensor,
-                      bucket: torch.Tensor, dims: DecodeDims):
+                      bucket: torch.Tensor, dims: DecodeDims, quant: str = "none"):
     """One decode step with the sampler tail: (vals (B,3), idxs (B,3), carry);
     ties to the lowest index, as sample/sampler._iter_top_k."""
-    vals, idxs = sample_tail(decode_logits(dp, token, carry, dims), dp["gram"], hist, bucket, dims)
+    logits = decode_logits(dp, token, carry, dims, quant=quant)
+    vals, idxs = sample_tail(logits, dp["gram"], hist, bucket, dims)
     return vals, idxs, carry

@@ -13,8 +13,9 @@ scripts/generate.py:14-95). Per generated token:
 The token loop is a Python loop over eager PyTorch (the JAX package's
 lax.scan). On CUDA it runs the decode kernels and fuses step 1-2 and the
 top-3 into the step (ops/decode_kernel.fused_sample_step); on CPU it runs
-the plain versions. Every random draw comes from the caller's
-torch.Generator, which lives on the device of the tensors.
+the plain versions. `generate(resident=True)` runs the whole loop in one
+kernel launch instead (ops/generate_kernel). Every random draw comes from
+the caller's torch.Generator, which lives on the device of the tensors.
 """
 from __future__ import annotations
 
@@ -221,11 +222,13 @@ def sample_tokens_fused_tail(
     generator: torch.Generator,
     dims,
     layout: VocabLayout = VOCAB,
+    quant: str = "bf16",
 ) -> torch.Tensor:
     """'combined' sampling with the grammar/penalty/top-3 tail inside the
     decode step (ops/decode_kernel.fused_sample_step): only the (B, 3)
-    candidates leave it. Same semantics as `sample_tokens`."""
-    from ..ops.decode_kernel import fused_sample_step
+    candidates leave it. Same semantics as `sample_tokens`. `quant` is the
+    pack's ("bf16", "int8" runs W8A8, "int8w" W8A16)."""
+    from ..ops.decode_kernel import QUANT_MODES, fused_sample_step
 
     _require_combined(cfg)
     # The tail computes exactly 3 candidates.
@@ -243,7 +246,7 @@ def sample_tokens_fused_tail(
         tok = _pick_from_topk(vals, idxs, k, generator, cfg.greedy)
         pen = push_token(pen, tok, layout)
         vals, idxs, carry = fused_sample_step(
-            dp, tok, carry, pen.hist, field_bucket(tok, layout), dims
+            dp, tok, carry, pen.hist, field_bucket(tok, layout), dims, QUANT_MODES[quant]
         )
         last = tok
         out.append(tok)
@@ -262,13 +265,14 @@ def _require_mamba(kind: str) -> None:
         )
 
 
-def make_sampler(model, kind: str, dp: dict | None = None):
+def make_sampler(model, kind: str, dp: dict | None = None, quant: str = "bf16"):
     """Returns (prefill_fn, step_fn) for `sample_tokens` (mamba only).
 
     prefill_fn(tokens, meta) -> (last-position logits (B, V), state);
     step_fn(token, state, stream_idx) -> (logits (B, V), state). Given a
-    pack `dp` from build_decode_params, the state is the stacked (conv, ssm)
-    carry and the step is the decode-kernel step (fused_logits_step)."""
+    pack `dp` from build_decode_params (built with `quant`), the state is
+    the stacked (conv, ssm) carry and the step is the decode-kernel step
+    (fused_logits_step)."""
     _require_mamba(kind)
     if dp is None:
         def prefill(tokens, meta):
@@ -280,16 +284,24 @@ def make_sampler(model, kind: str, dp: dict | None = None):
 
         return prefill, step
 
-    from ..ops.decode_kernel import DecodeDims, fused_logits_step, stack_states
+    from ..ops.decode_kernel import QUANT_MODES, DecodeDims, fused_logits_step, stack_states
 
     def prefill(tokens, meta):
         logits, states = model.prefill(tokens, meta)
         return logits[:, -1, :], stack_states(states)
 
     def step(token, carry, stream_idx):
-        return fused_logits_step(dp, token, carry, DecodeDims.create(model.cfg, token.shape[0]))
+        return fused_logits_step(dp, token, carry, DecodeDims.create(model.cfg, token.shape[0]),
+                                 QUANT_MODES[quant])
 
     return prefill, step
+
+
+def _auto_fused(kind: str, cfg, device: torch.device) -> bool:
+    """fused=None's choice, as the JAX package makes it: the decode kernels
+    on an accelerator for a Mamba model without residuals (the kernels bake
+    in the reference's no-residual stack); the plain step otherwise."""
+    return device.type == "cuda" and kind == "mamba" and not cfg.residual
 
 
 @torch.no_grad()
@@ -304,35 +316,53 @@ def generate(
     greedy: bool = False,
     mode: str = "combined",
     fused: bool | None = None,
+    quant: str = "bf16",
     resident: bool = False,
 ) -> torch.Tensor:
     """Conditioned generation (reference scripts/generate.py `generate`).
     Returns (B, P + num_tokens) streams.
 
-    fused=None takes the decode kernels exactly when the tensors are on
-    CUDA (their wrappers run the plain versions on CPU tensors);
-    fused=False takes MambaLM.step."""
+    fused=None takes the decode kernels on CUDA for a Mamba model without
+    residuals (_auto_fused); fused=True takes them on any device (their
+    wrappers run the plain versions on CPU tensors); fused=False takes
+    MambaLM.step. quant applies to the decode kernels: "bf16", "int8"
+    (W8A8) or "int8w" (W8A16, weight-only). resident=True ('combined' mode)
+    runs the whole token loop in one kernel launch (ops/generate_kernel) and
+    implies fused; its stochastic picks invert the CDF of uniforms drawn
+    from `generator` (same distributions, another stream than the per-token
+    sampler's)."""
     _require_mamba(kind)
-    if resident:
+    if quant.endswith("-sb16"):
         raise NotImplementedError(
-            "resident decoding (the whole-generation kernel, ops/pallas_generate in "
-            "the JAX package) is not yet ported to musicgen_tpu_torch"
+            f"quant '{quant}' (bf16 storage of the mLSTM matrix memory, an xLSTM option) "
+            "is not yet ported to musicgen_tpu_torch"
         )
+    from ..ops.decode_kernel import QUANT_MODES
+
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {sorted(QUANT_MODES)}, got {quant!r}")
     cfg = SamplerConfig(num_tokens=num_tokens, ring_size=max(block_len, 2048), greedy=greedy, mode=mode)
     _require_combined(cfg)
     if fused is None:
-        fused = prompt.is_cuda
+        fused = _auto_fused(kind, model.cfg, prompt.device)
+    if resident:
+        fused = True
     batch = prompt.shape[0]
     dp = None
     if fused:
         from ..ops.decode_kernel import DecodeDims, build_decode_params
 
         dims = DecodeDims.create(model.cfg, batch)
-        dp = build_decode_params(model, batch)
-    prefill, step = make_sampler(model, kind, dp)
+        dp = build_decode_params(model, batch, quant)
+    prefill, step = make_sampler(model, kind, dp, quant)
     init_logits, state = prefill(prompt, meta)
+    if resident:
+        from ..ops.generate_kernel import generate_resident
+
+        return generate_resident(dp, init_logits, state, prompt, num_tokens, dims, generator, greedy,
+                                 QUANT_MODES[quant], cfg.ring_size)
     if fused:
-        toks = sample_tokens_fused_tail(dp, init_logits, state, prompt, cfg, generator, dims)
+        toks = sample_tokens_fused_tail(dp, init_logits, state, prompt, cfg, generator, dims, quant=quant)
     else:
         toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
     return torch.cat([prompt, toks], dim=1)

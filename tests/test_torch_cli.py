@@ -54,8 +54,11 @@ def _argv(root, out, *extra):
             "--block-len", str(BLOCK), "--length", str(LENGTH), *extra]
 
 
-@pytest.mark.parametrize("extra", [["--greedy"], ["--seed", "5", "--retain"], ["--no-metadata", "--decode-skip", "10"]],
-                         ids=["greedy", "sampled_retain", "no_metadata_skip"])
+@pytest.mark.parametrize("extra", [["--greedy"], ["--seed", "5", "--retain"], ["--no-metadata", "--decode-skip", "10"],
+                                   ["--fused-decode", "resident"], ["--fused-decode", "resident-int8w", "--greedy"],
+                                   ["--fused-decode", "int8"], ["--fused-decode", "int8w"]],
+                         ids=["greedy", "sampled_retain", "no_metadata_skip", "resident", "resident_int8w",
+                              "int8", "int8w"])
 def test_cli_writes_grammatical_midi(workdir, tmp_path, extra):
     streams = cli.main(_argv(workdir, tmp_path, *extra))
     assert sorted(streams) == ["Bach", "Mozart"]
@@ -78,7 +81,7 @@ def test_cli_greedy_is_deterministic(workdir, tmp_path):
     np.testing.assert_array_equal(a["Bach"], b["Bach"])
 
 
-@pytest.mark.parametrize("extra", [["--model", "xlstm"], ["--fused-decode", "int8"], ["--fused-decode", "resident"]])
+@pytest.mark.parametrize("extra", [["--model", "xlstm"], ["--fused-decode", "int8w-gptq"], ["--fused-decode", "sb16"]])
 def test_cli_unported_options_raise(workdir, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(_argv(workdir, tmp_path) + extra)

@@ -128,6 +128,35 @@ def test_unported_options_raise(models):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.generate(port, "mamba", *args, mode="many")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ts.generate(port, "mamba", *args, resident=True)
+        ts.generate(port, "mamba", *args, quant="bf16-sb16")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.generate(port, "xlstm", *args)
+
+
+def test_auto_fused_follows_the_jax_rule():
+    """fused=None takes the decode kernels only for a Mamba model without
+    residuals on an accelerator (musicgen_tpu/sample/sampler.py generate);
+    a residual=True model on CUDA takes the plain step. Decided without a
+    card: the choice reads only the device type."""
+    from musicgen_tpu_torch.config import MambaConfig as TorchMambaConfig
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert ts._auto_fused("mamba", TorchMambaConfig(), cuda)
+    assert not ts._auto_fused("mamba", TorchMambaConfig(residual=True), cuda)
+    assert not ts._auto_fused("mamba", TorchMambaConfig(), cpu)
+    assert not ts._auto_fused("transformer", TorchMambaConfig(), cuda)
+
+
+@pytest.mark.parametrize("opts", [dict(resident=True), dict(resident=True, quant="int8w", greedy=True),
+                                  dict(quant="int8w", fused=True), dict(quant="int8", fused=True)],
+                         ids=["resident", "resident_int8w_greedy", "int8w", "int8"])
+def test_resident_and_int8_streams_are_grammatical(models, opts):
+    """On CPU the resident loop and the int8 decode steps run their plain
+    versions; every new token is allowed by the grammar."""
+    jm, params, port, prompt, meta = models
+    streams = ts.generate(port, "mamba", torch.from_numpy(prompt), torch.from_numpy(meta), 16, 48,
+                          torch.Generator().manual_seed(4), **opts)
+    assert streams.shape == (2, 48 + 16)
+    assert torch.equal(streams[:, :48], torch.from_numpy(prompt))
+    mask = grammar_mask()
+    assert bool((mask[field_bucket(streams[:, 47:-1]), streams[:, 48:]] > 0).all())
