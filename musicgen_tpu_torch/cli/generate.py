@@ -5,18 +5,22 @@ scripts/generate_midi_combined.py; port of musicgen_tpu/cli/generate.py).
       --ckpt model.pth --data data/np/data --metadata data/metadata.json \
       --composers "Mozart, Chopin" --output out/
 
---ckpt is a `.pth` state dict in the reference's mamba_ssm layout; the model's
-width and depth are read off its shapes. Per composer directory: seed the
-sampler with dataset crops and the composer's 6 metadata tokens, generate
+--ckpt is a `.pth` state dict in the reference's layout (mamba_ssm's for
+--model mamba, the reference Transformer's for --model transformer); the
+model's width and depth are read off its shapes. Per composer directory: seed
+the sampler with dataset crops and the composer's 6 metadata tokens, generate
 --length tokens with the grammar + penalty sampler, decode the last
 length+300 tokens and write generated_{band}_{model}_{i}.mid.
 --no-metadata zeroes the conditioning; --retain decodes the whole stream;
 --decode-skip N decodes stream[N:]; --greedy is deterministic.
 
-Runs on the GPU when there is one (decode kernels unless --fused-decode off),
-else on the CPU with the plain versions. --fused-decode int8 / int8w run the
-decode kernels on an int8 pack (W8A8 / W8A16); resident / resident-int8w
-run the whole token loop in one kernel launch (bf16 / W8A16).
+Runs on the GPU (--device cuda, the default; it raises without one) through
+the kernels unless --fused-decode off; --device cpu runs the plain versions.
+A Transformer's prefill runs kernel D and each token kernel F when the prompt
+fills the model's window. --fused-decode int8 / int8w run the decode kernels
+on an int8 pack (W8A8 / W8A16; a Transformer runs W8A16 for both);
+resident / resident-int8w run a Mamba model's whole token loop in one kernel
+launch (bf16 / W8A16) and a Transformer's per-token path.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG
+from ..config import DEFAULT_CONFIG, TransformerConfig
 from ..data.dataset import TokenDataset
 from ..interop import load_checkpoint, load_model
 from ..midi import decode, note_to_midi
@@ -75,22 +79,35 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "an int8 pack; resident and resident-int8w run the whole loop "
                         "in one kernel; int8w-gptq, sb16 and int8w-sb16 are not yet ported")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a CUDA device) or cpu (the plain versions)")
     return p.parse_args(argv)
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port generates on the GPU; pass --device cpu to run "
+                           "the plain PyTorch versions on the CPU")
+    return device
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
     """Runs the CLI; returns {band: (batch, prompt + length) token streams}."""
     args = parse_args(argv)
-    if args.model != "mamba":
-        raise NotImplementedError(f"--model {args.model} is not yet ported to musicgen_tpu_torch")
+    if args.model == "xlstm":
+        raise NotImplementedError("--model xlstm is not yet ported to musicgen_tpu_torch")
     if args.fused_decode in _FUSED_NOT_PORTED:
         raise NotImplementedError(
             f"--fused-decode {args.fused_decode} is not yet ported to musicgen_tpu_torch: "
             f"it needs {_FUSED_NOT_PORTED[args.fused_decode]}"
         )
     fused, quant, resident = _FUSED[args.fused_decode]
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = _device(args.device)
     model = load_model(load_checkpoint(args.ckpt), device)
+    family = "transformer" if isinstance(model.cfg, TransformerConfig) else "mamba"
+    if family != args.model:
+        raise ValueError(f"--ckpt holds a {family} model, not a --model {args.model}")
 
     if args.composers:
         bands = [b.strip() for b in args.composers.split(",")]
@@ -117,6 +134,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
         meta = torch.from_numpy(np.stack([m for _, _, m in items]).astype(np.int64)).to(device)
         if args.no_metadata:
             meta = torch.zeros_like(meta)
+        if args.model == "transformer" and src.shape[1] > block_len:
+            src = src[:, -block_len:]  # the ring holds block_len positions
 
         print(f"Processing band: {band}")
         generator = torch.Generator(device=device).manual_seed(args.seed)

@@ -99,3 +99,46 @@ MG_EXPORT int mg_lm_head_ln(const float* x, const float* ln_w, const float* ln_b
   a.R = R; a.K = K; a.N = N; a.pw = ln_w; a.pb = ln_b; a.eps = eps; a.bias = bias;
   return launch<kLayerNorm, kBias>(a, fmt, stream);
 }
+
+// ---------------------------------------------------------------------------
+// Kernel F's products (the Transformer decode step; ops/tdecode_kernel.py),
+// replacing the matrix products of `_attn_math` and `_ffn_math` in
+// musicgen_tpu/ops/pallas_transformer_decode.py `_tdecode_kernel`, in bf16
+// and W8A16 (fmt 0 or 1). The lm_head and the tail reuse mg_lm_head_ln and
+// mg_sample_tail.
+// ---------------------------------------------------------------------------
+
+// zx = LN1(x) . W_qkv^T (N = 3 K); the K and V columns are also written as
+// bf16 into slot c of this layer's (R, S, K) rings.
+MG_EXPORT int mg_t_qkv_ln(const float* x, const float* ln_w, const float* ln_b, const void* w,
+                          const float* w_s, float* zx, int R, int K, int N, float eps, void* k_ring,
+                          void* v_ring, int S, int c, int fmt, void* stream) {
+  if (N != 3 * K || c < 0 || c >= S || fmt == kW8A8) return (int)cudaErrorInvalidValue;
+  GemvArgs a = {};
+  a.x = x; a.w = w; a.w_s = w_s; a.out = zx;
+  a.R = R; a.K = K; a.N = N; a.pw = ln_w; a.pb = ln_b; a.eps = eps;
+  a.k_ring = static_cast<__nv_bfloat16*>(k_ring); a.v_ring = static_cast<__nv_bfloat16*>(v_ring);
+  a.ring_S = S; a.ring_c = c;
+  return launch<kLayerNorm, kKvRing>(a, fmt, stream);
+}
+
+// h = relu(LN2(x) . W_fc^T + b_fc).
+MG_EXPORT int mg_t_fc_relu(const float* x, const float* ln_w, const float* ln_b, const void* w,
+                           const float* w_s, const float* bias, float* h, int R, int K, int N, float eps,
+                           int fmt, void* stream) {
+  if (fmt == kW8A8) return (int)cudaErrorInvalidValue;
+  GemvArgs a = {};
+  a.x = x; a.w = w; a.w_s = w_s; a.out = h;
+  a.R = R; a.K = K; a.N = N; a.pw = ln_w; a.pb = ln_b; a.eps = eps; a.bias = bias;
+  return launch<kLayerNorm, kBiasRelu>(a, fmt, stream);
+}
+
+// resid += x . W^T + b (the out-projection of the attention and of the FFN).
+MG_EXPORT int mg_t_res(const float* x, const void* w, const float* w_s, const float* bias, float* resid,
+                       int R, int K, int N, int fmt, void* stream) {
+  if (fmt == kW8A8) return (int)cudaErrorInvalidValue;
+  GemvArgs a = {};
+  a.x = x; a.w = w; a.w_s = w_s; a.out = resid;
+  a.R = R; a.K = K; a.N = N; a.bias = bias;
+  return launch<kPlain, kBiasResidual>(a, fmt, stream);
+}

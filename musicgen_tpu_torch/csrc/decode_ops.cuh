@@ -57,7 +57,10 @@ constexpr float kLn101 = 0.00995033085316808f;   // ln 1.01
 constexpr float kLn102 = 0.019802627296179712f;  // ln 1.02
 
 enum { kPlain = 0, kRms = 1, kLayerNorm = 2 };  // GEMV prologue
-enum { kStore = 0, kInProj = 1, kBias = 2 };    // GEMV epilogue
+// GEMV epilogue. The Transformer step (kernel F) adds: kKvRing (store, and
+// the K and V thirds of the columns also as bf16 into ring slot c),
+// kBiasRelu (relu(v + b)) and kBiasResidual (out += v + b).
+enum { kStore = 0, kInProj = 1, kBias = 2, kKvRing = 3, kBiasRelu = 4, kBiasResidual = 5 };
 enum { kBf16 = 0, kW8A16 = 1, kW8A8 = 2 };      // weight format
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -88,6 +91,10 @@ struct GemvArgs {
   const float* conv_b;            // (dc,)
   const float* dt_bias;           // (nh,)
   float* conv_state;              // (R, 3, dc), updated in place
+  // kKvRing: columns [N/3, 2N/3) are K, [2N/3, N) V; (R, S, N/3) bf16 rings
+  __nv_bfloat16* k_ring;
+  __nv_bfloat16* v_ring;
+  int ring_S, ring_c;
 };
 
 // Shared memory of one GEMV team.
@@ -279,6 +286,15 @@ __device__ void gemv_column(const GemvArgs& a, const GemvSmem& sm, int n, int la
   for (int r = 0; r < a.R && lane == 0; ++r) {
     float v = acc[r];
     if (EPI == kBias) v += __ldg(a.bias + n);
+    if (EPI == kBiasRelu) v = fmaxf(v + __ldg(a.bias + n), 0.f);
+    if (EPI == kBiasResidual) v = a.out[(size_t)r * a.N + n] + (v + __ldg(a.bias + n));
+    if (EPI == kKvRing && n >= a.N / 3) {
+      // The new K / V row goes into ring slot c of this layer before the
+      // layer's attention reads the ring (csrc/tdecode_attn.cu).
+      const int dm = a.N / 3, col = (n - dm) % dm;
+      __nv_bfloat16* ring = n < 2 * dm ? a.k_ring : a.v_ring;
+      ring[((size_t)r * a.ring_S + a.ring_c) * dm + col] = __float2bfloat16_rn(v);
+    }
     if (EPI == kInProj && n >= a.di && n < a.di + a.dc) {
       // Depthwise causal conv step (ops/ssm.causal_conv1d_step semantics:
       // state rows oldest -> newest, tap 3 multiplies the new input). Each

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # name -> argtypes; every entry point returns the cudaError_t of its launch.
 SIGNATURES = {
     "mg_ssd_scan": [_P] * 7 + [_I] * 6 + [_P],
@@ -41,6 +41,12 @@ SIGNATURES = {
     "mg_out_proj_rms": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mg_lm_head_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mg_sample_tail": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    "mg_flash_relpos": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _I, _I, _I, _I, _I, _F, _P],
+    "mg_t_qkv_ln": [_P] * 6 + [_I, _I, _I, _F, _P, _P, _I, _I, _I, _P],
+    "mg_t_fc_relu": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+    "mg_t_res": [_P] * 5 + [_I, _I, _I, _I, _P],
+    "mg_tdecode_attn_split": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _I, _P, _P, _P, _P],
+    "mg_tdecode_attn_combine": [_P] * 4 + [_I] * 4 + [_P],
     # (pointer array, its length, int array, its length, grid size out, stream)
     **{f"mg_generate_resident_{fmt}": [_P, _I, _P, _I, _P, _P] for fmt in ("bf16", "w8a16", "w8a8")},
 }

@@ -351,11 +351,15 @@ def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) 
         )
 
 
+def _rows(b: int) -> None:
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"decode kernels take 1..{MAX_ROWS} rows, got {b}")
+
+
 def _kernel_dims(dims: DecodeDims, b: int) -> None:
     if dims.headdim != KERNEL_DIM or dims.d_state != KERNEL_DIM:
         raise ValueError(f"decode kernels need headdim = d_state = {KERNEL_DIM}")
-    if not 1 <= b <= MAX_ROWS:
-        raise ValueError(f"decode kernels take 1..{MAX_ROWS} rows, got {b}")
+    _rows(b)
 
 
 def _weights(w, w_s, quant: str, n: int, k: int, dev) -> int:
@@ -447,7 +451,7 @@ def lm_head_ln(x, ln_w, ln_b, lm_w, lm_b, dims: DecodeDims, w_s=None, quant: str
     if not x.is_cuda:
         return lm_head_ln_plain(x, ln_w, ln_b, lm_w, lm_b, dims, w_s, quant)
     b, dev, vp = x.shape[0], x.device, dims.padded_vocab
-    _kernel_dims(dims, b)
+    _rows(b)  # also the Transformer step's head (ops/tdecode_kernel)
     x = x.contiguous()
     _need(x, "x", torch.float32, (b, dims.d_model), dev)
     _need(ln_w, "ln_w", torch.float32, (dims.d_model,), dev)

@@ -12,10 +12,12 @@ scripts/generate.py:14-95). Per generated token:
 
 The token loop is a Python loop over eager PyTorch (the JAX package's
 lax.scan). On CUDA it runs the decode kernels and fuses step 1-2 and the
-top-3 into the step (ops/decode_kernel.fused_sample_step); on CPU it runs
-the plain versions. `generate(resident=True)` runs the whole loop in one
-kernel launch instead (ops/generate_kernel). Every random draw comes from
-the caller's torch.Generator, which lives on the device of the tensors.
+top-3 into the step (ops/decode_kernel.fused_sample_step for Mamba,
+ops/tdecode_kernel.fused_transformer_sample_step for the Transformer); on
+CPU it runs the plain versions. `generate(resident=True)` runs a Mamba
+model's whole loop in one kernel launch instead (ops/generate_kernel). Every
+random draw comes from the caller's torch.Generator, which lives on the
+device of the tensors.
 """
 from __future__ import annotations
 
@@ -214,21 +216,28 @@ def sample_tokens(
 
 @torch.no_grad()
 def sample_tokens_fused_tail(
-    dp: dict,  # pack from ops.decode_kernel.build_decode_params
+    dp: dict,  # pack from ops.decode_kernel.build_decode_params (or fused_step's)
     init_logits: torch.Tensor,  # (B, V) logits at the last prompt position
-    init_model_state,  # stacked (conv, ssm) states, advanced in place
+    init_model_state,  # the step's carry, advanced in place
     prompt: torch.Tensor,  # (B, P) int64
     cfg: SamplerConfig,
     generator: torch.Generator,
     dims,
     layout: VocabLayout = VOCAB,
     quant: str = "bf16",
+    fused_step=None,
 ) -> torch.Tensor:
     """'combined' sampling with the grammar/penalty/top-3 tail inside the
-    decode step (ops/decode_kernel.fused_sample_step): only the (B, 3)
-    candidates leave it. Same semantics as `sample_tokens`. `quant` is the
-    pack's ("bf16", "int8" runs W8A8, "int8w" W8A16)."""
-    from ..ops.decode_kernel import QUANT_MODES, fused_sample_step
+    decode step: only the (B, 3) candidates leave it. Same semantics as
+    `sample_tokens`. The step is ops/decode_kernel.fused_sample_step on the
+    Mamba pack `dp` (`quant` the pack's: "bf16", "int8" runs W8A8, "int8w"
+    W8A16), or `fused_step(pack, token, state, hist, bucket, stream_idx) ->
+    (vals, idxs, state)` for another model family (ops/tdecode_kernel)."""
+    if fused_step is None:
+        from ..ops.decode_kernel import QUANT_MODES, fused_sample_step
+
+        def fused_step(pack, token, state, hist, bucket, stream_idx):
+            return fused_sample_step(pack, token, state, hist, bucket, dims, QUANT_MODES[quant])
 
     _require_combined(cfg)
     # The tail computes exactly 3 candidates.
@@ -240,14 +249,13 @@ def sample_tokens_fused_tail(
     w0 = filtered_logits(last, init_logits, layout) / penalty_divisor(pen.hist, layout)
     vals, idxs = _iter_top_k(w0, 3)
     carry = init_model_state
+    p = prompt.shape[1]
     out = []
-    for _ in range(cfg.num_tokens):
+    for i in range(cfg.num_tokens):
         k = None if cfg.greedy else _sample_k(last, generator, layout)
         tok = _pick_from_topk(vals, idxs, k, generator, cfg.greedy)
         pen = push_token(pen, tok, layout)
-        vals, idxs, carry = fused_sample_step(
-            dp, tok, carry, pen.hist, field_bucket(tok, layout), dims, QUANT_MODES[quant]
-        )
+        vals, idxs, carry = fused_step(dp, tok, carry, pen.hist, field_bucket(tok, layout), p + i)
         last = tok
         out.append(tok)
     return torch.stack(out, dim=1)
@@ -258,22 +266,33 @@ def sample_tokens_fused_tail(
 # ---------------------------------------------------------------------------
 
 
-def _require_mamba(kind: str) -> None:
-    if kind != "mamba":
+_KINDS = ("mamba", "transformer")
+
+
+def _require_ported(kind: str) -> None:
+    if kind not in _KINDS:
         raise NotImplementedError(
-            f"model kind '{kind}' is not yet ported to musicgen_tpu_torch (mamba only)"
+            f"model kind '{kind}' is not yet ported to musicgen_tpu_torch (mamba and transformer only)"
         )
 
 
-def make_sampler(model, kind: str, dp: dict | None = None, quant: str = "bf16"):
-    """Returns (prefill_fn, step_fn) for `sample_tokens` (mamba only).
+def make_sampler(model, kind: str, dp: dict | None = None, quant: str = "bf16", block_len: int | None = None):
+    """Returns (prefill_fn, step_fn) for `sample_tokens`.
 
     prefill_fn(tokens, meta) -> (last-position logits (B, V), state);
-    step_fn(token, state, stream_idx) -> (logits (B, V), state). Given a
-    pack `dp` from build_decode_params (built with `quant`), the state is
-    the stacked (conv, ssm) carry and the step is the decode-kernel step
-    (fused_logits_step)."""
-    _require_mamba(kind)
+    step_fn(token, state, stream_idx) -> (logits (B, V), state).
+    Mamba: the state is the per-layer (conv, ssm) states and the step
+    MambaLM.step; given a pack `dp` from build_decode_params (built with
+    `quant`), the stacked carry and the decode-kernel step.
+    Transformer: the state is the ring-KV caches and the step
+    TransformerLM.step with the ring geometry of sample/cache over a
+    `block_len` window (physical slots past block_len + 6 masked with age
+    -1); given a pack `dp` from build_transformer_decode_params, the stacked
+    bf16 rings and kernel F's step (steady state: prompt_len == block_len ==
+    the model's block_len)."""
+    _require_ported(kind)
+    if kind == "transformer":
+        return _transformer_sampler(model, dp, quant, block_len or model.cfg.block_len)
     if dp is None:
         def prefill(tokens, meta):
             logits, states = model.prefill(tokens, meta)
@@ -297,11 +316,54 @@ def make_sampler(model, kind: str, dp: dict | None = None, quant: str = "bf16"):
     return prefill, step
 
 
-def _auto_fused(kind: str, cfg, device: torch.device) -> bool:
-    """fused=None's choice, as the JAX package makes it: the decode kernels
-    on an accelerator for a Mamba model without residuals (the kernels bake
-    in the reference's no-residual stack); the plain step otherwise."""
-    return device.type == "cuda" and kind == "mamba" and not cfg.residual
+def _transformer_sampler(model, tp: dict | None, quant: str, block_len: int):
+    from .cache import step_geometry, token_slot
+
+    if tp is None:
+        def prefill(tokens, meta):
+            logits, caches = model.prefill(tokens, meta)
+            return logits[:, -1, :], caches
+
+        phys_slots = model.cfg.seq_len
+
+        def step(token, caches, stream_idx):
+            ages, rel_base = step_geometry(stream_idx + 1, block_len, device=token.device)
+            ages = torch.nn.functional.pad(ages, (0, phys_slots - ages.shape[0]), value=-1)
+            return model.step(token, caches, token_slot(stream_idx, block_len), ages, rel_base)
+
+        return prefill, step
+
+    from ..ops.tdecode_kernel import QUANT_MODES, TDims, fused_transformer_logits_step, stack_transformer_cache
+
+    def prefill(tokens, meta):
+        logits, caches = model.prefill(tokens, meta)
+        return logits[:, -1, :], stack_transformer_cache(caches, TDims.create(model.cfg, tokens.shape[0]))
+
+    def step(token, carry, stream_idx):
+        return fused_transformer_logits_step(tp, token, carry, TDims.create(model.cfg, token.shape[0]),
+                                             stream_idx, QUANT_MODES[quant])
+
+    return prefill, step
+
+
+def _transformer_fusable(cfg, prompt_len: int, block_len: int) -> bool:
+    """Kernel F is the steady-state (window always full) step: it needs a
+    full-window prompt and the model's trained ring size (JAX sampler.py
+    :684-692)."""
+    return prompt_len == block_len == cfg.block_len
+
+
+def _auto_fused(kind: str, cfg, device: torch.device, prompt_len: int, block_len: int) -> bool:
+    """fused=None's choice, as the JAX package makes it (less its TPU VMEM
+    admission): on an accelerator, the decode kernels for a Mamba model
+    without residuals (the kernels bake in the reference's no-residual
+    stack) and for a Transformer whose prompt fills its window; the plain
+    step otherwise."""
+    if device.type != "cuda":
+        return False
+    if kind == "mamba":
+        return not cfg.residual
+    return kind == "transformer" and _transformer_fusable(cfg, prompt_len, block_len)
 
 
 @torch.no_grad()
@@ -320,18 +382,23 @@ def generate(
     resident: bool = False,
 ) -> torch.Tensor:
     """Conditioned generation (reference scripts/generate.py `generate`).
-    Returns (B, P + num_tokens) streams.
+    Returns (B, P + num_tokens) streams. kind: "mamba" or "transformer".
 
     fused=None takes the decode kernels on CUDA for a Mamba model without
-    residuals (_auto_fused); fused=True takes them on any device (their
-    wrappers run the plain versions on CPU tensors); fused=False takes
-    MambaLM.step. quant applies to the decode kernels: "bf16", "int8"
-    (W8A8) or "int8w" (W8A16, weight-only). resident=True ('combined' mode)
-    runs the whole token loop in one kernel launch (ops/generate_kernel) and
-    implies fused; its stochastic picks invert the CDF of uniforms drawn
-    from `generator` (same distributions, another stream than the per-token
-    sampler's)."""
-    _require_mamba(kind)
+    residuals and for a Transformer whose prompt fills its window
+    (_auto_fused); fused=True takes them on any device (their wrappers run
+    the plain versions on CPU tensors); fused=False takes the model's plain
+    step. A Transformer runs kernel F only when prompt_len == block_len ==
+    its block_len, whatever `fused` says (JAX sampler.py:684-692). quant
+    applies to the decode kernels: "bf16", "int8" (W8A8; a Transformer runs
+    "int8w" for it, the one int8 format of its kernel) or "int8w" (W8A16).
+    resident=True (Mamba, 'combined' mode) runs the whole token loop in one
+    kernel launch (ops/generate_kernel) and implies fused; its stochastic
+    picks invert the CDF of uniforms drawn from `generator` (same
+    distributions, another stream than the per-token sampler's). A
+    Transformer ignores resident and runs the per-token path, as the JAX
+    package does."""
+    _require_ported(kind)
     if quant.endswith("-sb16"):
         raise NotImplementedError(
             f"quant '{quant}' (bf16 storage of the mLSTM matrix memory, an xLSTM option) "
@@ -343,11 +410,15 @@ def generate(
         raise ValueError(f"quant must be one of {sorted(QUANT_MODES)}, got {quant!r}")
     cfg = SamplerConfig(num_tokens=num_tokens, ring_size=max(block_len, 2048), greedy=greedy, mode=mode)
     _require_combined(cfg)
+    batch, prompt_len = prompt.shape
     if fused is None:
-        fused = _auto_fused(kind, model.cfg, prompt.device)
+        fused = _auto_fused(kind, model.cfg, prompt.device, prompt_len, block_len)
+    if kind == "transformer":
+        return _generate_transformer(model, prompt, meta, block_len, generator, cfg,
+                                     fused and _transformer_fusable(model.cfg, prompt_len, block_len),
+                                     "int8w" if quant == "int8" else quant)
     if resident:
         fused = True
-    batch = prompt.shape[0]
     dp = None
     if fused:
         from ..ops.decode_kernel import DecodeDims, build_decode_params
@@ -363,6 +434,32 @@ def generate(
                                  QUANT_MODES[quant], cfg.ring_size)
     if fused:
         toks = sample_tokens_fused_tail(dp, init_logits, state, prompt, cfg, generator, dims, quant=quant)
+    else:
+        toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
+    return torch.cat([prompt, toks], dim=1)
+
+
+def _generate_transformer(model, prompt, meta, block_len: int, generator: torch.Generator, cfg: SamplerConfig,
+                          fused: bool, quant: str) -> torch.Tensor:
+    """The Transformer's token loop: kernel F's step with the sampler tail
+    (fused), or TransformerLM.step's ring-KV loop."""
+    tp = None
+    if fused:
+        from ..ops.tdecode_kernel import QUANT_MODES, TDims, build_transformer_decode_params, \
+            fused_transformer_sample_step
+
+        tp = build_transformer_decode_params(model, prompt.shape[0], quant)
+        dims = TDims.create(model.cfg, prompt.shape[0])
+
+        def fused_step(pack, token, carry, hist, bucket, stream_idx):
+            return fused_transformer_sample_step(pack, token, carry, hist, bucket, dims, stream_idx,
+                                                 QUANT_MODES[quant])
+
+    prefill, step = make_sampler(model, "transformer", tp, quant, block_len)
+    init_logits, state = prefill(prompt, meta)
+    if fused:
+        toks = sample_tokens_fused_tail(tp, init_logits, state, prompt, cfg, generator, dims,
+                                        fused_step=fused_step)
     else:
         toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
     return torch.cat([prompt, toks], dim=1)

@@ -1,5 +1,6 @@
-"""The port's generation CLI on the CPU at a small size, and the guard that
-no module of musicgen_tpu_torch imports jax (the GPU machine has none)."""
+"""The port's generation CLI on the CPU (--device cpu) at a small size, and
+the guards that no module of musicgen_tpu_torch imports jax (the GPU machine
+has none) or anything of the JAX package."""
 import json
 import os
 import pkgutil
@@ -13,8 +14,9 @@ import torch
 
 import musicgen_tpu_torch
 from musicgen_tpu_torch.cli import generate as cli
-from musicgen_tpu_torch.config import MambaConfig
+from musicgen_tpu_torch.config import MambaConfig, TransformerConfig
 from musicgen_tpu_torch.midi import MidiNote, encode, extract_midi
+from musicgen_tpu_torch.models import transformer
 from musicgen_tpu_torch.models.mamba import empty_model, init_weights_
 from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
 
@@ -45,13 +47,30 @@ def workdir(tmp_path_factory):
     ]}))
     model = init_weights_(empty_model(MambaConfig(d_model=128, n_layers=2, metadata_vocab_size=16), "cpu"), 0)
     torch.save(model.state_dict(), root / "model.pth")
+    tcfg = TransformerConfig(n_embd=64, n_heads=2, n_layer=2, block_len=BLOCK, metadata_vocab_size=16)
+    tmodel = transformer.init_weights_(transformer.empty_model(tcfg, "cpu"), 0)
+    torch.save(tmodel.state_dict(), root / "transformer.pth")
     return root
 
 
-def _argv(root, out, *extra):
-    return ["--model", "mamba", "--ckpt", str(root / "model.pth"), "--data", str(root / "np"),
+def _argv(root, out, *extra, model="mamba", device="cpu"):
+    ckpt = "model.pth" if model == "mamba" else f"{model}.pth"
+    return ["--model", model, "--ckpt", str(root / ckpt), "--data", str(root / "np"),
             "--metadata", str(root / "metadata.json"), "--output", str(out), "--batch", str(BATCH),
-            "--block-len", str(BLOCK), "--length", str(LENGTH), *extra]
+            "--block-len", str(BLOCK), "--length", str(LENGTH), "--device", device, *extra]
+
+
+def _check_streams(streams, out, model, suffix=""):
+    assert sorted(streams) == ["Bach", "Mozart"]
+    mask = grammar_mask()
+    for band, s in streams.items():
+        assert s.shape == (BATCH, BLOCK + LENGTH)
+        s = torch.from_numpy(s)
+        assert bool((mask[field_bucket(s[:, BLOCK - 1:-1]), s[:, BLOCK:]] > 0).all())
+        for i in range(BATCH):
+            path = out / f"{model}{suffix}" / band / f"generated_{band}_{model}_{i}.mid"
+            assert path.exists()
+            assert len(extract_midi(str(path))) > 0
 
 
 @pytest.mark.parametrize("extra", [["--greedy"], ["--seed", "5", "--retain"], ["--no-metadata", "--decode-skip", "10"],
@@ -61,17 +80,26 @@ def _argv(root, out, *extra):
                               "int8", "int8w"])
 def test_cli_writes_grammatical_midi(workdir, tmp_path, extra):
     streams = cli.main(_argv(workdir, tmp_path, *extra))
-    assert sorted(streams) == ["Bach", "Mozart"]
-    mask = grammar_mask()
-    suffix = "_no_meta" if "--no-metadata" in extra else ""
-    for band, s in streams.items():
-        assert s.shape == (BATCH, BLOCK + LENGTH)
-        s = torch.from_numpy(s)
-        assert bool((mask[field_bucket(s[:, BLOCK - 1:-1]), s[:, BLOCK:]] > 0).all())
-        for i in range(BATCH):
-            path = tmp_path / f"mamba{suffix}" / band / f"generated_{band}_mamba_{i}.mid"
-            assert path.exists()
-            assert len(extract_midi(str(path))) > 0
+    _check_streams(streams, tmp_path, "mamba", "_no_meta" if "--no-metadata" in extra else "")
+
+
+@pytest.mark.parametrize("extra", [["--fused-decode", "auto"], ["--fused-decode", "off", "--greedy"],
+                                   ["--fused-decode", "int8w"]], ids=["auto", "off_greedy", "int8w"])
+def test_cli_transformer_writes_grammatical_midi(workdir, tmp_path, extra):
+    """--model transformer: the plain ring-KV step (auto and off on the CPU)
+    or kernel F's plain twins on the W8A16 pack (int8w: the prompt fills the
+    model's 64-token window)."""
+    streams = cli.main(_argv(workdir, tmp_path, *extra, model="transformer"))
+    _check_streams(streams, tmp_path, "transformer")
+
+
+def test_cli_device_cuda_without_a_card_raises(workdir, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(_argv(workdir, tmp_path, device="cuda"))
+    with pytest.raises(ValueError, match="not a --model transformer"):
+        cli.main(_argv(workdir, tmp_path, "--ckpt", str(workdir / "model.pth"), model="transformer"))
 
 
 def test_cli_greedy_is_deterministic(workdir, tmp_path):
@@ -96,6 +124,23 @@ def test_package_never_imports_jax():
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
+
+
+def test_package_never_imports_the_jax_package():
+    """Import every module of the port and chip_smoke.py in a fresh
+    interpreter: no module named musicgen_tpu or musicgen_tpu.* may be
+    loaded (the port keeps its own copies of config, midi and interop)."""
+    modules = [m.name for m in pkgutil.walk_packages(musicgen_tpu_torch.__path__, "musicgen_tpu_torch.")]
+    assert "musicgen_tpu_torch.midi.codec" in modules and "musicgen_tpu_torch.ops.tdecode_kernel" in modules
+    code = (
+        "import importlib, runpy, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        "bad = sorted(m for m in sys.modules if m == 'musicgen_tpu' or m.startswith('musicgen_tpu.'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

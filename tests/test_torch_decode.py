@@ -7,6 +7,8 @@ Both sides round activations to bf16 before each product and accumulate in
 f32 at the same points; they differ only in the order of f32 sums, except
 where that order flips a bf16 rounding (2^-8 relative of one element). The
 tolerances below are set for that."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,10 +18,16 @@ import torch
 from musicgen_tpu.config import NUM_META, VOCAB, MambaConfig
 from musicgen_tpu.models.mamba import MambaLM as JaxMambaLM
 from musicgen_tpu.ops import pallas_decode as jd
+from musicgen_tpu_torch.config import MambaConfig as PortMambaConfig
 from musicgen_tpu_torch.interop import from_jax_params, load_model
 from musicgen_tpu_torch.ops import decode_kernel as dk
 
 B, P = 2, 32
+
+
+def port_cfg(cfg):
+    """The port's MambaConfig with the fields of a JAX one."""
+    return PortMambaConfig(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +38,7 @@ def setup():
     meta = rng.integers(0, cfg.metadata_vocab_size, (B, NUM_META))
     jm = JaxMambaLM(cfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(prompt[:, :8]), jnp.asarray(meta))
-    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), cfg), "cpu")
+    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), port_cfg(cfg)), "cpu")
     with torch.no_grad():
         _, states = port.prefill(torch.from_numpy(prompt), torch.from_numpy(meta))
     return cfg, params, port, states, rng
@@ -42,20 +50,20 @@ def _rel(a, b):
 
 
 def test_decode_dims_at_reference_size():
-    d = dk.DecodeDims.create(MambaConfig(), 2)
+    d = dk.DecodeDims.create(PortMambaConfig(), 2)
     assert (d.d_model, d.d_inner, d.nheads, d.headdim, d.d_state) == (1024, 2048, 32, 64, 64)
     assert (d.conv_dim, d.d_in_proj, d.padded_vocab, d.vocab_size) == (2176, 4256, 17920, 17914)
     with pytest.raises(ValueError, match="residual"):
-        dk.DecodeDims.create(MambaConfig(residual=True), 2)
+        dk.DecodeDims.create(PortMambaConfig(residual=True), 2)
     with pytest.raises(ValueError, match="batch"):
-        dk.DecodeDims.create(MambaConfig(), dk.MAX_ROWS + 1)
+        dk.DecodeDims.create(PortMambaConfig(), dk.MAX_ROWS + 1)
 
 
 def test_mixer_math_matches_pallas_body(setup):
     cfg, params, port, states, rng = setup
     jdims = jd.DecodeDims.create(cfg, B)
     jdp = jd.build_decode_params(params, cfg, B)
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     dp = dk.build_decode_params(port, B)
     conv, ssm = dk.stack_states(states)
     x = rng.standard_normal((B, cfg.d_model)).astype(np.float32)
@@ -82,7 +90,7 @@ def test_head_and_tail_match_pallas_body(setup):
     cfg, params, port, states, rng = setup
     jdims = jd.DecodeDims.create(cfg, B)
     jdp = jd.build_decode_params(params, cfg, B)
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     dp = dk.build_decode_params(port, B)
     vp, v = dims.padded_vocab, dims.vocab_size
     x = 2.0 * rng.standard_normal((jdims.rows, cfg.d_model)).astype(np.float32)
@@ -119,7 +127,7 @@ def test_fused_steps_match_model_step(setup):
     """The decode chain (plain versions on CPU) vs MambaLM.step in f32, at the
     tolerance the JAX package holds its kernel to (tests/test_pallas_decode)."""
     cfg, params, port, states, rng = setup
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     dp = dk.build_decode_params(port, B)
     carry = dk.stack_states(states)
     launches = dict(dk.LAUNCHES)
@@ -141,7 +149,7 @@ def test_fused_steps_match_model_step(setup):
 
 def test_stack_states_roundtrip(setup):
     cfg, params, port, states, rng = setup
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     conv, ssm = dk.stack_states(states)
     assert conv.shape == (cfg.n_layers, B, 3, cfg.conv_dim)
     assert ssm.shape == (cfg.n_layers, cfg.d_inner, B * cfg.d_state)
@@ -154,7 +162,7 @@ def test_stack_states_roundtrip(setup):
 
 def test_fused_sample_step_top3_is_the_tail_of_the_logits(setup):
     cfg, params, port, states, rng = setup
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     dp = dk.build_decode_params(port, B)
     carry = dk.stack_states(states)
     carry2 = (carry[0].clone(), carry[1].clone())

@@ -10,6 +10,8 @@ each product with f32 sums in another order; the final states agree within
 rel 1e-4 (about 1e-7 at this size, where no bf16 rounding flips).
 The W8A16 run is in test_torch_generate_w8a16.py (one interpret compile per
 file keeps each file short)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from musicgen_tpu.models.mamba import MambaLM as JaxMambaLM
 from musicgen_tpu.ops import pallas_decode as jd
 from musicgen_tpu.ops import pallas_generate as jg
 from musicgen_tpu.sample import sampler as js
+from musicgen_tpu_torch.config import MambaConfig as PortMambaConfig
 from musicgen_tpu_torch.interop import from_jax_params, load_model
 from musicgen_tpu_torch.ops import decode_kernel as dk
 from musicgen_tpu_torch.ops import generate_kernel as gk
@@ -28,6 +31,11 @@ from musicgen_tpu_torch.sample import sampler as ts
 
 B, P, N = 2, 64, 6
 STATE_RTOL = 1e-4
+
+
+def port_cfg(cfg):
+    """The port's MambaConfig with the fields of a JAX one."""
+    return PortMambaConfig(**dataclasses.asdict(cfg))
 
 
 def _rel(a, b):
@@ -50,7 +58,7 @@ def make_setup(jax_quant: str):
     pen = js.init_penalty_state(jnp.asarray(prompt), 2048)
     w0 = js.filtered_logits(jnp.asarray(prompt[:, -1]), logits[:, -1, :]) / js.penalty_divisor(pen.hist)
     vals0, idxs0 = (np.array(a) for a in js._iter_top_k(w0, 3))
-    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), cfg), "cpu")
+    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), port_cfg(cfg)), "cpu")
     return dict(cfg=cfg, prompt=prompt, params=params, conv=conv, ssm=ssm, pen=pen, vals0=vals0, idxs0=idxs0,
                 port=port, jdp=jd.build_decode_params(params, cfg, B, quant=jax_quant))
 

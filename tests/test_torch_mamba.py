@@ -13,11 +13,17 @@ import torch
 
 from musicgen_tpu.config import NUM_META, MambaConfig
 from musicgen_tpu.models.mamba import MambaLM as JaxMambaLM
+from musicgen_tpu_torch.config import MambaConfig as PortMambaConfig
 from musicgen_tpu_torch.interop import config_from_state_dict, from_jax_params, load_checkpoint, load_model
 from musicgen_tpu_torch.models.mamba import MambaLM, empty_model, init_weights_
 
 REL = 1e-4
 B, P = 2, 40
+
+
+def port_cfg(cfg):
+    """The port's MambaConfig with the fields of a JAX one."""
+    return PortMambaConfig(**dataclasses.asdict(cfg))
 
 
 def _rel(a, b):
@@ -32,7 +38,7 @@ def pair(request):
     meta = rng.integers(0, cfg.metadata_vocab_size, (B, NUM_META))
     jm = JaxMambaLM(cfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(prompt[:, :8]), jnp.asarray(meta))
-    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), cfg), "cpu")
+    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), port_cfg(cfg)), "cpu")
     port.cfg = dataclasses.replace(port.cfg, residual=request.param)
     return cfg, jm, params, port, prompt, meta
 
@@ -67,17 +73,17 @@ def test_prefill_then_steps_match_jax(pair):
 
 def test_reference_size_has_the_reference_parameter_count():
     with torch.device("meta"):
-        model = MambaLM(MambaConfig())
+        model = MambaLM(PortMambaConfig())
     assert sum(p.numel() for p in model.parameters()) == 101_972_666
     sd = model.state_dict()
     assert sd["layers.0.conv1d.weight"].shape == (2176, 1, 4)
     assert sd["layers.9.in_proj.weight"].shape == (4256, 1024)
     assert sd["output_layer.weight"].shape == (17914, 1024)
-    assert config_from_state_dict(sd) == MambaConfig()
+    assert config_from_state_dict(sd) == PortMambaConfig()
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    cfg = MambaConfig(d_model=128, n_layers=2, metadata_vocab_size=16)
+    cfg = PortMambaConfig(d_model=128, n_layers=2, metadata_vocab_size=16)
     model = init_weights_(empty_model(cfg, "cpu"), seed=3).eval()
     path = tmp_path / "model.pth"
     torch.save({f"module.{k}": v for k, v in model.state_dict().items()}, path)  # as DDP saves
@@ -91,7 +97,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_init_weights_is_seeded():
-    cfg = MambaConfig(d_model=64, n_layers=1)
+    cfg = PortMambaConfig(d_model=64, n_layers=1)
     a = init_weights_(empty_model(cfg, "cpu"), seed=7).state_dict()
     b = init_weights_(empty_model(cfg, "cpu"), seed=7).state_dict()
     c = init_weights_(empty_model(cfg, "cpu"), seed=8).state_dict()

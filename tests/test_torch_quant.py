@@ -8,6 +8,8 @@ JAX pack transposed. The pack and the integer parts of W8A8 are exact; f32
 sums differ only in order. Where a normalisation precedes a W8A8 product,
 one f32 rounding of an activation can move it by one int8 level, 1/127 of
 its group's largest value: the tolerances below allow for that."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 from musicgen_tpu.config import NUM_META, MambaConfig
 from musicgen_tpu.models.mamba import MambaLM as JaxMambaLM
 from musicgen_tpu.ops import pallas_decode as jd
+from musicgen_tpu_torch.config import MambaConfig as PortMambaConfig
 from musicgen_tpu_torch.interop import from_jax_params, load_model
 from musicgen_tpu_torch.ops import decode_kernel as dk
 
@@ -24,6 +27,11 @@ B, P = 2, 32
 # The TPU kernel's bodies, jitted as they run inside it (and faster here).
 _mixer_math = jax.jit(jd._mixer_math, static_argnums=(14, 15))
 _head_math = jax.jit(jd._head_math, static_argnums=(4,))
+
+
+def port_cfg(cfg):
+    """The port's MambaConfig with the fields of a JAX one."""
+    return PortMambaConfig(**dataclasses.asdict(cfg))
 
 
 def _rel(a, b):
@@ -38,7 +46,7 @@ def setup():
     prompt = rng.integers(0, cfg.vocab_size, (B, P))
     meta = rng.integers(0, cfg.metadata_vocab_size, (B, NUM_META))
     params = jax.jit(JaxMambaLM(cfg).init)(jax.random.PRNGKey(0), jnp.asarray(prompt[:, :8]), jnp.asarray(meta))
-    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), cfg), "cpu")
+    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), port_cfg(cfg)), "cpu")
     with torch.no_grad():
         _, states = port.prefill(torch.from_numpy(prompt), torch.from_numpy(meta))
     # Eager, as the scales are compared exactly: under jit XLA may turn the
@@ -91,7 +99,7 @@ def test_build_decode_params_int8_matches_jax(setup):
 def test_int8_mixer_math_matches_pallas_body(setup, quant):
     cfg, params, port, states, rng, jdp, dp = setup
     jdims = jd.DecodeDims.create(cfg, B)
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     conv, ssm = dk.stack_states(states)
     x = rng.standard_normal((B, cfg.d_model)).astype(np.float32)
     for i in range(cfg.n_layers):
@@ -116,7 +124,7 @@ def test_int8_mixer_math_matches_pallas_body(setup, quant):
 @pytest.mark.parametrize("quant", ["w8a8", "w8a16"])
 def test_int8_head_matches_pallas_body(setup, quant):
     cfg, params, port, states, rng, jdp, dp = setup
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     v = cfg.vocab_size
     x = 2.0 * rng.standard_normal((8, cfg.d_model)).astype(np.float32)
     jl = _head_math(jnp.asarray(x), jdp["ln"], jdp["lm_w"], jdp["lm_s"], quant) + jdp["lm_b"][None, :]
@@ -131,7 +139,7 @@ def test_int8_steps_follow_the_bf16_steps(setup):
     """Through decode_logits, the W8A16 and W8A8 steps stay within int8
     noise of the bf16 step on the same state and agree on its top token."""
     cfg, params, port, states, rng, jdp, dp = setup
-    dims = dk.DecodeDims.create(cfg, B)
+    dims = dk.DecodeDims.create(port_cfg(cfg), B)
     dp16 = dk.build_decode_params(port, B)
     tok = torch.tensor([5, 300])
     ref = dk.decode_logits(dp16, tok, dk.stack_states(states), dims)

@@ -3,6 +3,8 @@
 The penalty window is integer bookkeeping and must match exactly. Greedy
 streams must be identical on the same weights. Torch and JAX draw different
 random numbers, so the stochastic picks are checked as distributions."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,9 +14,15 @@ import torch
 from musicgen_tpu.config import NUM_META, VOCAB, MambaConfig
 from musicgen_tpu.models.mamba import MambaLM as JaxMambaLM
 from musicgen_tpu.sample import sampler as js
+from musicgen_tpu_torch.config import MambaConfig as PortMambaConfig
 from musicgen_tpu_torch.interop import from_jax_params, load_model
 from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
 from musicgen_tpu_torch.sample import sampler as ts
+
+
+def port_cfg(cfg):
+    """The port's MambaConfig with the fields of a JAX one."""
+    return PortMambaConfig(**dataclasses.asdict(cfg))
 
 
 def _stream(rng, b, n):
@@ -93,7 +101,7 @@ def models():
     meta = rng.integers(0, cfg.metadata_vocab_size, (2, NUM_META))
     jm = JaxMambaLM(cfg)
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(prompt[:, :8], jnp.int32), jnp.asarray(meta))
-    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), cfg), "cpu")
+    port = load_model(from_jax_params(jax.tree.map(np.asarray, params), port_cfg(cfg)), "cpu")
     return jm, params, port, prompt, meta
 
 
@@ -134,17 +142,24 @@ def test_unported_options_raise(models):
 
 
 def test_auto_fused_follows_the_jax_rule():
-    """fused=None takes the decode kernels only for a Mamba model without
-    residuals on an accelerator (musicgen_tpu/sample/sampler.py generate);
-    a residual=True model on CUDA takes the plain step. Decided without a
-    card: the choice reads only the device type."""
-    from musicgen_tpu_torch.config import MambaConfig as TorchMambaConfig
+    """fused=None takes the decode kernels on an accelerator for a Mamba
+    model without residuals and for a Transformer whose prompt fills its
+    window (musicgen_tpu/sample/sampler.py generate, less the TPU VMEM
+    admission); a residual=True model, a short prompt or another window on
+    CUDA takes the plain step. Decided without a card: the choice reads only
+    the device type."""
+    from musicgen_tpu_torch.config import TransformerConfig
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert ts._auto_fused("mamba", TorchMambaConfig(), cuda)
-    assert not ts._auto_fused("mamba", TorchMambaConfig(residual=True), cuda)
-    assert not ts._auto_fused("mamba", TorchMambaConfig(), cpu)
-    assert not ts._auto_fused("transformer", TorchMambaConfig(), cuda)
+    assert ts._auto_fused("mamba", PortMambaConfig(), cuda, 64, 64)
+    assert not ts._auto_fused("mamba", PortMambaConfig(residual=True), cuda, 64, 64)
+    assert not ts._auto_fused("mamba", PortMambaConfig(), cpu, 64, 64)
+    tcfg = TransformerConfig(block_len=64)
+    assert ts._auto_fused("transformer", tcfg, cuda, prompt_len=64, block_len=64)
+    assert not ts._auto_fused("transformer", tcfg, cuda, prompt_len=40, block_len=64)  # short prompt
+    assert not ts._auto_fused("transformer", tcfg, cuda, prompt_len=32, block_len=32)  # another window
+    assert not ts._auto_fused("transformer", tcfg, cpu, prompt_len=64, block_len=64)
+    assert not ts._auto_fused("xlstm", tcfg, cuda, prompt_len=64, block_len=64)
 
 
 @pytest.mark.parametrize("opts", [dict(resident=True), dict(resident=True, quant="int8w", greedy=True),
