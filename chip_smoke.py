@@ -43,6 +43,19 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      stochastic) and int8w: grammar, MIDI, 8 launches of D per prefill and
      50 of F per token; [7 loop] tok/s/seq of the kernel F chain beside the
      plain step's, bytes per token and the share of the HBM roofline.
+  8. training at full width, kernel D with its LSE output and kernel E (E1
+     dQ + dRel, E2 dK + dV): [8 flash-bwd] D's LSE and E's four gradients
+     against their plain versions at (2*8, 2054, 128), D's output unchanged
+     by the LSE, the autograd round trip against the f32 attention, E's times
+     host-paced and from a CUDA graph beside its bound, the plain version and
+     the SDPA backward; [8 grad] the Transformer's loss and every gradient
+     through D and E against the same model with their plain versions on the
+     card (and, as information, the f32 attention), with exact launch counts;
+     [8 steps] five Adam steps of each family on one batch (the loss falls at
+     every step), ms/step, train tokens/s and peak memory; [8 cli]
+     `cli.train` for each family (2 epochs, batch 2, block 2048) writing a
+     checkpoint directory that `cli.generate --ckpt <dir>/model.pth` reads,
+     with exact launch counts (a Mamba model trains through no kernel).
 The last lines are one JSON object with every kernel ({"kernels": [...]}: its
 launches on the main path, error, time, plain time, bound and library time)
 and {"ok": true, "device": {...}}.
@@ -52,7 +65,10 @@ reference the kernels are held to.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -120,6 +136,25 @@ TOL_T_STEP = 1e-2
 # largest logit.
 TOL_T_F32 = {"bf16": 0.05, "int8w": 0.12}
 
+# Phase 8, training. Kernel E against its plain version: bf16 operands, and
+# dRel summed with f32 atomics in no fixed order (TOL_BF16). The training
+# attention against torch.autograd through the f32 attention: the tolerance
+# of tests/test_pallas_attention.py for the TPU kernel. The full model's loss
+# and gradients through D and E against the same model with their plain
+# versions on the card: the two round p and dS to bf16 after f32 sums in
+# another order, so single roundings flip (2^-8 relative) and the flips add up
+# through 8 blocks. The worst tensor is a rel_pos_emb: each of its rows sums
+# bf16-rounded dS along a diagonal, terms that largely cancel, so the
+# rounding noise stands out against its largest entry (1.3e-2 of it on the
+# H100; the other tensors stay near 1e-3). 2e-2 holds that, where a missing
+# or wrong term moves a gradient by O(1).
+TOL_TRAIN_F32 = 3e-2
+TOL_LOSS = 1e-4
+TOL_GRAD = 2e-2
+TRAIN_STEPS = 5
+TRAIN_EPOCHS = 2
+GEN_AFTER_TRAIN = 32
+
 KERNEL_INFO = {
     "ssd_scan": ("musicgen_tpu_torch/csrc/ssd_scan.cu", "musicgen_tpu/ops/pallas_ssd.py:27"),
     "in_proj_conv": ("musicgen_tpu_torch/csrc/decode_gemv.cu", "musicgen_tpu/ops/pallas_decode.py:181"),
@@ -136,6 +171,9 @@ KERNEL_INFO = {
        for name in ("t_qkv_ln", "t_res", "t_fc_relu") for sfx in ("", "_w8a16")},
     **{name: ("musicgen_tpu_torch/csrc/tdecode_attn.cu", "musicgen_tpu/ops/pallas_transformer_decode.py:254")
        for name in ("tdecode_attn_split", "tdecode_attn_combine")},
+    "flash_relpos_lse": ("musicgen_tpu_torch/csrc/flash_relpos.cu", "musicgen_tpu/ops/pallas_attention.py:44"),
+    "flash_bwd_dq": ("musicgen_tpu_torch/csrc/flash_relpos_bwd.cu", "musicgen_tpu/ops/pallas_attention.py:310"),
+    "flash_bwd_dkv": ("musicgen_tpu_torch/csrc/flash_relpos_bwd.cu", "musicgen_tpu/ops/pallas_attention.py:365"),
 }
 
 
@@ -1270,6 +1308,314 @@ def phase_t_loop(torch, tctx: dict, packs: dict) -> None:
     say(f"[7 loop plain] TransformerLM.step (f32): {T_PLAIN_LOOP_TOKENS} tokens in {secs:.3f} s = "
         f"{T_PLAIN_LOOP_TOKENS / secs:.1f} tok/s/seq ({1e3 * secs / T_PLAIN_LOOP_TOKENS:.3f} ms/token)")
 
+# ---------------------------------------------------------------------------
+# Phase 8: training (kernel D with its LSE output, kernel E)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_attention_kernels(ak):
+    """FlashRelposAttention with the plain versions of kernel D-with-LSE and
+    kernel E, on the card: the reference the kernels' gradients are held to."""
+    saved = ak.flash_relpos_attention_lse, ak.flash_relpos_attention_bwd
+    ak.flash_relpos_attention_lse = lambda *a: ak.flash_relpos_attention_plain(*a, with_lse=True)
+    ak.flash_relpos_attention_bwd = ak.flash_relpos_attention_bwd_plain
+    try:
+        yield
+    finally:
+        ak.flash_relpos_attention_lse, ak.flash_relpos_attention_bwd = saved
+
+
+def phase_flash_bwd(torch, report: dict) -> None:
+    """[8 flash-bwd] kernel D's LSE output and kernel E against their plain
+    versions at the training shape; the autograd round trip against the f32
+    attention; E1, E2 and E's times beside the bound, the plain version and
+    the SDPA backward."""
+    import torch.nn.functional as F
+
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops.attention import relpos_attention
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    b, h, t, d = BATCH, 8, PROMPT + 6, 128
+    qkv = torch.randn(b, t, 3, h, d, device=DEVICE, generator=gen)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # head views of one projection
+    rel = torch.randn(h, t, d, device=DEVICE, generator=gen)
+    dout = torch.randn(b, h, t, d, device=DEVICE, generator=gen)
+    scale = (h * d) ** -0.5
+    out0 = ak.flash_relpos_attention(q, k, v, rel, scale)
+    out, lse = ak.flash_relpos_attention_lse(q, k, v, rel, scale)
+    out_p, lse_p = ak.flash_relpos_attention_plain(q, k, v, rel, scale, with_lse=True)
+    grads = ak.flash_relpos_attention_bwd(q, k, v, rel, out, lse, dout, scale)
+    grads_p = ak.flash_relpos_attention_bwd_plain(q, k, v, rel, out_p, lse_p, dout, scale)
+    torch.cuda.synchronize()
+    same = torch.equal(out0, out)
+    e_out, r_out = rel_err(out, out_p)
+    e_lse, r_lse = rel_err(lse, lse_p)
+    errs = {n: rel_err(g, gp) for n, g, gp in zip(("dq", "dk", "dv", "drel"), grads, grads_p)}
+    need(all(bool(torch.isfinite(x).all()) for x in (lse, *grads)), "kernel E: non-finite output")
+    with torch.enable_grad():
+        args = [x.detach().clone().requires_grad_() for x in (q, k, v, rel)]
+        g_train = torch.autograd.grad(ak.flash_relpos_attention_train(*args, scale), args, dout)
+        g_f32 = torch.autograd.grad(relpos_attention(*args, scale), args, dout)
+    r_train = max(rel_err(a, b_)[1] for a, b_ in zip(g_train, g_f32))
+    del g_train, g_f32, args, grads_p
+
+    launch = ak.BackwardLaunch(q, k, v, rel, out, lse, dout, scale)
+    runs = {"flash_bwd_dq": launch.dq, "flash_bwd_dkv": launch.dkv,
+            "E": lambda: ak.flash_relpos_attention_bwd(q, k, v, rel, out, lse, dout, scale),
+            "flash_relpos_lse": lambda: ak.flash_relpos_attention_lse(q, k, v, rel, scale)}
+    ms = {n: cuda_ms(torch, fn, iters=10, warmup=2) for n, fn in runs.items()}
+    dev_ms = {n: graph_ms(torch, fn, calls=5) for n, fn in runs.items()}
+    plain_ms = cuda_ms(torch, lambda: ak.flash_relpos_attention_bwd_plain(q, k, v, rel, out_p, lse_p, dout, scale),
+                       iters=2, warmup=1)
+    plain_lse_ms = cuda_ms(torch, lambda: ak.flash_relpos_attention_plain(q, k, v, rel, scale, with_lse=True),
+                           iters=3, warmup=1)
+    # SDPA in bf16 with the BD term in a float mask that requires grad; the
+    # mask is built, and the forward run, outside the timing.
+    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    mask = relpos_mask(torch, qb.detach(), rel, scale).requires_grad_()
+    lib_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale),
+                         iters=10)
+    with torch.enable_grad():
+        o_lib = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale)
+    do_lib = dout.to(torch.bfloat16)
+    lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(o_lib, (qb, kb, vb, mask), do_lib, retain_graph=True),
+                         iters=5, warmup=2)
+    del o_lib, mask, qb, kb, vb, do_lib
+
+    pairs = t * (t + 1) // 2 + sum(max(0, 6 - r - 1) for r in range(min(t, 6)))  # visible pairs a head
+    per_product = 2.0 * d * pairs * b * h
+    in_bytes = nbytes(q, k, v, rel, out, dout, lse)
+    cost = {
+        "E": bound(in_bytes + nbytes(*grads), 8 * per_product, BF16_FLOPS),  # AC BD dp dV dK dQ.K dQ.band dRel
+        "flash_bwd_dq": bound(in_bytes + nbytes(grads[0], grads[3]), 6 * per_product, BF16_FLOPS),
+        "flash_bwd_dkv": bound(in_bytes + nbytes(grads[1], grads[2]), 5 * per_product, BF16_FLOPS),
+        "flash_relpos_lse": bound(nbytes(q, k, v, rel, out, lse), 3 * per_product, BF16_FLOPS),
+    }
+    say(f"[8 flash-bwd] (B*H, T, D) = ({b * h}, {t}, {d}): D with LSE bit-identical to D without it: {same}; out "
+        f"rel {r_out:.3e}, lse max_abs {e_lse:.3e} rel {r_lse:.3e} vs the plain version (tol {TOL_BF16}, {TOL_F32}); "
+        f"E vs its plain version: " + ", ".join(f"{n} max_abs {e:.3e} rel {r:.3e}" for n, (e, r) in errs.items())
+        + f" (tol rel {TOL_BF16}); train round trip vs torch.autograd through the f32 attention rel {r_train:.3e} "
+        f"(tol {TOL_TRAIN_F32})")
+    for n, label in (("flash_bwd_dq", "E1 dQ+dRel"), ("flash_bwd_dkv", "E2 dK+dV"), ("E", "E1+E2"),
+                     ("flash_relpos_lse", "D with LSE")):
+        plain = plain_lse_ms if n == "flash_relpos_lse" else plain_ms
+        lib = lib_fwd_ms if n == "flash_relpos_lse" else lib_bwd_ms
+        say(f"[8 flash-bwd {label}] kernel {ms[n]:.4f} ms (device, CUDA graph: {fmt_ms(dev_ms[n])}), bound "
+            f"{cost[n]['bound_ms']:.4f} ms ({cost[n]['bound_by']}), plain {plain:.4f} ms, SDPA "
+            f"{'forward' if n == 'flash_relpos_lse' else 'backward (dq, dk, dv, dmask)'} (bf16, float mask) "
+            f"{lib:.4f} ms")
+    need(same, "kernel D's output changes when it writes the LSE")
+    need(r_out <= TOL_BF16 and r_lse <= TOL_F32, "kernel D with LSE disagrees with its plain version")
+    need(all(r <= TOL_BF16 for _, r in errs.values()), "kernel E disagrees with its plain version")
+    need(r_train <= TOL_TRAIN_F32, "flash_relpos_attention_train disagrees with the f32 attention's gradients")
+    report["flash_relpos_lse"] = {"max_abs_err": max(e_out, e_lse), "ms": ms["flash_relpos_lse"],
+                                  "plain_ms": plain_lse_ms, "library_ms": lib_fwd_ms, **cost["flash_relpos_lse"]}
+    report["flash_bwd_dq"] = {"max_abs_err": max(errs["dq"][0], errs["drel"][0]), "ms": ms["flash_bwd_dq"],
+                              "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **cost["flash_bwd_dq"]}
+    report["flash_bwd_dkv"] = {"max_abs_err": max(errs["dk"][0], errs["dv"][0]), "ms": ms["flash_bwd_dkv"],
+                               "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **cost["flash_bwd_dkv"]}
+
+
+def train_batch(torch, corpus: Path, meta_path: Path):
+    """One (BATCH, PROMPT) training batch (src, trg, meta) from the corpus."""
+    import numpy as np
+
+    from musicgen_tpu_torch.data.dataset import TokenDataset
+
+    ds = TokenDataset.from_directory(corpus, meta_path, block_len=PROMPT, crop="start", seed=SEED)
+    items = [ds[i] for i in range(BATCH)]
+    return tuple(torch.from_numpy(np.stack(x).astype(np.int64)).to(DEVICE) for x in zip(*items))
+
+
+def phase_grad(torch, corpus: Path, meta_path: Path) -> None:
+    """[8 grad] the full-width Transformer's loss and every parameter's
+    gradient through kernels D and E against the same model with their plain
+    versions on the card; the f32 attention's beside it."""
+    from musicgen_tpu_torch.config import TransformerConfig
+    from musicgen_tpu_torch.models.transformer import empty_model, init_weights_
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.train.loss import filtered_cross_entropy
+
+    model = init_weights_(empty_model(TransformerConfig(dropout=0.0), DEVICE), SEED)
+    src, trg, meta = train_batch(torch, corpus, meta_path)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = filtered_cross_entropy(src, model(src, meta), trg)
+            loss.backward()
+        torch.cuda.synchronize()
+        return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    ak.LAUNCHES.clear()
+    loss_k, g_k = loss_and_grads()
+    launches = dict(ak.LAUNCHES)
+    with plain_attention_kernels(ak):
+        loss_p, g_p = loss_and_grads()
+    set_attention(model, "xla")
+    loss_x, g_x = loss_and_grads()
+    L = model.cfg.n_layer
+    del model
+
+    def worst(ref, skip=""):
+        return max((rel_err(g_k[n], ref[n])[1], n) for n in g_k if not (skip and skip in n))
+
+    w_plain, w_f32 = worst(g_p), worst(g_x)
+    w_plain_rest = worst(g_p, "rel_pos_emb")
+    want = {"flash_relpos_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    say(f"[8 grad] TransformerLM full width, dropout 0, (B, T) = ({BATCH}, {PROMPT}): loss {loss_k:.6f} through D+E, "
+        f"{loss_p:.6f} through their plain versions (rel {abs(loss_k - loss_p) / abs(loss_p):.3e}, tol {TOL_LOSS}); "
+        f"worst gradient vs the plain versions rel {w_plain[0]:.3e} at {w_plain[1]} (tol {TOL_GRAD}; outside "
+        f"rel_pos_emb {w_plain_rest[0]:.3e} at {w_plain_rest[1]}); as information, "
+        f"vs the f32 attention: loss {loss_x:.6f}, worst gradient rel {w_f32[0]:.3e} at {w_f32[1]}; "
+        f"launches a step {launches}")
+    need(abs(loss_k - loss_p) <= TOL_LOSS * abs(loss_p), "the loss through D+E disagrees with the plain versions'")
+    need(w_plain[0] <= TOL_GRAD, "a gradient through D+E disagrees with the plain versions'")
+    need(launches == want, f"a training step launched {launches}, expected {want}")
+
+
+def phase_train_steps(torch, corpus: Path, meta_path: Path) -> dict:
+    """[8 steps] TRAIN_STEPS Adam steps of each family at full width on one
+    batch: the loss falls at every step. Returns ms/step by family."""
+    from musicgen_tpu_torch.config import MambaConfig, TransformerConfig
+    from musicgen_tpu_torch.models import mamba, transformer
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+    from musicgen_tpu_torch.train import trainer as T
+
+    batch = train_batch(torch, corpus, meta_path)
+    out = {}
+    for family, module, cfg in (("transformer", transformer, TransformerConfig(dropout=0.0)),
+                                ("mamba", mamba, MambaConfig())):
+        model = module.init_weights_(module.empty_model(cfg, DEVICE), SEED)
+        step = T.make_lm_train_step(model, T.make_optimizer(model))
+        ak.LAUNCHES.clear()
+        ssd_scan.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(*batch)))
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {**ak.LAUNCHES, **({"ssd_scan": ssd_scan.launches} if ssd_scan.launches else {})}
+        ms = 1e3 * statistics.median(secs[1:])
+        tokens = batch[0].numel()
+        plain = ""
+        if family == "transformer":  # the same steps with the plain f32 attention, for comparison
+            set_attention(model, "xla")
+            plain_secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(*batch)
+                torch.cuda.synchronize()
+                plain_secs.append(time.perf_counter() - t0)
+            plain = (f"; with the plain f32 attention {1e3 * statistics.median(plain_secs[1:]):.2f} ms/step "
+                     f"(steps {TRAIN_STEPS + 2}-{TRAIN_STEPS + 3})")
+        say(f"[8 steps {family}] {TRAIN_STEPS} Adam steps on one ({BATCH}, {PROMPT}) batch: losses "
+            f"{[round(x, 5) for x in losses]}; {ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, host clock around a "
+            f"synchronised step), {tokens / (ms / 1e3):.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; "
+            f"launches {launches}{plain}")
+        need(all(math.isfinite(x) for x in losses), f"{family}: a loss is not finite")
+        need(all(b_ < a for a, b_ in zip(losses, losses[1:])), f"{family}: the loss did not fall at every step")
+        L = getattr(cfg, "n_layer", 0)
+        want = {"flash_relpos_lse": L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS,
+                "flash_bwd_dkv": L * TRAIN_STEPS} if family == "transformer" else {}
+        need(launches == want, f"{family}: {TRAIN_STEPS} steps launched {launches}, expected {want}")
+        out[family] = {"ms": ms, "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak}
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+    """[8 cli] `cli.train` for each family at full width (TRAIN_EPOCHS
+    epochs, batch 2, block 2048) on the synthesized corpus, each run counted
+    from zero: a checkpoint directory, exact launch counts (D with LSE and E
+    8 times a train step and D 8 times a validation step for the
+    Transformer; nothing for Mamba), then `cli.generate --ckpt
+    <dir>/model.pth` from it. Each train step is timed with a synchronise
+    around it."""
+    from musicgen_tpu_torch.cli import generate as gen_cli
+    from musicgen_tpu_torch.cli import train as train_cli
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+    from musicgen_tpu_torch.train import trainer as T
+
+    step_secs: list = []
+    make_step = T.make_lm_train_step
+
+    def timed_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(*args)
+            torch.cuda.synchronize()
+            step_secs.append(time.perf_counter() - t0)
+            return loss
+        return run
+
+    mask = grammar_mask()
+    T.make_lm_train_step = timed_step
+    try:
+        for family in ("transformer", "mamba"):
+            ckpt_dir = root / f"train8_{family}"
+            argv = ["--model", family, "--data", str(corpus), "--metadata", str(meta_path), "--ckpt-dir",
+                    str(ckpt_dir), "--log", str(root / f"train8_{family}.json"), "--epochs", str(TRAIN_EPOCHS),
+                    "--batch-size", str(BATCH), "--block-len", str(PROMPT), "--seed", str(SEED), "--device", DEVICE]
+            step_secs.clear()
+            ak.LAUNCHES.clear()
+            dk.LAUNCHES.clear()
+            ssd_scan.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = train_cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = {**ak.LAUNCHES, **dk.LAUNCHES, **({"ssd_scan": ssd_scan.launches} if ssd_scan.launches else {})}
+            n_steps, L = state.step, getattr(state.model.cfg, "n_layer", 0)
+            del state
+            torch.cuda.empty_cache()
+            saved = sorted(ckpt_dir.iterdir())
+            need(len(saved) == 1 and sorted(p.name for p in saved[0].iterdir()) == ["model.pth", "optimizer.pth"],
+                 f"{family}: checkpoint directory {[p.name for p in saved]}")
+            want = {}
+            if family == "transformer":
+                want = {"flash_relpos_lse": L * n_steps, "flash_bwd_dq": L * n_steps, "flash_bwd_dkv": L * n_steps,
+                        "flash_relpos": L * TRAIN_EPOCHS}  # one validation batch an epoch, under no_grad
+            ms = 1e3 * statistics.median(step_secs[1:] or step_secs)
+            say(f"[8 cli {family}] cli.train: {n_steps} steps in {TRAIN_EPOCHS} epochs in {secs:.1f} s (with "
+                f"validation and the checkpoint); {ms:.2f} ms/step (median after the first), "
+                f"{BATCH * PROMPT / (ms / 1e3):.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
+                f"{launches}; checkpoint {saved[0].name}")
+            need(n_steps == 2 * TRAIN_EPOCHS and len(step_secs) == n_steps, f"{family}: {n_steps} train steps")
+            need(launches == want, f"{family} training launched {launches}, expected {want}")
+            for name in ("flash_relpos_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+                if family == "transformer":
+                    report[name]["launches"] = want[name]
+
+            streams = gen_cli.main(["--model", family, "--ckpt", str(saved[0] / "model.pth"), "--data", str(corpus),
+                                    "--metadata", str(meta_path), "--composers", "Mozart", "--batch", str(BATCH),
+                                    "--block-len", str(PROMPT), "--length", str(GEN_AFTER_TRAIN), "--output",
+                                    str(root / f"gen8_{family}"), "--seed", str(SEED), "--device", DEVICE])
+            st = torch.from_numpy(streams["Mozart"])
+            need(tuple(st.shape) == (BATCH, PROMPT + GEN_AFTER_TRAIN), f"{family}: stream shape {tuple(st.shape)}")
+            need(bool((mask[field_bucket(st[:, PROMPT - 1:-1]), st[:, PROMPT:]] > 0).all()),
+                 f"{family}: a token generated from the trained checkpoint breaks the grammar")
+            say(f"[8 cli {family} generate] cli.generate --ckpt {saved[0].name}/model.pth: {GEN_AFTER_TRAIN} "
+                f"grammatical tokens at batch {BATCH}")
+    finally:
+        T.make_lm_train_step = make_step
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1313,6 +1659,15 @@ def main() -> int:
         phase_t_wrap(torch, corpus)
         phase_t_cli(torch, tctx, corpus, meta_path, root, report)
         phase_t_loop(torch, tctx, tpacks)
+        del tctx, tpacks
+        torch.cuda.empty_cache()
+
+        phase_flash_bwd(torch, report)
+        torch.cuda.empty_cache()
+        phase_grad(torch, corpus, meta_path)
+        torch.cuda.empty_cache()
+        phase_train_steps(torch, corpus, meta_path)
+        phase_train_cli(torch, corpus, meta_path, root, report)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -101,10 +101,20 @@ class Resolution:
 
 @dataclasses.dataclass(frozen=True)
 class TrainValues:
-    """The training block the CLI crops prompts to (reference
-    configs/common/config.yaml:12-27; only the field the port reads)."""
+    """Training hyperparameters (reference configs/common/config.yaml:12-27)."""
 
     block_len: int = 2048
+    dropout: float = 0.01
+    epochs: int = 10000
+    eval_interval: int = 10
+    save_interval: int = 10
+    learning_rate: float = 5e-5
+    eval_iters: int = 200
+    test_ratio: float = 0.2
+    batch_size: int = 2
+    augmentation: bool = False
+    end_of_seq: bool = False
+    start_of_seq: bool = False
 
 
 # Vocab-sized matrices are padded to a multiple of this for kernel tiling;

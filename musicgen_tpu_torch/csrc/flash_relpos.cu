@@ -31,6 +31,11 @@
 // is an artifact of its vector unit. Band rows outside [0, T) are zero, so the
 // real T is used with bounds checks and nothing depends on T being padded.
 // Masked scores are the finite -1e30, so a row never sees exp(-inf - -inf).
+//
+// With a non-null `lse` the kernel also writes each row's log-sum-exp,
+// m + log l, as the TPU kernel's training forward does: kernel E
+// (flash_relpos_bwd.cu) recomputes the probabilities from it. The prefill
+// passes null and runs the same instructions up to that store.
 #include "common.cuh"
 
 namespace {
@@ -83,7 +88,7 @@ __device__ void stage_rows(__nv_bfloat16* dst, int nrows, Valid ok, Row row) {
 __global__ void __launch_bounds__(NT) flash_relpos_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     long long sb, long long sh, long long st, const float* __restrict__ rel, long long rel_sh,
-    float* __restrict__ out, int H, int T, int n_meta, float scale) {
+    float* __restrict__ out, float* __restrict__ lse, int H, int T, int n_meta, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + kQBytes);
@@ -264,21 +269,24 @@ __global__ void __launch_bounds__(NT) flash_relpos_kernel(
       }
     }
   }
+  if (lse != nullptr && threadIdx.x < BQ && q_start + (int)threadIdx.x < T)
+    lse[(long long)bh * T + q_start + threadIdx.x] = s_m[threadIdx.x] + logf(s_l[threadIdx.x]);
 }
 
 }  // namespace
 
 // q, k, v: f32 (B, H, T, 128) with element (b, h, t, d) at b*sb + h*sh + t*st
 // + d (all three with the same strides, 16-byte aligned rows); rel: f32
-// (H, >= T, 128), head h at h*rel_sh; out: f32 (B, T, H, 128) contiguous.
+// (H, >= T, 128), head h at h*rel_sh; out: f32 (B, T, H, 128) contiguous;
+// lse: null, or f32 (B*H, T) contiguous.
 MG_EXPORT int mg_flash_relpos(const float* q, const float* k, const float* v, long long sb, long long sh,
-                              long long st, const float* rel, long long rel_sh, float* out, int B, int H,
-                              int T, int D, int n_meta, float scale, void* stream) {
+                              long long st, const float* rel, long long rel_sh, float* out, float* lse, int B,
+                              int H, int T, int D, int n_meta, float scale, void* stream) {
   if (B < 1 || H < 1 || T < 1 || D != HD || n_meta < 1 || n_meta > BK) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(flash_relpos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_relpos_kernel<<<grid, NT, kSmem, (cudaStream_t)stream>>>(q, k, v, sb, sh, st, rel, rel_sh, out, H, T,
-                                                                 n_meta, scale);
+  flash_relpos_kernel<<<grid, NT, kSmem, (cudaStream_t)stream>>>(q, k, v, sb, sh, st, rel, rel_sh, out, lse, H,
+                                                                 T, n_meta, scale);
   return (int)cudaGetLastError();
 }

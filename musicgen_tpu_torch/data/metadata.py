@@ -65,7 +65,38 @@ def build_tokenization(metadata: dict) -> Tuple[dict, Dict[str, np.ndarray]]:
     return tokenizations, band_vectors
 
 
-def load_band_vectors(metadata_path: str | Path) -> Tuple[dict, Dict[str, np.ndarray]]:
-    """Load metadata.json and build its tokenization."""
+def load_band_vectors(
+    metadata_path: str | Path, tokenizations_path: str | Path | None = None
+) -> Tuple[dict, Dict[str, np.ndarray]]:
+    """Load metadata.json, build (and optionally persist) the tokenization."""
     with open(metadata_path, "r", encoding="utf-8") as f:
-        return build_tokenization(json.load(f))
+        tokenizations, band_vectors = build_tokenization(json.load(f))
+    if tokenizations_path is not None:
+        with open(tokenizations_path, "w") as f:
+            json.dump(tokenizations, f, indent=4)
+    return tokenizations, band_vectors
+
+
+def band_vectors_from_tokenization(
+    tokenization_path: str | Path, metadata_path: str | Path
+) -> Dict[str, np.ndarray]:
+    """Rebuild band meta-vectors from an EXISTING tokenization.json (e.g. the
+    reference's shipped file) for vocabulary-compatible conditioning."""
+    with open(tokenization_path, "r") as f:
+        tok = json.load(f)
+    with open(metadata_path, "r", encoding="utf-8") as f:
+        metadata = json.load(f)
+    band_tok = tok["band_tokenized"]
+    genre_tok = tok["genre_tokenized"]
+    time_tok = tok["time_tokenized"]
+    genre_none = genre_tok.get("null", min(genre_tok.values()) - 1)
+    out: Dict[str, np.ndarray] = {}
+    for data in metadata["artists"]:
+        band = data["name"]
+        if band not in band_tok:
+            continue
+        decade = str(floor_to_nearest_10(int(data["year_started"])))
+        genres = [genre_tok[g] for g in data["genres"] if g in genre_tok][:NUM_GENRE_SLOTS]
+        genres += [genre_none] * (NUM_GENRE_SLOTS - len(genres))
+        out[band] = np.asarray([band_tok[band]] + genres + [time_tok[decade]], dtype=np.int32)
+    return out

@@ -12,8 +12,11 @@ layout musicgen_tpu/interop/torch_import.py maps, so a reference `.pth` and
 an exported JAX checkpoint load unchanged.
 
 `prefill` runs the SSD scan through kernel A (ops/ssd_kernel.ssd_scan) on
-CUDA tensors; `forward` and `step` are plain PyTorch. The in/out projections
-stay `torch` matmuls, as the JAX package left them to XLA.
+CUDA tensors (under torch.no_grad: kernel A has no backward); `forward` and
+`step` are plain PyTorch, and training differentiates `forward` with
+autograd, as the JAX package trains through the plain scan. cfg.remat
+recomputes each mixer in the backward pass (torch.utils.checkpoint). The
+in/out projections stay `torch` matmuls, as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import MambaConfig
 from ..ops.ssd_kernel import ssd_scan
@@ -169,8 +173,9 @@ class MambaLM(nn.Module):
     def hidden(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         """Final-norm hidden states (B, meta+T, d_model)."""
         x = self._embed(tokens, meta)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = self._stack(x, layer(x))
+            x = self._stack(x, checkpoint(layer, x, use_reentrant=False) if remat else layer(x))
         return self.norm(x)
 
     def forward(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:

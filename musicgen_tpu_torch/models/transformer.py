@@ -17,11 +17,21 @@ with `load_state_dict(strict=True)` once its `.tril` buffers are dropped
 (interop.load_checkpoint). The per-head weights are concatenated once per
 call and run as one product.
 
-`prefill` runs kernel D (ops/attention_kernel) when attention_impl is 'auto'
-on CUDA or 'flash'; 'xla' and 'torch_exact' (and 'auto' on the CPU) run the
-plain ops/attention.relpos_attention. The dense projections stay `torch`
-matmuls, as the JAX package left them to XLA. `step` is the plain ring-KV
-decode step; kernel F (ops/tdecode_kernel) is its fused counterpart.
+Attention dispatch: with attention_impl 'flash', or 'auto' on CUDA, `prefill`
+(and `forward` with grad mode off) runs kernel D (ops/attention_kernel), and
+`forward` with grad mode on runs flash_relpos_attention_train (kernel D with
+its LSE output forward, kernel E backward); 'xla' and 'torch_exact' (and
+'auto' on the CPU) run the plain ops/attention.relpos_attention. The dense
+projections stay `torch` matmuls, as the JAX package left them to XLA. `step`
+is the plain ring-KV decode step; kernel F (ops/tdecode_kernel) is its fused
+counterpart.
+
+Training, as the JAX model: dropout at cfg.dropout on the attended values
+(not the probabilities; the fusable form with the same expectation), after
+the attention's out-projection and after the FFN's second linear, active in
+`train()` only and never in `prefill` / `step`; cfg.remat recomputes each
+block in the backward pass (torch.utils.checkpoint). Dropout modules hold no
+state, so reference `.pth` files still load strictly.
 """
 from __future__ import annotations
 
@@ -31,10 +41,11 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
 from ..ops.attention import relpos_attention, relpos_attention_step
-from ..ops.attention_kernel import flash_relpos_attention
+from ..ops.attention_kernel import flash_relpos_attention, flash_relpos_attention_train
 
 Cache = Dict[str, torch.Tensor]
 LN_EPS = 1e-6
@@ -60,6 +71,8 @@ class RelPosSelfAttention(nn.Module):
         self.cfg = cfg
         self.heads = nn.ModuleList(Head(cfg) for _ in range(cfg.n_heads))
         self.proj = nn.Linear(cfg.n_embd, cfg.n_embd)
+        self.attn_drop = nn.Dropout(cfg.dropout)
+        self.resid_drop = nn.Dropout(cfg.dropout)
 
     @property
     def head_dim(self) -> int:
@@ -84,10 +97,13 @@ class RelPosSelfAttention(nn.Module):
         zx = F.linear(x, self.qkv_weight()).view(b, t, 3, self.cfg.n_heads, self.head_dim)
         return [zx[:, :, i].transpose(1, 2) for i in range(3)]
 
-    def _attend(self, q, k, v) -> torch.Tensor:
+    def _attend(self, q, k, v, differentiable: bool = False) -> torch.Tensor:
+        """Attention by cfg.attention_impl; `differentiable` takes kernel D
+        with its LSE and kernel E where the kernels run."""
         impl = self.cfg.attention_impl
         if impl == "flash" or (impl == "auto" and q.is_cuda):
-            return flash_relpos_attention(q, k, v, self.rel_emb(), self.scale)
+            fn = flash_relpos_attention_train if differentiable else flash_relpos_attention
+            return fn(q, k, v, self.rel_emb(), self.scale)
         if impl not in ("auto", "xla", "torch_exact"):
             raise ValueError(f"unknown attention_impl {impl!r}")
         return relpos_attention(q, k, v, self.rel_emb(), self.scale, torch_exact_bd=impl == "torch_exact")
@@ -98,7 +114,8 @@ class RelPosSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self._qkv(x)
-        return self._out(self._attend(q, k, v))
+        o = self.attn_drop(self._attend(q, k, v, differentiable=torch.is_grad_enabled()))
+        return self.resid_drop(self._out(o))
 
     def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         q, k, v = self._qkv(x)
@@ -123,15 +140,17 @@ class RelPosSelfAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """4x ReLU MLP (reference `FeedFoward`: net = Linear, ReLU, Linear)."""
+    """4x ReLU MLP (reference `FeedFoward`: net = Linear, ReLU, Linear), with
+    the training dropout after it."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.net = nn.Sequential(nn.Linear(cfg.n_embd, 4 * cfg.n_embd), nn.ReLU(),
                                  nn.Linear(4 * cfg.n_embd, cfg.n_embd))
+        self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+        return self.drop(self.net(x))
 
 
 class Block(nn.Module):
@@ -149,11 +168,11 @@ class Block(nn.Module):
     def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         a, cache = self.sa.prefill(self.ln1(x))
         x = x + a
-        return x + self.ffwd(self.ln2(x)), cache
+        return x + self.ffwd.net(self.ln2(x)), cache
 
     def step(self, x, cache: Cache, slot, key_ages, rel_base) -> torch.Tensor:
         x = x + self.sa.step(self.ln1(x), cache, slot, key_ages, rel_base)
-        return x + self.ffwd(self.ln2(x))
+        return x + self.ffwd.net(self.ln2(x))
 
 
 class TransformerLM(nn.Module):
@@ -174,8 +193,9 @@ class TransformerLM(nn.Module):
     def hidden(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         """Final-LN hidden states (B, meta+T, n_embd), the lm_head input."""
         x = self._embed(tokens, meta)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.ln_f(x)
 
     def forward(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:

@@ -41,7 +41,9 @@ SIGNATURES = {
     "mg_out_proj_rms": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mg_lm_head_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mg_sample_tail": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
-    "mg_flash_relpos": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _I, _I, _I, _I, _I, _F, _P],
+    "mg_flash_relpos": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "mg_flash_bwd_dq": [_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P, _P, _P, _P, _L] + [_I] * 5 + [_F, _P],
+    "mg_flash_bwd_dkv": [_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P, _P, _P, _P] + [_I] * 5 + [_F, _P],
     "mg_t_qkv_ln": [_P] * 6 + [_I, _I, _I, _F, _P, _P, _I, _I, _I, _P],
     "mg_t_fc_relu": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "mg_t_res": [_P] * 5 + [_I, _I, _I, _I, _P],
@@ -138,6 +140,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.mg_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward: its
+    output, written through a raw pointer, would silently leave the graph."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: call it under torch.no_grad(), or take the differentiable "
+                           "path (the plain version, or flash_relpos_attention_train for attention)")
 
 
 def stream_ptr(t) -> int:

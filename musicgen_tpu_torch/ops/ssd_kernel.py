@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from .build import check, load_library, stream_ptr
+from .build import check, load_library, refuse_grad, stream_ptr
 from .ssm import ssd_chunked
 
 # The kernel's fixed tile: headdim P and d_state N (csrc/ssd_scan.cu, D).
@@ -29,9 +29,12 @@ def ssd_scan(
     """SSD scan from a zero state. Returns (y (B,T,H,P), final_state (B,H,P,N)).
 
     CPU tensors take the plain version (which needs T % chunk == 0); CUDA
-    tensors launch the kernel, which takes any T and ignores `chunk`."""
+    tensors launch the kernel, which takes any T and ignores `chunk`, and
+    which has no backward: under grad mode it refuses inputs that require
+    grad."""
     if not x.is_cuda:
         return ssd_chunked(x, dt, A, Bmat, C, chunk=chunk)
+    refuse_grad("ssd_scan (kernel A)", x, dt, A, Bmat, C)
     b, t, h, p = x.shape
     g, n = Bmat.shape[2], Bmat.shape[3]
     if p != KERNEL_DIM or n != KERNEL_DIM:

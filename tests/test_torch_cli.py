@@ -1,6 +1,6 @@
-"""The port's generation CLI on the CPU (--device cpu) at a small size, and
-the guards that no module of musicgen_tpu_torch imports jax (the GPU machine
-has none) or anything of the JAX package."""
+"""The port's generation and training CLIs on the CPU (--device cpu) at a
+small size, and the guards that no module of musicgen_tpu_torch imports jax
+(the GPU machine has none) or anything of the JAX package."""
 import json
 import os
 import pkgutil
@@ -14,6 +14,7 @@ import torch
 
 import musicgen_tpu_torch
 from musicgen_tpu_torch.cli import generate as cli
+from musicgen_tpu_torch.cli import train as train_cli
 from musicgen_tpu_torch.config import MambaConfig, TransformerConfig
 from musicgen_tpu_torch.midi import MidiNote, encode, extract_midi
 from musicgen_tpu_torch.models import transformer
@@ -115,11 +116,64 @@ def test_cli_unported_options_raise(workdir, tmp_path, extra):
         cli.main(_argv(workdir, tmp_path) + extra)
 
 
+@pytest.fixture(scope="module")
+def train_corpus(workdir, tmp_path_factory):
+    """Three token files a band (the 80/20 split then holds one test file),
+    beside the small models of `workdir`."""
+    root = tmp_path_factory.mktemp("train")
+    for band in ("Mozart", "Bach"):
+        (root / band).mkdir()
+        for i in range(3):
+            src = workdir / "np" / band / f"{band}_{i % 2}.npy"
+            np.save(root / band / f"{band}_{i}.npy", np.load(src)[i:])
+    return root
+
+
+@pytest.mark.parametrize("model", ["mamba", "transformer"])
+def test_cli_train_then_generate(workdir, train_corpus, tmp_path, model):
+    """--resume a reference-layout .pth, train 2 epochs, then generate from
+    the checkpoint directory's model.pth; resuming from the directory
+    restores the Adam state and the step."""
+    ckpt = "model.pth" if model == "mamba" else "transformer.pth"
+    argv = ["--model", model, "--data", str(train_corpus), "--metadata", str(workdir / "metadata.json"),
+            "--block-len", str(BLOCK), "--device", "cpu", "--ckpt-dir", str(tmp_path / "ckpt"),
+            "--log", str(tmp_path / "log.json")]
+    state = train_cli.main(argv + ["--resume", str(workdir / ckpt), "--epochs", "2"])
+    assert state.step == 4  # 2 epochs of 4 train files // batch 2
+    (saved,) = sorted((tmp_path / "ckpt").iterdir())
+    assert saved.name.startswith("loss_") and sorted(os.listdir(saved)) == ["model.pth", "optimizer.pth"]
+    log = json.loads((tmp_path / "log.json").read_text())
+    assert [e["message"] for e in log if "Validation" in e.get("message", "")][-1].startswith("Epoch [2/2]")
+    streams = cli.main(_argv(workdir, tmp_path / "gen", "--greedy", "--ckpt", str(saved / "model.pth"), model=model))
+    _check_streams(streams, tmp_path / "gen", model)
+    again = train_cli.main(argv + ["--resume", str(saved), "--epochs", "1"])
+    assert again.step == 6
+
+
+@pytest.mark.parametrize("extra", [["--model", "xlstm"], ["--bf16"], ["--parallel"], ["--tp", "2"], ["--sp", "2"],
+                                   ["--pp", "2"], ["--pp-microbatches", "4"], ["--multihost"]])
+def test_cli_train_unported_options_raise(workdir, train_corpus, extra):
+    argv = ["--data", str(train_corpus), "--metadata", str(workdir / "metadata.json"), "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        train_cli.main(argv + extra)
+
+
+def test_cli_train_device_cuda_without_a_card_raises(workdir, train_corpus):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_cli.main(["--data", str(train_corpus), "--metadata", str(workdir / "metadata.json")])
+    with pytest.raises(ValueError, match="not a --model transformer"):
+        train_cli.main(["--model", "transformer", "--data", str(train_corpus), "--metadata",
+                        str(workdir / "metadata.json"), "--resume", str(workdir / "model.pth"), "--device", "cpu"])
+
+
 def test_package_never_imports_jax():
     """Import every module of the port (and run nothing) in a fresh
     interpreter: no jax, flax, optax or orbax may be loaded."""
     modules = [m.name for m in pkgutil.walk_packages(musicgen_tpu_torch.__path__, "musicgen_tpu_torch.")]
     assert "musicgen_tpu_torch.ops.decode_kernel" in modules and "musicgen_tpu_torch.cli.generate" in modules
+    assert "musicgen_tpu_torch.train.trainer" in modules and "musicgen_tpu_torch.cli.train" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -136,6 +190,7 @@ def test_package_never_imports_the_jax_package():
     loaded (the port keeps its own copies of config, midi and interop)."""
     modules = [m.name for m in pkgutil.walk_packages(musicgen_tpu_torch.__path__, "musicgen_tpu_torch.")]
     assert "musicgen_tpu_torch.midi.codec" in modules and "musicgen_tpu_torch.ops.tdecode_kernel" in modules
+    assert "musicgen_tpu_torch.data.augment" in modules and "musicgen_tpu_torch.train.loss" in modules
     code = (
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
