@@ -56,6 +56,23 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      `cli.train` for each family (2 epochs, batch 2, block 2048) writing a
      checkpoint directory that `cli.generate --ckpt <dir>/model.pth` reads,
      with exact launch counts (a Mamba model trains through no kernel).
+  9. the xLSTM at the reference size (11 blocks, d_model 1024, sLSTM at
+     (1, 4, 7, 10); seeded random weights), kernels H and G: [9 slstm] kernel
+     H against its plain scan at (2, 2054, 4, 256), with the scan's own noise
+     floor; [9 prefill] the full prefill's last logits with H against the
+     plain scan, 4 launches of H; [9 xdecode ...] each kernel G launch against
+     its plain version in bf16, W8A16 and with the matrix memory stored in
+     bf16 (sb16), then 64 teacher-forced steps from a shared state against the
+     plain chain and the f32 XLSTMLM.step, with the plain chain's noise floor
+     ([9 drift]); [9 cli] `--model xlstm` with --fused-decode auto (greedy and
+     stochastic, 2,000 tokens), int8w, sb16 and int8w-sb16 (shorter), on,
+     int8 and off (shorter still): grammar, MIDI, 4 launches of H a prefill
+     and G's 68 a token (none with off); [9 loop]
+     tok/s/seq of the G chain in each format beside the plain step's, the
+     device time of one step in a CUDA graph, bytes per token and the share of
+     the HBM roofline.
+`python3 chip_smoke.py --only 9` runs phases 1, 2 and 9 alone (bring-up of a
+slice; the full run takes no arguments).
 The last lines are one JSON object with every kernel ({"kernels": [...]}: its
 launches on the main path, error, time, plain time, bound and library time)
 and {"ok": true, "device": {...}}.
@@ -155,6 +172,27 @@ TRAIN_STEPS = 5
 TRAIN_EPOCHS = 2
 GEN_AFTER_TRAIN = 32
 
+# Phase 9, the xLSTM. Kernel H against its plain scan: f32 sums in another
+# order over 2,054 dependent steps; held to the 2e-4 of
+# tests/test_pallas_slstm.py, or to twice the scan's own drift from a 1e-6
+# perturbation of its input, whichever is larger (both printed).
+TOL_H = 2e-4
+# The full prefill's last logits with kernel H against the plain scan: the same
+# f32 noise through 11 blocks.
+TOL_X_PREFILL = 1e-3
+XQUANTS = {"bf16": "none", "int8w": "w8a16", "bf16-sb16": "none"}  # kernel G's formats -> how the products run
+TOL_W8A16 = 2e-2  # a W8A16 GEMV against its plain version (bf16 activations, int8 weights, f32 sums)
+# The kernel chain against the plain chain from a shared state, each step: the
+# plain chain's own response to a 1e-6 perturbation of the state sets the
+# floor (printed); the tolerance is the larger of TOL_T_STEP and twice it.
+# Against the f32 XLSTMLM.step: the JAX test's tolerances
+# (tests/test_pallas_xlstm_decode.py), as a share of the largest logit.
+TOL_X_F32 = {"bf16": 0.05, "int8w": 0.12, "bf16-sb16": 0.05}
+X_CLI_SHORT = 200  # tokens of the int8w / sb16 / int8w-sb16 CLI runs
+X_CLI_TINY = 64  # tokens of the on / int8 / off CLI runs
+X_LOOP_TOKENS = 500
+X_PLAIN_LOOP_TOKENS = 100
+
 KERNEL_INFO = {
     "ssd_scan": ("musicgen_tpu_torch/csrc/ssd_scan.cu", "musicgen_tpu/ops/pallas_ssd.py:27"),
     "in_proj_conv": ("musicgen_tpu_torch/csrc/decode_gemv.cu", "musicgen_tpu/ops/pallas_decode.py:181"),
@@ -174,7 +212,14 @@ KERNEL_INFO = {
     "flash_relpos_lse": ("musicgen_tpu_torch/csrc/flash_relpos.cu", "musicgen_tpu/ops/pallas_attention.py:44"),
     "flash_bwd_dq": ("musicgen_tpu_torch/csrc/flash_relpos_bwd.cu", "musicgen_tpu/ops/pallas_attention.py:310"),
     "flash_bwd_dkv": ("musicgen_tpu_torch/csrc/flash_relpos_bwd.cu", "musicgen_tpu/ops/pallas_attention.py:365"),
+    "slstm_scan": ("musicgen_tpu_torch/csrc/slstm_scan.cu", "musicgen_tpu/ops/pallas_slstm.py:42"),
+    **{name: ("musicgen_tpu_torch/csrc/xlstm_decode.cu", "musicgen_tpu/ops/pallas_xlstm_decode.py:410")
+       for name in ("xm_up", "xm_prep", "xm_gates", "xm_memory", "xm_out", "xm_down", "xs_prep", "xs_in", "xs_cell",
+                    "xs_ffn_up", "xs_ffn_down", "xm_memory_sb16", "xm_up_w8a16", "xm_down_w8a16", "xs_in_w8a16",
+                    "xs_ffn_up_w8a16", "xs_ffn_down_w8a16")},
 }
+# The phases of --only 9: the kernels a report of phase 9 holds.
+X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("slstm_scan.cu", "xlstm_decode.cu"))]
 
 
 class SmokeFailure(RuntimeError):
@@ -1617,8 +1662,433 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
         T.make_lm_train_step = make_step
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the xLSTM (kernel H, the sLSTM prefill recurrence; kernel G, the
+# one-token decode step)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_slstm_scan():
+    """XLSTMLM.prefill with kernel H's plain version, on the card: the
+    reference the kernel's prefill is held to."""
+    from musicgen_tpu_torch.models import xlstm
+    from musicgen_tpu_torch.ops.slstm import slstm_sequential
+
+    saved = xlstm.slstm_scan
+    xlstm.slstm_scan = slstm_sequential
+    try:
+        yield
+    finally:
+        xlstm.slstm_scan = saved
+
+
+def phase_x_slstm(torch, report: dict) -> None:
+    """[9 slstm] kernel H against its plain scan at the prefill's shape
+    (B, T, H, DH) = (2, 2054, 4, 256), with the scan's own noise floor."""
+    from musicgen_tpu_torch.ops.slstm import powerlaw_blockdependent_bias, slstm_sequential
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+
+    b, t, h, dh = BATCH, PROMPT + 6, 4, 256
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    wx = torch.randn(b, t, 4, h, dh, device=DEVICE, generator=gen)
+    r = torch.randn(4, h, dh, dh, device=DEVICE, generator=gen) / math.sqrt(dh)
+    bias = torch.zeros(4, h, dh, device=DEVICE)
+    bias[1] = powerlaw_blockdependent_bias(h, dh, 1, 11).to(DEVICE)
+    h_k, s_k = slstm_scan(wx, r, bias)
+    h_p, s_p = slstm_sequential(wx, r, bias)
+    h_n, s_n = slstm_sequential(wx * (1.0 + 1e-6 * torch.randn(wx.shape, device=DEVICE, generator=gen)), r, bias)
+    torch.cuda.synchronize()
+    errs = [rel_err(h_k, h_p)] + [rel_err(a, b_) for a, b_ in zip(s_k, s_p)]
+    floor = max([rel_err(h_n, h_p)[1]] + [rel_err(a, b_)[1] for a, b_ in zip(s_n, s_p)])
+    worst_abs, worst_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    tol = max(TOL_H, 2.0 * floor)
+    need(all(bool(torch.isfinite(a).all()) for a in (h_k, *s_k)), "slstm_scan: non-finite output")
+    ms = cuda_ms(torch, lambda: slstm_scan(wx, r, bias), iters=5, warmup=1)
+    dev_ms = graph_ms(torch, lambda: slstm_scan(wx, r, bias), calls=2, replays=3)
+    plain_ms = cuda_ms(torch, lambda: slstm_sequential(wx, r, bias), iters=2, warmup=1)
+    # Bound: wx, R and the bias read once, h and the final state written once;
+    # 2 flops per recurrent weight, step and batch row, at the f32 peak.
+    cost = bound(nbytes(wx, r, bias, h_k, *s_k), 2.0 * b * t * 4 * h * dh * dh, F32_FLOPS)
+    say(f"[9 slstm] (B,T,H,DH)=({b},{t},{h},{dh}): h and final state max_abs {worst_abs:.3e} rel {worst_rel:.3e} "
+        f"(tol {tol:.3e} = max({TOL_H}, 2x the plain scan's drift from a 1e-6 perturbation of wx, {floor:.3e})); "
+        f"kernel {ms:.4f} ms = {1e3 * ms / t:.3f} us/step (device, CUDA graph: {fmt_ms(dev_ms)}), plain scan "
+        f"{plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}), library none")
+    need(worst_rel <= tol, "slstm_scan (kernel H) disagrees with slstm_sequential")
+    report["slstm_scan"] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **cost}
+
+
+def phase_x_prefill(torch, corpus: Path, meta_path: Path) -> dict:
+    """[9 prefill] the full-size XLSTMLM's prefill with kernel H against the
+    plain scan on the card; returns the model, the prompt and the prefill
+    states."""
+    import numpy as np
+
+    from musicgen_tpu_torch.config import XLSTMConfig
+    from musicgen_tpu_torch.data.dataset import TokenDataset
+    from musicgen_tpu_torch.models.xlstm import empty_model, init_weights_
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+
+    model = init_weights_(empty_model(XLSTMConfig(), DEVICE), SEED).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    ds = TokenDataset.from_directory(corpus / "Mozart", meta_path, block_len=PROMPT, seed=SEED)
+    items = [ds[i] for i in range(BATCH)]
+    prompt = torch.from_numpy(np.stack([s for s, _, _ in items]).astype(np.int64)).to(DEVICE)
+    meta = torch.from_numpy(np.stack([m for _, _, m in items]).astype(np.int64)).to(DEVICE)
+    teacher = torch.from_numpy(np.stack([ds[i][0][:TEACHER_STEPS] for i in range(BATCH)]).astype(np.int64)).to(DEVICE)
+    slstm_scan.launches = 0
+    logits_k, states = model.prefill(prompt, meta)
+    torch.cuda.synchronize()
+    launches = slstm_scan.launches
+    ms = cuda_ms(torch, lambda: model.prefill(prompt, meta), iters=3, warmup=1)
+    with plain_slstm_scan():
+        logits_p, _ = model.prefill(prompt, meta)
+        plain_ms = cuda_ms(torch, lambda: model.prefill(prompt, meta), iters=2, warmup=1)
+    err, rel_e = rel_err(logits_k[:, -1], logits_p[:, -1])
+    need(bool(torch.isfinite(logits_k).all()), "xlstm prefill logits are not finite")
+    say(f"[9 prefill] XLSTMLM {n_params} parameters, (B, T) = ({BATCH}, {PROMPT}+6): {launches} kernel H launches; "
+        f"last logits vs the plain scan max_abs {err:.3e} rel {rel_e:.3e} (tol {TOL_X_PREFILL}); prefill with "
+        f"kernel H {ms:.3f} ms, with the plain scan {plain_ms:.3f} ms")
+    need(launches == len(model.cfg.slstm_at), f"prefill launched kernel H {launches} times")
+    need(rel_e <= TOL_X_PREFILL, "prefill with kernel H disagrees with the plain scan")
+    return {"model": model, "prompt": prompt, "meta": meta, "teacher": teacher, "states": states,
+            "prefill_ms": ms, "plain_prefill_ms": plain_ms}
+
+
+def phase_x_decode(torch, xctx: dict, report: dict) -> dict:
+    """[9 xdecode] each kernel G launch against its plain version on the same
+    inputs (the first mLSTM and sLSTM block): every launch in bf16, the
+    GEMVs in W8A16, the matrix memory stored in bf16. Then TEACHER_STEPS
+    teacher-forced steps per format from the prefill state: each step's
+    kernel chain against the plain chain from the same state (and from that
+    state perturbed by 1e-6, the noise floor) and against the f32
+    XLSTMLM.step; [9 drift] the free-running plain chains. Returns the packs
+    by format."""
+    import torch.nn.functional as F
+
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
+    from musicgen_tpu_torch.ops.grammar import field_bucket
+    from musicgen_tpu_torch.sample.sampler import init_penalty_state, push_token
+
+    model, prompt = xctx["model"], xctx["prompt"]
+    dims = xk.XDims.create(model.cfg, BATCH)
+    di, d, v = dims.m_inner, dims.d_model, dims.vocab_size
+    packs = {"bf16": xk.build_xlstm_decode_params(model, BATCH, "bf16"),
+             "int8w": xk.build_xlstm_decode_params(model, BATCH, "int8w")}
+    packs["bf16-sb16"] = packs["bf16"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = F.embedding(prompt[:, -1], packs["bf16"]["embed"]) + 0.1 * torch.randn(BATCH, d, device=DEVICE, generator=gen)
+    for quant, q in XQUANTS.items():
+        wp = packs[quant]
+        sdt = torch.bfloat16 if quant.endswith("-sb16") else torch.float32
+        carry0 = xk.stack_xlstm_states(xctx["states"], dims, sdt)
+        sfx = "" if q == "none" else "_w8a16"
+        gtol = TOL_BF16 if q == "none" else TOL_W8A16
+
+        def sc(name):
+            return wp[name + "_s"][0] if name + "_s" in wp else None
+
+        conv_m, s_m, n_m, m_m, conv_s, hcnm_s = (t[0] for t in carry0)
+        args = {
+            "xm_up": (x, wp["m_ln"][0], wp["m_w_up"][0], dims, sc("m_w_up"), q),
+        }
+        up = xk.up_ln_plain(*args["xm_up"])
+        args["xm_prep"] = (up, wp["m_conv_w"][0], wp["m_conv_b"][0], conv_m, wp["m_qkv_w"][0], dims)
+        buf = xk.xm_prep_plain(*(a.clone() if a is conv_m else a for a in args["xm_prep"]))
+        args["xm_gates"] = (buf, wp["m_w_gate"][0], wp["m_gate_b"][0], n_m, m_m, dims)
+        g = xk.xm_gates_plain(*(a.clone() if a is n_m or a is m_m else a for a in args["xm_gates"]))
+        args["xm_memory"] = (buf, g, s_m, dims)
+        h = xk.xm_memory_plain(buf, g, s_m.clone(), dims)
+        args["xm_out"] = (h, buf, up, wp["m_outnorm"][0], wp["m_skip"][0], dims)
+        y = xk.xm_out_plain(*args["xm_out"])
+        args["xm_down"] = (y, wp["m_w_down"][0], x, dims, sc("m_w_down"), q)
+        args["xs_prep"] = (x, wp["s_ln"][0], wp["s_conv_w"][0], wp["s_conv_b"][0], conv_s, dims)
+        xs = xk.xs_prep_plain(*(a.clone() if a is conv_s else a for a in args["xs_prep"]))
+        args["xs_in"] = (xs[0], wp["s_w_if"][0], dims, sc("s_w_if"), q)
+        wif = xk.gemv_plain(*args["xs_in"])
+        wzo = xk.gemv_plain(xs[1], wp["s_w_zo"][0], dims, sc("s_w_zo"), q)
+        args["xs_cell"] = (wif, wzo, wp["s_r_w"][0], wp["s_bias"][0], wp["s_gn"][0], hcnm_s, x, dims)
+        c = xk.xs_cell_plain(*(a.clone() if a is hcnm_s or a is x else a for a in args["xs_cell"]))
+        args["xs_ffn_up"] = (c, wp["s_ln_ffn"][0], wp["s_ffn_up"][0], wp["s_ffn_up_b"][0], dims, sc("s_ffn_up"), q)
+        u = xk.ffn_up_plain(*args["xs_ffn_up"])
+        args["xs_ffn_down"] = (u, wp["s_ffn_down"][0], wp["s_ffn_down_b"][0], c, dims, sc("s_ffn_down"), q)
+        kernels = {"xm_up": xk.up_ln, "xm_prep": xk.xm_prep, "xm_gates": xk.xm_gates, "xm_memory": xk.xm_memory,
+                   "xm_out": xk.xm_out, "xm_down": xk.down_res, "xs_prep": xk.xs_prep, "xs_in": xk.gemv,
+                   "xs_cell": xk.xs_cell, "xs_ffn_up": xk.ffn_up, "xs_ffn_down": xk.ffn_down}
+        plains = {"xm_up": xk.up_ln_plain, "xm_prep": xk.xm_prep_plain, "xm_gates": xk.xm_gates_plain,
+                  "xm_memory": xk.xm_memory_plain, "xm_out": xk.xm_out_plain, "xm_down": xk.down_res_plain,
+                  "xs_prep": xk.xs_prep_plain, "xs_in": xk.gemv_plain, "xs_cell": xk.xs_cell_plain,
+                  "xs_ffn_up": xk.ffn_up_plain, "xs_ffn_down": xk.ffn_down_plain}
+        # Arguments a launch advances in place: each run gets its own copy.
+        inplace = {"xm_prep": (3,), "xm_gates": (3, 4), "xm_memory": (2,), "xm_down": (2,), "xs_prep": (4,),
+                   "xs_cell": (5, 6), "xs_ffn_down": (3,)}
+        gemvs = {"xm_up": (x, "m_w_up", nbytes(wp["m_ln"][0])),
+                 "xm_down": (y, "m_w_down", 4 * BATCH * d),
+                 "xs_in": (xs[0], "s_w_if", 0),
+                 "xs_ffn_up": (c, "s_ffn_up", nbytes(wp["s_ln_ffn"][0], wp["s_ffn_up_b"][0])),
+                 "xs_ffn_down": (u, "s_ffn_down", nbytes(wp["s_ffn_down_b"][0]) + 4 * BATCH * d)}
+        if quant == "bf16":
+            names = list(kernels)
+        elif quant == "int8w":
+            names = list(gemvs)
+        else:
+            names = ["xm_memory"]
+
+        def fresh(name):
+            a = args[name]
+            return tuple(t.clone() if i in inplace.get(name, ()) else t for i, t in enumerate(a))
+
+        for name in names:
+            a_k, a_p = fresh(name), fresh(name)
+            out_k, out_p = kernels[name](*a_k), plains[name](*a_p)
+            torch.cuda.synchronize()
+            outs = [out_k] + [a_k[i] for i in inplace.get(name, ())]
+            refs = [out_p] + [a_p[i] for i in inplace.get(name, ())]
+            errs = [rel_err(o.float(), r_.float()) for o, r_ in zip(outs, refs)]
+            worst_abs, worst_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            tol = gtol if name in gemvs else TOL_F32
+            a_t, a_q = fresh(name), fresh(name)
+            ms = cuda_ms(torch, lambda: kernels[name](*a_t))
+            dev_ms = graph_ms(torch, lambda: kernels[name](*a_t))
+            plain_ms = cuda_ms(torch, lambda: plains[name](*a_q), iters=10, warmup=2)
+            lib_ms = None
+            if name in gemvs:
+                xin, wname, extra = gemvs[name]
+                cost = gemv_cost(BATCH, wp[wname][0], sc(wname), extra)
+                lib_ms = linear_ms(torch, xin, bf16_weights(torch, wp[wname][0], sc(wname)))
+            elif name == "xm_prep":
+                cost = bound(nbytes(up) // 2 + 2 * nbytes(conv_m) + nbytes(*args[name][1:3], args[name][4], out_k),
+                             2.0 * BATCH * di * 16, F32_FLOPS)
+            elif name == "xm_gates":
+                cost = bound(nbytes(wp["m_w_gate"][0], wp["m_gate_b"][0], out_k) + 4 * BATCH * 3 * di
+                             + 2 * nbytes(n_m, m_m), 2.0 * BATCH * (2 * dims.heads * 3 * di + 2 * di), F32_FLOPS)
+            elif name == "xm_memory":
+                cost = bound(2 * nbytes(s_m) + 4 * BATCH * 3 * di + nbytes(g, out_k), 5.0 * s_m.numel(), F32_FLOPS)
+            elif name == "xm_out":
+                cost = bound(nbytes(h, out_k, wp["m_outnorm"][0], wp["m_skip"][0]) + 8 * BATCH * di,
+                             12.0 * BATCH * di, F32_FLOPS)
+            elif name == "xs_prep":
+                cost = bound(nbytes(x, out_k, *args[name][1:4]) + 2 * nbytes(conv_s), 16.0 * BATCH * d, F32_FLOPS)
+            else:  # xs_cell
+                cost = bound(nbytes(wif, wzo, *args[name][2:5]) + 2 * nbytes(hcnm_s, x),
+                             2.0 * BATCH * 4 * d * dims.s_dh, F32_FLOPS)
+            key = name + ("_sb16" if quant.endswith("-sb16") else sfx)
+            say(f"[9 xdecode {key}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); kernel {ms:.4f} ms "
+                f"(device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
+                f"({cost['bound_by']}), library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms")
+            need(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"{key}: non-finite output")
+            need(worst_rel <= tol, f"{key} disagrees with its plain version")
+            report[key] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **cost}
+
+        # Teacher-forced steps from the prefill state. Each step runs the
+        # plain chain from the kernel chain's state, once more from that state
+        # perturbed by 1e-6 (the noise floor), and the f32 XLSTMLM.step.
+        noise = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+        def perturbed(cr):
+            cr = clone(cr)
+            for i in (2, 5):  # the f32 normalizers and the sLSTM states
+                cr[i].mul_(1.0 + 1e-6 * torch.randn(cr[i].shape, device=DEVICE, generator=noise))
+            return cr
+
+        pen = init_penalty_state(prompt, max(PROMPT, 2048))
+        ck, free_p, free_q = clone(carry0), clone(carry0), perturbed(carry0)
+        worst_plain = worst_noise = worst_state = worst_val = worst_f32 = 0.0
+        idx_checked = idx_equal = 0
+        for step in range(TEACHER_STEPS):
+            tok = xctx["teacher"][:, step]
+            pen = push_token(pen, tok)
+            bucket = field_bucket(tok)
+            cp, cn = clone(ck), perturbed(ck)
+            lf, _ = model.step(tok, xk.unstack_xlstm_states(cp, dims))
+            lk = xk.xlstm_decode_logits(wp, tok, ck, dims, quant=q)
+            lp = xk.xlstm_decode_logits(wp, tok, cp, dims, ops=xk.PLAIN_OPS, quant=q)
+            ln = xk.xlstm_decode_logits(wp, tok, cn, dims, ops=xk.PLAIN_OPS, quant=q)
+            worst_plain = max(worst_plain, rel_err(lk[:, :v], lp[:, :v])[1])
+            worst_noise = max(worst_noise, rel_err(ln[:, :v], lp[:, :v])[1])
+            worst_state = max(worst_state, *(rel_err(a.float(), b_.float())[1] for a, b_ in zip(ck, cp)))
+            worst_f32 = max(worst_f32, rel_err(lk[:, :v], lf)[1])
+            vk, ik = dk.sample_tail(lk, wp["gram"], pen.hist, bucket, dims)
+            vp, ip = dk.sample_tail_plain(lp, wp["gram"], pen.hist, bucket, dims)
+            worst_val = max(worst_val, rel_err(vk, vp)[1])
+            checked, equal = top3_agreement(torch, vk, ik, vp, ip)
+            idx_checked, idx_equal = idx_checked + checked, idx_equal + equal
+            free_k = xk.xlstm_decode_logits(wp, tok, free_p, dims, ops=xk.PLAIN_OPS, quant=q)
+            free_n = xk.xlstm_decode_logits(wp, tok, free_q, dims, ops=xk.PLAIN_OPS, quant=q)
+        torch.cuda.synchronize()
+        drift_kernel, drift_noise = rel_err(lk[:, :v], free_k[:, :v])[1], rel_err(free_n[:, :v], free_k[:, :v])[1]
+        tol = max(TOL_T_STEP, 2.0 * worst_noise)
+        step_ms = cuda_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, ck, pen.hist, bucket, dims, q), iters=20)
+        step_dev_ms = graph_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, ck, pen.hist, bucket, dims, q),
+                               calls=2)
+        plain_step_ms = cuda_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, cp, pen.hist, bucket, dims, q,
+                                                                          ops=xk.PLAIN_OPS), iters=5, warmup=1)
+        say(f"[9 xdecode steps {quant}] {TEACHER_STEPS} teacher-forced steps, each from a shared state: vs the plain "
+            f"chain logits rel {worst_plain:.3e}, states rel {worst_state:.3e}, top-3 values rel {worst_val:.3e} "
+            f"(tol {tol:.3e} = max({TOL_T_STEP}, 2x the plain chain's response to a 1e-6 perturbation, "
+            f"{worst_noise:.3e})); top-3 indices equal at {idx_equal}/{idx_checked} separated candidates; vs the f32 "
+            f"XLSTMLM.step logits rel {worst_f32:.3e} (tol {TOL_X_F32[quant]}); step with the kernels {step_ms:.4f} "
+            f"ms (device, CUDA graph of the step's {dims.launches_per_token()} launches: {fmt_ms(step_dev_ms)}), "
+            f"plain chain {plain_step_ms:.4f} ms")
+        say(f"[9 drift {quant}] after {TEACHER_STEPS} free-running steps from the prefill state: kernel chain vs "
+            f"plain chain logits rel {drift_kernel:.3e}; plain chain vs itself from a state perturbed by 1e-6: "
+            f"{drift_noise:.3e}")
+        need(max(worst_plain, worst_val, worst_state) <= tol, f"{quant} kernel G steps disagree with the plain chain")
+        need(idx_equal == idx_checked, f"{quant} kernel G steps picked other top-3 candidates")
+        need(worst_f32 <= TOL_X_F32[quant], f"{quant} kernel G steps disagree with XLSTMLM.step")
+    return packs
+
+
+def x_launches(dims, length: int, n: int, quant: str) -> dict:
+    """Kernel G's launches (and kernel B's head and tail) in `n` generations
+    of `length` tokens with the sampler tail, by --fused-decode mode."""
+    if quant == "off":
+        return {}
+    sfx = "_w8a16" if quant.startswith("int8") else ""
+    mem = "xm_memory_sb16" if quant.endswith("sb16") else "xm_memory"
+    m, s_, k = dims.n_mlstm, dims.n_slstm, length * n
+    return {f"xm_up{sfx}": m * k, "xm_prep": m * k, "xm_gates": m * k, mem: m * k, "xm_out": m * k,
+            f"xm_down{sfx}": m * k, "xs_prep": s_ * k, f"xs_in{sfx}": 2 * s_ * k, "xs_cell": s_ * k,
+            f"xs_ffn_up{sfx}": s_ * k, f"xs_ffn_down{sfx}": s_ * k, f"lm_head_ln{sfx}": k, "sample_tail": k}
+
+
+def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+    """[9 cli] `--model xlstm` through the CLI: --fused-decode auto, greedy
+    (two bands) and stochastic (one band), LENGTH tokens; int8w, sb16 and
+    int8w-sb16 for X_CLI_SHORT tokens; on, int8 and off (the plain step) for
+    X_CLI_TINY: every new token grammatical, the .mid files re-extract, and
+    each run, counted from zero, launches kernel H 4 times a prefill and
+    kernel G's launches a token (none with off)."""
+    from musicgen_tpu_torch.cli import generate as cli
+    from musicgen_tpu_torch.midi import extract_midi
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
+    from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+
+    model = xctx["model"]
+    ckpt = root / "xlstm_random.pth"
+    torch.save(model.state_dict(), ckpt)
+    dims = xk.XDims.create(model.cfg, BATCH)
+    mask = grammar_mask()
+    runs = [("auto", True, ["Mozart", "Bach"], LENGTH), ("auto", False, ["Mozart"], LENGTH),
+            ("int8w", False, ["Bach"], X_CLI_SHORT), ("sb16", False, ["Bach"], X_CLI_SHORT),
+            ("int8w-sb16", True, ["Mozart"], X_CLI_SHORT), ("on", False, ["Bach"], X_CLI_TINY),
+            ("int8", True, ["Bach"], X_CLI_TINY), ("off", True, ["Mozart"], X_CLI_TINY)]
+    totals: dict = {}
+    for i, (mode, greedy, bands, length) in enumerate(runs):
+        out = root / f"gen9_{i}"
+        argv = ["--model", "xlstm", "--ckpt", str(ckpt), "--data", str(corpus), "--metadata", str(meta_path),
+                "--composers", ", ".join(bands), "--batch", str(BATCH), "--block-len", str(PROMPT),
+                "--length", str(length), "--output", str(out), "--seed", str(SEED + i),
+                "--fused-decode", mode] + (["--greedy"] if greedy else [])
+        n = len(bands)
+        want = x_launches(dims, length, n, mode)
+        ssd_scan.launches = slstm_scan.launches = 0
+        ak.LAUNCHES.clear()
+        dk.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        streams = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, h_launches = dict(dk.LAUNCHES), slstm_scan.launches
+        need(sorted(streams) == sorted(bands), f"CLI generated for {sorted(streams)}")
+        for band, st in streams.items():
+            need(st.shape == (BATCH, PROMPT + length), f"{band}: stream shape {st.shape}")
+            st = torch.from_numpy(st)
+            need(bool((mask[field_bucket(st[:, PROMPT - 1:-1]), st[:, PROMPT:]] > 0).all()),
+                 f"--model xlstm --fused-decode {mode}, {band}: a generated token breaks the grammar")
+        mids = sorted(out.rglob("generated_*_xlstm_*.mid"))
+        need(len(mids) == n * BATCH, f"expected {n * BATCH} .mid files in {out}")
+        for mid in mids:
+            need(len(extract_midi(str(mid))) > 0, f"{mid.name} re-extracts with no notes")
+        per_token = sum(launches.values()) / (length * n)
+        say(f"[9 cli {mode}{' greedy' if greedy else ''}] {n} band(s) x {length} tokens at batch {BATCH} after a "
+            f"{PROMPT}-token prompt in {secs:.1f} s; grammatical; .mid files re-extract; kernel H {h_launches} "
+            f"launches ({dims.n_slstm} a prefill); kernel G {per_token:g} launches a token: {launches}")
+        need(launches == want, f"--model xlstm --fused-decode {mode}: launches {launches}, expected {want}")
+        need(h_launches == dims.n_slstm * n and ssd_scan.launches == 0 and not ak.LAUNCHES,
+             f"--fused-decode {mode}: kernel H launched {h_launches} times")
+        for name, cnt in {**want, "slstm_scan": h_launches}.items():
+            if name in report and not name.startswith(("lm_head_ln", "sample_tail")):
+                totals[name] = totals.get(name, 0) + cnt
+    for name, cnt in totals.items():
+        report[name]["launches"] = cnt
+
+
+def phase_x_loop(torch, xctx: dict, packs: dict) -> None:
+    """[9 loop] tok/s/seq of the kernel G chain with the sampler tail in each
+    format (X_LOOP_TOKENS stochastic tokens from one prefill) beside the
+    plain XLSTMLM.step's, in the same call; the device time of one step from
+    a CUDA graph; the bytes a token moves (the pack's weights and scales
+    read once, the recurrent states read and written) and their share of the
+    HBM roofline."""
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
+    from musicgen_tpu_torch.ops.grammar import field_bucket
+    from musicgen_tpu_torch.sample import sampler
+
+    model, prompt, meta = xctx["model"], xctx["prompt"], xctx["meta"]
+    dims = xk.XDims.create(model.cfg, BATCH)
+    cfg = sampler.SamplerConfig(num_tokens=X_LOOP_TOKENS, ring_size=max(PROMPT, 2048))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for quant, q in XQUANTS.items():
+        wp = packs[quant]
+        prefill, _ = sampler.make_sampler(model, "xlstm", wp, quant)
+        logits, carry = prefill(prompt, meta)
+        weights = nbytes(*(t for k, t in wp.items() if k not in ("embed", "gram")))
+        state = 2 * nbytes(*carry)
+        per_token = weights + state
+
+        def step(pack, token, st, hist, bucket, stream_idx):
+            return xk.fused_xlstm_sample_step(pack, token, st, hist, bucket, dims, q)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = sampler.sample_tokens_fused_tail(wp, logits, carry, prompt, cfg, gen, dims, fused_step=step)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tok = toks[:, -1]
+        pen = sampler.init_penalty_state(torch.cat([prompt, toks], dim=1), max(PROMPT, 2048))
+        bucket = field_bucket(tok)  # outside the capture: it copies its boundaries to the card
+        dev_ms = graph_ms(torch, lambda: step(wp, tok, carry, pen.hist, bucket, 0), calls=2)
+        bound_ms = 1e3 * per_token / HBM_BYTES_PER_S
+        share = bound_ms / (1e3 * secs / X_LOOP_TOKENS)
+        dev_share = "not measured" if dev_ms is None else f"{100 * bound_ms / dev_ms:.2f}%"
+        say(f"[9 loop {quant}] kernel G chain: {X_LOOP_TOKENS} tokens in {secs:.3f} s = "
+            f"{X_LOOP_TOKENS / secs:.1f} tok/s/seq ({1e3 * secs / X_LOOP_TOKENS:.4f} ms/token, {100 * share:.2f}% of "
+            f"the 3.35 TB/s roofline); one step in a CUDA graph {fmt_ms(dev_ms)} ({dev_share} of the roofline); "
+            f"{per_token} B/token = {weights} B of weights + {state} B of recurrent state read and written "
+            f"({bound_ms:.4f} ms/token bound); batch {BATCH}; prefill with kernel H {xctx['prefill_ms']:.3f} ms, "
+            f"with the plain scan {xctx['plain_prefill_ms']:.3f} ms")
+    prefill, step = sampler.make_sampler(model, "xlstm")
+    logits, states = prefill(prompt, meta)
+    plain_cfg = sampler.SamplerConfig(num_tokens=X_PLAIN_LOOP_TOKENS, ring_size=max(PROMPT, 2048))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.sample_tokens(step, logits, states, prompt, plain_cfg, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    say(f"[9 loop plain] XLSTMLM.step (f32): {X_PLAIN_LOOP_TOKENS} tokens in {secs:.3f} s = "
+        f"{X_PLAIN_LOOP_TOKENS / secs:.1f} tok/s/seq ({1e3 * secs / X_PLAIN_LOOP_TOKENS:.3f} ms/token)")
+
+
+def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+    phase_x_slstm(torch, report)
+    xctx = phase_x_prefill(torch, corpus, meta_path)
+    packs = phase_x_decode(torch, xctx, report)
+    phase_x_cli(torch, xctx, corpus, meta_path, root, report)
+    phase_x_loop(torch, xctx, packs)
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    only_xlstm = sys.argv[1:] == ["--only", "9"]
+    if sys.argv[1:] and not only_xlstm:
+        print("usage: python3 chip_smoke.py [--only 9]", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -1633,6 +2103,11 @@ def main() -> int:
     phase_build()
     report: dict = {}
     torch.set_grad_enabled(False)
+    if only_xlstm:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            phase_xlstm(torch, *synth_corpus(root), root, report)
+        return finish(torch, card, report, X_KERNELS, t_start)
     phase_ssd(torch, report)
 
     from musicgen_tpu_torch.config import MambaConfig
@@ -1668,10 +2143,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_steps(torch, corpus, meta_path)
         phase_train_cli(torch, corpus, meta_path, root, report)
+        torch.cuda.empty_cache()
 
+        phase_xlstm(torch, corpus, meta_path, root, report)
+    return finish(torch, card, report, list(KERNEL_INFO), t_start)
+
+
+def finish(torch, card: str, report: dict, names: list, t_start: float) -> int:
+    """The kernels line and the last line, after checking that every kernel
+    of `names` has its numbers and was launched on its path."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name, (source, replaces) in KERNEL_INFO.items():
+    for name in names:
+        source, replaces = KERNEL_INFO[name]
         r = report[name]
         need(all(k in r for k in keys), f"{name}: the report lacks {[k for k in keys if k not in r]}")
         need(r["launches"] > 0, f"{name} was not launched on the main path")

@@ -6,8 +6,9 @@ scripts/generate_midi_combined.py; port of musicgen_tpu/cli/generate.py).
       --composers "Mozart, Chopin" --output out/
 
 --ckpt is a `.pth` state dict in the reference's layout (mamba_ssm's for
---model mamba, the reference Transformer's for --model transformer); the
-model's width and depth are read off its shapes. Per composer directory: seed
+--model mamba, the reference Transformer's for --model transformer, NX-AI
+xLSTMBlockStack's for --model xlstm); the model's width and depth are read
+off its shapes. Per composer directory: seed
 the sampler with dataset crops and the composer's 6 metadata tokens, generate
 --length tokens with the grammar + penalty sampler, decode the last
 length+300 tokens and write generated_{band}_{model}_{i}.mid.
@@ -17,10 +18,12 @@ length+300 tokens and write generated_{band}_{model}_{i}.mid.
 Runs on the GPU (--device cuda, the default; it raises without one) through
 the kernels unless --fused-decode off; --device cpu runs the plain versions.
 A Transformer's prefill runs kernel D and each token kernel F when the prompt
-fills the model's window. --fused-decode int8 / int8w run the decode kernels
-on an int8 pack (W8A8 / W8A16; a Transformer runs W8A16 for both);
-resident / resident-int8w run a Mamba model's whole token loop in one kernel
-launch (bf16 / W8A16) and a Transformer's per-token path.
+fills the model's window; an xLSTM's prefill runs kernel H and each token
+kernel G. --fused-decode int8 / int8w run the decode kernels on an int8 pack
+(W8A8 / W8A16; a Transformer and an xLSTM run W8A16 for both); resident /
+resident-int8w run a Mamba model's whole token loop in one kernel launch
+(bf16 / W8A16) and the other families' per-token path; sb16 / int8w-sb16
+(xLSTM only) store the mLSTM matrix memory in bf16 (bf16 / W8A16 weights).
 """
 from __future__ import annotations
 
@@ -31,9 +34,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, TransformerConfig
+from ..config import DEFAULT_CONFIG
 from ..data.dataset import TokenDataset
-from ..interop import load_checkpoint, load_model
+from ..interop import family, load_checkpoint, load_model
 from ..midi import decode, note_to_midi
 from ..sample.sampler import generate
 
@@ -47,12 +50,12 @@ _FUSED = {
     "int8w": (True, "int8w", False),
     "resident": (True, "bf16", True),
     "resident-int8w": (True, "int8w", True),
+    "sb16": (True, "bf16-sb16", False),
+    "int8w-sb16": (True, "int8w-sb16", False),
 }
 # The JAX CLI's other values, and what they wait for.
 _FUSED_NOT_PORTED = {
     "int8w-gptq": "GPTQ calibration (ops/gptq.collect_hessians, ROADMAP queue 1 item 12)",
-    "sb16": "bf16 storage of the xLSTM matrix memory (the xLSTM family)",
-    "int8w-sb16": "bf16 storage of the xLSTM matrix memory (the xLSTM family)",
 }
 
 
@@ -74,10 +77,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--decode-skip", type=int, default=None,
                    help="decode stream[skip:] instead of the last length+300 tokens")
     p.add_argument("--fused-decode", choices=list(_FUSED) + list(_FUSED_NOT_PORTED), default="auto",
-                   help="auto: decode kernels on the GPU, plain PyTorch on the CPU; "
-                        "on/off force either; int8 (W8A8) and int8w (W8A16) run them on "
-                        "an int8 pack; resident and resident-int8w run the whole loop "
-                        "in one kernel; int8w-gptq, sb16 and int8w-sb16 are not yet ported")
+                   help="auto: on the GPU the decode kernels (Mamba without residuals: kernels "
+                        "B; Transformer, when the prompt fills its window: kernel F; xLSTM: "
+                        "kernel G), else the plain step, and plain PyTorch on the CPU; "
+                        "on/off force either; int8 (W8A8; W8A16 for a Transformer or an "
+                        "xLSTM) and int8w (W8A16) run them on an int8 pack; resident and "
+                        "resident-int8w run a Mamba model's whole loop in one kernel; sb16 "
+                        "and int8w-sb16 (xLSTM only) store the mLSTM matrix memory in bf16; "
+                        "int8w-gptq is not yet ported")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or cpu (the plain versions)")
@@ -95,8 +102,6 @@ def _device(name: str) -> torch.device:
 def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
     """Runs the CLI; returns {band: (batch, prompt + length) token streams}."""
     args = parse_args(argv)
-    if args.model == "xlstm":
-        raise NotImplementedError("--model xlstm is not yet ported to musicgen_tpu_torch")
     if args.fused_decode in _FUSED_NOT_PORTED:
         raise NotImplementedError(
             f"--fused-decode {args.fused_decode} is not yet ported to musicgen_tpu_torch: "
@@ -104,10 +109,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
         )
     fused, quant, resident = _FUSED[args.fused_decode]
     device = _device(args.device)
+    if quant.endswith("-sb16") and args.model != "xlstm":
+        raise ValueError(f"--fused-decode {args.fused_decode} stores the mLSTM matrix memory: --model xlstm only")
     model = load_model(load_checkpoint(args.ckpt), device)
-    family = "transformer" if isinstance(model.cfg, TransformerConfig) else "mamba"
-    if family != args.model:
-        raise ValueError(f"--ckpt holds a {family} model, not a --model {args.model}")
+    held = family(model.cfg)
+    if held != args.model:
+        raise ValueError(f"--ckpt holds a {held} model, not a --model {args.model}")
 
     if args.composers:
         bands = [b.strip() for b in args.composers.split(",")]

@@ -26,7 +26,7 @@ import torch
 
 from ..config import MambaConfig, TrainValues, TransformerConfig
 from ..data.dataset import TokenDataset, make_loaders
-from ..interop import config_from_state_dict, load_checkpoint
+from ..interop import config_from_state_dict, family, load_checkpoint
 from ..models import mamba, transformer
 from ..train import trainer as T
 
@@ -90,9 +90,9 @@ def build_model(args: argparse.Namespace, device: torch.device):
         resume_dir = args.resume if os.path.isdir(args.resume) else None
         sd = load_checkpoint(os.path.join(args.resume, T.MODEL_FILE) if resume_dir else args.resume)
         cfg = config_from_state_dict(sd)
-        family = "transformer" if isinstance(cfg, TransformerConfig) else "mamba"
-        if family != args.model:
-            raise ValueError(f"--resume holds a {family} model, not a --model {args.model}")
+        held = family(cfg)
+        if held != args.model:
+            raise ValueError(f"--resume holds a {held} model, not a --model {args.model}")
     else:
         cfg = TransformerConfig() if args.model == "transformer" else MambaConfig()
     if isinstance(cfg, TransformerConfig):

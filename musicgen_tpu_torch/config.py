@@ -195,6 +195,44 @@ class MambaConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    """Reference models/xlstm/xlstm_model.py:17-42 (generator, dim 1024):
+    11 blocks, sLSTM at (1, 4, 7, 10) and mLSTM elsewhere, 4 heads, conv
+    k = 4, qkv blocksize 4, FFN 1.3x.
+
+    slstm_impl is kept for field parity with the JAX package and picks
+    nothing here: the sLSTM prefill runs kernel H on CUDA tensors and the
+    plain scan otherwise (ops/slstm_kernel)."""
+
+    embedding_dim: int = 1024
+    num_blocks: int = 11
+    slstm_at: Tuple[int, ...] = (1, 4, 7, 10)
+    num_heads: int = 4
+    conv1d_kernel_size: int = 4
+    qkv_proj_blocksize: int = 4
+    mlstm_proj_factor: float = 2.0
+    slstm_ff_proj_factor: float = 1.3
+    context_length: int = 2048 + NUM_META_TOKENS
+    vocab_size: int = VOCAB_SIZE
+    metadata_vocab_size: int = DEFAULT_METADATA_VOCAB_SIZE
+    vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE
+    slstm_impl: str = "xla"
+    remat: bool = False
+
+    @property
+    def mlstm_inner(self) -> int:
+        return int(self.mlstm_proj_factor * self.embedding_dim)
+
+    @property
+    def ffn_inner(self) -> int:
+        return int(self.slstm_ff_proj_factor * self.embedding_dim)
+
+    @property
+    def padded_vocab(self) -> int:
+        return padded_vocab(self.vocab_size, self.vocab_pad_multiple)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     values: TrainValues = TrainValues()
 

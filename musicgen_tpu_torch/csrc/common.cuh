@@ -35,6 +35,11 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
+// jax.nn.gelu(v, approximate=True), torch's gelu(approximate="tanh").
+__device__ __forceinline__ float gelu_tanhf_(float v) {
+  return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * (v * v * v))));
+}
+
 // jax.nn.softplus(v) == logaddexp(v, 0), in its overflow-safe form.
 __device__ __forceinline__ float softplusf_(float v) { return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v))); }
 

@@ -29,7 +29,9 @@
 // An int8 lane loads 16 weights (16 bytes), so one warp pass covers two
 // groups: lanes 0-15 the first, 16-31 the second. Each lane scales its own
 // partial sum; the TPU kernel scaled whole group sums, so the two differ in
-// f32 rounding only.
+// f32 rounding only. A matrix whose K is not a multiple of 256 has one group
+// over all of K (`_quantize_cols`), GemvArgs::qgroup = K (the xLSTM FFN's
+// down-projection, K = 1408, kernel G); lanes past K then load nothing.
 //
 // Activations, states, logits and the penalty counts may have been written
 // by another block of the same launch (in the resident kernel), so they are
@@ -59,8 +61,10 @@ constexpr float kLn102 = 0.019802627296179712f;  // ln 1.02
 enum { kPlain = 0, kRms = 1, kLayerNorm = 2 };  // GEMV prologue
 // GEMV epilogue. The Transformer step (kernel F) adds: kKvRing (store, and
 // the K and V thirds of the columns also as bf16 into ring slot c),
-// kBiasRelu (relu(v + b)) and kBiasResidual (out += v + b).
-enum { kStore = 0, kInProj = 1, kBias = 2, kKvRing = 3, kBiasRelu = 4, kBiasResidual = 5 };
+// kBiasRelu (relu(v + b)) and kBiasResidual (out += v + b); the xLSTM step
+// (kernel G): kResidual (out += v) and kBiasGelu (tanh-GELU of v + b).
+enum { kStore = 0, kInProj = 1, kBias = 2, kKvRing = 3, kBiasRelu = 4, kBiasResidual = 5, kResidual = 6,
+       kBiasGelu = 7 };
 enum { kBf16 = 0, kW8A16 = 1, kW8A8 = 2 };      // weight format
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -95,6 +99,7 @@ struct GemvArgs {
   __nv_bfloat16* k_ring;
   __nv_bfloat16* v_ring;
   int ring_S, ring_c;
+  int qgroup;                     // int8 K-group; 0 means QGROUP
 };
 
 // Shared memory of one GEMV team.
@@ -229,9 +234,11 @@ __device__ void gemv_column(const GemvArgs& a, const GemvSmem& sm, int n, int la
     // lanes at the end.
     const int8_t* wcol = static_cast<const int8_t*>(a.w) + (size_t)n * a.K;
     const int G = a.K / QGROUP;
+    const int gsz = a.qgroup > 0 ? a.qgroup : QGROUP;
     for (int base = 0; base < a.K; base += 32 * 16) {
       const int k0 = base + lane * 16;
-      const int g = base / QGROUP + lane / 16;
+      if (k0 >= a.K) break;
+      const int g = k0 / gsz;
       const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wcol + k0));
       const float sw = __ldg(a.w_s + (size_t)g * a.N + n);
       const uint32_t wu[4] = {wv.x, wv.y, wv.z, wv.w};
@@ -288,6 +295,8 @@ __device__ void gemv_column(const GemvArgs& a, const GemvSmem& sm, int n, int la
     if (EPI == kBias) v += __ldg(a.bias + n);
     if (EPI == kBiasRelu) v = fmaxf(v + __ldg(a.bias + n), 0.f);
     if (EPI == kBiasResidual) v = a.out[(size_t)r * a.N + n] + (v + __ldg(a.bias + n));
+    if (EPI == kResidual) v = a.out[(size_t)r * a.N + n] + v;
+    if (EPI == kBiasGelu) v = gelu_tanhf_(v + __ldg(a.bias + n));
     if (EPI == kKvRing && n >= a.N / 3) {
       // The new K / V row goes into ring slot c of this layer before the
       // layer's attention reads the ring (csrc/tdecode_attn.cu).
@@ -333,6 +342,13 @@ inline bool gemv_shape_ok(int R, int K, int N, int fmt) {
   if (R < 1 || R > MAXR || K <= 0 || N <= 0 || K % 8 != 0) return false;
   if (fmt != kBf16 && (K % (2 * QGROUP) != 0 || K / QGROUP > GMAX)) return false;
   return true;
+}
+
+// The same for a GEMV whose int8 pack may have one group over all of K
+// (qgroup = K, K a multiple of 16); W8A16 only in that case.
+inline bool gemv_shape_ok_grouped(int R, int K, int N, int fmt, int qgroup) {
+  if (fmt == kBf16 || qgroup == QGROUP) return gemv_shape_ok(R, K, N, fmt);
+  return fmt == kW8A16 && qgroup == K && K % 16 == 0 && gemv_shape_ok(R, K, N, kBf16);
 }
 
 // ---------------------------------------------------------------------------

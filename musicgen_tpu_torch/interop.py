@@ -1,12 +1,25 @@
 """Weight bridge: reference-layout `.pth` files and JAX params -> the port.
 
 The port's models use the reference's torch `state_dict` layouts: mamba_ssm's
-for MambaLM, and models/transformer/model_transformer.py's (per-head
+for MambaLM, models/transformer/model_transformer.py's (per-head
 `sa.heads.{h}.{query,key,value}` Linears and `rel_pos_emb`) for
-TransformerLM. This module holds the port's own copy of the mapping from the
-JAX package's flax params to those layouts (the bodies of `export_mamba` and
-`export_transformer` in musicgen_tpu/interop/torch_import.py); the port
-imports nothing of the JAX package. So:
+TransformerLM, and NX-AI xLSTMBlockStack's for XLSTMLM. This module holds the
+port's own copy of the mapping from the JAX package's flax params to those
+layouts (the bodies of `export_mamba` and `export_transformer` in
+musicgen_tpu/interop/torch_import.py, and the transpose of its
+`_import_mlstm_block` / `_import_slstm_block`); the port imports nothing of
+the JAX package.
+
+xLSTM shapes. The port saves the NX-AI key names and shapes
+(`layers.blocks.{i}.xlstm.proj_up.weight` (2 di, d), `q_proj.weight`
+(nb, bs, bs) as (out, in) blocks, `mlstm_cell.igate.weight` (H, 3 di),
+`slstm_cell._recurrent_kernel_` (H, dh, 4, dh), `slstm_cell._bias_`
+(H, 4, dh), ...) with two differences, both of which the loader also reads
+in NX-AI's form: the four sLSTM input gates `{i,f,z,o}gate.weight` are full
+(d, d) Linears, as the JAX model trains them (an NX-AI head-wise (H, dh, dh)
+weight is expanded block-diagonally at load), and the LayerNorms keep their
+bias (`xlstm_norm.bias`, `ffn_norm.bias`, `post_blocks_norm.bias`; NX-AI's
+have none, which loads as zeros, as do absent FFN biases). So:
   * `from_jax_params(variables, cfg)` turns JAX variables (numpy leaves) into
     the port's weights, dispatching on the config's type;
   * `load_checkpoint` reads a `.pth` in either layout (the reference's own
@@ -21,7 +34,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .config import NUM_META, MambaConfig, TransformerConfig
+from .config import NUM_META, MambaConfig, TransformerConfig, XLSTMConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -85,15 +98,66 @@ def _transformer_state_dict(p: Dict[str, Any], cfg: TransformerConfig) -> Dict[s
     return sd
 
 
-def from_jax_params(variables: Any, cfg: MambaConfig | TransformerConfig) -> StateDict:
+def _ln(tb: str, lnp: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    return {tb + "weight": np.asarray(lnp["scale"]), tb + "bias": np.asarray(lnp["bias"])}
+
+
+def _xlstm_state_dict(p: Dict[str, Any], cfg: XLSTMConfig) -> Dict[str, np.ndarray]:
+    """flax XLSTMLM params -> the port's xLSTM layout (the module docstring):
+    torch (out, in) matrices, conv taps (C, 1, K), blockwise kernels
+    (nb, out, in), full (d, d) sLSTM input gates, vocab padding dropped."""
+    v = cfg.vocab_size
+    stack = p["stack"]
+    sd = {
+        "token_embedding.weight": np.asarray(p["token_embedding"]["embedding"])[:v],
+        "metadata_embedding.weight": np.asarray(p["metadata_embedding"]["embedding"]),
+        "output_layer.weight": np.asarray(p["lm_head"]["kernel"]).T[:v],
+        "output_layer.bias": np.asarray(p["lm_head"]["bias"])[:v],
+        **_ln("layers.post_blocks_norm.", stack["post_norm"]),
+    }
+    for i in range(cfg.num_blocks):
+        blk, tb = stack[f"block_{i}"], f"layers.blocks.{i}."
+        x = tb + "xlstm."
+        sd.update(_ln(tb + "xlstm_norm.", blk["ln"]))
+        lyr = blk["slstm"] if i in cfg.slstm_at else blk["mlstm"]
+        sd[x + "conv1d.conv.weight"] = np.asarray(lyr["conv_w"]).T[:, None, :]
+        sd[x + "conv1d.conv.bias"] = np.asarray(lyr["conv_b"])
+        if i in cfg.slstm_at:
+            for gate, name in (("w_i", "igate"), ("w_f", "fgate"), ("w_z", "zgate"), ("w_o", "ogate")):
+                sd[x + name + ".weight"] = np.asarray(lyr[gate]["kernel"]).T
+            sd[x + "slstm_cell._recurrent_kernel_"] = np.transpose(np.asarray(lyr["r_kernel"]), (1, 2, 0, 3))
+            sd[x + "slstm_cell._bias_"] = np.transpose(np.asarray(lyr["bias"]), (1, 0, 2))
+            sd[x + "group_norm.weight"] = np.asarray(lyr["gn_scale"])
+            sd.update(_ln(tb + "ffn_norm.", blk["ln_ffn"]))
+            for proj in ("up", "down"):
+                sd[tb + f"ffn.proj_{proj}.weight"] = np.asarray(blk["ffn"][proj]["kernel"]).T
+                sd[tb + f"ffn.proj_{proj}.bias"] = np.asarray(blk["ffn"][proj]["bias"])
+        else:
+            sd[x + "proj_up.weight"] = np.asarray(lyr["up_proj"]["kernel"]).T
+            for proj in ("q", "k", "v"):
+                sd[x + f"{proj}_proj.weight"] = np.transpose(np.asarray(lyr[proj]["kernel"]), (0, 2, 1))
+            for gate in ("igate", "fgate"):
+                sd[x + f"mlstm_cell.{gate}.weight"] = np.asarray(lyr[gate]["kernel"]).T
+                sd[x + f"mlstm_cell.{gate}.bias"] = np.asarray(lyr[gate]["bias"])
+            sd[x + "mlstm_cell.outnorm.weight"] = np.asarray(lyr["outnorm_scale"])
+            sd[x + "learnable_skip"] = np.asarray(lyr["learnable_skip"])
+            sd[x + "proj_down.weight"] = np.asarray(lyr["down_proj"]["kernel"]).T
+    return sd
+
+
+def from_jax_params(variables: Any, cfg: MambaConfig | TransformerConfig | XLSTMConfig) -> StateDict:
     """JAX model variables ({'params': ...}, numpy leaves) -> port state dict,
-    by the family of `cfg` (the port's MambaConfig or TransformerConfig)."""
+    by the family of `cfg` (the port's MambaConfig, TransformerConfig or
+    XLSTMConfig)."""
     if isinstance(cfg, MambaConfig):
         sd = _mamba_state_dict(variables["params"], cfg)
     elif isinstance(cfg, TransformerConfig):
         sd = _transformer_state_dict(variables["params"], cfg)
+    elif isinstance(cfg, XLSTMConfig):
+        sd = _xlstm_state_dict(variables["params"], cfg)
     else:
-        raise TypeError(f"from_jax_params takes the port's MambaConfig or TransformerConfig, got {type(cfg)}")
+        raise TypeError(f"from_jax_params takes the port's MambaConfig, TransformerConfig or XLSTMConfig, "
+                        f"got {type(cfg)}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
@@ -109,11 +173,78 @@ def _indices(sd: StateDict, prefix: str, pos: int) -> int:
     return len({k.split(".")[pos] for k in sd if k.startswith(prefix)})
 
 
-def config_from_state_dict(sd: StateDict) -> MambaConfig | TransformerConfig:
+def _is_xlstm(sd: StateDict) -> bool:
+    return "layers.post_blocks_norm.weight" in sd or any(k.startswith("layers.blocks.") for k in sd)
+
+
+def _xlstm_config(sd: StateDict) -> XLSTMConfig:
+    """XLSTMConfig from NX-AI-layout shapes: slstm_at from the blocks that
+    hold an `slstm_cell`, num_heads from `_recurrent_kernel_` (or
+    `mlstm_cell.igate.weight`), the qkv blocksize from `q_proj.weight`."""
+    vocab, d = sd["token_embedding.weight"].shape
+    n_blocks = _indices(sd, "layers.blocks.", 2)
+    slstm_at = tuple(i for i in range(n_blocks) if f"layers.blocks.{i}.xlstm.slstm_cell._recurrent_kernel_" in sd)
+    mlstm = [i for i in range(n_blocks) if i not in slstm_at]
+    default = XLSTMConfig()
+    kw: Dict[str, Any] = {}
+    if slstm_at:
+        x = f"layers.blocks.{slstm_at[0]}."
+        kw["num_heads"] = sd[x + "xlstm.slstm_cell._recurrent_kernel_"].shape[0]
+        ff = sd[x + "ffn.proj_up.weight"].shape[0]
+        if ff != int(default.slstm_ff_proj_factor * d):
+            kw["slstm_ff_proj_factor"] = ff / d
+    if mlstm:
+        x = f"layers.blocks.{mlstm[0]}.xlstm."
+        kw.setdefault("num_heads", sd[x + "mlstm_cell.igate.weight"].shape[0])
+        kw["qkv_proj_blocksize"] = sd[x + "q_proj.weight"].shape[1]
+        kw["mlstm_proj_factor"] = sd[x + "proj_up.weight"].shape[0] / 2 / d
+    return XLSTMConfig(
+        embedding_dim=d,
+        num_blocks=n_blocks,
+        slstm_at=slstm_at,
+        conv1d_kernel_size=sd["layers.blocks.0.xlstm.conv1d.conv.weight"].shape[2],
+        vocab_size=vocab,
+        metadata_vocab_size=sd["metadata_embedding.weight"].shape[0],
+        **kw,
+    )
+
+
+def xlstm_state_dict(sd: StateDict, cfg: XLSTMConfig) -> StateDict:
+    """An xLSTM state dict in the port's form: NX-AI head-wise (H, dh, dh)
+    sLSTM input gates expanded block-diagonally to (d, d) (the head-wise map
+    is x.reshape(H, dh) @ W_h^T per head), and absent LayerNorm and FFN
+    biases filled with zeros."""
+    out = dict(sd)
+    d, nh = cfg.embedding_dim, cfg.num_heads
+
+    def zeros_if_absent(key: str, n: int) -> None:
+        if key not in out:
+            out[key] = torch.zeros(n)
+
+    zeros_if_absent("layers.post_blocks_norm.bias", d)
+    for i in range(cfg.num_blocks):
+        tb = f"layers.blocks.{i}."
+        zeros_if_absent(tb + "xlstm_norm.bias", d)
+        if i not in cfg.slstm_at:
+            continue
+        for gate in ("igate", "fgate", "zgate", "ogate"):
+            key = tb + f"xlstm.{gate}.weight"
+            w = out[key]
+            if w.dim() == 3 and tuple(w.shape) == (nh, d // nh, d // nh):
+                out[key] = torch.block_diag(*w)
+        zeros_if_absent(tb + "ffn_norm.bias", d)
+        zeros_if_absent(tb + "ffn.proj_up.bias", cfg.ffn_inner)
+        zeros_if_absent(tb + "ffn.proj_down.bias", d)
+    return out
+
+
+def config_from_state_dict(sd: StateDict) -> MambaConfig | TransformerConfig | XLSTMConfig:
     """The config whose shapes the weights have: a TransformerConfig for the
     reference Transformer's layout (n_layer from `blocks.*`, n_heads from
-    `sa.heads.*`, block_len = rel_pos_emb rows - 6), else a MambaConfig
-    (ngroups = 1)."""
+    `sa.heads.*`, block_len = rel_pos_emb rows - 6), an XLSTMConfig for the
+    NX-AI layout (`layers.blocks.*`), else a MambaConfig (ngroups = 1). An
+    xLSTM `.pth` shares `token_embedding.weight` with Mamba, so it is told
+    apart before the Mamba fallback."""
     if "token_embedding_table.weight" in sd:
         vocab, d = sd["token_embedding_table.weight"].shape
         return TransformerConfig(
@@ -124,6 +255,8 @@ def config_from_state_dict(sd: StateDict) -> MambaConfig | TransformerConfig:
             vocab_size=vocab,
             metadata_vocab_size=sd["metadata_embedding_table.weight"].shape[0],
         )
+    if _is_xlstm(sd):
+        return _xlstm_config(sd)
     vocab, d_model = sd["token_embedding.weight"].shape
     nheads = sd["layers.0.A_log"].shape[0]
     d_inner = sd["layers.0.norm.weight"].shape[0]
@@ -141,12 +274,23 @@ def config_from_state_dict(sd: StateDict) -> MambaConfig | TransformerConfig:
     )
 
 
+def family(cfg) -> str:
+    """'mamba', 'transformer' or 'xlstm', by the config's type."""
+    if isinstance(cfg, TransformerConfig):
+        return "transformer"
+    return "xlstm" if isinstance(cfg, XLSTMConfig) else "mamba"
+
+
 def load_model(sd: StateDict, device: torch.device | str):
-    """The MambaLM or TransformerLM on `device` holding `sd` (every key and
-    shape checked)."""
+    """The MambaLM, TransformerLM or XLSTMLM on `device` holding `sd` (every
+    key and shape checked)."""
     cfg = config_from_state_dict(sd)
     if isinstance(cfg, TransformerConfig):
         from .models.transformer import empty_model
+    elif isinstance(cfg, XLSTMConfig):
+        from .models.xlstm import empty_model
+
+        sd = xlstm_state_dict(sd, cfg)
     else:
         from .models.mamba import empty_model
     model = empty_model(cfg, device)

@@ -49,6 +49,14 @@ SIGNATURES = {
     "mg_t_res": [_P] * 5 + [_I, _I, _I, _I, _P],
     "mg_tdecode_attn_split": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _I, _P, _P, _P, _P],
     "mg_tdecode_attn_combine": [_P] * 4 + [_I] * 4 + [_P],
+    "mg_slstm_scan": [_P] * 5 + [_I] * 4 + [_P],
+    "mg_x_gemv": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "mg_xm_prep": [_P] * 6 + [_I] * 2 + [_P],
+    "mg_xm_gates": [_P] * 6 + [_I] * 3 + [_P],
+    "mg_xm_memory": [_P] * 4 + [_I] * 4 + [_P],
+    "mg_xm_out": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "mg_xs_prep": [_P] * 6 + [_I] * 2 + [_F, _P],
+    "mg_xs_cell": [_P] * 7 + [_I] * 3 + [_F, _P],
     # (pointer array, its length, int array, its length, grid size out, stream)
     **{f"mg_generate_resident_{fmt}": [_P, _I, _P, _I, _P, _P] for fmt in ("bf16", "w8a16", "w8a8")},
 }

@@ -13,8 +13,9 @@ scripts/generate.py:14-95). Per generated token:
 The token loop is a Python loop over eager PyTorch (the JAX package's
 lax.scan). On CUDA it runs the decode kernels and fuses step 1-2 and the
 top-3 into the step (ops/decode_kernel.fused_sample_step for Mamba,
-ops/tdecode_kernel.fused_transformer_sample_step for the Transformer); on
-CPU it runs the plain versions. `generate(resident=True)` runs a Mamba
+ops/tdecode_kernel.fused_transformer_sample_step for the Transformer,
+ops/xdecode_kernel.fused_xlstm_sample_step for the xLSTM); on CPU it runs
+the plain versions. `generate(resident=True)` runs a Mamba
 model's whole loop in one kernel launch instead (ops/generate_kernel). Every
 random draw comes from the caller's torch.Generator, which lives on the
 device of the tensors.
@@ -266,13 +267,13 @@ def sample_tokens_fused_tail(
 # ---------------------------------------------------------------------------
 
 
-_KINDS = ("mamba", "transformer")
+_KINDS = ("mamba", "transformer", "xlstm")
 
 
 def _require_ported(kind: str) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(
-            f"model kind '{kind}' is not yet ported to musicgen_tpu_torch (mamba and transformer only)"
+            f"model kind '{kind}' is not yet ported to musicgen_tpu_torch (mamba, transformer and xlstm)"
         )
 
 
@@ -289,19 +290,18 @@ def make_sampler(model, kind: str, dp: dict | None = None, quant: str = "bf16", 
     `block_len` window (physical slots past block_len + 6 masked with age
     -1); given a pack `dp` from build_transformer_decode_params, the stacked
     bf16 rings and kernel F's step (steady state: prompt_len == block_len ==
-    the model's block_len)."""
+    the model's block_len).
+    xLSTM: the state is the per-block states and the step XLSTMLM.step;
+    given a pack `dp` from build_xlstm_decode_params, the stacked carry
+    (the matrix memory stored in bf16 when `quant` ends in "-sb16") and
+    kernel G's step."""
     _require_ported(kind)
     if kind == "transformer":
         return _transformer_sampler(model, dp, quant, block_len or model.cfg.block_len)
     if dp is None:
-        def prefill(tokens, meta):
-            logits, states = model.prefill(tokens, meta)
-            return logits[:, -1, :], states
-
-        def step(token, states, stream_idx):
-            return model.step(token, states)
-
-        return prefill, step
+        return _plain_sampler(model)
+    if kind == "xlstm":
+        return _xlstm_sampler(model, dp, quant)
 
     from ..ops.decode_kernel import QUANT_MODES, DecodeDims, fused_logits_step, stack_states
 
@@ -346,6 +346,34 @@ def _transformer_sampler(model, tp: dict | None, quant: str, block_len: int):
     return prefill, step
 
 
+def _plain_sampler(model):
+    """A recurrent model's own prefill and step (Mamba, xLSTM)."""
+    def prefill(tokens, meta):
+        logits, states = model.prefill(tokens, meta)
+        return logits[:, -1, :], states
+
+    def step(token, states, stream_idx):
+        return model.step(token, states)
+
+    return prefill, step
+
+
+def _xlstm_sampler(model, wp: dict, quant: str):
+    from ..ops.xdecode_kernel import QUANT_MODES, XDims, fused_xlstm_logits_step, stack_xlstm_states
+
+    state_dtype = torch.bfloat16 if quant.endswith("-sb16") else torch.float32
+    q = QUANT_MODES[quant.removesuffix("-sb16")]
+
+    def prefill(tokens, meta):
+        logits, states = model.prefill(tokens, meta)
+        return logits[:, -1, :], stack_xlstm_states(states, XDims.create(model.cfg, tokens.shape[0]), state_dtype)
+
+    def step(token, carry, stream_idx):
+        return fused_xlstm_logits_step(wp, token, carry, XDims.create(model.cfg, token.shape[0]), q)
+
+    return prefill, step
+
+
 def _transformer_fusable(cfg, prompt_len: int, block_len: int) -> bool:
     """Kernel F is the steady-state (window always full) step: it needs a
     full-window prompt and the model's trained ring size (JAX sampler.py
@@ -354,15 +382,27 @@ def _transformer_fusable(cfg, prompt_len: int, block_len: int) -> bool:
 
 
 def _auto_fused(kind: str, cfg, device: torch.device, prompt_len: int, block_len: int) -> bool:
-    """fused=None's choice, as the JAX package makes it (less its TPU VMEM
-    admission): on an accelerator, the decode kernels for a Mamba model
+    """fused=None's choice. On the card: the decode kernels for a Mamba model
     without residuals (the kernels bake in the reference's no-residual
-    stack) and for a Transformer whose prompt fills its window; the plain
-    step otherwise."""
+    stack), for a Transformer whose prompt fills its window, and for every
+    xLSTM format kernel G takes (bf16, int8w, -sb16); the plain step
+    otherwise, and always on the CPU.
+
+    The Mamba and Transformer rules are the JAX package's, less its TPU VMEM
+    admission. The xLSTM rule is the port's own: the JAX package fuses an
+    xLSTM only for int8 weights or bf16 state storage, on a TPU measurement
+    (its XLA step loop ran near the v5e's HBM roofline in bf16). The port
+    takes the kernel whenever CUDA is present (ROADMAP, "Do not port":
+    ops/dispatch.py), and chip_smoke.py's [9 loop] times both arms in one
+    call so that the rule can change on the card's evidence."""
     if device.type != "cuda":
         return False
     if kind == "mamba":
         return not cfg.residual
+    if kind == "xlstm":
+        from ..ops.xdecode_kernel import fusable
+
+        return fusable(cfg)
     return kind == "transformer" and _transformer_fusable(cfg, prompt_len, block_len)
 
 
@@ -382,16 +422,19 @@ def generate(
     resident: bool = False,
 ) -> torch.Tensor:
     """Conditioned generation (reference scripts/generate.py `generate`).
-    Returns (B, P + num_tokens) streams. kind: "mamba" or "transformer".
+    Returns (B, P + num_tokens) streams. kind: "mamba", "transformer" or
+    "xlstm".
 
     fused=None takes the decode kernels on CUDA for a Mamba model without
-    residuals and for a Transformer whose prompt fills its window
-    (_auto_fused); fused=True takes them on any device (their wrappers run
-    the plain versions on CPU tensors); fused=False takes the model's plain
-    step. A Transformer runs kernel F only when prompt_len == block_len ==
-    its block_len, whatever `fused` says (JAX sampler.py:684-692). quant
-    applies to the decode kernels: "bf16", "int8" (W8A8; a Transformer runs
-    "int8w" for it, the one int8 format of its kernel) or "int8w" (W8A16).
+    residuals, for a Transformer whose prompt fills its window and for an
+    xLSTM (_auto_fused); fused=True takes them on any device (their wrappers
+    run the plain versions on CPU tensors); fused=False takes the model's
+    plain step. A Transformer runs kernel F only when prompt_len == block_len
+    == its block_len, whatever `fused` says (JAX sampler.py:684-692). quant
+    applies to the decode kernels: "bf16", "int8" (W8A8; a Transformer and an
+    xLSTM run "int8w" for it, the one int8 format of their kernels) or
+    "int8w" (W8A16); for an xLSTM also "bf16-sb16" and "int8w-sb16", the
+    mLSTM matrix memory stored in bf16 (f32 math), which no other kind takes.
     resident=True (Mamba, 'combined' mode) runs the whole token loop in one
     kernel launch (ops/generate_kernel) and implies fused; its stochastic
     picks invert the CDF of uniforms drawn from `generator` (same
@@ -399,15 +442,14 @@ def generate(
     Transformer ignores resident and runs the per-token path, as the JAX
     package does."""
     _require_ported(kind)
-    if quant.endswith("-sb16"):
-        raise NotImplementedError(
-            f"quant '{quant}' (bf16 storage of the mLSTM matrix memory, an xLSTM option) "
-            "is not yet ported to musicgen_tpu_torch"
-        )
+    sb16 = quant.endswith("-sb16")
+    if sb16 and kind != "xlstm":
+        raise ValueError(f"quant '{quant}': '-sb16' (bf16 storage of the mLSTM matrix memory) is an xLSTM option")
     from ..ops.decode_kernel import QUANT_MODES
 
-    if quant not in QUANT_MODES:
-        raise ValueError(f"quant must be one of {sorted(QUANT_MODES)}, got {quant!r}")
+    if quant.removesuffix("-sb16") not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {sorted(QUANT_MODES)} (an xLSTM also takes '-sb16' after "
+                         f"'bf16', 'int8' or 'int8w'), got {quant!r}")
     cfg = SamplerConfig(num_tokens=num_tokens, ring_size=max(block_len, 2048), greedy=greedy, mode=mode)
     _require_combined(cfg)
     batch, prompt_len = prompt.shape
@@ -417,6 +459,10 @@ def generate(
         return _generate_transformer(model, prompt, meta, block_len, generator, cfg,
                                      fused and _transformer_fusable(model.cfg, prompt_len, block_len),
                                      "int8w" if quant == "int8" else quant)
+    if kind == "xlstm":
+        base = quant.removesuffix("-sb16")
+        xquant = ("int8w" if base == "int8" else base) + ("-sb16" if sb16 else "")
+        return _generate_xlstm(model, prompt, meta, generator, cfg, fused, xquant)
     if resident:
         fused = True
     dp = None
@@ -460,6 +506,31 @@ def _generate_transformer(model, prompt, meta, block_len: int, generator: torch.
     if fused:
         toks = sample_tokens_fused_tail(tp, init_logits, state, prompt, cfg, generator, dims,
                                         fused_step=fused_step)
+    else:
+        toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
+    return torch.cat([prompt, toks], dim=1)
+
+
+def _generate_xlstm(model, prompt, meta, generator: torch.Generator, cfg: SamplerConfig, fused: bool,
+                    quant: str) -> torch.Tensor:
+    """The xLSTM's token loop: kernel G's step with the sampler tail (fused;
+    `quant` "bf16" or "int8w", with "-sb16" for the bf16-stored matrix
+    memory), or XLSTMLM.step's loop."""
+    wp = None
+    if fused:
+        from ..ops.xdecode_kernel import QUANT_MODES, XDims, build_xlstm_decode_params, fused_xlstm_sample_step
+
+        wp = build_xlstm_decode_params(model, prompt.shape[0], quant.removesuffix("-sb16"))
+        dims = XDims.create(model.cfg, prompt.shape[0])
+        q = QUANT_MODES[quant.removesuffix("-sb16")]
+
+        def fused_step(pack, token, carry, hist, bucket, stream_idx):
+            return fused_xlstm_sample_step(pack, token, carry, hist, bucket, dims, q)
+
+    prefill, step = make_sampler(model, "xlstm", wp, quant)
+    init_logits, state = prefill(prompt, meta)
+    if fused:
+        toks = sample_tokens_fused_tail(wp, init_logits, state, prompt, cfg, generator, dims, fused_step=fused_step)
     else:
         toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
     return torch.cat([prompt, toks], dim=1)

@@ -15,9 +15,9 @@ import torch
 import musicgen_tpu_torch
 from musicgen_tpu_torch.cli import generate as cli
 from musicgen_tpu_torch.cli import train as train_cli
-from musicgen_tpu_torch.config import MambaConfig, TransformerConfig
+from musicgen_tpu_torch.config import MambaConfig, TransformerConfig, XLSTMConfig
 from musicgen_tpu_torch.midi import MidiNote, encode, extract_midi
-from musicgen_tpu_torch.models import transformer
+from musicgen_tpu_torch.models import transformer, xlstm
 from musicgen_tpu_torch.models.mamba import empty_model, init_weights_
 from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
 
@@ -51,6 +51,8 @@ def workdir(tmp_path_factory):
     tcfg = TransformerConfig(n_embd=64, n_heads=2, n_layer=2, block_len=BLOCK, metadata_vocab_size=16)
     tmodel = transformer.init_weights_(transformer.empty_model(tcfg, "cpu"), 0)
     torch.save(tmodel.state_dict(), root / "transformer.pth")
+    xcfg = XLSTMConfig(embedding_dim=64, num_blocks=3, slstm_at=(1,), metadata_vocab_size=16)
+    torch.save(xlstm.init_weights_(xlstm.empty_model(xcfg, "cpu"), 0).state_dict(), root / "xlstm.pth")
     return root
 
 
@@ -94,6 +96,24 @@ def test_cli_transformer_writes_grammatical_midi(workdir, tmp_path, extra):
     _check_streams(streams, tmp_path, "transformer")
 
 
+@pytest.mark.parametrize("extra", [["--fused-decode", "auto"], ["--fused-decode", "off", "--greedy"],
+                                   ["--fused-decode", "sb16"], ["--fused-decode", "int8w-sb16", "--greedy"],
+                                   ["--fused-decode", "int8"]], ids=["auto", "off_greedy", "sb16", "int8w_sb16", "int8"])
+def test_cli_xlstm_writes_grammatical_midi(workdir, tmp_path, extra):
+    """--model xlstm: the plain XLSTMLM.step (auto and off on the CPU), or
+    kernel G's plain versions with the matrix memory stored in bf16 (sb16,
+    int8w-sb16) or on the W8A16 pack (int8)."""
+    streams = cli.main(_argv(workdir, tmp_path, *extra, model="xlstm"))
+    _check_streams(streams, tmp_path, "xlstm")
+
+
+def test_cli_sb16_is_xlstm_only(workdir, tmp_path):
+    with pytest.raises(ValueError, match="--model xlstm only"):
+        cli.main(_argv(workdir, tmp_path, "--fused-decode", "sb16"))
+    with pytest.raises(ValueError, match="not a --model xlstm"):
+        cli.main(_argv(workdir, tmp_path, "--ckpt", str(workdir / "model.pth"), model="xlstm"))
+
+
 def test_cli_device_cuda_without_a_card_raises(workdir, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -110,8 +130,11 @@ def test_cli_greedy_is_deterministic(workdir, tmp_path):
     np.testing.assert_array_equal(a["Bach"], b["Bach"])
 
 
-@pytest.mark.parametrize("extra", [["--model", "xlstm"], ["--fused-decode", "int8w-gptq"], ["--fused-decode", "sb16"]])
+@pytest.mark.parametrize("extra", [["--fused-decode", "int8w-gptq", "--model", "xlstm"],
+                                   ["--fused-decode", "int8w-gptq"],
+                                   ["--fused-decode", "int8w-gptq", "--model", "transformer"]])
 def test_cli_unported_options_raise(workdir, tmp_path, extra):
+    """GPTQ calibration is not ported, for any family."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(_argv(workdir, tmp_path) + extra)
 
@@ -174,6 +197,7 @@ def test_package_never_imports_jax():
     modules = [m.name for m in pkgutil.walk_packages(musicgen_tpu_torch.__path__, "musicgen_tpu_torch.")]
     assert "musicgen_tpu_torch.ops.decode_kernel" in modules and "musicgen_tpu_torch.cli.generate" in modules
     assert "musicgen_tpu_torch.train.trainer" in modules and "musicgen_tpu_torch.cli.train" in modules
+    assert "musicgen_tpu_torch.ops.xdecode_kernel" in modules and "musicgen_tpu_torch.ops.slstm_kernel" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -191,6 +215,7 @@ def test_package_never_imports_the_jax_package():
     modules = [m.name for m in pkgutil.walk_packages(musicgen_tpu_torch.__path__, "musicgen_tpu_torch.")]
     assert "musicgen_tpu_torch.midi.codec" in modules and "musicgen_tpu_torch.ops.tdecode_kernel" in modules
     assert "musicgen_tpu_torch.data.augment" in modules and "musicgen_tpu_torch.train.loss" in modules
+    assert "musicgen_tpu_torch.models.xlstm" in modules and "musicgen_tpu_torch.ops.mlstm" in modules
     code = (
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

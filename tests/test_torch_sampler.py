@@ -136,9 +136,12 @@ def test_unported_options_raise(models):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.generate(port, "mamba", *args, mode="many")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ts.generate(port, "mamba", *args, quant="bf16-sb16")
+        ts.generate(port, "xlstm", *args, mode="top5")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ts.generate(port, "xlstm", *args)
+        ts.generate(port, "classifier", *args)
+    # bf16 storage of the mLSTM matrix memory is ported, for an xLSTM only.
+    with pytest.raises(ValueError, match="xLSTM option"):
+        ts.generate(port, "mamba", *args, quant="bf16-sb16")
 
 
 def test_auto_fused_follows_the_jax_rule():
@@ -146,9 +149,11 @@ def test_auto_fused_follows_the_jax_rule():
     model without residuals and for a Transformer whose prompt fills its
     window (musicgen_tpu/sample/sampler.py generate, less the TPU VMEM
     admission); a residual=True model, a short prompt or another window on
-    CUDA takes the plain step. Decided without a card: the choice reads only
-    the device type."""
-    from musicgen_tpu_torch.config import TransformerConfig
+    CUDA takes the plain step. An xLSTM takes kernel G on CUDA in every
+    format, the port's own rule where the JAX package fuses only int8 or
+    -sb16 (sampler._auto_fused). Decided without a card: the choice reads
+    only the device type."""
+    from musicgen_tpu_torch.config import TransformerConfig, XLSTMConfig
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert ts._auto_fused("mamba", PortMambaConfig(), cuda, 64, 64)
@@ -159,7 +164,8 @@ def test_auto_fused_follows_the_jax_rule():
     assert not ts._auto_fused("transformer", tcfg, cuda, prompt_len=40, block_len=64)  # short prompt
     assert not ts._auto_fused("transformer", tcfg, cuda, prompt_len=32, block_len=32)  # another window
     assert not ts._auto_fused("transformer", tcfg, cpu, prompt_len=64, block_len=64)
-    assert not ts._auto_fused("xlstm", tcfg, cuda, prompt_len=64, block_len=64)
+    assert ts._auto_fused("xlstm", XLSTMConfig(), cuda, prompt_len=64, block_len=64)
+    assert not ts._auto_fused("xlstm", XLSTMConfig(), cpu, prompt_len=64, block_len=64)
 
 
 @pytest.mark.parametrize("opts", [dict(resident=True), dict(resident=True, quant="int8w", greedy=True),
