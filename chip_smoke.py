@@ -71,8 +71,20 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      tok/s/seq of the G chain in each format beside the plain step's, the
      device time of one step in a CUDA graph, bytes per token and the share of
      the HBM roofline.
-`python3 chip_smoke.py --only 9` runs phases 1, 2 and 9 alone (bring-up of a
-slice; the full run takes no arguments).
+ 10. the two Hopper probes: [10 probe_mm] kernel I (the bf16 weight-streaming
+     product) against its plain version at (8, 1024) x (1024, 4352), one
+     chain step's exact launches, and [10 hw] the entry point
+     `experiments.hw_characterize.run` (ten products a step through kernel
+     I, the port's decode GEMV mg_x_gemv, the f32 matmul and the bf16
+     library call; GB/s of weights); [10 ablate_stream], [10 ablate_gemv],
+     [10 ablate_nossd] kernel J's launches against their plain versions at
+     full width (ablate_stream's XOR of every weight word against the
+     host's), [10 variant <mode>] one step of V_dma, V_mm, V_nossd and V_full
+     against its plain chain with exact launch counts (11 / 21 / 31 / 31),
+     and [10 ablate] the entry point `experiments.kernel_ablate.run` and the
+     split of kernel B's device step.
+`python3 chip_smoke.py --only 9` runs phases 1, 2 and 9 alone, `--only 10`
+phases 1, 2 and 10 (bring-up of a slice; the full run takes no arguments).
 The last lines are one JSON object with every kernel ({"kernels": [...]}: its
 launches on the main path, error, time, plain time, bound and library time)
 and {"ok": true, "device": {...}}.
@@ -217,9 +229,13 @@ KERNEL_INFO = {
        for name in ("xm_up", "xm_prep", "xm_gates", "xm_memory", "xm_out", "xm_down", "xs_prep", "xs_in", "xs_cell",
                     "xs_ffn_up", "xs_ffn_down", "xm_memory_sb16", "xm_up_w8a16", "xm_down_w8a16", "xs_in_w8a16",
                     "xs_ffn_up_w8a16", "xs_ffn_down_w8a16")},
+    "probe_mm": ("musicgen_tpu_torch/csrc/probe_mm.cu", "experiments/hw_characterize.py:33"),
+    **{name: ("musicgen_tpu_torch/csrc/decode_ablate.cu", "experiments/kernel_ablate.py:54")
+       for name in ("ablate_stream", "ablate_gemv", "ablate_nossd")},
 }
-# The phases of --only 9: the kernels a report of phase 9 holds.
+# The phases of --only 9 and --only 10: the kernels a report of that phase holds.
 X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("slstm_scan.cu", "xlstm_decode.cu"))]
+PROBE_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("probe_mm.cu", "decode_ablate.cu"))]
 
 
 class SmokeFailure(RuntimeError):
@@ -2083,11 +2099,168 @@ def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict) 
     phase_x_loop(torch, xctx, packs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the two Hopper probes (kernel I, the bf16 weight-streaming
+# product; kernel J, the ablated Mamba decode step)
+# ---------------------------------------------------------------------------
+
+
+def kernel_check(torch, tag: str, name: str, outs, refs, tol: float, kernel, plain, cost: dict, report: dict,
+                 library=None, note: str = "") -> None:
+    """A kernel against its plain version on the same inputs, with its
+    times (host-paced, from a CUDA graph), its bound and the library call's
+    time; the numbers go into report[name]."""
+    errs = [rel_err(a, b) for a, b in zip(outs, refs)]
+    worst_abs, worst_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    ms, dev_ms, plain_ms = cuda_ms(torch, kernel), graph_ms(torch, kernel), cuda_ms(torch, plain)
+    lib_ms = None if library is None else cuda_ms(torch, library)
+    say(f"[{tag} {name}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); kernel {ms:.4f} ms (device, "
+        f"CUDA graph{note}: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
+        f"({cost['bound_by']}), library {fmt_ms(lib_ms)}")
+    need(all(bool(torch.isfinite(a).all()) for a in outs), f"{name}: non-finite output")
+    need(worst_rel <= tol, f"{name} disagrees with its plain version")
+    report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **cost}
+
+
+def phase_probe_mm(torch, report: dict) -> None:
+    """[10 probe_mm] kernel I against its plain version at the probe's shape
+    (one W, whose 8.9 MB then sit in L2 when timed alone), one chain step's
+    exact launches; [10 hw] the entry point hw_characterize.run at the JAX
+    script's size: the ten-product chain through kernel I, the port's decode
+    GEMV (mg_x_gemv), the f32 matmul and the bf16 library call, host-paced
+    and from a CUDA graph, in GB/s of weights."""
+    from musicgen_tpu_torch.experiments import hw_characterize as hw
+    from musicgen_tpu_torch.ops import probe_kernel as pk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    w = torch.from_numpy(hw.make_weights(1, hw.K, hw.N, SEED)[0]).to(DEVICE).t().contiguous().to(torch.bfloat16)
+    x = torch.randn(hw.M, hw.K, device=DEVICE, generator=gen)
+    y, yp = pk.probe_mm(x, w), pk.probe_mm_plain(x, w)
+    torch.cuda.synchronize()
+    cost = bound(nbytes(w, x, y), 2.0 * hw.M * hw.K * hw.N, BF16_FLOPS)
+    kernel_check(torch, "10", "probe_mm", [y], [yp], TOL_F32, lambda: pk.probe_mm(x, w),
+                 lambda: pk.probe_mm_plain(x, w), cost, report,
+                 library=lambda: torch.nn.functional.linear(x.to(torch.bfloat16), w), note=", W in L2")
+    ws = torch.from_numpy(hw.make_weights(hw.N_MATS, hw.K, hw.N, SEED)).to(DEVICE).to(torch.bfloat16)
+    ws = ws.transpose(1, 2).contiguous()
+    pk.LAUNCHES.clear()
+    hw.chain(torch.ones(hw.M, hw.K, device=DEVICE), ws, pk.probe_mm)
+    torch.cuda.synchronize()
+    need(pk.LAUNCHES["probe_mm"] == hw.N_MATS, f"one chain step launched kernel I {pk.LAUNCHES['probe_mm']} times")
+    del ws
+
+    pk.LAUNCHES.clear()
+    out = hw.run(DEVICE)
+    report["probe_mm"]["launches"] = pk.LAUNCHES["probe_mm"]
+    need(out["chain_max_abs_err"] <= TOL_F32, "kernel I's chain disagrees with its plain version's")
+    need(all(out[c]["graph_us_step"] is not None for c in ("probe_mm", "decode_gemv")), "no device time of a chain")
+    r, g = out["probe_mm"], out["decode_gemv"]
+    say(f"[10 hw] {out['n_mats']} products a step, {out['bytes_step']:,} B of bf16 weights (bound "
+        f"{out['bound_us_step']:.2f} us): kernel I {r['graph_us_step']:.2f} us a step in a CUDA graph = "
+        f"{r['gbs']:.1f} GB/s, the decode GEMV (mg_x_gemv) {g['graph_us_step']:.2f} us = {g['gbs']:.1f} GB/s, "
+        f"f32 matmul {out['f32_matmul']['gbs']:.1f} GB/s of 2x the bytes, bf16 library "
+        f"{out['library_bf16']['gbs']:.1f} GB/s; one launch on one W (L2), us at M = 1 / 2 / {out['m']}: kernel I "
+        f"{' / '.join(f'{t:.2f}' for t in r['launch_l2_us'].values())}, decode GEMV "
+        f"{' / '.join(f'{t:.2f}' for t in g['launch_l2_us'].values())}; kernel I launches {pk.LAUNCHES['probe_mm']}")
+
+
+def phase_ablate(torch, report: dict) -> None:
+    """[10 <kernel>] each new kernel of J against its plain version on the
+    first layer's inputs at full width, V_dma's weight checksum against the
+    host's XOR of the same words; [10 variant <mode>] one step of each
+    variant against its chain of plain versions from the prefill state, with
+    exact launch counts; [10 ablate] the entry point kernel_ablate.run at the
+    JAX script's size (500 steps a variant, host-paced and from a CUDA graph)
+    and the split of kernel B's device step."""
+    import numpy as np
+
+    from musicgen_tpu_torch.config import MambaConfig
+    from musicgen_tpu_torch.experiments import kernel_ablate as ka
+    from musicgen_tpu_torch.ops import ablate_kernel as ak
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+
+    ctx = ka.setup(torch.device(DEVICE), MambaConfig(), BATCH, ka.PROMPT, SEED)
+    dp, dims, token, carry0 = ctx["dp"], ctx["dims"], ctx["token"], ctx["carry"]
+    b, di = BATCH, dims.d_inner
+    x = torch.nn.functional.embedding(token, dp["embed"])
+    w_in, w_out = dp["w_in"][0], dp["w_out"][0]
+    conv0, ssm0 = carry0[0][0], carry0[1][0]
+
+    sink = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    cs_k, ss_k, cs_p, ss_p = conv0.clone(), ssm0.clone(), conv0.clone(), ssm0.clone()
+    xs_k = ak.stream_layer(x, w_in, w_out, cs_k, ss_k, sink=sink)
+    xs_p = ak.stream_layer_plain(x, w_in, w_out, cs_p, ss_p)
+    torch.cuda.synchronize()
+    words = np.concatenate([t.view(torch.int32).cpu().numpy().ravel() for t in (w_in, w_out)])
+    want = int(np.bitwise_xor.reduce(words))
+    say(f"[10 ablate_stream] XOR of the {words.size * 4:,} B of weights the kernel read "
+        f"{int(sink) & 0xffffffff:#010x}, on the host {want & 0xffffffff:#010x}")
+    need(int(sink) == want, "ablate_stream did not read every weight byte")
+    need(torch.equal(cs_k, conv0) and torch.equal(ss_k, ssm0), "ablate_stream changed the states it passes through")
+    kernel_check(torch, "10", "ablate_stream", [xs_k, cs_k, ss_k], [xs_p, cs_p, ss_p], TOL_F32,
+                 lambda: ak.stream_layer(x, w_in, w_out, cs_k, ss_k),
+                 lambda: ak.stream_layer_plain(x, w_in, w_out, cs_p, ss_p),
+                 bound(nbytes(w_in, w_out, x, xs_k) + 2 * nbytes(cs_k, ss_k), 0.0, F32_FLOPS), report)
+
+    z_k, r_k = ak.gemv(x, w_in, di)
+    z_p, r_p = ak.gemv_plain(x, w_in, di)
+    torch.cuda.synchronize()
+    kernel_check(torch, "10", "ablate_gemv", [z_k, r_k], [z_p, r_p], TOL_F32, lambda: ak.gemv(x, w_in, di),
+                 lambda: ak.gemv_plain(x, w_in, di), gemv_cost(b, w_in), report,
+                 library=lambda: torch.nn.functional.linear(x.to(torch.bfloat16), w_in), note=", W in L2")
+    head_k, head_p = ak.gemv(x, dp["lm_w"]), ak.gemv_plain(x, dp["lm_w"])
+    torch.cuda.synchronize()
+    err = rel_err(head_k, head_p)[1]
+    say(f"[10 ablate_gemv head] (B, {dims.padded_vocab}) rel {err:.3e} (tol rel {TOL_F32})")
+    need(err <= TOL_F32, "ablate_gemv (the head) disagrees with its plain version")
+
+    zx = dk.in_proj_conv_plain(x, w_in, dp["conv_w"][0], dp["conv_b"][0], dp["dt_bias"][0], conv0.clone(), dims)
+    ss_k, ss_p = ssm0.clone(), ssm0.clone()
+    g_k, g_p = ak.nossd(zx, dp["d_h"][0], ss_k, dims), ak.nossd_plain(zx, dp["d_h"][0], ss_p, dims)
+    torch.cuda.synchronize()
+    kernel_check(torch, "10", "ablate_nossd", [g_k, ss_k], [g_p, ss_p], TOL_F32,
+                 lambda: ak.nossd(zx, dp["d_h"][0], ss_k, dims), lambda: ak.nossd_plain(zx, dp["d_h"][0], ss_p, dims),
+                 bound(nbytes(zx, g_k) + 2 * nbytes(ss_k), 6.0 * g_k.numel() + ss_k.numel(), F32_FLOPS), report)
+
+    for mode in ka.MODES:
+        ck, cp = clone(carry0), clone(carry0)
+        before = ka.counts()
+        lk = dk.decode_logits(dp, token, ck, dims, ops=ak.VARIANTS[mode])
+        torch.cuda.synchronize()
+        launches = dict(ka.counts() - before)
+        lp = dk.decode_logits(dp, token, cp, dims, ops=ak.PLAIN_VARIANTS[mode])
+        e_l, e_s = rel_err(lk, lp)[1], max(rel_err(ck[0], cp[0])[1], rel_err(ck[1], cp[1])[1])
+        say(f"[10 variant {mode}] one step from the prefill state against its plain chain: logits rel {e_l:.3e}, "
+            f"states rel {e_s:.3e} (tol {TOL_STEPS}); {sum(launches.values())} launches {launches}")
+        need(bool(torch.isfinite(lk).all()), f"V_{mode}: non-finite logits")
+        need(e_l <= TOL_STEPS and e_s <= TOL_STEPS, f"V_{mode} disagrees with its plain chain")
+        need(launches == ak.step_launches(mode, dims.n_layers), f"V_{mode}: launches {launches}")
+
+    ak.LAUNCHES.clear()
+    dk.LAUNCHES.clear()
+    out = ka.run(DEVICE)
+    for name in ("ablate_stream", "ablate_gemv", "ablate_nossd"):
+        report[name]["launches"] = ak.LAUNCHES[name]
+    s = out["split"]
+    need(s is not None, "no device time of the variants")
+    say(f"[10 ablate] device step (CUDA graph): V_dma {out['dma']['graph_us_step']:.2f}, V_mm "
+        f"{out['mm']['graph_us_step']:.2f}, V_nossd {out['nossd']['graph_us_step']:.2f}, V_full "
+        f"{out['full']['graph_us_step']:.2f} us (bound {out['full']['bound_us_step']:.2f} us); split: streaming "
+        f"{s['streaming']:.2f}, products {s['products']:.2f}, epilogues and conv {s['epilogues_conv']:.2f}, SSD "
+        f"{s['ssd']:.2f} us; launches {dict(ak.LAUNCHES)}")
+
+
+def phase_probes(torch, report: dict) -> None:
+    phase_probe_mm(torch, report)
+    torch.cuda.empty_cache()
+    phase_ablate(torch, report)
+
+
 def main() -> int:
     t_start = time.perf_counter()
-    only_xlstm = sys.argv[1:] == ["--only", "9"]
-    if sys.argv[1:] and not only_xlstm:
-        print("usage: python3 chip_smoke.py [--only 9]", file=sys.stderr)
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
+    if sys.argv[1:] and only not in ("9", "10"):
+        print("usage: python3 chip_smoke.py [--only 9|10]", file=sys.stderr)
         return 2
     import torch
 
@@ -2103,11 +2276,14 @@ def main() -> int:
     phase_build()
     report: dict = {}
     torch.set_grad_enabled(False)
-    if only_xlstm:
+    if only == "9":
         with tempfile.TemporaryDirectory() as tmp:
             root = Path(tmp)
             phase_xlstm(torch, *synth_corpus(root), root, report)
         return finish(torch, card, report, X_KERNELS, t_start)
+    if only == "10":
+        phase_probes(torch, report)
+        return finish(torch, card, report, PROBE_KERNELS, t_start)
     phase_ssd(torch, report)
 
     from musicgen_tpu_torch.config import MambaConfig
@@ -2146,6 +2322,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         phase_xlstm(torch, corpus, meta_path, root, report)
+    torch.cuda.empty_cache()
+    phase_probes(torch, report)
     return finish(torch, card, report, list(KERNEL_INFO), t_start)
 
 

@@ -6,8 +6,11 @@ musicgen_tpu/cli/train.py, single device).
 
 Without --resume the family's full-width default config is built and
 initialised from --seed (init_weights_); --resume takes a checkpoint
-directory written by this CLI (weights, Adam state and step) or a bare
-`.pth` in the reference layout, whose shapes give the model's config.
+directory written by this CLI (its `model.pth`) or a bare `.pth` in the
+reference layout, whose shapes give the model's config. Resuming restores
+the weights only: Adam starts fresh at step 0, as the JAX CLI does
+(musicgen_tpu/cli/train.py keeps only the restored params). The directory's
+`optimizer.pth` is written but not read back.
 Training runs on the GPU (--device cuda, the default; it raises without one):
 a Transformer's attention through kernels D (with its LSE output) and E with
 --attention auto or flash, the plain f32 attention with xla; a Mamba model
@@ -82,13 +85,14 @@ def _device(name: str) -> torch.device:
 
 
 def build_model(args: argparse.Namespace, device: torch.device):
-    """(model, the checkpoint directory to restore the optimizer from or
-    None). The config comes from --resume's shapes, else the family's
-    default; --attention and --remat apply to either."""
-    sd, resume_dir = None, None
+    """The model, with --resume's weights (a checkpoint directory's
+    model.pth, or a bare .pth) or initialised from --seed. The config comes
+    from --resume's shapes, else the family's default; --attention and
+    --remat apply to either."""
+    sd = None
     if args.resume:
-        resume_dir = args.resume if os.path.isdir(args.resume) else None
-        sd = load_checkpoint(os.path.join(args.resume, T.MODEL_FILE) if resume_dir else args.resume)
+        is_dir = os.path.isdir(args.resume)
+        sd = load_checkpoint(os.path.join(args.resume, T.MODEL_FILE) if is_dir else args.resume)
         cfg = config_from_state_dict(sd)
         held = family(cfg)
         if held != args.model:
@@ -104,7 +108,7 @@ def build_model(args: argparse.Namespace, device: torch.device):
         module.init_weights_(model, args.seed)
     else:
         model.load_state_dict(sd, strict=True)
-    return model, resume_dir
+    return model
 
 
 def main(argv: Optional[List[str]] = None) -> T.TrainState:
@@ -117,7 +121,7 @@ def main(argv: Optional[List[str]] = None) -> T.TrainState:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not yet ported to musicgen_tpu_torch ({what})")
     device = _device(args.device)
     torch.manual_seed(args.seed)  # nn.Dropout's draws, on every device
-    model, resume_dir = build_model(args, device)
+    model = build_model(args, device)
 
     defaults = TrainValues()
     values = dataclasses.replace(  # a Transformer's block defaults to its own (its rel table's rows)
@@ -129,9 +133,7 @@ def main(argv: Optional[List[str]] = None) -> T.TrainState:
                                           seed=args.seed)
     train_iter, test_iter = make_loaders(dataset, values, seed=args.seed)
 
-    state = T.TrainState(model, T.make_optimizer(model, values))
-    if resume_dir:
-        T.load_checkpoint(resume_dir, state)
+    state = T.TrainState(model, T.make_optimizer(model, values))  # fresh Adam at step 0, resumed or not
     generator = torch.Generator(device=device).manual_seed(args.seed)  # augmentation's draws
     return T.train_lm(
         state, train_iter, test_iter, values,

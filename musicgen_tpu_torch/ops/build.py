@@ -57,6 +57,10 @@ SIGNATURES = {
     "mg_xm_out": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mg_xs_prep": [_P] * 6 + [_I] * 2 + [_F, _P],
     "mg_xs_cell": [_P] * 7 + [_I] * 3 + [_F, _P],
+    "mg_probe_mm": [_P] * 3 + [_I] * 3 + [_P],
+    "mg_ablate_gemv": [_P] * 4 + [_I] * 4 + [_P],
+    "mg_ablate_stream": [_P] * 6 + [_I] * 6 + [_F, _P, _P],
+    "mg_ablate_nossd": [_P] * 4 + [_I] * 5 + [_F, _P],
     # (pointer array, its length, int array, its length, grid size out, stream)
     **{f"mg_generate_resident_{fmt}": [_P, _I, _P, _I, _P, _P] for fmt in ("bf16", "w8a16", "w8a8")},
 }

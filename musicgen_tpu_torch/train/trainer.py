@@ -169,7 +169,9 @@ def save_checkpoint(directory: str, state: TrainState, loss: float, keep: int = 
 
 def load_checkpoint(path: str, state: TrainState) -> TrainState:
     """Restore a checkpoint directory into `state` (weights, and the Adam
-    state and step where the directory holds them)."""
+    state and step where the directory holds them), as the JAX trainer's
+    load_checkpoint restores a whole TrainState. `cli.train --resume` does
+    not call it: like the JAX CLI it keeps the weights only."""
     device = next(state.model.parameters()).device
     state.model.load_state_dict(torch.load(os.path.join(path, MODEL_FILE), map_location=device, weights_only=True))
     opt = os.path.join(path, OPTIMIZER_FILE)

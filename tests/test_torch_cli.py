@@ -156,7 +156,7 @@ def train_corpus(workdir, tmp_path_factory):
 def test_cli_train_then_generate(workdir, train_corpus, tmp_path, model):
     """--resume a reference-layout .pth, train 2 epochs, then generate from
     the checkpoint directory's model.pth; resuming from the directory
-    restores the Adam state and the step."""
+    restores the weights only (Adam restarts at step 0, as in the JAX CLI)."""
     ckpt = "model.pth" if model == "mamba" else "transformer.pth"
     argv = ["--model", model, "--data", str(train_corpus), "--metadata", str(workdir / "metadata.json"),
             "--block-len", str(BLOCK), "--device", "cpu", "--ckpt-dir", str(tmp_path / "ckpt"),
@@ -170,7 +170,42 @@ def test_cli_train_then_generate(workdir, train_corpus, tmp_path, model):
     streams = cli.main(_argv(workdir, tmp_path / "gen", "--greedy", "--ckpt", str(saved / "model.pth"), model=model))
     _check_streams(streams, tmp_path / "gen", model)
     again = train_cli.main(argv + ["--resume", str(saved), "--epochs", "1"])
-    assert again.step == 6
+    assert again.step == 2  # one epoch of 2 steps from a fresh step 0
+
+
+def test_cli_train_resume_restores_weights_only(workdir, train_corpus, tmp_path, monkeypatch):
+    """`--resume <dir>` loads <dir>/model.pth and nothing else: the state
+    handed to the training loop holds the saved weights, an optimizer with
+    no state and step 0, and the first logged step is 1
+    (musicgen_tpu/cli/train.py keeps only the restored params)."""
+    from musicgen_tpu_torch.config import TrainValues
+    from musicgen_tpu_torch.train import trainer as T
+
+    argv = ["--model", "mamba", "--data", str(train_corpus), "--metadata", str(workdir / "metadata.json"),
+            "--block-len", str(BLOCK), "--device", "cpu", "--ckpt-dir", str(tmp_path / "ckpt"),
+            "--log", str(tmp_path / "log.json")]
+    trained = train_cli.main(argv + ["--resume", str(workdir / "model.pth"), "--epochs", "1"])
+    assert trained.step == 2 and trained.optimizer.state
+    (saved,) = sorted((tmp_path / "ckpt").iterdir())
+    assert (saved / "optimizer.pth").exists()
+    want = torch.load(saved / "model.pth", weights_only=True)
+
+    seen = {}
+    real_train_lm = T.train_lm
+
+    def spy(state, *args, **kwargs):
+        sd = state.model.state_dict()
+        seen.update(step=state.step, opt_state=dict(state.optimizer.state),
+                    equal=sorted(sd) == sorted(want) and all(torch.equal(sd[k], want[k]) for k in want))
+        return real_train_lm(state, *args, **kwargs)
+
+    monkeypatch.setattr(train_cli.T, "train_lm", spy)
+    monkeypatch.setattr(train_cli, "TrainValues", lambda: TrainValues(eval_interval=1))
+    log = tmp_path / "again.json"
+    again = train_cli.main(argv[:-1] + [str(log), "--resume", str(saved), "--epochs", "1"])
+    assert seen == {"step": 0, "opt_state": {}, "equal": True}
+    steps = [e["Step"] for e in json.loads(log.read_text()) if "Step" in e]
+    assert steps == [1, 2] and again.step == 2
 
 
 @pytest.mark.parametrize("extra", [["--model", "xlstm"], ["--bf16"], ["--parallel"], ["--tp", "2"], ["--sp", "2"],
@@ -198,6 +233,7 @@ def test_package_never_imports_jax():
     assert "musicgen_tpu_torch.ops.decode_kernel" in modules and "musicgen_tpu_torch.cli.generate" in modules
     assert "musicgen_tpu_torch.train.trainer" in modules and "musicgen_tpu_torch.cli.train" in modules
     assert "musicgen_tpu_torch.ops.xdecode_kernel" in modules and "musicgen_tpu_torch.ops.slstm_kernel" in modules
+    assert "musicgen_tpu_torch.experiments.hw_characterize" in modules and "musicgen_tpu_torch.ops.probe_kernel" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -211,16 +247,18 @@ def test_package_never_imports_jax():
 def test_package_never_imports_the_jax_package():
     """Import every module of the port and chip_smoke.py in a fresh
     interpreter: no module named musicgen_tpu or musicgen_tpu.* may be
-    loaded (the port keeps its own copies of config, midi and interop)."""
+    loaded (the port keeps its own copies of config, midi and interop), nor
+    the JAX package's probe scripts under experiments/."""
     modules = [m.name for m in pkgutil.walk_packages(musicgen_tpu_torch.__path__, "musicgen_tpu_torch.")]
     assert "musicgen_tpu_torch.midi.codec" in modules and "musicgen_tpu_torch.ops.tdecode_kernel" in modules
     assert "musicgen_tpu_torch.data.augment" in modules and "musicgen_tpu_torch.train.loss" in modules
     assert "musicgen_tpu_torch.models.xlstm" in modules and "musicgen_tpu_torch.ops.mlstm" in modules
+    assert "musicgen_tpu_torch.experiments.kernel_ablate" in modules and "musicgen_tpu_torch.ops.ablate_kernel" in modules
     code = (
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
-        "bad = sorted(m for m in sys.modules if m == 'musicgen_tpu' or m.startswith('musicgen_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('musicgen_tpu', 'experiments'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
