@@ -85,6 +85,12 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      split of kernel B's device step.
 `python3 chip_smoke.py --only 9` runs phases 1, 2 and 9 alone, `--only 10`
 phases 1, 2 and 10 (bring-up of a slice; the full run takes no arguments).
+`--only int8` runs phases 1 and 2 and every row that launches the int8
+GEMVs (decode_ops.cuh gemv_team_int8): [4q] and [4q steps_*], [6 resident],
+[6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
+[7 tdecode] and [7 cli int8w] in W8A16, [9 prefill], [9 xdecode] and the
+[9 cli] runs in W8A16; its kernels line holds the launches of those CLI
+runs, each counted from zero, as the full run does.
 The last lines are one JSON object with every kernel ({"kernels": [...]}: its
 launches on the main path, error, time, plain time, bound and library time)
 and {"ok": true, "device": {...}}.
@@ -103,6 +109,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -236,6 +243,7 @@ KERNEL_INFO = {
 # The phases of --only 9 and --only 10: the kernels a report of that phase holds.
 X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("slstm_scan.cu", "xlstm_decode.cu"))]
 PROBE_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("probe_mm.cu", "decode_ablate.cu"))]
+INT8_KERNELS = [name for name in KERNEL_INFO if name.endswith(("_w8a16", "_w8a8"))]
 
 
 class SmokeFailure(RuntimeError):
@@ -345,11 +353,30 @@ def bf16_weights(torch, w, w_s=None):
     return (w.float() * w_s.repeat_interleave(w.shape[1] // w_s.shape[0], dim=0).t()).to(torch.bfloat16)
 
 
-def linear_ms(torch, x, w_bf16) -> float:
-    """Time of one F.linear on bf16 activations and weights (the library
-    call computing a GEMV's product)."""
+class LibTime(NamedTuple):
+    """The library call computing a kernel's function on its inputs: its
+    name, host-paced ms and device ms from a CUDA graph (as the kernels'
+    graph times); ms is None where there is no such call."""
+    name: str
+    ms: float | None
+    graph: float | None
+
+    def text(self) -> str:
+        return "library none" if self.ms is None else f"{self.name} {self.ms:.4f} ms (CUDA graph: {fmt_ms(self.graph)})"
+
+
+NO_LIBRARY = LibTime("none", None, None)
+
+
+def library_time(torch, name: str, fn) -> LibTime:
+    return LibTime(name, cuda_ms(torch, fn), graph_ms(torch, fn))
+
+
+def linear_time(torch, x, w_bf16) -> LibTime:
+    """F.linear on bf16 activations and weights, the library call computing
+    a GEMV's product."""
     xb = x.to(torch.bfloat16)
-    return cuda_ms(torch, lambda: torch.nn.functional.linear(xb, w_bf16))
+    return library_time(torch, "F.linear", lambda: torch.nn.functional.linear(xb, w_bf16))
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +395,30 @@ def phase_device(torch) -> str:
     return card
 
 
+def ptxas_usage(text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers and barriers, stack frame and spills) of each entry
+    function in the output of `nvcc -Xptxas -v`, the names demangled where
+    c++filt is on the path."""
+    rows, fn, frame = [], None, ""
+    for ln in text.splitlines():
+        if "Function properties for " in ln:
+            fn, frame = ln.split("Function properties for ", 1)[1].strip(), ""
+        elif fn and "spill stores" in ln:
+            frame = ln.strip()
+        elif fn and "Used " in ln and " registers" in ln:
+            rows.append((fn, ln.split("Used ", 1)[1].strip(), frame))
+            fn = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = []
+    if len(names) == len(rows):
+        names = [n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ") for n in names]
+        rows = [(n, u, f) for n, (_, u, f) in zip(names, rows)]
+    return rows
+
+
 def phase_build() -> float:
     from musicgen_tpu_torch.ops import build
 
@@ -375,10 +426,11 @@ def phase_build() -> float:
     build.load_library()
     secs = time.perf_counter() - t0
     log = (build.library_path().parent / "build.log")
-    usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] if log.exists() else []
-    say(f"[2 build] {secs:.2f} s -> {build.library_path()}")
-    for ln in usage:
-        say(f"    ptxas {ln}")
+    usage = ptxas_usage(log.read_text()) if log.exists() else []
+    spills = [name for name, _, frame in usage if not frame.endswith("0 bytes spill stores, 0 bytes spill loads")]
+    say(f"[2 build] {secs:.2f} s -> {build.library_path()}; {len(spills)} of {len(usage)} kernels spill registers")
+    for name, regs, frame in usage:
+        say(f"    ptxas {name}: {regs}; {frame}")
     return secs
 
 
@@ -447,13 +499,15 @@ def synth_corpus(root: Path) -> tuple[Path, Path]:
     return corpus, meta
 
 
-def phase_decode(torch, model, corpus: Path, meta_path: Path, report: dict) -> None:
+def decode_context(torch, model, corpus: Path, meta_path: Path) -> dict:
+    """Phase 4's inputs: a batch of prompts from the synthesized corpus, the
+    prefill state, the teacher tokens, and the first layer's activations
+    through the plain versions (x, g, o: what in_proj, out_proj and the head
+    take)."""
     import numpy as np
 
     from musicgen_tpu_torch.data.dataset import TokenDataset
     from musicgen_tpu_torch.ops import decode_kernel as dk
-    from musicgen_tpu_torch.ops.grammar import field_bucket
-    from musicgen_tpu_torch.sample.sampler import init_penalty_state, push_token
 
     ds = TokenDataset.from_directory(corpus / "Mozart", meta_path, block_len=PROMPT, seed=SEED)
     items = [ds[i] for i in range(BATCH)]
@@ -463,13 +517,29 @@ def phase_decode(torch, model, corpus: Path, meta_path: Path, report: dict) -> N
     dp = dk.build_decode_params(model, BATCH)
     with torch.no_grad():
         logits0, states = model.prefill(prompt, meta)
-        torch.cuda.synchronize()
+    need(bool(torch.isfinite(logits0).all()), "prefill logits are not finite")
+    carry = dk.stack_states(states)
+    x = torch.nn.functional.embedding(prompt[:, -1], dp["embed"])
+    zx = dk.in_proj_conv_plain(x, dp["w_in"][0], dp["conv_w"][0], dp["conv_b"][0], dp["dt_bias"][0],
+                               carry[0][0].clone(), dims)
+    g = dk.mixer_state_plain(zx, dp["a_h"][0], dp["d_h"][0], carry[1][0].clone(), dims)
+    o = dk.out_proj_rms_plain(g, dp["norm_w"][0], dp["w_out"][0], dims)
+    teacher = torch.from_numpy(np.stack([ds[i][0][:TEACHER_STEPS] for i in range(BATCH)]).astype(np.int64)).to(DEVICE)
+    return {"prompt": prompt, "meta": meta, "teacher": teacher, "logits": logits0[:, -1, :], "carry": carry,
+            "x": x, "g": g, "o": o, "dims": dims, "dp": dp}
+
+
+def phase_decode(torch, model, ctx: dict, report: dict) -> None:
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops.grammar import field_bucket
+    from musicgen_tpu_torch.sample.sampler import init_penalty_state, push_token
+
+    prompt, meta, dims, dp, carry = ctx["prompt"], ctx["meta"], ctx["dims"], ctx["dp"], ctx["carry"]
+    with torch.no_grad():
         prefill_ms = cuda_ms(torch, lambda: model.prefill(prompt, meta), iters=3, warmup=1)
         forward_ms = cuda_ms(torch, lambda: model(prompt, meta), iters=3, warmup=1)
-    need(bool(torch.isfinite(logits0).all()), "prefill logits are not finite")
     say(f"[4 prefill] (B,T)=({BATCH},{PROMPT}+6): prefill with ssd_scan {prefill_ms:.3f} ms, "
         f"plain forward {forward_ms:.3f} ms")
-    carry = dk.stack_states(states)
     pen = init_penalty_state(prompt, max(PROMPT, 2048))
     tok = prompt[:, -1]
 
@@ -526,14 +596,14 @@ def phase_decode(torch, model, corpus: Path, meta_path: Path, report: dict) -> N
         ms = cuda_ms(torch, timers[name][0])
         dev_ms = graph_ms(torch, timers[name][0])
         plain_ms = cuda_ms(torch, timers[name][1])
-        lib_ms = linear_ms(torch, *library[name]) if name in library else None
+        lib = linear_time(torch, *library[name]) if name in library else NO_LIBRARY
         say(f"[4 {name}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); "
             f"kernel {ms:.4f} ms (device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
             f"bound {costs[name]['bound_ms']:.4f} ms "
-            f"({costs[name]['bound_by']}), F.linear {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms")
+            f"({costs[name]['bound_by']}), {lib.text()}")
         need(all(bool(torch.isfinite(a).all()) for a in outs), f"{name}: non-finite output")
         need(worst_rel <= tol, f"{name} disagrees with its plain version")
-        report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **costs[name]}
+        report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib.ms, **costs[name]}
     need(bool((i_k == i_p).all()), f"sample_tail top-3 indices differ: {i_k.tolist()} vs {i_p.tolist()}")
 
     # 64 teacher-forced steps from the prefill state. Each step runs the
@@ -548,7 +618,7 @@ def phase_decode(torch, model, corpus: Path, meta_path: Path, report: dict) -> N
         return c
 
     carry_k, free_p, free_q = clone(carry), clone(carry), perturbed(carry)
-    teacher = torch.from_numpy(np.stack([ds[i][0][:TEACHER_STEPS] for i in range(BATCH)]).astype(np.int64)).to(DEVICE)
+    teacher = ctx["teacher"]
     worst_logit, worst_state, worst_val, worst_noise, idx_checked, idx_equal = 0.0, 0.0, 0.0, 0.0, 0, 0
     for s in range(TEACHER_STEPS):
         tok = teacher[:, s]
@@ -586,8 +656,6 @@ def phase_decode(torch, model, corpus: Path, meta_path: Path, report: dict) -> N
     need(worst_logit <= TOL_STEPS and worst_val <= TOL_STEPS and worst_state <= TOL_STEPS,
          "decode steps disagree with the plain chain")
     need(idx_equal == idx_checked, "decode steps picked other top-3 candidates")
-    return {"prompt": prompt, "meta": meta, "teacher": teacher, "logits": logits0[:, -1, :], "carry": carry,
-            "x": x, "g": g, "o": o, "dims": dims}
 
 
 def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
@@ -673,7 +741,10 @@ def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: d
 
 def phase_int8(torch, model, ctx: dict, report: dict) -> None:
     """[4q] kernels B' (W8A16, W8A8) against their plain versions on the
-    inputs of phase 4, then QUANT_STEPS teacher-forced steps per format."""
+    inputs of phase 4, then QUANT_STEPS teacher-forced steps per format, with
+    the plain chain's own response to a 1e-6 perturbation of the state
+    beside them (printed, as in [4 steps]: one activation one int8 level
+    apart grows through the ten layers)."""
     from musicgen_tpu_torch.ops import decode_kernel as dk
     from musicgen_tpu_torch.ops.grammar import field_bucket
     from musicgen_tpu_torch.sample.sampler import init_penalty_state, push_token
@@ -707,25 +778,29 @@ def phase_int8(torch, model, ctx: dict, report: dict) -> None:
             plain_ms = cuda_ms(torch, lambda: plain(cs_p))
             xin, w, w_s = costs[name]
             cost = gemv_cost(BATCH, w, w_s, extra_bytes=2 * nbytes(cs_k) if name == "in_proj_conv" else 0)
-            lib_ms = linear_ms(torch, xin, bf16_weights(torch, w, w_s))
+            lib = linear_time(torch, xin, bf16_weights(torch, w, w_s))
             say(f"[4q {name}_{q}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); "
                 f"kernel {ms:.4f} ms (device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound "
-                f"{cost['bound_ms']:.4f} ms, F.linear (bf16 weights) {lib_ms:.4f} ms")
+                f"{cost['bound_ms']:.4f} ms, {lib.text()} on bf16 weights")
             need(bool(torch.isfinite(out_k).all()), f"{name}_{q}: non-finite output")
             need(worst_rel <= tol, f"{name}_{q} disagrees with its plain version")
-            report[f"{name}_{q}"] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            report[f"{name}_{q}"] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib.ms,
                                      **cost}
 
         pen = init_penalty_state(ctx["prompt"], max(PROMPT, 2048))
         carry_k = clone(ctx["carry"])
-        worst_logit, worst_state, idx_checked, idx_equal = 0.0, 0.0, 0, 0
+        noise = torch.Generator(device=DEVICE).manual_seed(SEED)
+        worst_logit, worst_state, worst_noise, idx_checked, idx_equal = 0.0, 0.0, 0.0, 0, 0
         for step in range(QUANT_STEPS):
             tok = ctx["teacher"][:, step]
             pen = push_token(pen, tok)
             bucket = field_bucket(tok)
-            carry_p = clone(carry_k)
+            carry_p, carry_n = clone(carry_k), clone(carry_k)
+            carry_n[1].mul_(1.0 + 1e-6 * torch.randn(carry_n[1].shape, device=DEVICE, generator=noise))
             lk = dk.decode_logits(dp, tok, carry_k, dims, quant=q)
             lp = dk.decode_logits(dp, tok, carry_p, dims, ops=dk.PLAIN_OPS, quant=q)
+            ln = dk.decode_logits(dp, tok, carry_n, dims, ops=dk.PLAIN_OPS, quant=q)
+            worst_noise = max(worst_noise, rel_err(ln[:, :dims.vocab_size], lp[:, :dims.vocab_size])[1])
             vk, ik = dk.sample_tail(lk, dp["gram"], pen.hist, bucket, dims)
             vp, ip = dk.sample_tail_plain(lp, dp["gram"], pen.hist, bucket, dims)
             worst_logit = max(worst_logit, rel_err(lk[:, :dims.vocab_size], lp[:, :dims.vocab_size])[1])
@@ -735,7 +810,7 @@ def phase_int8(torch, model, ctx: dict, report: dict) -> None:
         torch.cuda.synchronize()
         say(f"[4q steps_{q}] {QUANT_STEPS} teacher-forced steps from a shared state: logits rel {worst_logit:.3e}, "
             f"states rel {worst_state:.3e} (tol {TOL_STEPS}); top-3 indices equal at {idx_equal}/{idx_checked} "
-            f"separated candidates")
+            f"separated candidates; plain chain from a state perturbed by 1e-6: logits rel {worst_noise:.3e}")
         need(worst_logit <= TOL_STEPS and worst_state <= TOL_STEPS, f"{q} decode steps disagree with the plain chain")
         need(idx_equal == idx_checked, f"{q} decode steps picked other top-3 candidates")
 
@@ -753,19 +828,20 @@ def resident_start(torch, ctx: dict):
     return vals, idxs, prompt[:, -1], pen
 
 
-def phase_resident(torch, model, ctx: dict, report: dict) -> dict:
+def phase_resident(torch, model, ctx: dict, report: dict, quants: dict = QUANTS) -> dict:
     """[6 resident] and [6 chain]: kernel C against its plain version and
-    against the per-token kernel chain. Returns the packs by quant."""
+    against the per-token kernel chain, in each of `quants`. Returns the
+    packs by quant."""
     from musicgen_tpu_torch.ops import decode_kernel as dk
     from musicgen_tpu_torch.ops import generate_kernel as gk
     from musicgen_tpu_torch.ops.grammar import field_bucket
     from musicgen_tpu_torch.sample.sampler import push_token
 
     dims = ctx["dims"]
-    packs = {quant: dk.build_decode_params(model, BATCH, quant) for quant in QUANTS}
+    packs = {quant: dk.build_decode_params(model, BATCH, quant) for quant in quants}
     vals0, idxs0, last0, pen0 = resident_start(torch, ctx)
     n = RESIDENT_CHECK_TOKENS
-    for quant, q in QUANTS.items():
+    for quant, q in quants.items():
         dp, name = packs[quant], f"generate_resident_{'bf16' if q == 'none' else q}"
         carry_r, carry_p = clone(ctx["carry"]), clone(ctx["carry"])
         toks, _, _ = gk.fused_generate(dp, vals0, idxs0, last0, *carry_r, pen0, None, dims, n, True, q)
@@ -809,7 +885,7 @@ def phase_resident(torch, model, ctx: dict, report: dict) -> dict:
 
     # The per-token kernel chain with the same pick: identical, bit for bit.
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    for quant, q in QUANTS.items():
+    for quant, q in quants.items():
         dp = packs[quant]
         for greedy in (True, False):
             u = None if greedy else torch.rand((LENGTH, BATCH, 2), generator=gen, device=DEVICE)
@@ -847,8 +923,8 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict) -> None:
     cfg = sampler.SamplerConfig(num_tokens=LENGTH, ring_size=max(PROMPT, 2048))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for quant, q in QUANTS.items():
-        dp = packs[quant]
+    for quant, dp in packs.items():
+        q = QUANTS[quant]
         weight_bytes = sum(dp[k].numel() * dp[k].element_size()
                            for k in ("w_in", "w_out", "lm_w", "w_in_s", "w_out_s", "lm_s") if k in dp)
         u = torch.rand((LENGTH, BATCH, 2), generator=gen, device=DEVICE)
@@ -881,12 +957,13 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict) -> None:
         report[name].update(ms=1e3 * res_s / LENGTH, **bound(weight_bytes, 2.0 * BATCH * n_weights, BF16_FLOPS))
 
 
-def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict,
+                       int8_only: bool = False) -> None:
     """[6 cli] the CLI with --fused-decode resident (greedy and sampled, two
     bands), resident-int8w, int8 and int8w (one band each), and
     sampler.generate(resident=True, quant="int8"), the one resident format
     no CLI value takes: grammar, MIDI and exact launch counts, each run
-    counted from zero."""
+    counted from zero. int8_only leaves out the bf16 runs."""
     import numpy as np
 
     from musicgen_tpu_torch.cli import generate as cli
@@ -897,6 +974,8 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
     from musicgen_tpu_torch.sample.sampler import generate
 
     ckpt = root / "mamba_random.pth"
+    if not ckpt.exists():  # saved by [5 cli], which --only int8 does not run
+        torch.save(model.state_dict(), ckpt)
     L, mask = model.cfg.n_layers, grammar_mask()
 
     def per_token(q):
@@ -908,6 +987,7 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
             ("resident-int8w", False, ["Bach"], {"generate_resident_w8a16": 1}),
             ("int8", False, ["Mozart"], per_token("w8a8")),
             ("int8w", False, ["Mozart"], per_token("w8a16"))]
+    runs = [r for r in runs if "int8" in r[0] or not int8_only]
     totals: dict = {}
     for i, (mode, greedy, bands, want) in enumerate(runs):
         out = root / f"gen6_{i}"
@@ -1059,11 +1139,11 @@ def phase_t_prefill(torch, corpus: Path, meta_path: Path) -> dict:
             "caches": caches, "prefill_ms": ms}
 
 
-def phase_t_decode(torch, tctx: dict, report: dict) -> dict:
+def phase_t_decode(torch, tctx: dict, report: dict, quants: dict = TQUANTS) -> dict:
     """[7 tdecode] each kernel F launch against its plain twin on the same
-    inputs, in bf16 and W8A16, then T_TEACHER_STEPS teacher-forced steps from
-    a shared state against the plain twin chain and the f32
-    TransformerLM.step. Returns the packs by quant."""
+    inputs, in each of `quants` (bf16, W8A16), then T_TEACHER_STEPS
+    teacher-forced steps from a shared state against the plain twin chain and
+    the f32 TransformerLM.step. Returns the packs by quant."""
     import torch.nn.functional as F
 
     from musicgen_tpu_torch.ops import decode_kernel as dk
@@ -1076,11 +1156,12 @@ def phase_t_decode(torch, tctx: dict, report: dict) -> dict:
     dims = tk.TDims.create(model.cfg, BATCH)
     S, dm, H, hd = dims.ring, dims.d_model, dims.n_heads, dims.head_dim
     carry0 = tk.stack_transformer_cache(tctx["caches"], dims)
-    packs = {quant: tk.build_transformer_decode_params(model, BATCH, quant) for quant in TQUANTS}
+    packs = {quant: tk.build_transformer_decode_params(model, BATCH, quant) for quant in quants}
     c = PROMPT % S
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    x = F.embedding(prompt[:, -1], packs["bf16"]["embed"]) + 0.1 * torch.randn(BATCH, dm, device=DEVICE, generator=gen)
-    for quant, q in TQUANTS.items():
+    embed = next(iter(packs.values()))["embed"]
+    x = F.embedding(prompt[:, -1], embed) + 0.1 * torch.randn(BATCH, dm, device=DEVICE, generator=gen)
+    for quant, q in quants.items():
         tp = packs[quant]
         sfx = "" if q == "none" else "_w8a16"
 
@@ -1140,9 +1221,10 @@ def phase_t_decode(torch, tctx: dict, report: dict) -> dict:
             ms = cuda_ms(torch, timers[name][0])
             dev_ms = graph_ms(torch, timers[name][0])
             plain_ms = cuda_ms(torch, timers[name][1], iters=10, warmup=2)
+            lib = NO_LIBRARY
             if name in costs:
                 xin, cost, w16 = costs[name]
-                lib_ms = linear_ms(torch, xin, w16)
+                lib = linear_time(torch, xin, w16)
             elif name == "tdecode_attn_split":
                 # SDPA over the 2054 slots of each (b, h), the rolled BD term
                 # in a float mask; the keys, values and mask are built
@@ -1154,20 +1236,18 @@ def phase_t_decode(torch, tctx: dict, report: dict) -> dict:
                 rel_rows = torch.cat([tp["rel_meta"][0][:6], tp["rel_ring"][0][u]]).reshape(6 + S, H, hd)
                 mask = (torch.einsum("bhd,shd->bhs", qh[:, :, 0].float(), rel_rows.float()) * dims.scale)[:, :, None]
                 mask = mask.to(torch.bfloat16)
-                lib_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                lib = library_time(torch, "SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
                     qh, keys, vals, attn_mask=mask, scale=dims.scale))
                 cost = bound(nbytes(cp[2][0], cp[3][0], tp["rel_ring"][0], cp[0][0], cp[1][0], tp["rel_meta"][0],
                                     *parts_k) + 4 * BATCH * dm, 3 * 2.0 * hd * (S + 6) * BATCH * H, F32_FLOPS)
             else:
-                lib_ms = None
                 cost = bound(nbytes(*parts_k, a_k), 3.0 * parts_k[2].numel(), F32_FLOPS)
             say(f"[7 tdecode {name}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); kernel {ms:.4f} ms "
                 f"(device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
-                f"({cost['bound_by']}), library "
-                f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms")
+                f"({cost['bound_by']}), {lib.text()}")
             need(all(bool(torch.isfinite(t_).all()) for t_ in outs), f"{name}: non-finite output")
             need(worst_rel <= tol, f"{name} disagrees with its plain version")
-            report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **cost}
+            report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib.ms, **cost}
         e_pair = rel_err(pair_k, twin)[1]
         say(f"[7 tdecode attention {quant}] split + combine vs the TPU kernel's math (stale-row fix, one softmax): "
             f"rel {e_pair:.3e} (tol {TOL_T_STEP})")
@@ -1260,12 +1340,13 @@ def phase_t_wrap(torch, corpus: Path) -> None:
         need(worst_f32 <= TOL_T_F32[quant] and worst_twin <= TOL_T_STEP, f"{quant} ring wrap disagrees")
 
 
-def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict,
+                int8_only: bool = False) -> None:
     """[7 cli] `--model transformer` through the CLI: --fused-decode auto,
     greedy and stochastic (two bands each), and int8w (one band); every new
     token grammatical, the .mid files re-extract, and each run, counted from
     zero, launches kernel D 8 times a prefill and kernel F's 50 launches a
-    token."""
+    token. int8_only runs int8w alone."""
     from musicgen_tpu_torch.cli import generate as cli
     from musicgen_tpu_torch.midi import extract_midi
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -1278,6 +1359,7 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
     torch.save(model.state_dict(), ckpt)
     L, mask = model.cfg.n_layer, grammar_mask()
     runs = [("auto", True, ["Mozart", "Bach"]), ("auto", False, ["Mozart", "Bach"]), ("int8w", False, ["Bach"])]
+    runs = [r for r in runs if "int8" in r[0] or not int8_only]
     totals: dict = {}
     for i, (mode, greedy, bands) in enumerate(runs):
         out = root / f"gen7_{i}"
@@ -1771,15 +1853,15 @@ def phase_x_prefill(torch, corpus: Path, meta_path: Path) -> dict:
             "prefill_ms": ms, "plain_prefill_ms": plain_ms}
 
 
-def phase_x_decode(torch, xctx: dict, report: dict) -> dict:
+def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> dict:
     """[9 xdecode] each kernel G launch against its plain version on the same
     inputs (the first mLSTM and sLSTM block): every launch in bf16, the
     GEMVs in W8A16, the matrix memory stored in bf16. Then TEACHER_STEPS
     teacher-forced steps per format from the prefill state: each step's
     kernel chain against the plain chain from the same state (and from that
     state perturbed by 1e-6, the noise floor) and against the f32
-    XLSTMLM.step; [9 drift] the free-running plain chains. Returns the packs
-    by format."""
+    XLSTMLM.step; [9 drift] the free-running plain chains; in each format
+    of `quants`. Returns the packs by format."""
     import torch.nn.functional as F
 
     from musicgen_tpu_torch.ops import decode_kernel as dk
@@ -1795,7 +1877,7 @@ def phase_x_decode(torch, xctx: dict, report: dict) -> dict:
     packs["bf16-sb16"] = packs["bf16"]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     x = F.embedding(prompt[:, -1], packs["bf16"]["embed"]) + 0.1 * torch.randn(BATCH, d, device=DEVICE, generator=gen)
-    for quant, q in XQUANTS.items():
+    for quant, q in quants.items():
         wp = packs[quant]
         sdt = torch.bfloat16 if quant.endswith("-sb16") else torch.float32
         carry0 = xk.stack_xlstm_states(xctx["states"], dims, sdt)
@@ -1868,11 +1950,11 @@ def phase_x_decode(torch, xctx: dict, report: dict) -> dict:
             ms = cuda_ms(torch, lambda: kernels[name](*a_t))
             dev_ms = graph_ms(torch, lambda: kernels[name](*a_t))
             plain_ms = cuda_ms(torch, lambda: plains[name](*a_q), iters=10, warmup=2)
-            lib_ms = None
+            lib = NO_LIBRARY
             if name in gemvs:
                 xin, wname, extra = gemvs[name]
                 cost = gemv_cost(BATCH, wp[wname][0], sc(wname), extra)
-                lib_ms = linear_ms(torch, xin, bf16_weights(torch, wp[wname][0], sc(wname)))
+                lib = linear_time(torch, xin, bf16_weights(torch, wp[wname][0], sc(wname)))
             elif name == "xm_prep":
                 cost = bound(nbytes(up) // 2 + 2 * nbytes(conv_m) + nbytes(*args[name][1:3], args[name][4], out_k),
                              2.0 * BATCH * di * 16, F32_FLOPS)
@@ -1892,10 +1974,10 @@ def phase_x_decode(torch, xctx: dict, report: dict) -> dict:
             key = name + ("_sb16" if quant.endswith("-sb16") else sfx)
             say(f"[9 xdecode {key}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); kernel {ms:.4f} ms "
                 f"(device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
-                f"({cost['bound_by']}), library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms")
+                f"({cost['bound_by']}), {lib.text()}")
             need(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"{key}: non-finite output")
             need(worst_rel <= tol, f"{key} disagrees with its plain version")
-            report[key] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **cost}
+            report[key] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib.ms, **cost}
 
         # Teacher-forced steps from the prefill state. Each step runs the
         # plain chain from the kernel chain's state, once more from that state
@@ -1969,13 +2051,15 @@ def x_launches(dims, length: int, n: int, quant: str) -> dict:
             f"xs_ffn_up{sfx}": s_ * k, f"xs_ffn_down{sfx}": s_ * k, f"lm_head_ln{sfx}": k, "sample_tail": k}
 
 
-def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict,
+                int8_only: bool = False) -> None:
     """[9 cli] `--model xlstm` through the CLI: --fused-decode auto, greedy
     (two bands) and stochastic (one band), LENGTH tokens; int8w, sb16 and
     int8w-sb16 for X_CLI_SHORT tokens; on, int8 and off (the plain step) for
     X_CLI_TINY: every new token grammatical, the .mid files re-extract, and
     each run, counted from zero, launches kernel H 4 times a prefill and
-    kernel G's launches a token (none with off)."""
+    kernel G's launches a token (none with off). int8_only runs the W8A16
+    values alone (int8w, int8w-sb16, int8)."""
     from musicgen_tpu_torch.cli import generate as cli
     from musicgen_tpu_torch.midi import extract_midi
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -1994,6 +2078,7 @@ def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, re
             ("int8w", False, ["Bach"], X_CLI_SHORT), ("sb16", False, ["Bach"], X_CLI_SHORT),
             ("int8w-sb16", True, ["Mozart"], X_CLI_SHORT), ("on", False, ["Bach"], X_CLI_TINY),
             ("int8", True, ["Bach"], X_CLI_TINY), ("off", True, ["Mozart"], X_CLI_TINY)]
+    runs = [r for r in runs if "int8" in r[0] or not int8_only]
     totals: dict = {}
     for i, (mode, greedy, bands, length) in enumerate(runs):
         out = root / f"gen9_{i}"
@@ -2256,11 +2341,48 @@ def phase_probes(torch, report: dict) -> None:
     phase_ablate(torch, report)
 
 
+def mamba_model(torch):
+    """The full-size MambaLM with seeded random weights, on the card."""
+    from musicgen_tpu_torch.config import MambaConfig
+    from musicgen_tpu_torch.models.mamba import empty_model, init_weights_
+
+    model = init_weights_(empty_model(MambaConfig(), DEVICE), SEED).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    need(n_params == 101_972_666, f"full-size MambaLM has {n_params} parameters")
+    return model
+
+
+def phase_int8_paths(torch, report: dict) -> None:
+    """--only int8: every row of phases 4q, 6, 7 and 9 that launches the
+    int8 GEMVs, with the checks and timings of the full run. Each int8
+    kernel's launches are those of the CLI runs of phases 6, 7 and 9 that
+    take an int8 format, each counted from zero, as in the full run."""
+    model = mamba_model(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        ctx = decode_context(torch, model, corpus, meta_path)
+        phase_int8(torch, model, ctx, report)
+        packs = phase_resident(torch, model, ctx, report, {k: q for k, q in QUANTS.items() if q != "none"})
+        phase_loop(torch, ctx, packs, report)
+        phase_cli_resident(torch, model, corpus, meta_path, root, report, int8_only=True)
+        del model, ctx, packs
+        torch.cuda.empty_cache()
+        tctx = phase_t_prefill(torch, corpus, meta_path)
+        phase_t_decode(torch, tctx, report, {"int8w": TQUANTS["int8w"]})
+        phase_t_cli(torch, tctx, corpus, meta_path, root, report, int8_only=True)
+        del tctx
+        torch.cuda.empty_cache()
+        xctx = phase_x_prefill(torch, corpus, meta_path)
+        phase_x_decode(torch, xctx, report, {"int8w": XQUANTS["int8w"]})
+        phase_x_cli(torch, xctx, corpus, meta_path, root, report, int8_only=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("9", "10"):
-        print("usage: python3 chip_smoke.py [--only 9|10]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("9", "10", "int8"):
+        print("usage: python3 chip_smoke.py [--only 9|10|int8]", file=sys.stderr)
         return 2
     import torch
 
@@ -2284,18 +2406,17 @@ def main() -> int:
     if only == "10":
         phase_probes(torch, report)
         return finish(torch, card, report, PROBE_KERNELS, t_start)
+    if only == "int8":
+        phase_int8_paths(torch, report)
+        return finish(torch, card, report, INT8_KERNELS, t_start)
     phase_ssd(torch, report)
 
-    from musicgen_tpu_torch.config import MambaConfig
-    from musicgen_tpu_torch.models.mamba import empty_model, init_weights_
-
-    model = init_weights_(empty_model(MambaConfig(), DEVICE), SEED).eval()
-    n_params = sum(p.numel() for p in model.parameters())
-    need(n_params == 101_972_666, f"full-size MambaLM has {n_params} parameters")
+    model = mamba_model(torch)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         corpus, meta_path = synth_corpus(root)
-        ctx = phase_decode(torch, model, corpus, meta_path, report)
+        ctx = decode_context(torch, model, corpus, meta_path)
+        phase_decode(torch, model, ctx, report)
         phase_int8(torch, model, ctx, report)
         phase_cli(torch, model, corpus, meta_path, root, report)
         packs = phase_resident(torch, model, ctx, report)

@@ -17,12 +17,19 @@
 // (3.35 TB/s); int8 halves the bytes.
 //
 // Design: weights are packed K-contiguous, W[n, k] (torch's Linear layout),
-// so one warp streams one output column with 16-byte loads (8 bf16 or 16
-// int8 a lane) and all rows r < R <= 8 ride the same weight read. A block is
-// one 256-thread team (decode_ops.cuh gemv_team); columns are spread over
-// warps grid-stride. The activations (at most 8 x 2048 f32) are read through
-// L1 and rounded to bf16 (or quantised to int8) in registers. Three variants
-// share the body:
+// and all rows r < R <= 8 ride the same weight read. A block is one
+// 256-thread team (decode_ops.cuh gemv_team).
+//   * bf16: a warp streams one output column with 16-byte loads (8 weights
+//     a lane), columns spread over the warps grid-stride; the activations
+//     are read through L1 and rounded to bf16 in registers, f32 FMAs.
+//   * int8 (B'): the team stages pro(x) once in dynamic shared memory,
+//     rounded to bf16 (W8A16) or quantised to int8 (W8A8), then walks
+//     tiles of 16 columns on the tensor cores (mma.sync m16n8k16 bf16 with
+//     the int8 weights converted in registers, or m16n8k32 s8); its 8 warps
+//     split K and their group sums meet in shared memory, where each group's
+//     sum is scaled whole and the groups are added in order (`_w8dot`,
+//     `_qdot`). A block per tile, at most 4 an SM.
+// Three variants share the body:
 //   * in_proj:  plain prologue; epilogue = the 4-tap causal conv step + silu
 //               on the conv channels (conv state shifted IN PLACE), softplus(dt
 //               + dt_bias) on the dt columns, z stored raw.
@@ -38,17 +45,10 @@ using namespace mg;
 namespace {
 
 template <int PRO, int EPI, int FMT>
-__global__ void __launch_bounds__(TEAM) gemv_kernel(GemvArgs a) {
+__global__ void __launch_bounds__(TEAM, 4) gemv_kernel(GemvArgs a) {
+  extern __shared__ uint4 gemv_dyn[];
   __shared__ GemvSmem sm;
-  gemv_team<PRO, EPI, FMT>(a, sm, blockIdx.x, gridDim.x, threadIdx.x, 1);
-}
-
-template <int PRO, int EPI, int FMT>
-int launch_fmt(const GemvArgs& a, void* stream) {
-  const int want = (a.N + WARPS - 1) / WARPS, cap = 4 * mg_sm_count();
-  const int blocks = want < cap ? want : cap;
-  gemv_kernel<PRO, EPI, FMT><<<blocks, TEAM, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  gemv_team<PRO, EPI, FMT>(a, sm, blockIdx.x, gridDim.x, threadIdx.x, 1, reinterpret_cast<char*>(gemv_dyn));
 }
 
 template <int PRO, int EPI>
@@ -56,9 +56,9 @@ int launch(const GemvArgs& a, int fmt, void* stream) {
   if (!gemv_shape_ok(a.R, a.K, a.N, fmt)) return (int)cudaErrorInvalidValue;
   if (fmt != kBf16 && a.w_s == nullptr) return (int)cudaErrorInvalidValue;
   switch (fmt) {
-    case kBf16: return launch_fmt<PRO, EPI, kBf16>(a, stream);
-    case kW8A16: return launch_fmt<PRO, EPI, kW8A16>(a, stream);
-    case kW8A8: return launch_fmt<PRO, EPI, kW8A8>(a, stream);
+    case kBf16: return gemv_launch(gemv_kernel<PRO, EPI, kBf16>, a, fmt, stream);
+    case kW8A16: return gemv_launch(gemv_kernel<PRO, EPI, kW8A16>, a, fmt, stream);
+    case kW8A8: return gemv_launch(gemv_kernel<PRO, EPI, kW8A8>, a, fmt, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,37 +1,63 @@
 // Device code of the one-token decode math, shared by the per-token kernels
 // (kernel B and its int8 variants B': decode_gemv.cu, decode_mixer.cu,
-// decode_tail.cu) and the resident whole-generation kernel (C:
-// generate_resident.cu).
+// decode_tail.cu; kernels F and G: decode_gemv.cu, xlstm_decode.cu) and the
+// resident whole-generation kernel (C: generate_resident.cu).
 //
 // Each function handles one work item:
 //   gemv_team    the output columns of one GEMV that a 256-thread team owns
-//                (a warp per column), after the team's prologue statistics;
+//                (bf16: a warp per column; int8: tiles of 16 columns), after
+//                the team's prologue statistics;
 //   mixer_item   one (batch row, head) of the SSM state update (256 threads);
 //   tail_row     the grammar/penalty/top-3 tail of one row (a 1024-thread
 //                block).
 // A per-token kernel is a grid of such items; the resident kernel walks the
 // same items over its persistent blocks between grid barriers. A column's
-// reduction order (lane split over K, shuffle order) and a row's statistics
-// depend only on the item, never on which block computes it, so both paths
-// compute the same bits. The build passes -fmad=false for the same reason:
-// no multiply-add is contracted differently where a function is inlined.
+// reduction order and a row's statistics depend only on the item, never on
+// which block computes it, so both paths compute the same bits. The build
+// passes -fmad=false for the same reason: no multiply-add is contracted
+// differently where a function is inlined.
 //
 // Weight formats (template FMT), all K-contiguous, W[n, k]:
 //   kBf16   bf16 weights, activations rounded to bf16, f32 accumulation
-//           (`_dot` in musicgen_tpu/ops/pallas_decode.py);
-//   kW8A16  int8 weights with (K/256, N) f32 group scales, promoted to bf16
-//           exactly; products summed in f32 and multiplied by their group's
-//           scale (`_w8dot` :163);
-//   kW8A8   the same pack; activations quantised per (row, 256-group) to
-//           int8 with scale max|x|/127 (floor 1e-20), rounded half to even;
-//           products summed exactly in int32 (__dp4a), then scaled by
-//           s_x * s_w (`_qdot` :138).
-// An int8 lane loads 16 weights (16 bytes), so one warp pass covers two
-// groups: lanes 0-15 the first, 16-31 the second. Each lane scales its own
-// partial sum; the TPU kernel scaled whole group sums, so the two differ in
-// f32 rounding only. A matrix whose K is not a multiple of 256 has one group
-// over all of K (`_quantize_cols`), GemvArgs::qgroup = K (the xLSTM FFN's
-// down-projection, K = 1408, kernel G); lanes past K then load nothing.
+//           (`_dot` in musicgen_tpu/ops/pallas_decode.py). A warp streams
+//           one column with 16-byte loads (8 weights a lane), f32 FMAs.
+//   kW8A16  int8 weights with (K / qgroup, N) f32 group scales
+//           (`_w8dot` :163): S_g = (sum_k bf16(pro(x))[r, k] * w[n, k]) *
+//           s_w[g, n], the int8 weight promoted to bf16 exactly, f32 sums.
+//   kW8A8   the same pack (`_qdot` :138): q = clip(rint(pro(x) / s_x),
+//           +-127), rounded half to even, s_x = max(max|pro(x)|, 1e-20) / 127
+//           per (row, 256-group); S_g = float(sum_k q * w) * s_x * s_w, the
+//           integer sum exact in int32.
+//   Both: out[r, n] = epi(sum_g S_g) with the S_g added group by group, in
+//   the TPU kernel's order. A pack whose K is not a multiple of 256 has one
+//   group over all of K (qgroup = K; W8A16 only: the xLSTM FFN's
+//   down-projection, K = 1408, kernel G).
+//
+// The int8 formats run on the tensor cores (gemv_team_int8). A team first
+// takes its prologue's row statistics in the plain versions' formula, the
+// sums taken in f64 and rounded once (gemv_row_stats_exact), and writes
+// pro(x) into its dynamic shared memory once: rounded to bf16 (W8A16) or
+// quantised to int8 (W8A8), each row padded so that a quarter-warp's
+// 16-byte reads fall on distinct banks. It then walks tiles of 16 columns,
+// the next tile's first weights in flight through the current tile's
+// barrier and epilogue. In a tile, mma.sync (m16n8k16 bf16 for W8A16, the int8 weight converted
+// to bf16 in registers; m16n8k32 s8 for W8A8) takes the 16 columns of W as
+// its rows and x's R <= 8 rows as its 8 columns (rows R..7 are zeros). A
+// k-step is 64 k: lane (g = lane / 4, t = lane % 4) loads the 16 bytes at
+// k + 16 t of columns n0 + g and n0 + g + 8, and the k-slots of each mma are
+// permuted within the step to match (the sum over k does not care). The
+// team's 8 warps split K: with G >= 8 groups warp w sums whole groups w, w +
+// 8, ...; with G < 8 groups, 8 / G warps share a group, each a fixed
+// stride of its steps. Each warp writes its group sums (f32, or int32 for
+// W8A8) into shared memory; after a team barrier one thread per (row,
+// column) adds the warps' sums of each group in warp order, scales the whole
+// group sum and adds the groups in order, applies the epilogue and stores.
+// Two buffers of sums let the next tile start without a second barrier.
+// Rounding points, int8: pro(x) in f32 (bf16 at the stage in W8A16); the
+// products exact (int32 in W8A8; bf16 x bf16 into the mma's f32 sums in
+// W8A16); each group's sum scaled once, then added to the f32 result group
+// by group. The W8A8 result thus equals the plain version's bit for bit when
+// its int8 activations and scales do.
 //
 // Activations, states, logits and the penalty counts may have been written
 // by another block of the same launch (in the resident kernel), so they are
@@ -104,7 +130,13 @@ struct GemvArgs {
 
 // Shared memory of one GEMV team.
 struct GemvSmem {
-  float red[MAXR * GMAX * WARPS];
+  // The warps' partial row statistics: red in bf16 (gemv_row_stats), red64
+  // in the int8 formats (gemv_row_stats_exact). Each is read before the
+  // barrier that ends its function, so one GEMV's never meets another's.
+  union {
+    float red[2 * MAXR * WARPS];
+    double red64[2 * MAXR * WARPS];
+  };
   float mul[MAXR], sub[MAXR];     // prologue row statistics
   float sx[MAXR * GMAX];          // W8A8 activation scales (row, group)
 };
@@ -156,133 +188,127 @@ __device__ void gemv_row_stats(const GemvArgs& a, GemvSmem& sm, int tid, int bar
   team_sync(bar);
 }
 
-// W8A8: s_x[r, g] = max(max_k |pro(x)[r, k]|, 1e-20) / 127 over each group.
-// A maximum does not depend on the order it is taken in.
+// The same statistics for the int8 formats, in the plain versions' formula
+// (torch.mean, then torch.rsqrt): the sums of x and of the f32 squares x * x
+// are taken in f64, where their order does not show, each rounded once to
+// f32, and the factor is rsqrtf. So the int8 activations equal the plain
+// version's wherever torch's f32 mean is the correctly rounded one: an
+// activation one int8 level apart would grow through a stack of layers.
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 template <int PRO>
-__device__ void gemv_act_scales(const GemvArgs& a, GemvSmem& sm, int tid, int bar) {
-  const int lane = tid % 32, warp = tid / 32, G = a.K / QGROUP;
+__device__ void gemv_row_stats_exact(const GemvArgs& a, GemvSmem& sm, int tid, int bar) {
+  const int lane = tid % 32, warp = tid / 32;
   for (int r = 0; r < a.R; ++r) {
-    for (int g = 0; g < G; ++g) {
-      float m = 0.f;
-      for (int k = g * QGROUP + tid; k < (g + 1) * QGROUP; k += TEAM) {
-        const float pw = PRO != kPlain ? __ldg(a.pw + k) : 1.f;
-        const float pb = PRO == kLayerNorm ? __ldg(a.pb + k) : 0.f;
-        m = fmaxf(m, fabsf(pro_apply<PRO>(a.x[(size_t)r * a.K + k], sm, r, pw, pb)));
-      }
-      m = warp_max(m);
-      if (lane == 0) sm.red[(r * G + g) * WARPS + warp] = m;
+    double s1 = 0.0, s2 = 0.0;
+    for (int k = tid; k < a.K; k += TEAM) {
+      const float v = a.x[(size_t)r * a.K + k];
+      s1 += (double)v;
+      s2 += (double)(v * v);
+    }
+    s1 = warp_sum_d(s1);
+    s2 = warp_sum_d(s2);
+    if (lane == 0) {
+      sm.red64[r * WARPS + warp] = s1;
+      sm.red64[(MAXR + r) * WARPS + warp] = s2;
     }
   }
   team_sync(bar);
-  for (int i = tid; i < a.R * G; i += TEAM) {
-    float m = 0.f;
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, sm.red[i * WARPS + w]);
-    sm.sx[i] = fmaxf(m, 1e-20f) * (1.0f / 127.0f);
+  if (tid < a.R) {
+    const int r = tid;
+    double s1 = 0.0, s2 = 0.0;
+    for (int w = 0; w < WARPS; ++w) {
+      s1 += sm.red64[r * WARPS + w];
+      s2 += sm.red64[(MAXR + r) * WARPS + w];
+    }
+    const float mean = (float)(s1 / a.K), msq = (float)(s2 / a.K);
+    if (PRO == kRms) {
+      sm.mul[r] = rsqrtf(msq + a.eps);
+      sm.sub[r] = 0.f;
+    } else {
+      sm.mul[r] = rsqrtf(msq - mean * mean + a.eps);
+      sm.sub[r] = mean;
+    }
   }
   team_sync(bar);
 }
 
-__device__ __forceinline__ float int8_at(uint32_t u, int i) {
-  return (float)(int8_t)((u >> (8 * i)) & 0xffu);
+// The epilogue of output (r, n), value v (before any bias); the one thread
+// that owns (r, n) stores it.
+template <int EPI>
+__device__ __forceinline__ void gemv_epilogue(const GemvArgs& a, int r, int n, float v) {
+  if (EPI == kBias) v += __ldg(a.bias + n);
+  if (EPI == kBiasRelu) v = fmaxf(v + __ldg(a.bias + n), 0.f);
+  if (EPI == kBiasResidual) v = a.out[(size_t)r * a.N + n] + (v + __ldg(a.bias + n));
+  if (EPI == kResidual) v = a.out[(size_t)r * a.N + n] + v;
+  if (EPI == kBiasGelu) v = gelu_tanhf_(v + __ldg(a.bias + n));
+  if (EPI == kKvRing && n >= a.N / 3) {
+    // The new K / V row goes into ring slot c of this layer before the
+    // layer's attention reads the ring (csrc/tdecode_attn.cu).
+    const int dm = a.N / 3, col = (n - dm) % dm;
+    __nv_bfloat16* ring = n < 2 * dm ? a.k_ring : a.v_ring;
+    ring[((size_t)r * a.ring_S + a.ring_c) * dm + col] = __float2bfloat16_rn(v);
+  }
+  if (EPI == kInProj && n >= a.di && n < a.di + a.dc) {
+    // Depthwise causal conv step (ops/ssm.causal_conv1d_step semantics:
+    // state rows oldest -> newest, tap 3 multiplies the new input). Each
+    // (row, channel) of the state belongs to this thread alone.
+    const int c = n - a.di;
+    float* cs = a.conv_state + (size_t)r * 3 * a.dc;
+    const float s0 = cs[c], s1 = cs[a.dc + c], s2 = cs[2 * a.dc + c];
+    const float yc = s0 * a.conv_w[c] + s1 * a.conv_w[a.dc + c] +
+                     s2 * a.conv_w[2 * a.dc + c] + v * a.conv_w[3 * a.dc + c] + a.conv_b[c];
+    cs[c] = s1;
+    cs[a.dc + c] = s2;
+    cs[2 * a.dc + c] = v;
+    v = yc * sigmoidf_(yc);
+  } else if (EPI == kInProj && n >= a.di + a.dc && n < a.di + a.dc + a.nh) {
+    v = softplusf_(v + a.dt_bias[n - a.di - a.dc]);
+  }
+  a.out[(size_t)r * a.N + n] = v;
 }
 
-// One output column n for all R rows, computed by one warp; lane 0 applies
-// the epilogue and stores.
-template <int PRO, int EPI, int FMT>
-__device__ void gemv_column(const GemvArgs& a, const GemvSmem& sm, int n, int lane) {
+// bf16: one output column n for all R rows, computed by one warp; lane 0
+// applies the epilogue and stores.
+template <int PRO, int EPI>
+__device__ void gemv_column_bf16(const GemvArgs& a, const GemvSmem& sm, int n, int lane) {
   float acc[MAXR];
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
 
-  if (FMT == kBf16) {
-    const __nv_bfloat16* wcol = static_cast<const __nv_bfloat16*>(a.w) + (size_t)n * a.K;
-    for (int k0 = lane * 8; k0 < a.K; k0 += 32 * 8) {
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wcol + k0));
-      const float wf[8] = {bf16_lo(wv.x), bf16_hi(wv.x), bf16_lo(wv.y), bf16_hi(wv.y),
-                           bf16_lo(wv.z), bf16_hi(wv.z), bf16_lo(wv.w), bf16_hi(wv.w)};
-      float pw[8], pb[8];
-      if (PRO != kPlain) {
-        const float4 p0 = __ldg(reinterpret_cast<const float4*>(a.pw + k0));
-        const float4 p1 = __ldg(reinterpret_cast<const float4*>(a.pw + k0 + 4));
-        pw[0] = p0.x; pw[1] = p0.y; pw[2] = p0.z; pw[3] = p0.w;
-        pw[4] = p1.x; pw[5] = p1.y; pw[6] = p1.z; pw[7] = p1.w;
-      }
-      if (PRO == kLayerNorm) {
-        const float4 q0 = __ldg(reinterpret_cast<const float4*>(a.pb + k0));
-        const float4 q1 = __ldg(reinterpret_cast<const float4*>(a.pb + k0 + 4));
-        pb[0] = q0.x; pb[1] = q0.y; pb[2] = q0.z; pb[3] = q0.w;
-        pb[4] = q1.x; pb[5] = q1.y; pb[6] = q1.z; pb[7] = q1.w;
-      }
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < a.R) {
-          const float4 x0 = ld4(a.x + (size_t)r * a.K + k0);
-          const float4 x1 = ld4(a.x + (size_t)r * a.K + k0 + 4);
-          const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float v = pro_apply<PRO>(xv[j], sm, r, PRO != kPlain ? pw[j] : 1.f,
-                                           PRO == kLayerNorm ? pb[j] : 0.f);
-            acc[r] = fmaf(bf16_round(v), wf[j], acc[r]);
-          }
-        }
-      }
+  const __nv_bfloat16* wcol = static_cast<const __nv_bfloat16*>(a.w) + (size_t)n * a.K;
+  for (int k0 = lane * 8; k0 < a.K; k0 += 32 * 8) {
+    const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wcol + k0));
+    const float wf[8] = {bf16_lo(wv.x), bf16_hi(wv.x), bf16_lo(wv.y), bf16_hi(wv.y),
+                         bf16_lo(wv.z), bf16_hi(wv.z), bf16_lo(wv.w), bf16_hi(wv.w)};
+    float pw[8], pb[8];
+    if (PRO != kPlain) {
+      const float4 p0 = __ldg(reinterpret_cast<const float4*>(a.pw + k0));
+      const float4 p1 = __ldg(reinterpret_cast<const float4*>(a.pw + k0 + 4));
+      pw[0] = p0.x; pw[1] = p0.y; pw[2] = p0.z; pw[3] = p0.w;
+      pw[4] = p1.x; pw[5] = p1.y; pw[6] = p1.z; pw[7] = p1.w;
     }
-  } else {
-    // int8: lanes 0-15 hold K-group 2i of pass i, lanes 16-31 group 2i + 1.
-    // Each lane scales its share of its group's sum and the warp adds the
-    // lanes at the end.
-    const int8_t* wcol = static_cast<const int8_t*>(a.w) + (size_t)n * a.K;
-    const int G = a.K / QGROUP;
-    const int gsz = a.qgroup > 0 ? a.qgroup : QGROUP;
-    for (int base = 0; base < a.K; base += 32 * 16) {
-      const int k0 = base + lane * 16;
-      if (k0 >= a.K) break;
-      const int g = k0 / gsz;
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wcol + k0));
-      const float sw = __ldg(a.w_s + (size_t)g * a.N + n);
-      const uint32_t wu[4] = {wv.x, wv.y, wv.z, wv.w};
+    if (PRO == kLayerNorm) {
+      const float4 q0 = __ldg(reinterpret_cast<const float4*>(a.pb + k0));
+      const float4 q1 = __ldg(reinterpret_cast<const float4*>(a.pb + k0 + 4));
+      pb[0] = q0.x; pb[1] = q0.y; pb[2] = q0.z; pb[3] = q0.w;
+      pb[4] = q1.x; pb[5] = q1.y; pb[6] = q1.z; pb[7] = q1.w;
+    }
 #pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < a.R) {
-          float xv[16];
+    for (int r = 0; r < MAXR; ++r) {
+      if (r < a.R) {
+        const float4 x0 = ld4(a.x + (size_t)r * a.K + k0);
+        const float4 x1 = ld4(a.x + (size_t)r * a.K + k0 + 4);
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 xq = ld4(a.x + (size_t)r * a.K + k0 + 4 * q);
-            xv[4 * q] = xq.x; xv[4 * q + 1] = xq.y; xv[4 * q + 2] = xq.z; xv[4 * q + 3] = xq.w;
-          }
-          if (PRO != kPlain) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float4 w4 = __ldg(reinterpret_cast<const float4*>(a.pw + k0 + 4 * q));
-              const float4 b4 = PRO == kLayerNorm ? __ldg(reinterpret_cast<const float4*>(a.pb + k0 + 4 * q))
-                                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-              xv[4 * q] = pro_apply<PRO>(xv[4 * q], sm, r, w4.x, b4.x);
-              xv[4 * q + 1] = pro_apply<PRO>(xv[4 * q + 1], sm, r, w4.y, b4.y);
-              xv[4 * q + 2] = pro_apply<PRO>(xv[4 * q + 2], sm, r, w4.z, b4.z);
-              xv[4 * q + 3] = pro_apply<PRO>(xv[4 * q + 3], sm, r, w4.w, b4.w);
-            }
-          }
-          if (FMT == kW8A16) {
-            float part = 0.f;
-#pragma unroll
-            for (int j = 0; j < 16; ++j) part = fmaf(bf16_round(xv[j]), int8_at(wu[j / 4], j % 4), part);
-            acc[r] = acc[r] + part * sw;
-          } else {
-            const float s = sm.sx[r * G + g];
-            int part = 0;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              uint32_t packed = 0;
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const float qv = fminf(fmaxf(rintf(xv[4 * q + i] / s), -127.f), 127.f);
-                packed |= ((uint32_t)(int)qv & 0xffu) << (8 * i);
-              }
-              part = __dp4a((int)packed, (int)wu[q], part);
-            }
-            acc[r] = acc[r] + (float)part * s * sw;
-          }
+        for (int j = 0; j < 8; ++j) {
+          const float v = pro_apply<PRO>(xv[j], sm, r, PRO != kPlain ? pw[j] : 1.f,
+                                         PRO == kLayerNorm ? pb[j] : 0.f);
+          acc[r] = fmaf(bf16_round(v), wf[j], acc[r]);
         }
       }
     }
@@ -290,66 +316,304 @@ __device__ void gemv_column(const GemvArgs& a, const GemvSmem& sm, int n, int la
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) acc[r] = warp_sum(acc[r]);
 
-  for (int r = 0; r < a.R && lane == 0; ++r) {
-    float v = acc[r];
-    if (EPI == kBias) v += __ldg(a.bias + n);
-    if (EPI == kBiasRelu) v = fmaxf(v + __ldg(a.bias + n), 0.f);
-    if (EPI == kBiasResidual) v = a.out[(size_t)r * a.N + n] + (v + __ldg(a.bias + n));
-    if (EPI == kResidual) v = a.out[(size_t)r * a.N + n] + v;
-    if (EPI == kBiasGelu) v = gelu_tanhf_(v + __ldg(a.bias + n));
-    if (EPI == kKvRing && n >= a.N / 3) {
-      // The new K / V row goes into ring slot c of this layer before the
-      // layer's attention reads the ring (csrc/tdecode_attn.cu).
-      const int dm = a.N / 3, col = (n - dm) % dm;
-      __nv_bfloat16* ring = n < 2 * dm ? a.k_ring : a.v_ring;
-      ring[((size_t)r * a.ring_S + a.ring_c) * dm + col] = __float2bfloat16_rn(v);
+  for (int r = 0; r < a.R && lane == 0; ++r) gemv_epilogue<EPI>(a, r, n, acc[r]);
+}
+
+// ---------------------------------------------------------------------------
+// The int8 formats on the tensor cores (see the header).
+// ---------------------------------------------------------------------------
+
+constexpr int TILE_N = 16;   // output columns of a tile: the mma's 16 rows
+constexpr int KSTEP = 64;    // k of one step: 16 bytes of a column for each of 4 lanes
+constexpr int KCHUNK = 2;    // steps a warp loads before it uses any
+constexpr int XPAD16 = 8;    // bf16 after each staged W8A16 row (16 bytes)
+constexpr int XPAD8 = 64;    // int8 after each staged W8A8 row
+
+// Slots of group sums a tile writes: one per warp (G < 8) or per group.
+__host__ __device__ inline int gemv_slots(int G) { return G < WARPS ? WARPS : G; }
+// Bytes of one staged row of activations.
+__host__ __device__ inline int gemv_stage_ld(int K, int fmt) { return fmt == kW8A16 ? 2 * (K + XPAD16) : K + XPAD8; }
+// Bytes of the two buffers of group sums.
+__host__ __device__ inline int gemv_sums_bytes(int R, int G) { return 2 * gemv_slots(G) * TILE_N * R * 4; }
+
+// Dynamic shared memory of one team for a GEMV (0 for bf16): the sums, then
+// the staged activations.
+inline size_t gemv_smem_bytes(int R, int K, int qgroup, int fmt) {
+  if (fmt == kBf16) return 0;
+  const int G = K / (qgroup > 0 ? qgroup : QGROUP);
+  return (size_t)gemv_sums_bytes(R, G) + (size_t)R * gemv_stage_ld(K, fmt);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// Bytes i and i + 1 of u (int8, biased to v + 128 by u ^ 0x80808080) as two
+// bf16, exactly: 2^23 + (v + 128) is an f32 whose low mantissa bits hold the
+// byte; less 2^23 + 128 it is v, whose upper 16 bits are its bf16.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t biased, int i) {
+  const float lo = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7541 + i)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// pro(x) into the team's staging rows, once: bf16 (W8A16) or int8 (W8A8),
+// 8 k a thread. In W8A8 the 32 threads of a warp stage one (row, 256-group)
+// together: they take its scale s_x = max(max|pro(x)|, 1e-20) / 127 with
+// shuffles (a maximum does not depend on its order), keep it in sm.sx, and
+// quantise with the plain version's expression.
+template <int PRO, int FMT>
+__device__ void gemv_stage(const GemvArgs& a, GemvSmem& sm, char* xs, int tid, int bar) {
+  constexpr int V = 8;
+  const int ld = gemv_stage_ld(a.K, FMT), per_row = a.K / V, G = a.K / QGROUP, total = a.R * per_row;
+  for (int base = 0; base < total; base += TEAM) {  // uniform over a warp: the shuffles need every lane
+    const int i = base + tid;
+    const bool on = i < total;
+    const int r = on ? i / per_row : 0, k0 = on ? V * (i % per_row) : 0;
+    float v[V];
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const float4 xq = on ? ld4(a.x + (size_t)r * a.K + k0 + 4 * q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 w4 = PRO != kPlain ? __ldg(reinterpret_cast<const float4*>(a.pw + k0 + 4 * q))
+                                      : make_float4(1.f, 1.f, 1.f, 1.f);
+      const float4 b4 = PRO == kLayerNorm ? __ldg(reinterpret_cast<const float4*>(a.pb + k0 + 4 * q))
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * q] = pro_apply<PRO>(xq.x, sm, r, w4.x, b4.x);
+      v[4 * q + 1] = pro_apply<PRO>(xq.y, sm, r, w4.y, b4.y);
+      v[4 * q + 2] = pro_apply<PRO>(xq.z, sm, r, w4.z, b4.z);
+      v[4 * q + 3] = pro_apply<PRO>(xq.w, sm, r, w4.w, b4.w);
     }
-    if (EPI == kInProj && n >= a.di && n < a.di + a.dc) {
-      // Depthwise causal conv step (ops/ssm.causal_conv1d_step semantics:
-      // state rows oldest -> newest, tap 3 multiplies the new input). Each
-      // (row, channel) of the state belongs to this lane alone.
-      const int c = n - a.di;
-      float* cs = a.conv_state + (size_t)r * 3 * a.dc;
-      const float s0 = cs[c], s1 = cs[a.dc + c], s2 = cs[2 * a.dc + c];
-      const float yc = s0 * a.conv_w[c] + s1 * a.conv_w[a.dc + c] +
-                       s2 * a.conv_w[2 * a.dc + c] + v * a.conv_w[3 * a.dc + c] + a.conv_b[c];
-      cs[c] = s1;
-      cs[a.dc + c] = s2;
-      cs[2 * a.dc + c] = v;
-      v = yc * sigmoidf_(yc);
-    } else if (EPI == kInProj && n >= a.di + a.dc && n < a.di + a.dc + a.nh) {
-      v = softplusf_(v + a.dt_bias[n - a.di - a.dc]);
+    if constexpr (FMT == kW8A16) {
+      if (on)
+        *reinterpret_cast<uint4*>(xs + (size_t)r * ld + 2 * k0) =
+            make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                       pack_bf16x2(v[6], v[7]));
+    } else {
+      float m = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) m = fmaxf(m, fabsf(v[j]));
+      const float s = fmaxf(warp_max(m), 1e-20f) * (1.0f / 127.0f);
+      if (on && tid % 32 == 0) sm.sx[r * G + k0 / QGROUP] = s;
+      uint32_t word[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t packed = 0;
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) {
+          const float qv = fminf(fmaxf(rintf(v[4 * j + i2] / s), -127.f), 127.f);
+          packed |= ((uint32_t)(int)qv & 0xffu) << (8 * i2);
+        }
+        word[j] = packed;
+      }
+      if (on) *reinterpret_cast<uint2*>(xs + (size_t)r * ld + k0) = make_uint2(word[0], word[1]);
     }
-    a.out[(size_t)r * a.N + n] = v;
+  }
+  team_sync(bar);
+}
+
+// KCHUNK steps s, s + sstep, ... (below SG) of columns n0 + g and n0 + g + 8,
+// whose lane bytes start at pa and pb; zero past the group.
+__device__ __forceinline__ void gemv_load_chunk(uint4 (&wa)[KCHUNK], uint4 (&wb)[KCHUNK], const int8_t* pa,
+                                                const int8_t* pb, int s, int sstep, int SG) {
+#pragma unroll
+  for (int u = 0; u < KCHUNK; ++u) {
+    const int su = s + u * sstep;
+    const bool ok = su < SG;
+    wa[u] = ok ? __ldg(reinterpret_cast<const uint4*>(pa + su * KSTEP)) : make_uint4(0u, 0u, 0u, 0u);
+    wb[u] = ok ? __ldg(reinterpret_cast<const uint4*>(pb + su * KSTEP)) : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// The columns team `team` of `n_teams` owns: n = team * WARPS + warp, then
-// strided by n_teams * WARPS. A team without a column returns at once (the
-// test is uniform over the team, so its barriers stay matched).
+// The columns team `team` of `n_teams` owns: tiles of TILE_N columns, tile
+// = team, team + n_teams, ... A team without a tile returns at once (the
+// test is uniform over the team, so its barriers stay matched). `dyn` is
+// the team's gemv_smem_bytes of dynamic shared memory.
 template <int PRO, int EPI, int FMT>
-__device__ void gemv_team(const GemvArgs& a, GemvSmem& sm, int team, int n_teams, int tid, int bar) {
+__device__ void gemv_team_int8(const GemvArgs& a, GemvSmem& sm, char* dyn, int team, int n_teams, int tid,
+                               int bar) {
+  const int n_tiles = a.N / TILE_N;
+  if (team >= n_tiles) return;
+  const int lane = tid % 32, warp = tid / 32, gq = lane / 4, t = lane % 4;
+  const int gsz = a.qgroup > 0 ? a.qgroup : QGROUP, G = a.K / gsz, SG = gsz / KSTEP;
+  // This warp's share of every tile: groups g0, g0 + gstep, ... below G, and
+  // in each the steps s0, s0 + sstep, ... below SG; wpg warps share a group.
+  const int wpg = G < WARPS ? WARPS / G : 1;
+  const int g0 = G < WARPS ? (warp < G * wpg ? warp / wpg : G) : warp;
+  const int gstep = G < WARPS ? G : WARPS;
+  const int s0 = warp % wpg, sstep = wpg;
+  const int slots = gemv_slots(G), ld = gemv_stage_ld(a.K, FMT);
+  uint32_t* sums = reinterpret_cast<uint32_t*>(dyn);
+  char* xs = dyn + gemv_sums_bytes(a.R, G);
+  const int8_t* w8 = static_cast<const int8_t*>(a.w);
+
+  // The first chunk's weights are in flight while the prologue runs.
+  uint4 wa[KCHUNK], wb[KCHUNK];
+  if (g0 < G) {
+    const int8_t* pa = w8 + (size_t)(team * TILE_N + gq) * a.K + 16 * t + (size_t)g0 * gsz;
+    gemv_load_chunk(wa, wb, pa, pa + (size_t)8 * a.K, s0, sstep, SG);
+  }
+  if (PRO != kPlain) gemv_row_stats_exact<PRO>(a, sm, tid, bar);
+  gemv_stage<PRO, FMT>(a, sm, xs, tid, bar);
+
+  const char* xrow = xs + (size_t)gq * ld;  // this lane's row of x: the mma's column gq
+  bool loaded = true;
+  int buf = 0;
+  for (int tile = team; tile < n_tiles; tile += n_teams, buf ^= 1) {
+    const int n0 = tile * TILE_N;
+    uint32_t* tsums = sums + (size_t)buf * slots * TILE_N * a.R;
+    for (int g = g0; g < G; g += gstep) {
+      const int8_t* pa = w8 + (size_t)(n0 + gq) * a.K + 16 * t + (size_t)g * gsz;
+      const int8_t* pb = pa + (size_t)8 * a.K;
+      float cf[4] = {0.f, 0.f, 0.f, 0.f};
+      int ci[4] = {0, 0, 0, 0};
+      for (int s = s0; s < SG; s += KCHUNK * sstep) {
+        if (!loaded) gemv_load_chunk(wa, wb, pa, pb, s, sstep, SG);
+        loaded = false;
+#pragma unroll
+        for (int u = 0; u < KCHUNK; ++u) {
+          const int su = s + u * sstep;
+          if (su >= SG) break;
+          const int k = g * gsz + su * KSTEP + 16 * t;  // this lane's 16 k of the step
+          const uint32_t w_a[4] = {wa[u].x, wa[u].y, wa[u].z, wa[u].w};
+          const uint32_t w_b[4] = {wb[u].x, wb[u].y, wb[u].z, wb[u].w};
+          if constexpr (FMT == kW8A16) {
+            uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
+            if (gq < a.R) {
+              x0 = *reinterpret_cast<const uint4*>(xrow + 2 * k);
+              x1 = *reinterpret_cast<const uint4*>(xrow + 2 * k + 16);
+            }
+            const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+            // mma j: k-slots 2t, 2t+1 <- k + 4j + 0, 1; slots 2t+8, 2t+9 <- k + 4j + 2, 3.
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t ba = w_a[j] ^ 0x80808080u, bb = w_b[j] ^ 0x80808080u;
+              mma_bf16_16816(cf, s8x2_to_bf16x2(ba, 0), s8x2_to_bf16x2(bb, 0), s8x2_to_bf16x2(ba, 2),
+                             s8x2_to_bf16x2(bb, 2), xw[2 * j], xw[2 * j + 1]);
+            }
+          } else {
+            uint4 xq = make_uint4(0u, 0u, 0u, 0u);
+            if (gq < a.R) xq = *reinterpret_cast<const uint4*>(xrow + k);
+            const uint32_t xw[4] = {xq.x, xq.y, xq.z, xq.w};
+            // mma j: k-slots 4t..4t+3 <- k + 8j + 0..3; slots 4t+16..4t+19 <- k + 8j + 4..7.
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              mma_s8_16832(ci, w_a[2 * j], w_b[2 * j], w_a[2 * j + 1], w_b[2 * j + 1], xw[2 * j], xw[2 * j + 1]);
+          }
+        }
+      }
+      // c[0], c[1]: column gq, rows 2t, 2t + 1; c[2], c[3]: column gq + 8.
+      uint32_t* slot = tsums + (size_t)(G < WARPS ? warp : g) * TILE_N * a.R;
+      const uint32_t c[4] = {FMT == kW8A8 ? (uint32_t)ci[0] : __float_as_uint(cf[0]),
+                             FMT == kW8A8 ? (uint32_t)ci[1] : __float_as_uint(cf[1]),
+                             FMT == kW8A8 ? (uint32_t)ci[2] : __float_as_uint(cf[2]),
+                             FMT == kW8A8 ? (uint32_t)ci[3] : __float_as_uint(cf[3])};
+      if (2 * t < a.R) {
+        slot[(2 * t) * TILE_N + gq] = c[0];
+        slot[(2 * t) * TILE_N + gq + 8] = c[2];
+      }
+      if (2 * t + 1 < a.R) {
+        slot[(2 * t + 1) * TILE_N + gq] = c[1];
+        slot[(2 * t + 1) * TILE_N + gq + 8] = c[3];
+      }
+    }
+    // The next tile's first chunk is in flight through the barrier and this
+    // tile's epilogue.
+    if (g0 < G && tile + n_teams < n_tiles) {
+      const int8_t* pa = w8 + (size_t)((tile + n_teams) * TILE_N + gq) * a.K + 16 * t + (size_t)g0 * gsz;
+      gemv_load_chunk(wa, wb, pa, pa + (size_t)8 * a.K, s0, sstep, SG);
+      loaded = true;
+    }
+    team_sync(bar);
+    // One thread per (row, column): the group sums in warp order, each
+    // scaled whole, added group by group.
+    if (tid < TILE_N * a.R) {
+      const int r = tid / TILE_N, n = n0 + tid % TILE_N;
+      float acc = 0.f;
+      for (int g = 0; g < G; ++g) {
+        const uint32_t* p = tsums + (size_t)(G < WARPS ? g * wpg : g) * TILE_N * a.R + tid;
+        const float sw = __ldg(a.w_s + (size_t)g * a.N + n);
+        if (FMT == kW8A8) {
+          int part = (int)p[0];
+          for (int q = 1; q < wpg; ++q) part += (int)p[(size_t)q * TILE_N * a.R];
+          acc = acc + (float)part * sm.sx[r * G + g] * sw;
+        } else {
+          float part = __uint_as_float(p[0]);
+          for (int q = 1; q < wpg; ++q) part = part + __uint_as_float(p[(size_t)q * TILE_N * a.R]);
+          acc = acc + part * sw;
+        }
+      }
+      gemv_epilogue<EPI>(a, r, n, acc);
+    }
+  }
+}
+
+// The columns team `team` of `n_teams` owns, and their products. bf16: n =
+// team * WARPS + warp, then strided by n_teams * WARPS, a warp per column; a
+// team without a column returns at once. int8: gemv_team_int8, which needs
+// the team's `dyn` shared memory (gemv_smem_bytes).
+template <int PRO, int EPI, int FMT>
+__device__ void gemv_team(const GemvArgs& a, GemvSmem& sm, int team, int n_teams, int tid, int bar,
+                          char* dyn = nullptr) {
+  if (FMT != kBf16) {
+    gemv_team_int8<PRO, EPI, FMT>(a, sm, dyn, team, n_teams, tid, bar);
+    return;
+  }
   if (team * WARPS >= a.N) return;
   if (PRO != kPlain) gemv_row_stats<PRO>(a, sm, tid, bar);
-  if (FMT == kW8A8) gemv_act_scales<PRO>(a, sm, tid, bar);
   const int lane = tid % 32, warp = tid / 32;
-  for (int n = team * WARPS + warp; n < a.N; n += n_teams * WARPS)
-    gemv_column<PRO, EPI, FMT>(a, sm, n, lane);
+  for (int n = team * WARPS + warp; n < a.N; n += n_teams * WARPS) gemv_column_bf16<PRO, EPI>(a, sm, n, lane);
 }
 
-// Checks of a GEMV's shape against what gemv_column takes.
-inline bool gemv_shape_ok(int R, int K, int N, int fmt) {
-  if (R < 1 || R > MAXR || K <= 0 || N <= 0 || K % 8 != 0) return false;
-  if (fmt != kBf16 && (K % (2 * QGROUP) != 0 || K / QGROUP > GMAX)) return false;
-  return true;
+// Blocks of a per-token GEMV launch: a team per 8 columns (bf16) or per
+// tile (int8), at most 4 an SM.
+inline int gemv_blocks(int N, int fmt) {
+  const int want = fmt == kBf16 ? (N + WARPS - 1) / WARPS : N / TILE_N, cap = 4 * mg_sm_count();
+  return want < cap ? want : cap;
 }
 
-// The same for a GEMV whose int8 pack may have one group over all of K
-// (qgroup = K, K a multiple of 16); W8A16 only in that case.
+// Launch a per-token GEMV kernel (one team a block) with its dynamic shared
+// memory; returns the cudaError_t of the launch.
+template <typename Kernel>
+int gemv_launch(Kernel kernel, const GemvArgs& a, int fmt, void* stream) {
+  const size_t smem = gemv_smem_bytes(a.R, a.K, a.qgroup, fmt);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<gemv_blocks(a.N, fmt), TEAM, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The shapes a GEMV takes. bf16: R <= 8 rows, K % 8 == 0. int8: also N in
+// tiles of 16 columns, K <= 4096 in groups of qgroup = 256 (or one group,
+// qgroup = K, W8A16 only), each a whole number of 64-k steps.
 inline bool gemv_shape_ok_grouped(int R, int K, int N, int fmt, int qgroup) {
-  if (fmt == kBf16 || qgroup == QGROUP) return gemv_shape_ok(R, K, N, fmt);
-  return fmt == kW8A16 && qgroup == K && K % 16 == 0 && gemv_shape_ok(R, K, N, kBf16);
+  if (R < 1 || R > MAXR || K <= 0 || N <= 0 || K % 8 != 0) return false;
+  if (fmt == kBf16) return true;
+  if (qgroup != QGROUP && !(fmt == kW8A16 && qgroup == K)) return false;
+  return N % TILE_N == 0 && K % qgroup == 0 && qgroup % KSTEP == 0 && K <= GMAX * QGROUP;
 }
+
+inline bool gemv_shape_ok(int R, int K, int N, int fmt) { return gemv_shape_ok_grouped(R, K, N, fmt, QGROUP); }
 
 // ---------------------------------------------------------------------------
 // Mixer: the selective-state step of one (row b, head h), 256 threads.

@@ -42,6 +42,8 @@
 // refuses a cooperative launch, the error is returned and the wrapper raises.
 #include <cooperative_groups.h>
 
+#include <algorithm>
+
 #include "decode_ops.cuh"
 
 namespace cgrp = cooperative_groups;
@@ -92,6 +94,7 @@ struct ResidentArgs {
   int64_t* tokens;             // (B, N) output
   int L, B, d_model, d_inner, nheads, headdim, d_state, conv_dim, d_in_proj, Vp, V;
   int dyn_start, length_start, time_start, tempo_start, ring, window_ticks, n_tokens, greedy;
+  int team_bytes;              // dynamic shared memory of one GEMV team (set by the launch)
 };
 constexpr int kNumPtrs = 32;
 constexpr int kNumInts = 19;
@@ -161,7 +164,11 @@ __device__ void pick_push_embed(const ResidentArgs& a, int b, int t, int* s_tok)
 
 template <int FMT>
 __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
-  extern __shared__ float tail_w[];
+  // Dynamic shared memory: the tail's Vp weights, or (int8) each team's
+  // GEMV sums and staged activations. The two are never live at once: a
+  // grid barrier separates every GEMV stage from every tail stage.
+  extern __shared__ uint4 dyn_smem[];
+  float* tail_w = reinterpret_cast<float*>(dyn_smem);
   __shared__ GemvSmem gsm[TEAMS];
   __shared__ float red_v[TAIL_NW];
   __shared__ int red_i[TAIL_NW];
@@ -171,6 +178,7 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
   const int team_in = threadIdx.x / TEAM, tid = threadIdx.x % TEAM, bar = 1 + team_in;
   const int team = blockIdx.x * TEAMS + team_in, n_teams = gridDim.x * TEAMS;
   GemvSmem& sm = gsm[team_in];
+  char* dyn = reinterpret_cast<char*>(dyn_smem) + (size_t)team_in * a.team_bytes;
   const size_t esz = FMT == kBf16 ? 2 : 1;
   const int di = a.d_inner, dc = a.conv_dim, nh = a.nheads, dm = a.d_model, dip = a.d_in_proj;
   const int g_in = dm / QGROUP, g_out = di / QGROUP;
@@ -191,7 +199,7 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
       in.conv_b = a.conv_b + (size_t)l * dc;
       in.dt_bias = a.dt_bias + (size_t)l * nh;
       in.conv_state = a.conv + (size_t)l * a.B * 3 * dc;
-      gemv_team<kPlain, kInProj, FMT>(in, sm, team, n_teams, tid, bar);
+      gemv_team<kPlain, kInProj, FMT>(in, sm, team, n_teams, tid, bar, dyn);
       grid.sync();
 
       float* ssm = a.ssm + (size_t)l * di * a.B * a.d_state;
@@ -208,7 +216,7 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
       out.R = a.B; out.K = di; out.N = dm;
       out.pw = a.norm_w + (size_t)l * di;
       out.eps = kRmsEps;
-      gemv_team<kRms, kStore, FMT>(out, sm, team, n_teams, tid, bar);
+      gemv_team<kRms, kStore, FMT>(out, sm, team, n_teams, tid, bar, dyn);
       grid.sync();
     }
 
@@ -219,7 +227,7 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
     head.out = a.logits;
     head.R = a.B; head.K = dm; head.N = a.Vp;
     head.pw = a.ln_w; head.pb = a.ln_b; head.eps = kLnEps; head.bias = a.lm_b;
-    gemv_team<kLayerNorm, kBias, FMT>(head, sm, team, n_teams, tid, bar);
+    gemv_team<kLayerNorm, kBias, FMT>(head, sm, team, n_teams, tid, bar, dyn);
     grid.sync();
 
     if (t + 1 < a.n_tokens) {
@@ -300,7 +308,10 @@ int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, 
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
-  const size_t smem = (size_t)a.Vp * sizeof(float);
+  const size_t team_bytes = std::max(gemv_smem_bytes(a.B, a.d_model, QGROUP, FMT),
+                                     gemv_smem_bytes(a.B, a.d_inner, QGROUP, FMT));
+  a.team_bytes = (int)team_bytes;
+  const size_t smem = std::max((size_t)a.Vp * sizeof(float), TEAMS * team_bytes);
   e = cudaFuncSetAttribute(generate_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;

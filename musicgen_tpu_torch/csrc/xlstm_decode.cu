@@ -37,8 +37,9 @@
 // What bounds it on an H100: bytes. At batch 2 a token reads about 190 MB of
 // bf16 weights and reads and writes the 7 mLSTM matrix memories (117 MB in
 // f32, 59 MB in bf16); a few FMAs per byte. Design: the GEMVs are kernel B's
-// (decode_ops.cuh, a warp per output column, 16-byte weight loads, all rows
-// on one weight read); mg_xm_memory reads each S element once and writes it
+// (decode_ops.cuh gemv_team: in bf16 a warp per output column; in W8A16
+// tiles of 16 columns on the tensor cores; all rows on one weight read);
+// mg_xm_memory reads each S element once and writes it
 // once (a warp per 32 columns of one (b, h), 8 warps splitting the 512 rows,
 // the readout reduced across warps in shared memory); the small launches are
 // elementwise or one block per (b, h). 68 launches a token with the tail:
@@ -73,18 +74,16 @@ __device__ float block_sum_all(float v, float* red) {
 // ---------------------------------------------------------------------------
 
 template <int PRO, int EPI, int FMT>
-__global__ void __launch_bounds__(TEAM) x_gemv_kernel(GemvArgs a) {
+__global__ void __launch_bounds__(TEAM, 4) x_gemv_kernel(GemvArgs a) {
+  extern __shared__ uint4 gemv_dyn[];
   __shared__ GemvSmem sm;
-  gemv_team<PRO, EPI, FMT>(a, sm, blockIdx.x, gridDim.x, threadIdx.x, 1);
+  gemv_team<PRO, EPI, FMT>(a, sm, blockIdx.x, gridDim.x, threadIdx.x, 1, reinterpret_cast<char*>(gemv_dyn));
 }
 
 template <int PRO, int EPI>
 int x_gemv_launch(const GemvArgs& a, int fmt, void* stream) {
-  const int want = (a.N + WARPS - 1) / WARPS, cap = 4 * mg_sm_count();
-  const int blocks = want < cap ? want : cap;
-  if (fmt == kBf16) x_gemv_kernel<PRO, EPI, kBf16><<<blocks, TEAM, 0, (cudaStream_t)stream>>>(a);
-  else x_gemv_kernel<PRO, EPI, kW8A16><<<blocks, TEAM, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (fmt == kBf16) return gemv_launch(x_gemv_kernel<PRO, EPI, kBf16>, a, fmt, stream);
+  return gemv_launch(x_gemv_kernel<PRO, EPI, kW8A16>, a, fmt, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -348,7 +347,7 @@ __global__ void __launch_bounds__(4 * kMaxDh) xs_cell_kernel(
 // The xLSTM step's GEMVs: out = epi(pro(x) . W^T). pro: 0 plain, 2 LayerNorm
 // (pw, pb, eps); epi: 0 store, 5 out += v + bias, 6 out += v, 7 gelu(v +
 // bias). fmt 0 bf16 or 1 W8A16 (w_s (K / qgroup, N); qgroup 256, or K for
-// one group).
+// one group; N % 16 == 0, see gemv_shape_ok_grouped).
 MG_EXPORT int mg_x_gemv(const float* x, const float* pw, const float* pb, const void* w, const float* w_s,
                         const float* bias, float* out, int R, int K, int N, int qgroup, float eps, int pro, int epi,
                         int fmt, void* stream) {

@@ -428,8 +428,9 @@ def _gemv(name: str, x, w, w_s, quant: str, out, pro: str, epi: str, ln=None, bi
         _need(w, "w", torch.bfloat16, (n, k), dev)
         s_ptr = 0
     else:
-        if qgroup == QUANT_GROUP and k % (2 * QUANT_GROUP):
-            raise ValueError(f"W8A16 GEMV needs K % {2 * QUANT_GROUP} == 0 or one group, got K = {k}")
+        err = dk.int8_shape_error(k, n, qgroup, quant)
+        if err:
+            raise ValueError(err)
         _need(w, "w", torch.int8, (n, k), dev)
         _need(w_s, "w_s", torch.float32, (k // qgroup, n), dev)
         s_ptr = w_s.data_ptr()

@@ -67,18 +67,68 @@ def test_quantize_cols_matches_jax_exactly(k, n):
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("quant", ["w8a8", "w8a16"])
-def test_int8_products_match_jax(quant):
+# (quant, rows, K, N, what the case holds): the yardstick of the int8 GEMV
+# kernels at the shapes they take. "low" scales one group by 1e-3, "zero"
+# zeroes one row's group (its scale takes the 1e-20 floor); K = 1408 is the
+# xLSTM FFN down-projection's one-group pack.
+_PRODUCT_CASES = [
+    pytest.param(q, rows, k, n, kind, id=f"{q}{sfx}")
+    for q in ("w8a8", "w8a16")
+    for rows, k, n, kind, sfx in ((B, 768, 80, "low", ""), (1, 512, 48, "low", "-r1"), (8, 1024, 64, "low", "-r8"),
+                                  (2, 1408, 32, "low", "-one_group_k1408"), (B, 768, 80, "zero", "-zero_group"))
+]
+
+
+@pytest.mark.parametrize("quant,rows,k,n,kind", _PRODUCT_CASES)
+def test_int8_products_match_jax(quant, rows, k, n, kind):
     rng = np.random.default_rng(1)
-    k, n = 768, 80
-    x = (3.0 * rng.standard_normal((B, k))).astype(np.float32)
-    x[1, 256:512] *= 1e-3  # a group far below the others keeps its own scale
+    x = (3.0 * rng.standard_normal((rows, k))).astype(np.float32)
+    if kind == "low":
+        x[rows - 1, 256:512] *= 1e-3  # a group far below the others keeps its own scale
+    else:
+        x[1, 256:512] = 0.0
     jq, js = jd._quantize_cols(jnp.asarray(rng.standard_normal((k, n)).astype(np.float32)))
+    assert js.shape[0] == (1 if k % 256 else k // 256)
     q, s = torch.from_numpy(np.asarray(jq).T.copy()), torch.from_numpy(np.array(js))
     jfn, fn = (jd._qdot, dk.qdot) if quant == "w8a8" else (jd._w8dot, dk.w8dot)
     want = np.asarray(jfn(jnp.asarray(x), jq, js))
     got = fn(torch.from_numpy(x), q, s).numpy()
+    assert got.shape == (rows, n) and np.isfinite(got).all()
     assert _rel(got, want) < 1e-6
+
+
+# (quant, K, N, K-group, refused): the int8 GEMV kernels' shape rule
+# (csrc/decode_ops.cuh gemv_shape_ok_grouped), held by the wrappers' guard
+# before any launch. Every shape the main paths launch is taken.
+_SHAPE_CASES = [
+    ("w8a8", 1024, 4256, 256, False),    # Mamba in_proj
+    ("w8a8", 2048, 1024, 256, False),    # out_proj
+    ("w8a8", 1024, 17920, 256, False),   # lm_head
+    ("w8a16", 1024, 3072, 256, False),   # Transformer qkv
+    ("w8a16", 4096, 1024, 256, False),   # Transformer FFN down
+    ("w8a16", 1024, 2816, 256, False),   # xLSTM FFN up
+    ("w8a16", 1408, 1024, 1408, False),  # xLSTM FFN down, one group
+    ("w8a16", 768, 1024, 256, False),    # three groups
+    ("w8a8", 1024, 4248, 256, True),     # N not in tiles of 16
+    ("w8a8", 1408, 1024, 1408, True),    # one group: W8A16 only
+    ("w8a16", 1400, 1024, 1400, True),   # one group not in 64-k steps
+    ("w8a16", 1024, 1024, 512, True),    # another group size
+    ("w8a16", 8192, 1024, 256, True),    # K past the staged 4096
+]
+
+
+@pytest.mark.parametrize("quant,k,n,qgroup,refused", _SHAPE_CASES)
+def test_int8_gemv_shape_guard(quant, k, n, qgroup, refused):
+    err = dk.int8_shape_error(k, n, qgroup, quant)
+    assert (err is not None) == refused, err
+    if qgroup == 256:  # the Mamba / Transformer wrappers' check, on the CPU, before any launch
+        w = torch.zeros(n, k, dtype=torch.int8)
+        s = torch.zeros(k // 256, n)
+        if refused:
+            with pytest.raises(ValueError, match="int8 GEMV kernels"):
+                dk._weights(w, s, quant, n, k, w.device)
+        else:
+            assert dk._weights(w, s, quant, n, k, w.device) == s.data_ptr()
 
 
 def test_build_decode_params_int8_matches_jax(setup):
