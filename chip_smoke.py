@@ -32,8 +32,11 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      chain's, with weight bytes per token and the share of the HBM roofline.
   7. the Transformer at the reference size (8 blocks, d_model 1024, 8 heads
      of 128, block 2048; seeded random weights), kernels D and F:
-     [7 flash] kernel D against its plain version at (2*8, 2054, 128) and
-     the SDPA call with the BD term in a float mask; [7 prefill] the full
+     [7 flash] kernel D against its plain version at (2*8, 2054, 128) (its
+     bf16 staging pass bit for bit against torch's rounding) and the SDPA
+     call with the BD term in a float mask, host-paced and in a CUDA graph,
+     then at T = 38, 129 and 200 (D with LSE bit-identical to D there);
+     [7 prefill] the full
      prefill's last logits with D against the f32 plain attention;
      [7 tdecode] each kernel F launch against its plain twin on the same
      inputs in bf16 and W8A16, then 64 teacher-forced steps from a shared
@@ -46,9 +49,10 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   8. training at full width, kernel D with its LSE output and kernel E (E1
      dQ + dRel, E2 dK + dV): [8 flash-bwd] D's LSE and E's four gradients
      against their plain versions at (2*8, 2054, 128), D's output unchanged
-     by the LSE, the autograd round trip against the f32 attention, E's times
-     host-paced and from a CUDA graph beside its bound, the plain version and
-     the SDPA backward; [8 grad] the Transformer's loss and every gradient
+     by the LSE, the autograd round trip against the f32 attention, D's and
+     E's times host-paced and from a CUDA graph beside the bound, the plain
+     version and SDPA's forward and backward (each also in a CUDA graph);
+     [8 grad] the Transformer's loss and every gradient
      through D and E against the same model with their plain versions on the
      card (and, as information, the f32 attention), with exact launch counts;
      [8 steps] five Adam steps of each family on one batch (the loss falls at
@@ -90,7 +94,11 @@ GEMVs (decode_ops.cuh gemv_team_int8): [4q] and [4q steps_*], [6 resident],
 [6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
 [7 tdecode] and [7 cli int8w] in W8A16, [9 prefill], [9 xdecode] and the
 [9 cli] runs in W8A16; its kernels line holds the launches of those CLI
-runs, each counted from zero, as the full run does.
+runs, each counted from zero, as the full run does. `--only flash` runs
+phases 1 and 2 and every row that launches kernel D or E: [7 flash],
+[7 prefill], [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd], [8 grad], and
+[8 steps] and [8 cli] for the Transformer; its kernels line holds D's, D
+with LSE's and E's launches from those CLI runs, each counted from zero.
 The last lines are one JSON object with every kernel ({"kernels": [...]}: its
 launches on the main path, error, time, plain time, bound and library time)
 and {"ok": true, "device": {...}}.
@@ -157,6 +165,9 @@ QUANTS = {"bf16": "none", "int8w": "w8a16", "int8": "w8a8"}  # pack -> how it ru
 TQUANTS = {"bf16": "none", "int8w": "w8a16"}  # kernel F's packs -> how they run
 T_TEACHER_STEPS = 64
 WRAP_BLOCK, WRAP_STEPS = 32, 40
+# [7 flash]'s ragged lengths: one partial tile (the metadata columns only in
+# key tile 0), one row past a key tile, and a length between.
+FLASH_RAGGED_T = (38, 129, 200)
 T_PLAIN_LOOP_TOKENS = 100
 # Kernel D rounds q, k, v, rel and the probabilities to bf16; through 8
 # blocks the prefill's last logits stay within a few 1e-3 of the f32 plain
@@ -244,6 +255,8 @@ KERNEL_INFO = {
 X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("slstm_scan.cu", "xlstm_decode.cu"))]
 PROBE_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("probe_mm.cu", "decode_ablate.cu"))]
 INT8_KERNELS = [name for name in KERNEL_INFO if name.endswith(("_w8a16", "_w8a8"))]
+FLASH_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("flash_relpos.cu",
+                                                                                 "flash_relpos_bwd.cu"))]
 
 
 class SmokeFailure(RuntimeError):
@@ -1068,19 +1081,35 @@ def relpos_mask(torch, q, rel, scale: float):
     return (bd * scale).masked_fill(~(below | (ti[None, :] < 6)), float("-inf")).to(q.dtype)
 
 
+def flash_inputs(torch, t: int, seed: int):
+    """(q, k, v, rel, scale) at the prefill's widths and length t: q, k, v
+    head views of one (B, t, 3, 8, 128) projection."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    b, h, d = BATCH, 8, 128
+    qkv = torch.randn(b, t, 3, h, d, device=DEVICE, generator=gen)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    rel = torch.randn(h, t, d, device=DEVICE, generator=gen)
+    return q, k, v, rel, (h * d) ** -0.5
+
+
 def phase_t_flash(torch, report: dict) -> None:
-    """[7 flash] kernel D against its plain version at the prefill's shape."""
+    """[7 flash] kernel D against its plain version at the prefill's shape
+    (its bf16 staging pass against torch's rounding, bit for bit), timed
+    beside SDPA; then at the ragged lengths FLASH_RAGGED_T, where D with its
+    LSE output must also give D's output bit for bit."""
+    from musicgen_tpu_torch.config import NUM_META
     from musicgen_tpu_torch.ops import attention_kernel as ak
 
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     b, h, t, d = BATCH, 8, PROMPT + 6, 128
-    qkv = torch.randn(b, t, 3, h, d, device=DEVICE, generator=gen)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # head views of one projection
-    rel = torch.randn(h, t, d, device=DEVICE, generator=gen)
-    scale = (h * d) ** -0.5
-    out_k = ak.flash_relpos_attention(q, k, v, rel, scale)
+    q, k, v, rel, scale = flash_inputs(torch, t, SEED)
+    stage = torch.empty((2 * b + 1) * h * t * d, dtype=torch.bfloat16, device=DEVICE)
+    out_k = ak._launch_forward(q, k, v, rel, scale, NUM_META, False, stage)[0]
     out_p = ak.flash_relpos_attention_plain(q, k, v, rel, scale)
     torch.cuda.synchronize()
+    staged = ak.staging_views(stage, b, h, t)
+    want = [x.to(torch.bfloat16).reshape(b * h, t, d) for x in (k, v)] + [rel[:, :t].to(torch.bfloat16)]
+    staged_ok = all(torch.equal(x, y) for x, y in zip(staged, want))
+    del stage, staged, want
     err, rel_e = rel_err(out_k, out_p)
     need(bool(torch.isfinite(out_k).all()), "flash_relpos: non-finite output")
     ms = cuda_ms(torch, lambda: ak.flash_relpos_attention(q, k, v, rel, scale), iters=20)
@@ -1088,17 +1117,35 @@ def phase_t_flash(torch, report: dict) -> None:
     plain_ms = cuda_ms(torch, lambda: ak.flash_relpos_attention_plain(q, k, v, rel, scale), iters=3, warmup=1)
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     mask = relpos_mask(torch, qb, rel, scale)  # built outside the timing
-    lib_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-        qb, kb, vb, attn_mask=mask, scale=scale), iters=10)
+    lib = library_time(torch, "SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask, scale=scale))
     del mask
     pairs = t * (t + 1) // 2 + sum(max(0, 6 - r - 1) for r in range(min(t, 6)))  # visible (row, column) pairs
     cost = bound(nbytes(q, k, v, rel, out_k), 3 * 2.0 * d * pairs * b * h, BF16_FLOPS)
     say(f"[7 flash] (B*H, T, D) = ({b * h}, {t}, {d}): max_abs {err:.3e} rel {rel_e:.3e} (tol rel {TOL_BF16}); "
-        f"kernel {ms:.4f} ms (device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, SDPA (bf16, float "
-        f"mask, mask build not timed) "
-        f"{lib_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}, {pairs} visible pairs a head)")
+        f"staged bf16 k, v, rel equal to torch's rounding: {staged_ok}; "
+        f"kernel {ms:.4f} ms (device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
+        f"{lib.text()} (bf16, float mask, mask build not timed), "
+        f"bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}, {pairs} visible pairs a head)")
+    need(staged_ok, "kernel D's staging pass differs from torch's bf16 rounding")
     need(rel_e <= TOL_BF16, "flash_relpos disagrees with its plain version")
-    report["flash_relpos"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **cost}
+    report["flash_relpos"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib.ms, **cost}
+    del q, k, v, rel, qb, kb, vb, out_k, out_p
+    for rt in FLASH_RAGGED_T:
+        q, k, v, rel, scale = flash_inputs(torch, rt, SEED + rt)
+        out0 = ak.flash_relpos_attention(q, k, v, rel, scale)
+        out, lse = ak.flash_relpos_attention_lse(q, k, v, rel, scale)
+        out_p, lse_p = ak.flash_relpos_attention_plain(q, k, v, rel, scale, with_lse=True)
+        torch.cuda.synchronize()
+        same = torch.equal(out0, out)
+        err, rel_e = rel_err(out, out_p)
+        e_lse, r_lse = rel_err(lse, lse_p)
+        say(f"[7 flash T={rt}] (B*H, T, D) = ({b * h}, {rt}, {d}): max_abs {err:.3e} rel {rel_e:.3e} (tol rel "
+            f"{TOL_BF16}); lse max_abs {e_lse:.3e} rel {r_lse:.3e} (tol {TOL_F32}); D with LSE bit-identical to D "
+            f"without it: {same}")
+        need(bool(torch.isfinite(out).all()), f"flash_relpos at T={rt}: non-finite output")
+        need(same, f"kernel D's output at T={rt} changes when it writes the LSE")
+        need(rel_e <= TOL_BF16 and r_lse <= TOL_F32, f"flash_relpos at T={rt} disagrees with its plain version")
 
 
 def phase_t_prefill(torch, corpus: Path, meta_path: Path) -> dict:
@@ -1341,12 +1388,12 @@ def phase_t_wrap(torch, corpus: Path) -> None:
 
 
 def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict,
-                int8_only: bool = False) -> None:
+                int8_only: bool = False, bf16_only: bool = False) -> None:
     """[7 cli] `--model transformer` through the CLI: --fused-decode auto,
     greedy and stochastic (two bands each), and int8w (one band); every new
     token grammatical, the .mid files re-extract, and each run, counted from
     zero, launches kernel D 8 times a prefill and kernel F's 50 launches a
-    token. int8_only runs int8w alone."""
+    token. int8_only runs int8w alone, bf16_only the two auto runs."""
     from musicgen_tpu_torch.cli import generate as cli
     from musicgen_tpu_torch.midi import extract_midi
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -1359,7 +1406,7 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
     torch.save(model.state_dict(), ckpt)
     L, mask = model.cfg.n_layer, grammar_mask()
     runs = [("auto", True, ["Mozart", "Bach"]), ("auto", False, ["Mozart", "Bach"]), ("int8w", False, ["Bach"])]
-    runs = [r for r in runs if "int8" in r[0] or not int8_only]
+    runs = [r for r in runs if ("int8" in r[0] or not int8_only) and ("int8" not in r[0] or not bf16_only)]
     totals: dict = {}
     for i, (mode, greedy, bands) in enumerate(runs):
         out = root / f"gen7_{i}"
@@ -1472,8 +1519,8 @@ def plain_attention_kernels(ak):
 def phase_flash_bwd(torch, report: dict) -> None:
     """[8 flash-bwd] kernel D's LSE output and kernel E against their plain
     versions at the training shape; the autograd round trip against the f32
-    attention; E1, E2 and E's times beside the bound, the plain version and
-    the SDPA backward."""
+    attention; D with LSE's, E1's, E2's and E's times beside the bound, the
+    plain version and SDPA's forward or backward."""
     import torch.nn.functional as F
 
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -1515,17 +1562,29 @@ def phase_flash_bwd(torch, report: dict) -> None:
     plain_lse_ms = cuda_ms(torch, lambda: ak.flash_relpos_attention_plain(q, k, v, rel, scale, with_lse=True),
                            iters=3, warmup=1)
     # SDPA in bf16 with the BD term in a float mask that requires grad; the
-    # mask is built, and the forward run, outside the timing.
+    # mask is built, and (host-paced) the forward run, outside the timing.
+    # The backward's graph time is that of a graph of forward and backward
+    # less the forward's: a captured backward needs its forward captured too.
     qb, kb, vb = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
     mask = relpos_mask(torch, qb.detach(), rel, scale).requires_grad_()
-    lib_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale),
-                         iters=10)
+    lib_fwd = library_time(torch, "SDPA forward",
+                           lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale))
     with torch.enable_grad():
         o_lib = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale)
     do_lib = dout.to(torch.bfloat16)
     lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(o_lib, (qb, kb, vb, mask), do_lib, retain_graph=True),
                          iters=5, warmup=2)
-    del o_lib, mask, qb, kb, vb, do_lib
+    del o_lib
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale)
+            return torch.autograd.grad(o, (qb, kb, vb, mask), do_lib)
+
+    fb_graph = graph_ms(torch, lib_fwd_bwd, calls=3)
+    lib_bwd = LibTime("SDPA backward (dq, dk, dv, dmask)", lib_bwd_ms,
+                      None if fb_graph is None or lib_fwd.graph is None else fb_graph - lib_fwd.graph)
+    del mask, qb, kb, vb, do_lib
 
     pairs = t * (t + 1) // 2 + sum(max(0, 6 - r - 1) for r in range(min(t, 6)))  # visible pairs a head
     per_product = 2.0 * d * pairs * b * h
@@ -1544,17 +1603,16 @@ def phase_flash_bwd(torch, report: dict) -> None:
     for n, label in (("flash_bwd_dq", "E1 dQ+dRel"), ("flash_bwd_dkv", "E2 dK+dV"), ("E", "E1+E2"),
                      ("flash_relpos_lse", "D with LSE")):
         plain = plain_lse_ms if n == "flash_relpos_lse" else plain_ms
-        lib = lib_fwd_ms if n == "flash_relpos_lse" else lib_bwd_ms
+        lib = lib_fwd if n == "flash_relpos_lse" else lib_bwd
         say(f"[8 flash-bwd {label}] kernel {ms[n]:.4f} ms (device, CUDA graph: {fmt_ms(dev_ms[n])}), bound "
-            f"{cost[n]['bound_ms']:.4f} ms ({cost[n]['bound_by']}), plain {plain:.4f} ms, SDPA "
-            f"{'forward' if n == 'flash_relpos_lse' else 'backward (dq, dk, dv, dmask)'} (bf16, float mask) "
-            f"{lib:.4f} ms")
+            f"{cost[n]['bound_ms']:.4f} ms ({cost[n]['bound_by']}), plain {plain:.4f} ms, {lib.text()} (bf16, "
+            f"float mask)")
     need(same, "kernel D's output changes when it writes the LSE")
     need(r_out <= TOL_BF16 and r_lse <= TOL_F32, "kernel D with LSE disagrees with its plain version")
     need(all(r <= TOL_BF16 for _, r in errs.values()), "kernel E disagrees with its plain version")
     need(r_train <= TOL_TRAIN_F32, "flash_relpos_attention_train disagrees with the f32 attention's gradients")
     report["flash_relpos_lse"] = {"max_abs_err": max(e_out, e_lse), "ms": ms["flash_relpos_lse"],
-                                  "plain_ms": plain_lse_ms, "library_ms": lib_fwd_ms, **cost["flash_relpos_lse"]}
+                                  "plain_ms": plain_lse_ms, "library_ms": lib_fwd.ms, **cost["flash_relpos_lse"]}
     report["flash_bwd_dq"] = {"max_abs_err": max(errs["dq"][0], errs["drel"][0]), "ms": ms["flash_bwd_dq"],
                               "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **cost["flash_bwd_dq"]}
     report["flash_bwd_dkv"] = {"max_abs_err": max(errs["dk"][0], errs["dv"][0]), "ms": ms["flash_bwd_dkv"],
@@ -1619,9 +1677,9 @@ def phase_grad(torch, corpus: Path, meta_path: Path) -> None:
     need(launches == want, f"a training step launched {launches}, expected {want}")
 
 
-def phase_train_steps(torch, corpus: Path, meta_path: Path) -> dict:
-    """[8 steps] TRAIN_STEPS Adam steps of each family at full width on one
-    batch: the loss falls at every step. Returns ms/step by family."""
+def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transformer", "mamba")) -> dict:
+    """[8 steps] TRAIN_STEPS Adam steps of each of `families` at full width
+    on one batch: the loss falls at every step. Returns ms/step by family."""
     from musicgen_tpu_torch.config import MambaConfig, TransformerConfig
     from musicgen_tpu_torch.models import mamba, transformer
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -1632,6 +1690,8 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path) -> dict:
     out = {}
     for family, module, cfg in (("transformer", transformer, TransformerConfig(dropout=0.0)),
                                 ("mamba", mamba, MambaConfig())):
+        if family not in families:
+            continue
         model = module.init_weights_(module.empty_model(cfg, DEVICE), SEED)
         step = T.make_lm_train_step(model, T.make_optimizer(model))
         ak.LAUNCHES.clear()
@@ -1675,8 +1735,9 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path) -> dict:
     return out
 
 
-def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
-    """[8 cli] `cli.train` for each family at full width (TRAIN_EPOCHS
+def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: dict,
+                    families=("transformer", "mamba")) -> None:
+    """[8 cli] `cli.train` for each of `families` at full width (TRAIN_EPOCHS
     epochs, batch 2, block 2048) on the synthesized corpus, each run counted
     from zero: a checkpoint directory, exact launch counts (D with LSE and E
     8 times a train step and D 8 times a validation step for the
@@ -1709,7 +1770,7 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
     mask = grammar_mask()
     T.make_lm_train_step = timed_step
     try:
-        for family in ("transformer", "mamba"):
+        for family in families:
             ckpt_dir = root / f"train8_{family}"
             argv = ["--model", family, "--data", str(corpus), "--metadata", str(meta_path), "--ckpt-dir",
                     str(ckpt_dir), "--log", str(root / f"train8_{family}.json"), "--epochs", str(TRAIN_EPOCHS),
@@ -2378,11 +2439,34 @@ def phase_int8_paths(torch, report: dict) -> None:
         phase_x_cli(torch, xctx, corpus, meta_path, root, report, int8_only=True)
 
 
+def phase_flash_paths(torch, report: dict) -> None:
+    """--only flash: every row of phases 7 and 8 that launches kernel D or E,
+    with the checks and timings of the full run: [7 flash], [7 prefill],
+    [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd], [8 grad], and [8 steps]
+    and [8 cli] for the Transformer. The kernels' launches are those of the
+    CLI runs, each counted from zero, as in the full run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        phase_t_flash(torch, report)
+        tctx = phase_t_prefill(torch, corpus, meta_path)
+        phase_t_wrap(torch, corpus)
+        phase_t_cli(torch, tctx, corpus, meta_path, root, report, bf16_only=True)
+        del tctx
+        torch.cuda.empty_cache()
+        phase_flash_bwd(torch, report)
+        torch.cuda.empty_cache()
+        phase_grad(torch, corpus, meta_path)
+        torch.cuda.empty_cache()
+        phase_train_steps(torch, corpus, meta_path, ("transformer",))
+        phase_train_cli(torch, corpus, meta_path, root, report, ("transformer",))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("9", "10", "int8"):
-        print("usage: python3 chip_smoke.py [--only 9|10|int8]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("9", "10", "int8", "flash"):
+        print("usage: python3 chip_smoke.py [--only 9|10|int8|flash]", file=sys.stderr)
         return 2
     import torch
 
@@ -2409,6 +2493,9 @@ def main() -> int:
     if only == "int8":
         phase_int8_paths(torch, report)
         return finish(torch, card, report, INT8_KERNELS, t_start)
+    if only == "flash":
+        phase_flash_paths(torch, report)
+        return finish(torch, card, report, FLASH_KERNELS, t_start)
     phase_ssd(torch, report)
 
     model = mamba_model(torch)

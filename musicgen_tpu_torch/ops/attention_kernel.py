@@ -98,18 +98,39 @@ def _rel_table(what: str, rel_emb, q) -> torch.Tensor:
     return rel
 
 
-def _launch_forward(q, k, v, rel_emb, scale: float, n_meta: int, with_lse: bool):
+def staging_views(stage: torch.Tensor, b: int, h: int, t: int):
+    """(k, v, rel): kernel D's bf16 copies inside its staging buffer, which
+    holds (2*B*H + H) * T * 128 values: k and v as (B*H, T, 128), then the
+    first T rows of rel as (H, T, 128), each contiguous and starting on a
+    16-byte boundary (the offsets csrc/flash_relpos.cu computes)."""
+    kv = b * h * t * HEAD_DIM
+    if (stage.dtype != torch.bfloat16 or stage.dim() != 1 or stage.numel() != 2 * kv + h * t * HEAD_DIM
+            or not stage.is_contiguous()):
+        raise ValueError(f"kernel D's staging buffer must be bf16 of {2 * kv + h * t * HEAD_DIM} values")
+    return (stage[:kv].view(b * h, t, HEAD_DIM), stage[kv:2 * kv].view(b * h, t, HEAD_DIM),
+            stage[2 * kv:].view(h, t, HEAD_DIM))
+
+
+def _launch_forward(q, k, v, rel_emb, scale: float, n_meta: int, with_lse: bool, stage=None):
+    """Kernel D's two launches (the bf16 staging pass, then the attention);
+    `stage` is the staging buffer to use (a new one if None), so that a
+    caller can read the staged copies through staging_views."""
     what = "flash_relpos_attention"
     _check_qkv(what, q, k, v)
     rel = _rel_table(what, rel_emb, q)
     b, h, t, d = q.shape
     out = torch.empty(b, t, h, d, dtype=torch.float32, device=q.device)
     lse = torch.empty(b * h, t, dtype=torch.float32, device=q.device) if with_lse else None
+    if stage is None:
+        stage = torch.empty((2 * b + 1) * h * t * d, dtype=torch.bfloat16, device=q.device)
+    staging_views(stage, b, h, t)
+    if stage.device != q.device or stage.data_ptr() % 16:
+        raise ValueError(f"{what}: the staging buffer must lie on {q.device}, 16-byte aligned")
     lib = load_library()
     sb, sh, st = q.stride()[:3]
     err = lib.mg_flash_relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st, rel.data_ptr(), rel.stride(0),
-                              out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, t, d, n_meta,
-                              float(scale), stream_ptr(q))
+                              out.data_ptr(), None if lse is None else lse.data_ptr(), stage.data_ptr(), b, h, t, d,
+                              n_meta, float(scale), stream_ptr(q))
     check(lib, err, "flash_relpos")
     LAUNCHES["flash_relpos_lse" if with_lse else "flash_relpos"] += 1
     return out.permute(0, 2, 1, 3), lse
