@@ -12,7 +12,9 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   3. kernel A (ssd_scan) against its plain version at the main-path shape.
   4. kernel B at full width: each decode kernel against its plain version on
      the same inputs, then 64 teacher-forced decode steps of the kernel chain
-     against the plain chain from one shared prefill state.
+     against the plain chain from one shared prefill state; [4 gemv ragged]
+     the bf16 GEMV against _product at two shapes no main path takes (a
+     ragged last tile and a K tail; 8 rows at K = 4096).
   5. the main path through the CLI: a seeded random full-size MambaLM saved
      as a .pth, a synthesized two-band corpus, `cli.generate.main` at batch 2
      with a 2,048-token prompt and --length 2000, once greedy and once
@@ -90,11 +92,19 @@ Phases (each prints one line of numbers; any failure exits non-zero):
 `python3 chip_smoke.py --only 9` runs phases 1, 2 and 9 alone, `--only 10`
 phases 1, 2 and 10 (bring-up of a slice; the full run takes no arguments).
 `--only int8` runs phases 1 and 2 and every row that launches the int8
-GEMVs (decode_ops.cuh gemv_team_int8): [4q] and [4q steps_*], [6 resident],
+GEMVs (decode_ops.cuh gemv_team in W8A16 or W8A8): [4q] and [4q steps_*], [6 resident],
 [6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
 [7 tdecode] and [7 cli int8w] in W8A16, [9 prefill], [9 xdecode] and the
 [9 cli] runs in W8A16; its kernels line holds the launches of those CLI
-runs, each counted from zero, as the full run does. `--only flash` runs
+runs, each counted from zero, as the full run does. `--only bf16` runs
+phases 1 and 2 and every row that launches the bf16 GEMV (gemv_team in
+bf16): [4] and [4 steps], [4 gemv ragged], [5 cli] and [5 loop], [6
+resident], [6 chain], [6 loop] and the [6 cli] runs in bf16, [7 prefill],
+[7 tdecode], the bf16 [7 cli] runs and [7 loop] in bf16, [9 prefill], [9
+xdecode], the bf16 [9 cli] runs and [9 loop] in bf16 and sb16, and phase
+10; its kernels line holds the launches of those CLI runs (and of
+kernel_ablate.run), each counted from zero, as the full run does.
+`--only flash` runs
 phases 1 and 2 and every row that launches kernel D or E: [7 flash],
 [7 prefill], [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd], [8 grad], and
 [8 steps] and [8 cli] for the Transformer; its kernels line holds D's, D
@@ -141,9 +151,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at 700 W)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
 F32_FLOPS = 67e12  # f32 outside the tensor cores (H100 SXM data sheet)
 # Tolerances, as max|kernel - plain| / max|plain|. f32 kernels differ from
-# their plain versions only in the order of f32 sums; the bf16 GEMVs also
-# round their activations to bf16 after an f32 normalisation computed in
-# another order, which can flip one bf16 rounding (2^-8 relative).
+# their plain versions only in the order of f32 sums. The bf16 GEMVs take
+# their normalisation's statistics in the plain versions' formula (f64 sums
+# rounded once, rsqrtf), so their bf16 activations equal the plain
+# version's wherever torch's f32 mean is the correctly rounded one; where it
+# is not, one bf16 rounding can flip (2^-8 relative). The other bf16 kernels
+# (D, E, F's attention) round their operands at other points.
 TOL_F32 = 1e-4
 TOL_BF16 = 1e-2
 # One decode step of the randomly initialised full-size stack amplifies a
@@ -255,6 +268,9 @@ KERNEL_INFO = {
 X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("slstm_scan.cu", "xlstm_decode.cu"))]
 PROBE_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("probe_mm.cu", "decode_ablate.cu"))]
 INT8_KERNELS = [name for name in KERNEL_INFO if name.endswith(("_w8a16", "_w8a8"))]
+# The kernels that run the bf16 GEMV (decode_ops.cuh gemv_team in bf16): the --only bf16 report.
+BF16_KERNELS = ["in_proj_conv", "out_proj_rms", "lm_head_ln", "generate_resident_bf16", "t_qkv_ln", "t_res",
+                "t_fc_relu", "xm_up", "xm_down", "xs_in", "xs_ffn_up", "xs_ffn_down", "ablate_gemv"]
 FLASH_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("flash_relpos.cu",
                                                                                  "flash_relpos_bwd.cu"))]
 
@@ -671,6 +687,50 @@ def phase_decode(torch, model, ctx: dict, report: dict) -> None:
     need(idx_equal == idx_checked, "decode steps picked other top-3 candidates")
 
 
+def phase_gemv_ragged(torch) -> None:
+    """[4 gemv ragged] the bf16 GEMV (decode_ops.cuh gemv_team) against
+    _product at shapes no main path takes: a ragged last tile and a K tail
+    at (R, K, N) = (3, 1000, 1000) with the plain prologue and a store
+    (mg_x_gemv), and 8 rows at (8, 4096, 1016) with the LayerNorm prologue
+    and the bias (mg_lm_head_ln), its staged rows past 48 KB of shared
+    memory."""
+    import dataclasses
+
+    from musicgen_tpu_torch.config import MambaConfig
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    base = dk.DecodeDims.create(MambaConfig(), BATCH)
+    for r, k, n in ((3, 1000, 1000), (8, 4096, 1016)):
+        x = 2.0 * torch.randn(r, k, device=DEVICE, generator=gen)
+        w = (0.03 * torch.randn(n, k, device=DEVICE, generator=gen)).to(torch.bfloat16)
+        if r == 3:
+            what = "plain prologue, store"
+            head = None
+        else:
+            what = "LayerNorm prologue, bias"
+            head = (1.0 + 0.1 * torch.randn(k, device=DEVICE, generator=gen),
+                    0.1 * torch.randn(k, device=DEVICE, generator=gen), w,
+                    torch.randn(n, device=DEVICE, generator=gen), dataclasses.replace(base, batch=r, d_model=k,
+                                                                                     padded_vocab=n))
+
+        def kernel():
+            return xk.gemv(x, w, None) if head is None else dk.lm_head_ln(x, *head)
+
+        def plain():
+            return dk._product(x, w, None, "none") if head is None else dk.lm_head_ln_plain(x, *head)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        say(f"[4 gemv ragged] (R, K, N) = ({r}, {k}, {n}), {what}: max_abs {err:.3e} rel {rel:.3e} (tol rel "
+            f"{TOL_BF16}); kernel (device, CUDA graph) {fmt_ms(graph_ms(torch, kernel))}, "
+            f"{linear_time(torch, x, w).text()}")
+        need(tuple(out.shape) == (r, n) and bool(torch.isfinite(out).all()), f"ragged GEMV ({r}, {k}, {n}): bad output")
+        need(rel <= TOL_BF16, f"the bf16 GEMV at ({r}, {k}, {n}) disagrees with _product")
+
+
 def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
     import numpy as np
 
@@ -720,7 +780,7 @@ def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: d
         f"in {cli_s:.1f} s; grammatical; .mid files re-extract; launches {launches}")
     need(launches == want, f"launches in the CLI run {launches}, expected {want}")
     for name, n in want.items():
-        report[name]["launches"] = n
+        report.setdefault(name, {})["launches"] = n
 
     # The generation loop alone, kernels vs plain step, from one prefill.
     ds_items = [np.load(p) for p in sorted((corpus / "Bach").glob("*.npy"))[:BATCH]]
@@ -971,12 +1031,13 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict) -> None:
 
 
 def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict,
-                       int8_only: bool = False) -> None:
+                       int8_only: bool = False, bf16_only: bool = False) -> None:
     """[6 cli] the CLI with --fused-decode resident (greedy and sampled, two
     bands), resident-int8w, int8 and int8w (one band each), and
     sampler.generate(resident=True, quant="int8"), the one resident format
     no CLI value takes: grammar, MIDI and exact launch counts, each run
-    counted from zero. int8_only leaves out the bf16 runs."""
+    counted from zero. int8_only leaves out the bf16 runs, bf16_only the
+    int8 ones."""
     import numpy as np
 
     from musicgen_tpu_torch.cli import generate as cli
@@ -1000,7 +1061,7 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
             ("resident-int8w", False, ["Bach"], {"generate_resident_w8a16": 1}),
             ("int8", False, ["Mozart"], per_token("w8a8")),
             ("int8w", False, ["Mozart"], per_token("w8a16"))]
-    runs = [r for r in runs if "int8" in r[0] or not int8_only]
+    runs = [r for r in runs if ("int8" in r[0] or not int8_only) and ("int8" not in r[0] or not bf16_only)]
     totals: dict = {}
     for i, (mode, greedy, bands, want) in enumerate(runs):
         out = root / f"gen6_{i}"
@@ -1032,6 +1093,10 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
         for name, n in want.items():
             if name.startswith(("generate_resident", "in_proj_conv_", "out_proj_rms_", "lm_head_ln_")):
                 totals[name] = totals.get(name, 0) + n
+    if bf16_only:
+        for name, n in totals.items():
+            report[name]["launches"] = n
+        return
     files = sorted((corpus / "Bach").glob("*.npy"))[:BATCH]
     prompt = torch.from_numpy(np.stack([np.load(f)[:PROMPT] for f in files])).to(DEVICE)
     meta = torch.zeros(BATCH, 6, dtype=torch.int64, device=DEVICE)
@@ -1463,8 +1528,8 @@ def phase_t_loop(torch, tctx: dict, packs: dict) -> None:
     cfg = sampler.SamplerConfig(num_tokens=LENGTH, ring_size=max(PROMPT, 2048))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for quant, q in TQUANTS.items():
-        tp = packs[quant]
+    for quant, tp in packs.items():
+        q = TQUANTS[quant]
         prefill, _ = sampler.make_sampler(model, "transformer", tp, quant, PROMPT)
         logits, carry = prefill(prompt, meta)
         per_token = nbytes(*(tp[k] for k in ("w_qkv", "w_proj", "w_fc", "w_out", "lm_w", "rel_ring", "rel_meta",
@@ -2113,14 +2178,14 @@ def x_launches(dims, length: int, n: int, quant: str) -> dict:
 
 
 def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict,
-                int8_only: bool = False) -> None:
+                int8_only: bool = False, bf16_only: bool = False) -> None:
     """[9 cli] `--model xlstm` through the CLI: --fused-decode auto, greedy
     (two bands) and stochastic (one band), LENGTH tokens; int8w, sb16 and
     int8w-sb16 for X_CLI_SHORT tokens; on, int8 and off (the plain step) for
     X_CLI_TINY: every new token grammatical, the .mid files re-extract, and
     each run, counted from zero, launches kernel H 4 times a prefill and
     kernel G's launches a token (none with off). int8_only runs the W8A16
-    values alone (int8w, int8w-sb16, int8)."""
+    values alone (int8w, int8w-sb16, int8), bf16_only the others."""
     from musicgen_tpu_torch.cli import generate as cli
     from musicgen_tpu_torch.midi import extract_midi
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -2139,7 +2204,7 @@ def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, re
             ("int8w", False, ["Bach"], X_CLI_SHORT), ("sb16", False, ["Bach"], X_CLI_SHORT),
             ("int8w-sb16", True, ["Mozart"], X_CLI_SHORT), ("on", False, ["Bach"], X_CLI_TINY),
             ("int8", True, ["Bach"], X_CLI_TINY), ("off", True, ["Mozart"], X_CLI_TINY)]
-    runs = [r for r in runs if "int8" in r[0] or not int8_only]
+    runs = [r for r in runs if ("int8" in r[0] or not int8_only) and ("int8" not in r[0] or not bf16_only)]
     totals: dict = {}
     for i, (mode, greedy, bands, length) in enumerate(runs):
         out = root / f"gen9_{i}"
@@ -2196,8 +2261,8 @@ def phase_x_loop(torch, xctx: dict, packs: dict) -> None:
     dims = xk.XDims.create(model.cfg, BATCH)
     cfg = sampler.SamplerConfig(num_tokens=X_LOOP_TOKENS, ring_size=max(PROMPT, 2048))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    for quant, q in XQUANTS.items():
-        wp = packs[quant]
+    for quant, wp in packs.items():
+        q = XQUANTS[quant]
         prefill, _ = sampler.make_sampler(model, "xlstm", wp, quant)
         logits, carry = prefill(prompt, meta)
         weights = nbytes(*(t for k, t in wp.items() if k not in ("embed", "gram")))
@@ -2255,17 +2320,18 @@ def kernel_check(torch, tag: str, name: str, outs, refs, tol: float, kernel, pla
                  library=None, note: str = "") -> None:
     """A kernel against its plain version on the same inputs, with its
     times (host-paced, from a CUDA graph), its bound and the library call's
-    time; the numbers go into report[name]."""
+    (`library`, F.linear where given: host-paced and from a CUDA graph);
+    the numbers go into report[name]."""
     errs = [rel_err(a, b) for a, b in zip(outs, refs)]
     worst_abs, worst_rel = max(e[0] for e in errs), max(e[1] for e in errs)
     ms, dev_ms, plain_ms = cuda_ms(torch, kernel), graph_ms(torch, kernel), cuda_ms(torch, plain)
-    lib_ms = None if library is None else cuda_ms(torch, library)
+    lib = NO_LIBRARY if library is None else library_time(torch, "F.linear", library)
     say(f"[{tag} {name}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); kernel {ms:.4f} ms (device, "
         f"CUDA graph{note}: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
-        f"({cost['bound_by']}), library {fmt_ms(lib_ms)}")
+        f"({cost['bound_by']}), {lib.text()}")
     need(all(bool(torch.isfinite(a).all()) for a in outs), f"{name}: non-finite output")
     need(worst_rel <= tol, f"{name} disagrees with its plain version")
-    report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **cost}
+    report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib.ms, **cost}
 
 
 def phase_probe_mm(torch, report: dict) -> None:
@@ -2439,6 +2505,43 @@ def phase_int8_paths(torch, report: dict) -> None:
         phase_x_cli(torch, xctx, corpus, meta_path, root, report, int8_only=True)
 
 
+def phase_bf16_paths(torch, report: dict) -> None:
+    """--only bf16: every row that launches the bf16 GEMV (decode_ops.cuh
+    gemv_team in bf16), with the checks and timings of the full run: [4] and
+    [4 steps], [4 gemv ragged], [5 cli] and [5 loop], [6 resident], [6
+    chain], [6 loop] and the [6 cli] runs in bf16, [7 tdecode], the bf16 [7
+    cli] runs and [7 loop] in bf16, [9 xdecode], the bf16 [9 cli] runs and
+    [9 loop] in bf16 and sb16, and phase 10. Each kernel's launches are
+    those of the CLI runs (ablate_gemv's those of kernel_ablate.run), each
+    counted from zero, as in the full run."""
+    model = mamba_model(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        ctx = decode_context(torch, model, corpus, meta_path)
+        phase_decode(torch, model, ctx, report)
+        phase_gemv_ragged(torch)
+        phase_cli(torch, model, corpus, meta_path, root, report)
+        packs = phase_resident(torch, model, ctx, report, {"bf16": QUANTS["bf16"]})
+        phase_loop(torch, ctx, packs, report)
+        phase_cli_resident(torch, model, corpus, meta_path, root, report, bf16_only=True)
+        del model, ctx, packs
+        torch.cuda.empty_cache()
+        tctx = phase_t_prefill(torch, corpus, meta_path)
+        tpacks = phase_t_decode(torch, tctx, report, {"bf16": TQUANTS["bf16"]})
+        phase_t_cli(torch, tctx, corpus, meta_path, root, report, bf16_only=True)
+        phase_t_loop(torch, tctx, tpacks)
+        del tctx, tpacks
+        torch.cuda.empty_cache()
+        xctx = phase_x_prefill(torch, corpus, meta_path)
+        xpacks = phase_x_decode(torch, xctx, report, {q: XQUANTS[q] for q in ("bf16", "bf16-sb16")})
+        phase_x_cli(torch, xctx, corpus, meta_path, root, report, bf16_only=True)
+        phase_x_loop(torch, xctx, xpacks)
+        del xctx, xpacks
+    torch.cuda.empty_cache()
+    phase_probes(torch, report)
+
+
 def phase_flash_paths(torch, report: dict) -> None:
     """--only flash: every row of phases 7 and 8 that launches kernel D or E,
     with the checks and timings of the full run: [7 flash], [7 prefill],
@@ -2465,8 +2568,8 @@ def phase_flash_paths(torch, report: dict) -> None:
 def main() -> int:
     t_start = time.perf_counter()
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("9", "10", "int8", "flash"):
-        print("usage: python3 chip_smoke.py [--only 9|10|int8|flash]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("9", "10", "int8", "bf16", "flash"):
+        print("usage: python3 chip_smoke.py [--only 9|10|int8|bf16|flash]", file=sys.stderr)
         return 2
     import torch
 
@@ -2493,6 +2596,9 @@ def main() -> int:
     if only == "int8":
         phase_int8_paths(torch, report)
         return finish(torch, card, report, INT8_KERNELS, t_start)
+    if only == "bf16":
+        phase_bf16_paths(torch, report)
+        return finish(torch, card, report, BF16_KERNELS, t_start)
     if only == "flash":
         phase_flash_paths(torch, report)
         return finish(torch, card, report, FLASH_KERNELS, t_start)
@@ -2504,6 +2610,7 @@ def main() -> int:
         corpus, meta_path = synth_corpus(root)
         ctx = decode_context(torch, model, corpus, meta_path)
         phase_decode(torch, model, ctx, report)
+        phase_gemv_ragged(torch)
         phase_int8(torch, model, ctx, report)
         phase_cli(torch, model, corpus, meta_path, root, report)
         packs = phase_resident(torch, model, ctx, report)

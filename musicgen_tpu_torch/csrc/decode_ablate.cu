@@ -18,12 +18,15 @@
 // variants.
 //
 // mg_ablate_gemv runs the GEMV device code of kernel B (decode_ops.cuh
-// gemv_team<kPlain, kStore, kBf16>, the bf16 product with the plain
-// prologue and a store, as mg_x_gemv runs it): no new GEMV. Its one addition
-// is a split of the columns between two outputs in the same launch, so that
-// V_mm's in_proj writes the z columns (the first d_inner) contiguously for
-// the out_proj product that reads them, as the TPU variant's slice
-// zx[:, :d_inner] does, without a copy launch.
+// gemv_team<kPlain, kStore, kBf16>: the bf16 product on the tensor cores in
+// tiles of 16 columns, x staged once a team in dynamic shared memory, with
+// the plain prologue and a store, as mg_x_gemv runs it): no new GEMV. Its
+// one addition is a split of the columns between two outputs in the same
+// launch, so that V_mm's in_proj writes the z columns (the first d_inner)
+// contiguously for the out_proj product that reads them, as the TPU
+// variant's slice zx[:, :d_inner] does, without a copy launch. Each range
+// has its own teams and tiles (a ragged last tile reads zeros past its
+// columns).
 //
 // mg_ablate_stream is the "touch every block" variant. On the TPU, a
 // BlockSpec moved a layer's whole weight blocks into VMEM even though the
@@ -58,12 +61,14 @@ constexpr int kUnroll = 4;  // 16-byte weight loads a thread issues before using
 // The plain bf16 GEMV of kernel B, its columns split between two outputs.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(TEAM) ablate_gemv_kernel(GemvArgs a0, GemvArgs a1, int teams0) {
+__global__ void __launch_bounds__(TEAM, 4) ablate_gemv_kernel(GemvArgs a0, GemvArgs a1, int teams0) {
+  extern __shared__ uint4 gemv_dyn[];
   __shared__ GemvSmem sm;
+  char* dyn = reinterpret_cast<char*>(gemv_dyn);
   if ((int)blockIdx.x < teams0)
-    gemv_team<kPlain, kStore, kBf16>(a0, sm, blockIdx.x, teams0, threadIdx.x, 1);
+    gemv_team<kPlain, kStore, kBf16>(a0, sm, blockIdx.x, teams0, threadIdx.x, 1, dyn);
   else
-    gemv_team<kPlain, kStore, kBf16>(a1, sm, blockIdx.x - teams0, gridDim.x - teams0, threadIdx.x, 1);
+    gemv_team<kPlain, kStore, kBf16>(a1, sm, blockIdx.x - teams0, gridDim.x - teams0, threadIdx.x, 1, dyn);
 }
 
 // ---------------------------------------------------------------------------
@@ -153,7 +158,7 @@ int grid_for(long long items, int cap) {
 // out0 (R, split) and out1 (R, N - split) = x . W^T for W (N, K) bf16,
 // K-contiguous: columns [0, split) go to out0, the rest to out1 (null when
 // split == N). One launch; the two column ranges share the grid in
-// proportion, at most 4 blocks an SM as in kernel B.
+// proportion to their tiles, at most 4 blocks an SM as in kernel B.
 MG_EXPORT int mg_ablate_gemv(const float* x, const void* w, float* out0, float* out1, int R, int K, int N, int split,
                              void* stream) {
   if (!gemv_shape_ok(R, K, N, kBf16) || split < 1 || split > N || (split < N && out1 == nullptr))
@@ -163,14 +168,20 @@ MG_EXPORT int mg_ablate_gemv(const float* x, const void* w, float* out0, float* 
   a1 = a0;
   a1.w = static_cast<const __nv_bfloat16*>(w) + (size_t)split * K; a1.out = out1; a1.N = N - split;
   const int cap = 4 * mg_sm_count();
-  const int want0 = (split + WARPS - 1) / WARPS, want1 = (N - split + WARPS - 1) / WARPS;
+  const int want0 = gemv_tiles(split), want1 = split < N ? gemv_tiles(N - split) : 0;
   int teams0 = want0, teams1 = want1;
   if (want0 + want1 > cap) {
     teams0 = (int)((long long)cap * split / N);
     teams0 = teams0 < 1 ? 1 : teams0;
     teams1 = want1 > 0 ? (cap - teams0 > 1 ? cap - teams0 : 1) : 0;
   }
-  ablate_gemv_kernel<<<teams0 + teams1, TEAM, 0, (cudaStream_t)stream>>>(a0, a1, teams0);
+  const size_t smem = gemv_smem_bytes(R, K, 0, kBf16);  // the same for both column ranges
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(ablate_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ablate_gemv_kernel<<<teams0 + teams1, TEAM, smem, (cudaStream_t)stream>>>(a0, a1, teams0);
   return (int)cudaGetLastError();
 }
 

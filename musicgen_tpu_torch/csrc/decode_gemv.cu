@@ -18,17 +18,16 @@
 //
 // Design: weights are packed K-contiguous, W[n, k] (torch's Linear layout),
 // and all rows r < R <= 8 ride the same weight read. A block is one
-// 256-thread team (decode_ops.cuh gemv_team).
-//   * bf16: a warp streams one output column with 16-byte loads (8 weights
-//     a lane), columns spread over the warps grid-stride; the activations
-//     are read through L1 and rounded to bf16 in registers, f32 FMAs.
-//   * int8 (B'): the team stages pro(x) once in dynamic shared memory,
-//     rounded to bf16 (W8A16) or quantised to int8 (W8A8), then walks
-//     tiles of 16 columns on the tensor cores (mma.sync m16n8k16 bf16 with
-//     the int8 weights converted in registers, or m16n8k32 s8); its 8 warps
-//     split K and their group sums meet in shared memory, where each group's
-//     sum is scaled whole and the groups are added in order (`_w8dot`,
-//     `_qdot`). A block per tile, at most 4 an SM.
+// 256-thread team (decode_ops.cuh gemv_team), the same in every format: it
+// takes its prologue statistics exactly, stages pro(x) once in dynamic
+// shared memory, rounded to bf16 (bf16, W8A16) or quantised to int8 (W8A8),
+// then walks tiles of 16 columns on the tensor cores (mma.sync m16n8k16
+// bf16, the bf16 weights fed to it as loaded and int8 ones converted in
+// registers; m16n8k32 s8 in W8A8). Its 8 warps split K, and their sums meet
+// in shared memory in warp order; in int8 each group's sum is scaled whole
+// and the groups are added in order (`_w8dot`, `_qdot`). A block per tile,
+// at most 4 an SM; a bf16 N or K that is not in whole tiles or steps reads
+// zeros past its end.
 // Three variants share the body:
 //   * in_proj:  plain prologue; epilogue = the 4-tap causal conv step + silu
 //               on the conv channels (conv state shifted IN PLACE), softplus(dt

@@ -1,12 +1,13 @@
 // Device code of the one-token decode math, shared by the per-token kernels
 // (kernel B and its int8 variants B': decode_gemv.cu, decode_mixer.cu,
-// decode_tail.cu; kernels F and G: decode_gemv.cu, xlstm_decode.cu) and the
-// resident whole-generation kernel (C: generate_resident.cu).
+// decode_tail.cu; kernels F and G: decode_gemv.cu, xlstm_decode.cu; kernel
+// J's product: decode_ablate.cu) and the resident whole-generation kernel
+// (C: generate_resident.cu).
 //
 // Each function handles one work item:
 //   gemv_team    the output columns of one GEMV that a 256-thread team owns
-//                (bf16: a warp per column; int8: tiles of 16 columns), after
-//                the team's prologue statistics;
+//                (tiles of 16 columns on the tensor cores, every format),
+//                after the team's prologue;
 //   mixer_item   one (batch row, head) of the SSM state update (256 threads);
 //   tail_row     the grammar/penalty/top-3 tail of one row (a 1024-thread
 //                block).
@@ -18,9 +19,9 @@
 // differently where a function is inlined.
 //
 // Weight formats (template FMT), all K-contiguous, W[n, k]:
-//   kBf16   bf16 weights, activations rounded to bf16, f32 accumulation
-//           (`_dot` in musicgen_tpu/ops/pallas_decode.py). A warp streams
-//           one column with 16-byte loads (8 weights a lane), f32 FMAs.
+//   kBf16   bf16 weights, activations rounded to bf16, f32 sums (`_dot` in
+//           musicgen_tpu/ops/pallas_decode.py): one K-group over all of K
+//           with no scale.
 //   kW8A16  int8 weights with (K / qgroup, N) f32 group scales
 //           (`_w8dot` :163): S_g = (sum_k bf16(pro(x))[r, k] * w[n, k]) *
 //           s_w[g, n], the int8 weight promoted to bf16 exactly, f32 sums.
@@ -28,36 +29,40 @@
 //           +-127), rounded half to even, s_x = max(max|pro(x)|, 1e-20) / 127
 //           per (row, 256-group); S_g = float(sum_k q * w) * s_x * s_w, the
 //           integer sum exact in int32.
-//   Both: out[r, n] = epi(sum_g S_g) with the S_g added group by group, in
+//   int8: out[r, n] = epi(sum_g S_g) with the S_g added group by group, in
 //   the TPU kernel's order. A pack whose K is not a multiple of 256 has one
 //   group over all of K (qgroup = K; W8A16 only: the xLSTM FFN's
 //   down-projection, K = 1408, kernel G).
 //
-// The int8 formats run on the tensor cores (gemv_team_int8). A team first
-// takes its prologue's row statistics in the plain versions' formula, the
-// sums taken in f64 and rounded once (gemv_row_stats_exact), and writes
-// pro(x) into its dynamic shared memory once: rounded to bf16 (W8A16) or
-// quantised to int8 (W8A8), each row padded so that a quarter-warp's
-// 16-byte reads fall on distinct banks. It then walks tiles of 16 columns,
-// the next tile's first weights in flight through the current tile's
-// barrier and epilogue. In a tile, mma.sync (m16n8k16 bf16 for W8A16, the int8 weight converted
-// to bf16 in registers; m16n8k32 s8 for W8A8) takes the 16 columns of W as
-// its rows and x's R <= 8 rows as its 8 columns (rows R..7 are zeros). A
-// k-step is 64 k: lane (g = lane / 4, t = lane % 4) loads the 16 bytes at
-// k + 16 t of columns n0 + g and n0 + g + 8, and the k-slots of each mma are
-// permuted within the step to match (the sum over k does not care). The
-// team's 8 warps split K: with G >= 8 groups warp w sums whole groups w, w +
-// 8, ...; with G < 8 groups, 8 / G warps share a group, each a fixed
-// stride of its steps. Each warp writes its group sums (f32, or int32 for
-// W8A8) into shared memory; after a team barrier one thread per (row,
-// column) adds the warps' sums of each group in warp order, scales the whole
-// group sum and adds the groups in order, applies the epilogue and stores.
-// Two buffers of sums let the next tile start without a second barrier.
-// Rounding points, int8: pro(x) in f32 (bf16 at the stage in W8A16); the
-// products exact (int32 in W8A8; bf16 x bf16 into the mma's f32 sums in
-// W8A16); each group's sum scaled once, then added to the f32 result group
-// by group. The W8A8 result thus equals the plain version's bit for bit when
-// its int8 activations and scales do.
+// Every format runs on the tensor cores through one function, gemv_team. A
+// team first takes its prologue's row statistics in the plain versions'
+// formula, the sums taken in f64 and rounded once (gemv_row_stats_exact),
+// and writes pro(x) into its dynamic shared memory once: rounded to bf16
+// (bf16, W8A16) or quantised to int8 (W8A8), each row padded so that a
+// quarter-warp's 16-byte reads fall on distinct banks, rows R..7 read as
+// zeros. It then walks tiles of 16 columns, the next tile's first weights in
+// flight through the current tile's barrier and epilogue. In a tile,
+// mma.sync (m16n8k16 bf16, the bf16 weights fed to it as loaded and int8
+// ones converted to bf16 in registers; m16n8k32 s8 for W8A8) takes the 16
+// columns of W as its rows and x's R <= 8 rows as its 8 columns. A k-step is
+// 64 k: lane (g = lane / 4, t = lane % 4) loads the 16 k at k + 16 t of
+// columns n0 + g and n0 + g + 8 (16 bytes each in int8, 32 in bf16), and
+// the k-slots of each mma are permuted within the step to match (the sum
+// over k does not care). The team's 8 warps split K: with G >= 8 groups warp
+// w sums whole groups w, w + 8, ...; with G < 8 groups (bf16: G = 1), 8 / G
+// warps share a group, each a fixed stride of its steps. Each warp writes
+// its group sums (f32, or int32 for W8A8) into shared memory; after a team
+// barrier one thread per (row, column) adds the warps' sums of each group in
+// warp order, scales the whole group sum and adds the groups in order (int8),
+// applies the epilogue and stores. Two buffers of sums let the next tile
+// start without a second barrier. A bf16 GEMV takes any N and K % 8 == 0:
+// a ragged last tile loads zeros for its columns past N and stores none of
+// them, and a K that is not whole steps is staged and loaded as zeros past K.
+// Rounding points: pro(x) in f32, rounded once to bf16 at the stage (bf16,
+// W8A16); the products exact (int32 in W8A8; bf16 x bf16 into the mma's f32
+// sums otherwise); in int8 each group's sum scaled once, then added to the
+// f32 result group by group. The W8A8 result thus equals the plain
+// version's bit for bit when its int8 activations and scales do.
 //
 // Activations, states, logits and the penalty counts may have been written
 // by another block of the same launch (in the resident kernel), so they are
@@ -108,7 +113,7 @@ __device__ __forceinline__ void team_sync(int bar) {
 struct GemvArgs {
   const float* x;                 // (R, K) f32 activations
   const void* w;                  // (N, K) bf16 or int8, K-contiguous
-  const float* w_s;               // (K / 256, N) f32 group scales [int8]
+  const float* w_s;               // (K / qgroup, N) f32 group scales [int8]
   float* out;                     // (R, N) f32
   int R, K, N;
   const float* pw;                // prologue scale (K,)  [kRms, kLayerNorm]
@@ -125,18 +130,14 @@ struct GemvArgs {
   __nv_bfloat16* k_ring;
   __nv_bfloat16* v_ring;
   int ring_S, ring_c;
-  int qgroup;                     // int8 K-group; 0 means QGROUP
+  int qgroup;                     // int8 K-group; 0 means QGROUP (bf16: one group, all of K)
 };
 
 // Shared memory of one GEMV team.
 struct GemvSmem {
-  // The warps' partial row statistics: red in bf16 (gemv_row_stats), red64
-  // in the int8 formats (gemv_row_stats_exact). Each is read before the
-  // barrier that ends its function, so one GEMV's never meets another's.
-  union {
-    float red[2 * MAXR * WARPS];
-    double red64[2 * MAXR * WARPS];
-  };
+  // The warps' partial row statistics (gemv_row_stats_exact), read before
+  // the barrier that ends it, so one GEMV's never meets another's.
+  double red64[2 * MAXR * WARPS];
   float mul[MAXR], sub[MAXR];     // prologue row statistics
   float sx[MAXR * GMAX];          // W8A8 activation scales (row, group)
 };
@@ -148,52 +149,15 @@ __device__ __forceinline__ float pro_apply(float v, const GemvSmem& sm, int r, f
   return v;
 }
 
-// Per-row statistics of the prologue: RMSNorm 1/sqrt(mean(x^2) + eps), or
-// LayerNorm mean and 1/sqrt(E[x^2] - mean^2 + eps). Every team recomputes
-// them from the R x K activations instead of a separate launch.
-template <int PRO>
-__device__ void gemv_row_stats(const GemvArgs& a, GemvSmem& sm, int tid, int bar) {
-  const int lane = tid % 32, warp = tid / 32;
-  for (int r = 0; r < a.R; ++r) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int k = tid; k < a.K; k += TEAM) {
-      const float v = a.x[(size_t)r * a.K + k];
-      s1 += v;
-      s2 += v * v;
-    }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      sm.red[r * WARPS + warp] = s1;
-      sm.red[(MAXR + r) * WARPS + warp] = s2;
-    }
-  }
-  team_sync(bar);
-  if (tid < a.R) {
-    const int r = tid;
-    float s1 = 0.f, s2 = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      s1 += sm.red[r * WARPS + w];
-      s2 += sm.red[(MAXR + r) * WARPS + w];
-    }
-    const float mean = s1 / a.K, msq = s2 / a.K;
-    if (PRO == kRms) {
-      sm.mul[r] = 1.f / sqrtf(msq + a.eps);
-      sm.sub[r] = 0.f;
-    } else {
-      sm.mul[r] = 1.f / sqrtf(msq - mean * mean + a.eps);
-      sm.sub[r] = mean;
-    }
-  }
-  team_sync(bar);
-}
-
-// The same statistics for the int8 formats, in the plain versions' formula
-// (torch.mean, then torch.rsqrt): the sums of x and of the f32 squares x * x
-// are taken in f64, where their order does not show, each rounded once to
-// f32, and the factor is rsqrtf. So the int8 activations equal the plain
-// version's wherever torch's f32 mean is the correctly rounded one: an
-// activation one int8 level apart would grow through a stack of layers.
+// Per-row statistics of the prologue, RMSNorm rsqrt(mean(x^2) + eps) or
+// LayerNorm mean and rsqrt(E[x^2] - mean^2 + eps), in the plain versions'
+// formula (torch.mean, then torch.rsqrt): the sums of x and of the f32
+// squares x * x are taken in f64, where their order does not show, each
+// rounded once to f32, and the factor is rsqrtf. So the activations equal
+// the plain version's wherever torch's f32 mean is the correctly rounded
+// one: a bf16 activation one rounding apart, or an int8 one one level apart,
+// would grow through a stack of layers. Every team recomputes them from the
+// R x K activations instead of a separate launch.
 __device__ __forceinline__ double warp_sum_d(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -272,76 +236,50 @@ __device__ __forceinline__ void gemv_epilogue(const GemvArgs& a, int r, int n, f
   a.out[(size_t)r * a.N + n] = v;
 }
 
-// bf16: one output column n for all R rows, computed by one warp; lane 0
-// applies the epilogue and stores.
-template <int PRO, int EPI>
-__device__ void gemv_column_bf16(const GemvArgs& a, const GemvSmem& sm, int n, int lane) {
-  float acc[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
+// ---------------------------------------------------------------------------
+// The products on the tensor cores, every format (see the header).
+// ---------------------------------------------------------------------------
 
-  const __nv_bfloat16* wcol = static_cast<const __nv_bfloat16*>(a.w) + (size_t)n * a.K;
-  for (int k0 = lane * 8; k0 < a.K; k0 += 32 * 8) {
-    const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wcol + k0));
-    const float wf[8] = {bf16_lo(wv.x), bf16_hi(wv.x), bf16_lo(wv.y), bf16_hi(wv.y),
-                         bf16_lo(wv.z), bf16_hi(wv.z), bf16_lo(wv.w), bf16_hi(wv.w)};
-    float pw[8], pb[8];
-    if (PRO != kPlain) {
-      const float4 p0 = __ldg(reinterpret_cast<const float4*>(a.pw + k0));
-      const float4 p1 = __ldg(reinterpret_cast<const float4*>(a.pw + k0 + 4));
-      pw[0] = p0.x; pw[1] = p0.y; pw[2] = p0.z; pw[3] = p0.w;
-      pw[4] = p1.x; pw[5] = p1.y; pw[6] = p1.z; pw[7] = p1.w;
-    }
-    if (PRO == kLayerNorm) {
-      const float4 q0 = __ldg(reinterpret_cast<const float4*>(a.pb + k0));
-      const float4 q1 = __ldg(reinterpret_cast<const float4*>(a.pb + k0 + 4));
-      pb[0] = q0.x; pb[1] = q0.y; pb[2] = q0.z; pb[3] = q0.w;
-      pb[4] = q1.x; pb[5] = q1.y; pb[6] = q1.z; pb[7] = q1.w;
-    }
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      if (r < a.R) {
-        const float4 x0 = ld4(a.x + (size_t)r * a.K + k0);
-        const float4 x1 = ld4(a.x + (size_t)r * a.K + k0 + 4);
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v = pro_apply<PRO>(xv[j], sm, r, PRO != kPlain ? pw[j] : 1.f,
-                                         PRO == kLayerNorm ? pb[j] : 0.f);
-          acc[r] = fmaf(bf16_round(v), wf[j], acc[r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = warp_sum(acc[r]);
+constexpr int TILE_N = 16;          // output columns of a tile: the mma's 16 rows
+constexpr int KSTEP = 64;           // k of one step: 16 k of a column for each of 4 lanes
+constexpr int XPAD16 = 8;           // bf16 after each staged W8A16 row (16 bytes)
+constexpr int XPADB = 32;           // bf16 after each staged bf16 row (64 bytes)
+constexpr int XPAD8 = 64;           // int8 after each staged W8A8 row
+constexpr int BF16_MAX_K = 8192;    // K of a bf16 GEMV: its R x K staged activations fit a block
 
-  for (int r = 0; r < a.R && lane == 0; ++r) gemv_epilogue<EPI>(a, r, n, acc[r]);
+// 16-byte weight words a lane loads for one column and step (16 k).
+template <int FMT>
+__host__ __device__ constexpr int gemv_wv() { return FMT == kBf16 ? 2 : 1; }
+// Steps a warp loads before it uses any: 64 bytes a column and lane in every
+// format (two steps in int8, one in bf16). Two bf16 steps would hold 32
+// registers of weights, and under the 64 registers of 4 teams an SM the
+// kernels then spill.
+template <int FMT>
+__host__ __device__ constexpr int gemv_kchunk() { return FMT == kBf16 ? 1 : 2; }
+
+// K in whole steps (a bf16 K tail is staged and loaded as zeros).
+__host__ __device__ inline int gemv_kpad(int K) { return (K + KSTEP - 1) / KSTEP * KSTEP; }
+// K-groups of a row: bf16 has one, over all of K, and no scale.
+__host__ __device__ inline int gemv_groups(int K, int qgroup, int fmt) {
+  return fmt == kBf16 ? 1 : K / (qgroup > 0 ? qgroup : QGROUP);
 }
-
-// ---------------------------------------------------------------------------
-// The int8 formats on the tensor cores (see the header).
-// ---------------------------------------------------------------------------
-
-constexpr int TILE_N = 16;   // output columns of a tile: the mma's 16 rows
-constexpr int KSTEP = 64;    // k of one step: 16 bytes of a column for each of 4 lanes
-constexpr int KCHUNK = 2;    // steps a warp loads before it uses any
-constexpr int XPAD16 = 8;    // bf16 after each staged W8A16 row (16 bytes)
-constexpr int XPAD8 = 64;    // int8 after each staged W8A8 row
-
+// Tiles of N columns; a ragged last tile (bf16) reads zeros past N.
+__host__ __device__ inline int gemv_tiles(int N) { return (N + TILE_N - 1) / TILE_N; }
 // Slots of group sums a tile writes: one per warp (G < 8) or per group.
 __host__ __device__ inline int gemv_slots(int G) { return G < WARPS ? WARPS : G; }
-// Bytes of one staged row of activations.
-__host__ __device__ inline int gemv_stage_ld(int K, int fmt) { return fmt == kW8A16 ? 2 * (K + XPAD16) : K + XPAD8; }
+// Bytes of one staged row of activations: bf16 (bf16, W8A16) or int8 (W8A8),
+// padded so that the 16-byte reads of a quarter-warp (two rows) fall on
+// distinct banks.
+__host__ __device__ inline int gemv_stage_ld(int K, int fmt) {
+  return fmt == kW8A8 ? K + XPAD8 : fmt == kW8A16 ? 2 * (K + XPAD16) : 2 * (gemv_kpad(K) + XPADB);
+}
 // Bytes of the two buffers of group sums.
 __host__ __device__ inline int gemv_sums_bytes(int R, int G) { return 2 * gemv_slots(G) * TILE_N * R * 4; }
 
-// Dynamic shared memory of one team for a GEMV (0 for bf16): the sums, then
-// the staged activations.
+// Dynamic shared memory of one team for a GEMV: the sums, then the staged
+// activations.
 inline size_t gemv_smem_bytes(int R, int K, int qgroup, int fmt) {
-  if (fmt == kBf16) return 0;
-  const int G = K / (qgroup > 0 ? qgroup : QGROUP);
-  return (size_t)gemv_sums_bytes(R, G) + (size_t)R * gemv_stage_ld(K, fmt);
+  return (size_t)gemv_sums_bytes(R, gemv_groups(K, qgroup, fmt)) + (size_t)R * gemv_stage_ld(K, fmt);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -356,6 +294,10 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t biased, int i) {
   const float lo = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + i)) - 8388736.f;
   const float hi = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7541 + i)) - 8388736.f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
@@ -376,37 +318,42 @@ __device__ __forceinline__ void mma_s8_16832(int (&c)[4], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// pro(x) into the team's staging rows, once: bf16 (W8A16) or int8 (W8A8),
-// 8 k a thread. In W8A8 the 32 threads of a warp stage one (row, 256-group)
-// together: they take its scale s_x = max(max|pro(x)|, 1e-20) / 127 with
-// shuffles (a maximum does not depend on its order), keep it in sm.sx, and
-// quantise with the plain version's expression.
+// pro(x) into the team's staging rows, once: bf16 (bf16, W8A16) or int8
+// (W8A8), 8 k a thread; a bf16 row's K tail, up to whole steps, is zeros. In
+// W8A8 the 32 threads of a warp stage one (row, 256-group) together: they
+// take its scale s_x = max(max|pro(x)|, 1e-20) / 127 with shuffles (a
+// maximum does not depend on its order), keep it in sm.sx, and quantise with
+// the plain version's expression.
 template <int PRO, int FMT>
 __device__ void gemv_stage(const GemvArgs& a, GemvSmem& sm, char* xs, int tid, int bar) {
   constexpr int V = 8;
-  const int ld = gemv_stage_ld(a.K, FMT), per_row = a.K / V, G = a.K / QGROUP, total = a.R * per_row;
+  const int ld = gemv_stage_ld(a.K, FMT), per_row = (FMT == kBf16 ? gemv_kpad(a.K) : a.K) / V, G = a.K / QGROUP;
+  const int total = a.R * per_row;
   for (int base = 0; base < total; base += TEAM) {  // uniform over a warp: the shuffles need every lane
     const int i = base + tid;
     const bool on = i < total;
     const int r = on ? i / per_row : 0, k0 = on ? V * (i % per_row) : 0;
+    const bool in = on && (FMT != kBf16 || k0 < a.K);  // only a bf16 row has a tail
+    const bool pin = FMT != kBf16 || in;                 // int8: pw, pb at k0 = 0 for a lane past the rows
     float v[V];
 #pragma unroll
     for (int q = 0; q < V / 4; ++q) {
-      const float4 xq = on ? ld4(a.x + (size_t)r * a.K + k0 + 4 * q) : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 w4 = PRO != kPlain ? __ldg(reinterpret_cast<const float4*>(a.pw + k0 + 4 * q))
-                                      : make_float4(1.f, 1.f, 1.f, 1.f);
-      const float4 b4 = PRO == kLayerNorm ? __ldg(reinterpret_cast<const float4*>(a.pb + k0 + 4 * q))
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 xq = in ? ld4(a.x + (size_t)r * a.K + k0 + 4 * q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 w4 = PRO != kPlain && pin ? __ldg(reinterpret_cast<const float4*>(a.pw + k0 + 4 * q))
+                                             : make_float4(1.f, 1.f, 1.f, 1.f);
+      const float4 b4 = PRO == kLayerNorm && pin ? __ldg(reinterpret_cast<const float4*>(a.pb + k0 + 4 * q))
+                                                 : make_float4(0.f, 0.f, 0.f, 0.f);
       v[4 * q] = pro_apply<PRO>(xq.x, sm, r, w4.x, b4.x);
       v[4 * q + 1] = pro_apply<PRO>(xq.y, sm, r, w4.y, b4.y);
       v[4 * q + 2] = pro_apply<PRO>(xq.z, sm, r, w4.z, b4.z);
       v[4 * q + 3] = pro_apply<PRO>(xq.w, sm, r, w4.w, b4.w);
     }
-    if constexpr (FMT == kW8A16) {
+    if constexpr (FMT != kW8A8) {
       if (on)
         *reinterpret_cast<uint4*>(xs + (size_t)r * ld + 2 * k0) =
-            make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
-                       pack_bf16x2(v[6], v[7]));
+            in ? make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                            pack_bf16x2(v[6], v[7]))
+               : make_uint4(0u, 0u, 0u, 0u);
     } else {
       float m = 0.f;
 #pragma unroll
@@ -430,30 +377,44 @@ __device__ void gemv_stage(const GemvArgs& a, GemvSmem& sm, char* xs, int tid, i
   team_sync(bar);
 }
 
-// KCHUNK steps s, s + sstep, ... (below SG) of columns n0 + g and n0 + g + 8,
-// whose lane bytes start at pa and pb; zero past the group.
-__device__ __forceinline__ void gemv_load_chunk(uint4 (&wa)[KCHUNK], uint4 (&wb)[KCHUNK], const int8_t* pa,
-                                                const int8_t* pb, int s, int sstep, int SG) {
+// The weights of the chunk of steps s, s + sstep, ... (below SG) of columns n0 + g
+// (from pa) and n0 + g + 8 (from pb), this lane's 16 k of each: in int8 the
+// 16 bytes at k + 16 t of the step; in bf16 the 16 bytes at k + 8 t and at
+// k + 32 + 8 t, so that each load of the 4 lanes of a column reads 64
+// contiguous bytes. Zero past the last step; in bf16 also past K (krem: the
+// k left from the lane's first k of step 0) and for a column past N (ok
+// false; its pointer is then not read).
+template <int FMT>
+__device__ __forceinline__ void gemv_load_chunk(uint4 (&wa)[gemv_kchunk<FMT>()][gemv_wv<FMT>()],
+                                                uint4 (&wb)[gemv_kchunk<FMT>()][gemv_wv<FMT>()], const char* pa,
+                                                const char* pb, bool oka, bool okb, int s, int sstep, int SG,
+                                                int krem) {
+  constexpr int KC = gemv_kchunk<FMT>(), WV = gemv_wv<FMT>(), STEP_BYTES = KSTEP * (FMT == kBf16 ? 2 : 1);
 #pragma unroll
-  for (int u = 0; u < KCHUNK; ++u) {
+  for (int u = 0; u < KC; ++u) {
     const int su = s + u * sstep;
-    const bool ok = su < SG;
-    wa[u] = ok ? __ldg(reinterpret_cast<const uint4*>(pa + su * KSTEP)) : make_uint4(0u, 0u, 0u, 0u);
-    wb[u] = ok ? __ldg(reinterpret_cast<const uint4*>(pb + su * KSTEP)) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int v = 0; v < WV; ++v) {
+      const bool in = su < SG && (FMT != kBf16 || su * KSTEP + 32 * v < krem);
+      const int off = su * STEP_BYTES + 64 * v;
+      wa[u][v] = in && oka ? __ldg(reinterpret_cast<const uint4*>(pa + off)) : make_uint4(0u, 0u, 0u, 0u);
+      wb[u][v] = in && okb ? __ldg(reinterpret_cast<const uint4*>(pb + off)) : make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 
-// The columns team `team` of `n_teams` owns: tiles of TILE_N columns, tile
-// = team, team + n_teams, ... A team without a tile returns at once (the
-// test is uniform over the team, so its barriers stay matched). `dyn` is
-// the team's gemv_smem_bytes of dynamic shared memory.
+// The columns team `team` of `n_teams` owns, and their products: tiles of
+// TILE_N columns, tile = team, team + n_teams, ... A team without a tile
+// returns at once (the test is uniform over the team, so its barriers stay
+// matched). `dyn` is the team's gemv_smem_bytes of dynamic shared memory.
 template <int PRO, int EPI, int FMT>
-__device__ void gemv_team_int8(const GemvArgs& a, GemvSmem& sm, char* dyn, int team, int n_teams, int tid,
-                               int bar) {
-  const int n_tiles = a.N / TILE_N;
+__device__ void gemv_team(const GemvArgs& a, GemvSmem& sm, int team, int n_teams, int tid, int bar, char* dyn) {
+  constexpr int KC = gemv_kchunk<FMT>(), WV = gemv_wv<FMT>(), ESZ = FMT == kBf16 ? 2 : 1;
+  const int n_tiles = gemv_tiles(a.N);
   if (team >= n_tiles) return;
   const int lane = tid % 32, warp = tid / 32, gq = lane / 4, t = lane % 4;
-  const int gsz = a.qgroup > 0 ? a.qgroup : QGROUP, G = a.K / gsz, SG = gsz / KSTEP;
+  const int gsz = FMT == kBf16 ? gemv_kpad(a.K) : (a.qgroup > 0 ? a.qgroup : QGROUP);
+  const int G = FMT == kBf16 ? 1 : a.K / gsz, SG = gsz / KSTEP;
   // This warp's share of every tile: groups g0, g0 + gstep, ... below G, and
   // in each the steps s0, s0 + sstep, ... below SG; wpg warps share a group.
   const int wpg = G < WARPS ? WARPS / G : 1;
@@ -461,15 +422,19 @@ __device__ void gemv_team_int8(const GemvArgs& a, GemvSmem& sm, char* dyn, int t
   const int gstep = G < WARPS ? G : WARPS;
   const int s0 = warp % wpg, sstep = wpg;
   const int slots = gemv_slots(G), ld = gemv_stage_ld(a.K, FMT);
+  const int lk = FMT == kBf16 ? 8 * t : 16 * t;  // this lane's first k of a step
+  const int krem = a.K - lk;                      // bf16 (one group): the k left from it in step 0
   uint32_t* sums = reinterpret_cast<uint32_t*>(dyn);
   char* xs = dyn + gemv_sums_bytes(a.R, G);
-  const int8_t* w8 = static_cast<const int8_t*>(a.w);
+  const char* wbytes = static_cast<const char*>(a.w);
 
   // The first chunk's weights are in flight while the prologue runs.
-  uint4 wa[KCHUNK], wb[KCHUNK];
+  uint4 wa[KC][WV], wb[KC][WV];
   if (g0 < G) {
-    const int8_t* pa = w8 + (size_t)(team * TILE_N + gq) * a.K + 16 * t + (size_t)g0 * gsz;
-    gemv_load_chunk(wa, wb, pa, pa + (size_t)8 * a.K, s0, sstep, SG);
+    const int na = team * TILE_N + gq;
+    const char* pa = wbytes + (size_t)na * a.K * ESZ + (size_t)(lk + g0 * gsz) * ESZ;
+    gemv_load_chunk<FMT>(wa, wb, pa, pa + (size_t)8 * a.K * ESZ, FMT != kBf16 || na < a.N, FMT != kBf16 || na + 8 < a.N,
+                         s0, sstep, SG, krem);
   }
   if (PRO != kPlain) gemv_row_stats_exact<PRO>(a, sm, tid, bar);
   gemv_stage<PRO, FMT>(a, sm, xs, tid, bar);
@@ -479,40 +444,57 @@ __device__ void gemv_team_int8(const GemvArgs& a, GemvSmem& sm, char* dyn, int t
   int buf = 0;
   for (int tile = team; tile < n_tiles; tile += n_teams, buf ^= 1) {
     const int n0 = tile * TILE_N;
+    const bool oka = FMT != kBf16 || n0 + gq < a.N, okb = FMT != kBf16 || n0 + gq + 8 < a.N;
     uint32_t* tsums = sums + (size_t)buf * slots * TILE_N * a.R;
     for (int g = g0; g < G; g += gstep) {
-      const int8_t* pa = w8 + (size_t)(n0 + gq) * a.K + 16 * t + (size_t)g * gsz;
-      const int8_t* pb = pa + (size_t)8 * a.K;
+      const char* pa = wbytes + (size_t)(n0 + gq) * a.K * ESZ + (size_t)(lk + g * gsz) * ESZ;
+      const char* pb = pa + (size_t)8 * a.K * ESZ;
       float cf[4] = {0.f, 0.f, 0.f, 0.f};
       int ci[4] = {0, 0, 0, 0};
-      for (int s = s0; s < SG; s += KCHUNK * sstep) {
-        if (!loaded) gemv_load_chunk(wa, wb, pa, pb, s, sstep, SG);
+      for (int s = s0; s < SG; s += KC * sstep) {
+        if (!loaded) gemv_load_chunk<FMT>(wa, wb, pa, pb, oka, okb, s, sstep, SG, krem);
         loaded = false;
 #pragma unroll
-        for (int u = 0; u < KCHUNK; ++u) {
+        for (int u = 0; u < KC; ++u) {
           const int su = s + u * sstep;
           if (su >= SG) break;
-          const int k = g * gsz + su * KSTEP + 16 * t;  // this lane's 16 k of the step
-          const uint32_t w_a[4] = {wa[u].x, wa[u].y, wa[u].z, wa[u].w};
-          const uint32_t w_b[4] = {wb[u].x, wb[u].y, wb[u].z, wb[u].w};
-          if constexpr (FMT == kW8A16) {
+          const int k = g * gsz + su * KSTEP + lk;  // this lane's first k of the step
+          if constexpr (FMT != kW8A8) {
+            // The lane's 16 x in the order of its 16 weights: bf16 k + 0..7
+            // and k + 32..39, W8A16 k + 0..15.
             uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
             if (gq < a.R) {
               x0 = *reinterpret_cast<const uint4*>(xrow + 2 * k);
-              x1 = *reinterpret_cast<const uint4*>(xrow + 2 * k + 16);
+              x1 = *reinterpret_cast<const uint4*>(xrow + 2 * k + (FMT == kBf16 ? 64 : 16));
             }
             const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-            // mma j: k-slots 2t, 2t+1 <- k + 4j + 0, 1; slots 2t+8, 2t+9 <- k + 4j + 2, 3.
+            // mma j: k-slots 2t, 2t+1 <- the lane's weights 4j + 0, 1; slots
+            // 2t+8, 2t+9 <- 4j + 2, 3. bf16: words 2j and 2j + 1 of its 32
+            // bytes, fed to the mma as loaded; W8A16: bytes 4j .. 4j + 3 of
+            // its 16, converted to bf16 in registers.
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              const uint32_t ba = w_a[j] ^ 0x80808080u, bb = w_b[j] ^ 0x80808080u;
-              mma_bf16_16816(cf, s8x2_to_bf16x2(ba, 0), s8x2_to_bf16x2(bb, 0), s8x2_to_bf16x2(ba, 2),
-                             s8x2_to_bf16x2(bb, 2), xw[2 * j], xw[2 * j + 1]);
+              uint32_t a0, a1, a2, a3;
+              if constexpr (FMT == kBf16) {
+                a0 = word_of(wa[u][j / 2], 2 * (j % 2));
+                a1 = word_of(wb[u][j / 2], 2 * (j % 2));
+                a2 = word_of(wa[u][j / 2], 2 * (j % 2) + 1);
+                a3 = word_of(wb[u][j / 2], 2 * (j % 2) + 1);
+              } else {
+                const uint32_t ba = word_of(wa[u][0], j) ^ 0x80808080u, bb = word_of(wb[u][0], j) ^ 0x80808080u;
+                a0 = s8x2_to_bf16x2(ba, 0);
+                a1 = s8x2_to_bf16x2(bb, 0);
+                a2 = s8x2_to_bf16x2(ba, 2);
+                a3 = s8x2_to_bf16x2(bb, 2);
+              }
+              mma_bf16_16816(cf, a0, a1, a2, a3, xw[2 * j], xw[2 * j + 1]);
             }
           } else {
             uint4 xq = make_uint4(0u, 0u, 0u, 0u);
             if (gq < a.R) xq = *reinterpret_cast<const uint4*>(xrow + k);
             const uint32_t xw[4] = {xq.x, xq.y, xq.z, xq.w};
+            const uint32_t w_a[4] = {wa[u][0].x, wa[u][0].y, wa[u][0].z, wa[u][0].w};
+            const uint32_t w_b[4] = {wb[u][0].x, wb[u][0].y, wb[u][0].z, wb[u][0].w};
             // mma j: k-slots 4t..4t+3 <- k + 8j + 0..3; slots 4t+16..4t+19 <- k + 8j + 4..7.
 #pragma unroll
             for (int j = 0; j < 2; ++j)
@@ -538,19 +520,23 @@ __device__ void gemv_team_int8(const GemvArgs& a, GemvSmem& sm, char* dyn, int t
     // The next tile's first chunk is in flight through the barrier and this
     // tile's epilogue.
     if (g0 < G && tile + n_teams < n_tiles) {
-      const int8_t* pa = w8 + (size_t)((tile + n_teams) * TILE_N + gq) * a.K + 16 * t + (size_t)g0 * gsz;
-      gemv_load_chunk(wa, wb, pa, pa + (size_t)8 * a.K, s0, sstep, SG);
+      const int na = (tile + n_teams) * TILE_N + gq;
+      const char* pa = wbytes + (size_t)na * a.K * ESZ + (size_t)(lk + g0 * gsz) * ESZ;
+      gemv_load_chunk<FMT>(wa, wb, pa, pa + (size_t)8 * a.K * ESZ, FMT != kBf16 || na < a.N,
+                           FMT != kBf16 || na + 8 < a.N, s0, sstep, SG, krem);
       loaded = true;
     }
     team_sync(bar);
-    // One thread per (row, column): the group sums in warp order, each
-    // scaled whole, added group by group.
-    if (tid < TILE_N * a.R) {
+    // One thread per (row, column): the warps' sums of each group in warp
+    // order; in int8 each group's sum scaled whole and the groups added in
+    // order.
+    if (tid < TILE_N * a.R && (FMT != kBf16 || n0 + tid % TILE_N < a.N)) {
       const int r = tid / TILE_N, n = n0 + tid % TILE_N;
       float acc = 0.f;
       for (int g = 0; g < G; ++g) {
         const uint32_t* p = tsums + (size_t)(G < WARPS ? g * wpg : g) * TILE_N * a.R + tid;
-        const float sw = __ldg(a.w_s + (size_t)g * a.N + n);
+        // The scale's load first: its latency overlaps the reads of the sums.
+        const float sw = FMT == kBf16 ? 1.f : __ldg(a.w_s + (size_t)g * a.N + n);
         if (FMT == kW8A8) {
           int part = (int)p[0];
           for (int q = 1; q < wpg; ++q) part += (int)p[(size_t)q * TILE_N * a.R];
@@ -558,7 +544,7 @@ __device__ void gemv_team_int8(const GemvArgs& a, GemvSmem& sm, char* dyn, int t
         } else {
           float part = __uint_as_float(p[0]);
           for (int q = 1; q < wpg; ++q) part = part + __uint_as_float(p[(size_t)q * TILE_N * a.R]);
-          acc = acc + part * sw;
+          acc = FMT == kBf16 ? part : acc + part * sw;
         }
       }
       gemv_epilogue<EPI>(a, r, n, acc);
@@ -566,27 +552,9 @@ __device__ void gemv_team_int8(const GemvArgs& a, GemvSmem& sm, char* dyn, int t
   }
 }
 
-// The columns team `team` of `n_teams` owns, and their products. bf16: n =
-// team * WARPS + warp, then strided by n_teams * WARPS, a warp per column; a
-// team without a column returns at once. int8: gemv_team_int8, which needs
-// the team's `dyn` shared memory (gemv_smem_bytes).
-template <int PRO, int EPI, int FMT>
-__device__ void gemv_team(const GemvArgs& a, GemvSmem& sm, int team, int n_teams, int tid, int bar,
-                          char* dyn = nullptr) {
-  if (FMT != kBf16) {
-    gemv_team_int8<PRO, EPI, FMT>(a, sm, dyn, team, n_teams, tid, bar);
-    return;
-  }
-  if (team * WARPS >= a.N) return;
-  if (PRO != kPlain) gemv_row_stats<PRO>(a, sm, tid, bar);
-  const int lane = tid % 32, warp = tid / 32;
-  for (int n = team * WARPS + warp; n < a.N; n += n_teams * WARPS) gemv_column_bf16<PRO, EPI>(a, sm, n, lane);
-}
-
-// Blocks of a per-token GEMV launch: a team per 8 columns (bf16) or per
-// tile (int8), at most 4 an SM.
-inline int gemv_blocks(int N, int fmt) {
-  const int want = fmt == kBf16 ? (N + WARPS - 1) / WARPS : N / TILE_N, cap = 4 * mg_sm_count();
+// Blocks of a per-token GEMV launch: a team per tile, at most 4 an SM.
+inline int gemv_blocks(int N) {
+  const int want = gemv_tiles(N), cap = 4 * mg_sm_count();
   return want < cap ? want : cap;
 }
 
@@ -599,16 +567,17 @@ int gemv_launch(Kernel kernel, const GemvArgs& a, int fmt, void* stream) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<gemv_blocks(a.N, fmt), TEAM, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<gemv_blocks(a.N), TEAM, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The shapes a GEMV takes. bf16: R <= 8 rows, K % 8 == 0. int8: also N in
-// tiles of 16 columns, K <= 4096 in groups of qgroup = 256 (or one group,
-// qgroup = K, W8A16 only), each a whole number of 64-k steps.
+// The shapes a GEMV takes: R <= 8 rows, K % 8 == 0, any N. bf16: K <=
+// BF16_MAX_K (the staged rows). int8: N in tiles of 16 columns, K <= 4096 in
+// groups of qgroup = 256 (or one group, qgroup = K, W8A16 only), each a whole
+// number of 64-k steps.
 inline bool gemv_shape_ok_grouped(int R, int K, int N, int fmt, int qgroup) {
   if (R < 1 || R > MAXR || K <= 0 || N <= 0 || K % 8 != 0) return false;
-  if (fmt == kBf16) return true;
+  if (fmt == kBf16) return K <= BF16_MAX_K;
   if (qgroup != QGROUP && !(fmt == kW8A16 && qgroup == K)) return false;
   return N % TILE_N == 0 && K % qgroup == 0 && qgroup % KSTEP == 0 && K <= GMAX * QGROUP;
 }

@@ -164,9 +164,9 @@ __device__ void pick_push_embed(const ResidentArgs& a, int b, int t, int* s_tok)
 
 template <int FMT>
 __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
-  // Dynamic shared memory: the tail's Vp weights, or (int8) each team's
-  // GEMV sums and staged activations. The two are never live at once: a
-  // grid barrier separates every GEMV stage from every tail stage.
+  // Dynamic shared memory: the tail's Vp weights, or each team's GEMV sums
+  // and staged activations. The two are never live at once: a grid barrier
+  // separates every GEMV stage from every tail stage.
   extern __shared__ uint4 dyn_smem[];
   float* tail_w = reinterpret_cast<float*>(dyn_smem);
   __shared__ GemvSmem gsm[TEAMS];

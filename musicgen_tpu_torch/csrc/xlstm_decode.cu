@@ -37,8 +37,8 @@
 // What bounds it on an H100: bytes. At batch 2 a token reads about 190 MB of
 // bf16 weights and reads and writes the 7 mLSTM matrix memories (117 MB in
 // f32, 59 MB in bf16); a few FMAs per byte. Design: the GEMVs are kernel B's
-// (decode_ops.cuh gemv_team: in bf16 a warp per output column; in W8A16
-// tiles of 16 columns on the tensor cores; all rows on one weight read);
+// (decode_ops.cuh gemv_team: tiles of 16 columns on the tensor cores, bf16
+// or W8A16 weights, x staged once a team; all rows on one weight read);
 // mg_xm_memory reads each S element once and writes it
 // once (a warp per 32 columns of one (b, h), 8 warps splitting the 512 rows,
 // the readout reduced across warps in shared memory); the small launches are

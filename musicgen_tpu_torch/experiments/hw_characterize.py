@@ -13,7 +13,10 @@ The same chain runs through:
 
   probe_mm       kernel I (csrc/probe_mm.cu), W as (N, K);
   decode GEMV    the port's decode GEMV (mg_x_gemv, plain prologue, store;
-                 the device code of kernels B, F and G), the same W;
+                 the device code of kernels B, C, F, G and J: tiles of 16
+                 columns on the tensor cores as in kernel I, with x staged
+                 once a 256-thread team and at most 4 teams an SM walking
+                 the tiles), the same W;
   f32 matmul     x @ W with torch.matmul on the f32 weights in the JAX
                  layout (K, N) (178 MB a step): the script's XLA f32
                  comparison;

@@ -107,8 +107,9 @@ def gemv(x, w, split=None):
     dk._rows(r)
     dk._need(x, "x", torch.float32, (r, k), dev)
     dk._need(w, "w", torch.bfloat16, (n, k), dev)
-    if k % 8:
-        raise ValueError(f"ablate_gemv needs K % 8 == 0, got K = {k}")
+    err = dk.gemv_shape_error(k, n, k, "none", r)
+    if err:
+        raise ValueError(err)
     cut = n if split is None else split
     if not 1 <= cut <= n:
         raise ValueError(f"split must be in 1..{n}, got {split}")

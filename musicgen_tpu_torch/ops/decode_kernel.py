@@ -51,9 +51,10 @@ LN_EPS = 1e-6  # flax LayerNorm's default, kept by the reference port
 _LN_101 = 0.00995033085316808  # ln 1.01: pitch penalty base
 _LN_102 = 0.019802627296179712  # ln 1.02: dynamic penalty base
 QUANT_GROUP = 256  # int8 K-group: rows of W^T under one scale
-INT8_TILE = 16  # output columns of an int8 GEMV tile (csrc/decode_ops.cuh TILE_N)
-INT8_KSTEP = 64  # k of one int8 GEMV step (KSTEP)
+INT8_TILE = 16  # output columns of a GEMV tile, whole in int8 (csrc/decode_ops.cuh TILE_N)
+INT8_KSTEP = 64  # k of one GEMV step, whole in an int8 group (KSTEP)
 INT8_MAX_K = 4096  # K an int8 GEMV stages in shared memory (GMAX * QGROUP)
+BF16_MAX_K = 8192  # K a bf16 GEMV stages in shared memory (BF16_MAX_K)
 # The pack a --fused-decode quant builds -> how its products run.
 QUANT_MODES = {"bf16": "none", "int8": "w8a8", "int8w": "w8a16"}
 _FMT = {"none": 0, "w8a16": 1, "w8a8": 2}  # csrc/decode_ops.cuh weight formats
@@ -365,16 +366,25 @@ def _kernel_dims(dims: DecodeDims, b: int) -> None:
     _rows(b)
 
 
-def int8_shape_error(k: int, n: int, qgroup: int, quant: str):
-    """Why the int8 GEMV kernels refuse W (n, k) with K-groups of `qgroup`,
-    or None: the rule of csrc/decode_ops.cuh gemv_shape_ok_grouped. The
-    kernels take tiles of 16 columns and 64-k steps within each group, K up
-    to 4096, and one group over all of K only in W8A16."""
+def gemv_shape_error(k: int, n: int, qgroup: int, quant: str, rows: int = 1):
+    """Why the GEMV kernels refuse W (n, k) with K-groups of `qgroup` at
+    `rows` rows of x, or None: the rule of csrc/decode_ops.cuh
+    gemv_shape_ok_grouped. Every format takes 1..8 rows and K % 8 == 0. bf16
+    takes any N and K up to 8192 (a ragged last tile and a K tail read
+    zeros; the rows are staged in shared memory), whatever `qgroup` says. The
+    int8 formats take tiles of 16 columns and 64-k steps within each group,
+    K up to 4096, and one group over all of K only in W8A16."""
+    if not 1 <= rows <= MAX_ROWS:
+        return f"GEMV kernels take 1..{MAX_ROWS} rows, got {rows}"
+    if k <= 0 or n <= 0 or k % 8:
+        return f"GEMV kernels need K % 8 == 0 and K, N > 0, got K = {k}, N = {n}"
+    if quant == "none":
+        return None if k <= BF16_MAX_K else f"bf16 GEMV kernels take K <= {BF16_MAX_K}, got K = {k}"
     if qgroup != QUANT_GROUP and not (quant == "w8a16" and qgroup == k):
         return f"int8 GEMV kernels take K-groups of {QUANT_GROUP} (or one group in W8A16), got {qgroup} at K = {k}"
     if n % INT8_TILE:
         return f"int8 GEMV kernels need N % {INT8_TILE} == 0, got N = {n}"
-    if k % qgroup or qgroup % INT8_KSTEP or not 0 < k <= INT8_MAX_K:
+    if k % qgroup or qgroup % INT8_KSTEP or k > INT8_MAX_K:
         return (f"int8 GEMV kernels need K a multiple of its group, the group a multiple of {INT8_KSTEP} and "
                 f"K <= {INT8_MAX_K}, got K = {k}, group {qgroup}")
     return None
@@ -385,12 +395,12 @@ def _weights(w, w_s, quant: str, n: int, k: int, dev) -> int:
     bf16)."""
     if quant not in _FMT:
         raise ValueError(f"quant must be one of {sorted(_FMT)}, got {quant!r}")
+    err = gemv_shape_error(k, n, QUANT_GROUP, quant)
+    if err:
+        raise ValueError(err)
     if quant == "none":
         _need(w, "w", torch.bfloat16, (n, k), dev)
         return 0
-    err = int8_shape_error(k, n, QUANT_GROUP, quant)
-    if err:
-        raise ValueError(err)
     _need(w, "w", torch.int8, (n, k), dev)
     _need(w_s, "w_s", torch.float32, (k // QUANT_GROUP, n), dev)
     return w_s.data_ptr()

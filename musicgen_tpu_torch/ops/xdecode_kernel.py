@@ -424,13 +424,13 @@ def _gemv(name: str, x, w, w_s, quant: str, out, pro: str, epi: str, ln=None, bi
     _x(x, k)
     _need(out, "out", torch.float32, (r, n), dev)
     qgroup = QUANT_GROUP if k % QUANT_GROUP == 0 else k
+    err = dk.gemv_shape_error(k, n, qgroup, quant, r)
+    if err:
+        raise ValueError(err)
     if quant == "none":
         _need(w, "w", torch.bfloat16, (n, k), dev)
         s_ptr = 0
     else:
-        err = dk.int8_shape_error(k, n, qgroup, quant)
-        if err:
-            raise ValueError(err)
         _need(w, "w", torch.int8, (n, k), dev)
         _need(w_s, "w_s", torch.float32, (k // qgroup, n), dev)
         s_ptr = w_s.data_ptr()

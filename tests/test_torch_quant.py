@@ -1,7 +1,9 @@
-"""Kernel B's int8 plain versions (musicgen_tpu_torch.ops.decode_kernel:
-quantize_cols, qdot, w8dot and the W8A8 / W8A16 mixer and head) vs the TPU
-kernel's own math in musicgen_tpu/ops/pallas_decode.py (`_quantize_cols`,
-`_qdot`, `_w8dot`, `_mixer_math`, `_head_math`), called as jnp functions.
+"""Kernel B's plain GEMV versions (musicgen_tpu_torch.ops.decode_kernel:
+quantize_cols, qdot, w8dot, the bf16 _product, out_proj_rms_plain and
+lm_head_ln_plain, and the W8A8 / W8A16 mixer and head) vs the TPU kernel's
+own math in musicgen_tpu/ops/pallas_decode.py (`_quantize_cols`, `_qdot`,
+`_w8dot`, `_dot`, `_mixer_math`, `_head_math`), called as jnp functions,
+and the GEMV kernels' shape rule, held by the wrappers before any launch.
 
 The port keeps matrices in torch's (out, in) layout, so its int8 pack is the
 JAX pack transposed. The pack and the integer parts of W8A8 are exact; f32
@@ -67,22 +69,60 @@ def test_quantize_cols_matches_jax_exactly(k, n):
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
-# (quant, rows, K, N, what the case holds): the yardstick of the int8 GEMV
-# kernels at the shapes they take. "low" scales one group by 1e-3, "zero"
-# zeroes one row's group (its scale takes the 1e-20 floor); K = 1408 is the
-# xLSTM FFN down-projection's one-group pack.
+# (quant, rows, K, N, what the case holds): the yardstick of the GEMV
+# kernels at the shapes they take. int8: "low" scales one group by 1e-3,
+# "zero" zeroes one row's group (its scale takes the 1e-20 floor); K = 1408
+# is the xLSTM FFN down-projection's one-group pack. bf16 ("none"): the
+# product alone ("dot", `_dot` on bf16 activations), after the gated RMSNorm
+# ("rms", `_mixer_math`'s expression) and after the LayerNorm with the bias
+# ("head", `_head_math`), at the main paths' widths and at a ragged N and K
+# (1000, 1016) that the kernels take with zeros past the end. The plain
+# versions round the same f32 activations to bf16 as the JAX ones do, so
+# only the order of the f32 sums differs.
 _PRODUCT_CASES = [
     pytest.param(q, rows, k, n, kind, id=f"{q}{sfx}")
     for q in ("w8a8", "w8a16")
     for rows, k, n, kind, sfx in ((B, 768, 80, "low", ""), (1, 512, 48, "low", "-r1"), (8, 1024, 64, "low", "-r8"),
                                   (2, 1408, 32, "low", "-one_group_k1408"), (B, 768, 80, "zero", "-zero_group"))
+] + [
+    pytest.param("none", rows, k, n, kind, id=f"bf16-{kind}-r{rows}-k{k}-n{n}")
+    for kind in ("dot", "rms", "head")
+    for rows, k, n in ((1, 512, 48), (2, 1024, 80), (8, 1000, 1000), (3, 4096, 1016))
 ]
+
+
+def _bf16_pair(kind, x, w, rng):
+    """The JAX expression and the port's plain version of one bf16 GEMV
+    (x (R, K) f32, w (K, N) f32 in JAX's layout): (want, got)."""
+    k, n = w.shape
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+    tw = torch.from_numpy(w.T.copy()).to(torch.bfloat16)
+    tx = torch.from_numpy(x)
+    if kind == "dot":
+        return jd._dot(jnp.asarray(x).astype(jnp.bfloat16), jw), dk._product(tx, tw, None, "none")
+    dims = dk.DecodeDims.create(port_cfg(MambaConfig()), x.shape[0])
+    if kind == "rms":
+        norm_w = (1.0 + 0.1 * rng.standard_normal(k)).astype(np.float32)
+        g = jnp.asarray(x)
+        var = jnp.mean(g * g, axis=-1, keepdims=True)
+        g = g * jax.lax.rsqrt(var + 1e-5) * jnp.asarray(norm_w)
+        return jd._dot(g.astype(jnp.bfloat16), jw), dk.out_proj_rms_plain(tx, torch.from_numpy(norm_w), tw, dims)
+    ln = np.stack([1.0 + 0.1 * rng.standard_normal(k), 0.1 * rng.standard_normal(k)]).astype(np.float32)
+    lm_b = rng.standard_normal(n).astype(np.float32)
+    want = jd._head_math(jnp.asarray(x), jnp.asarray(ln), jw, None, "none") + jnp.asarray(lm_b)[None, :]
+    got = dk.lm_head_ln_plain(tx, torch.from_numpy(ln[0]), torch.from_numpy(ln[1]), tw, torch.from_numpy(lm_b), dims)
+    return want, got
 
 
 @pytest.mark.parametrize("quant,rows,k,n,kind", _PRODUCT_CASES)
 def test_int8_products_match_jax(quant, rows, k, n, kind):
     rng = np.random.default_rng(1)
     x = (3.0 * rng.standard_normal((rows, k))).astype(np.float32)
+    if quant == "none":
+        want, got = _bf16_pair(kind, x, (0.03 * rng.standard_normal((k, n))).astype(np.float32), rng)
+        assert got.shape == (rows, n) and bool(torch.isfinite(got).all())
+        assert _rel(got, want) < 1e-6
+        return
     if kind == "low":
         x[rows - 1, 256:512] *= 1e-3  # a group far below the others keeps its own scale
     else:
@@ -97,9 +137,11 @@ def test_int8_products_match_jax(quant, rows, k, n, kind):
     assert _rel(got, want) < 1e-6
 
 
-# (quant, K, N, K-group, refused): the int8 GEMV kernels' shape rule
+# (quant, K, N, K-group, refused): the GEMV kernels' shape rule
 # (csrc/decode_ops.cuh gemv_shape_ok_grouped), held by the wrappers' guard
-# before any launch. Every shape the main paths launch is taken.
+# before any launch. Every shape the main paths launch is taken; bf16
+# ("none") takes any N and K % 8 == 0 up to 8192, whatever its group says;
+# no format takes more than 8 rows.
 _SHAPE_CASES = [
     ("w8a8", 1024, 4256, 256, False),    # Mamba in_proj
     ("w8a8", 2048, 1024, 256, False),    # out_proj
@@ -114,14 +156,39 @@ _SHAPE_CASES = [
     ("w8a16", 1400, 1024, 1400, True),   # one group not in 64-k steps
     ("w8a16", 1024, 1024, 512, True),    # another group size
     ("w8a16", 8192, 1024, 256, True),    # K past the staged 4096
+    ("none", 1024, 4256, 1024, False),   # Mamba in_proj (kernels B, C; J splits it at 2048)
+    ("none", 2048, 1024, 2048, False),   # out_proj, the xLSTM mLSTM down
+    ("none", 1024, 17920, 1024, False),  # lm_head
+    ("none", 1024, 3072, 1024, False),   # Transformer qkv
+    ("none", 1024, 1024, 1024, False),   # Transformer attention out
+    ("none", 1024, 4096, 1024, False),   # Transformer FFN up, xLSTM mLSTM up
+    ("none", 4096, 1024, 4096, False),   # Transformer FFN down
+    ("none", 1024, 2048, 1024, False),   # xLSTM sLSTM gates
+    ("none", 1024, 1408, 1024, False),   # xLSTM FFN up
+    ("none", 1408, 1024, 1408, False),   # xLSTM FFN down
+    ("none", 1024, 4352, 1024, False),   # kernels I and J's probe width
+    ("none", 1000, 1000, 1000, False),   # ragged N and K
+    ("none", 4096, 1016, 4096, False),   # ragged N
+    ("none", 8, 1, 8, False),            # one step, one column
+    ("none", 1004, 1024, 1004, True),    # K % 8 != 0
+    ("none", 8200, 1024, 8200, True),    # K past the staged 8192
 ]
 
 
 @pytest.mark.parametrize("quant,k,n,qgroup,refused", _SHAPE_CASES)
 def test_int8_gemv_shape_guard(quant, k, n, qgroup, refused):
-    err = dk.int8_shape_error(k, n, qgroup, quant)
+    err = dk.gemv_shape_error(k, n, qgroup, quant)
     assert (err is not None) == refused, err
-    if qgroup == 256:  # the Mamba / Transformer wrappers' check, on the CPU, before any launch
+    assert dk.gemv_shape_error(k, n, qgroup, quant, rows=dk.MAX_ROWS + 1) is not None
+    assert (dk.gemv_shape_error(k, n, qgroup, quant, rows=dk.MAX_ROWS) is not None) == refused
+    if quant == "none":  # every wrapper's check of a bf16 pack, on the CPU, before any launch
+        w = torch.zeros(n, k, dtype=torch.bfloat16)
+        if refused:
+            with pytest.raises(ValueError, match="GEMV kernels"):
+                dk._weights(w, None, quant, n, k, w.device)
+        else:
+            assert dk._weights(w, None, quant, n, k, w.device) == 0
+    elif qgroup == 256:  # the Mamba / Transformer wrappers' check, on the CPU, before any launch
         w = torch.zeros(n, k, dtype=torch.int8)
         s = torch.zeros(k // 256, n)
         if refused:
