@@ -41,12 +41,17 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      [7 prefill] the full
      prefill's last logits with D against the f32 plain attention;
      [7 tdecode] each kernel F launch against its plain twin on the same
-     inputs in bf16 and W8A16, then 64 teacher-forced steps from a shared
-     state against the plain twin chain and the f32 TransformerLM.step;
+     inputs in bf16 and W8A16 (the attention's partials and output against
+     the plain splits and combine, and against the TPU kernel's math), [7
+     tdecode_attn repeat] two launches and CUDA-graph replays of one bit for
+     bit, [7 tdecode_attn ragged] batch 1, 5 and 8 at a ring of 200 with the
+     newest slot at 0, 137 and 199, and the wrapper's refusals, then 64
+     teacher-forced steps from a shared state against the plain twin chain
+     and the f32 TransformerLM.step;
      [7 wrap] 40 steps at a block of 32 (the ring wraps) against the f32
      step; [7 cli] `--model transformer` with --fused-decode auto (greedy and
      stochastic) and int8w: grammar, MIDI, 8 launches of D per prefill and
-     50 of F per token; [7 loop] tok/s/seq of the kernel F chain beside the
+     42 of F per token; [7 loop] tok/s/seq of the kernel F chain beside the
      plain step's, bytes per token and the share of the HBM roofline.
   8. training at full width, kernel D with its LSE output and kernel E (E1
      dQ + dRel, E2 dK + dV): [8 flash-bwd] D's LSE and E's four gradients
@@ -89,8 +94,9 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      against its plain chain with exact launch counts (11 / 21 / 31 / 31),
      and [10 ablate] the entry point `experiments.kernel_ablate.run` and the
      split of kernel B's device step.
-`python3 chip_smoke.py --only 9` runs phases 1, 2 and 9 alone, `--only 10`
-phases 1, 2 and 10 (bring-up of a slice; the full run takes no arguments).
+`python3 chip_smoke.py --only 7` runs phases 1, 2 and 7 alone, `--only 9`
+phases 1, 2 and 9, `--only 10` phases 1, 2 and 10 (bring-up of a slice; the
+full run takes no arguments).
 `--only int8` runs phases 1 and 2 and every row that launches the int8
 GEMVs (decode_ops.cuh gemv_team in W8A16 or W8A8): [4q] and [4q steps_*], [6 resident],
 [6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
@@ -182,6 +188,10 @@ WRAP_BLOCK, WRAP_STEPS = 32, 40
 # key tile 0), one row past a key tile, and a length between.
 FLASH_RAGGED_T = (38, 129, 200)
 T_PLAIN_LOOP_TOKENS = 100
+# [7 tdecode_attn ragged]: a ring of four splits, the last of 8 slots, at
+# batch 1, 5 (batch groups of 3 and 2) and 8 (two of 4), the newest slot at
+# both ends and at a run whose rel rows wrap.
+ATTN_RAGGED_S, ATTN_RAGGED_B, ATTN_RAGGED_C = 200, (1, 5, 8), (0, 137, 199)
 # Kernel D rounds q, k, v, rel and the probabilities to bf16; through 8
 # blocks the prefill's last logits stay within a few 1e-3 of the f32 plain
 # attention's (PERF.md).
@@ -250,8 +260,7 @@ KERNEL_INFO = {
     "flash_relpos": ("musicgen_tpu_torch/csrc/flash_relpos.cu", "musicgen_tpu/ops/pallas_attention.py:44"),
     **{f"{name}{sfx}": ("musicgen_tpu_torch/csrc/decode_gemv.cu", "musicgen_tpu/ops/pallas_transformer_decode.py:254")
        for name in ("t_qkv_ln", "t_res", "t_fc_relu") for sfx in ("", "_w8a16")},
-    **{name: ("musicgen_tpu_torch/csrc/tdecode_attn.cu", "musicgen_tpu/ops/pallas_transformer_decode.py:254")
-       for name in ("tdecode_attn_split", "tdecode_attn_combine")},
+    "tdecode_attn": ("musicgen_tpu_torch/csrc/tdecode_attn.cu", "musicgen_tpu/ops/pallas_transformer_decode.py:254"),
     "flash_relpos_lse": ("musicgen_tpu_torch/csrc/flash_relpos.cu", "musicgen_tpu/ops/pallas_attention.py:44"),
     "flash_bwd_dq": ("musicgen_tpu_torch/csrc/flash_relpos_bwd.cu", "musicgen_tpu/ops/pallas_attention.py:310"),
     "flash_bwd_dkv": ("musicgen_tpu_torch/csrc/flash_relpos_bwd.cu", "musicgen_tpu/ops/pallas_attention.py:365"),
@@ -266,6 +275,8 @@ KERNEL_INFO = {
 }
 # The phases of --only 9 and --only 10: the kernels a report of that phase holds.
 X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("slstm_scan.cu", "xlstm_decode.cu"))]
+T_KERNELS = ["flash_relpos", *(name for name, (_, replaces) in KERNEL_INFO.items()
+                               if "transformer_decode" in replaces)]
 PROBE_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("probe_mm.cu", "decode_ablate.cu"))]
 INT8_KERNELS = [name for name in KERNEL_INFO if name.endswith(("_w8a16", "_w8a8"))]
 # The kernels that run the bf16 GEMV (decode_ops.cuh gemv_team in bf16): the --only bf16 report.
@@ -1284,15 +1295,16 @@ def phase_t_decode(torch, tctx: dict, report: dict, quants: dict = TQUANTS) -> d
         zx_k = tk.qkv_ln(x, tp["ln1"][0], tp["w_qkv"][0], ck[2][0], ck[3][0], c, dims, sc("qkv_s"), q)
         zx = tk.qkv_ln_plain(x, tp["ln1"][0], tp["w_qkv"][0], cp[2][0], cp[3][0], c, dims, sc("qkv_s"), q)
         attn_in = (zx, cp[2][0], cp[3][0], tp["rel_ring"][0], cp[0][0], cp[1][0], tp["rel_meta"][0], c, dims)
-        parts_k, parts = tk.attn_split(*attn_in), tk.attn_split_plain(*attn_in)
-        a_k, a = tk.attn_combine(*parts, dims), tk.attn_combine_plain(*parts, dims)
-        pair_k, twin = tk.attention(*attn_in), tk.attention_plain(*attn_in)
+        a_k, parts_k = tk.attention(*attn_in, partials=True)
+        parts = tk.attn_split_plain(*attn_in)
+        a, twin = tk.attn_combine_plain(*parts, dims), tk.attention_plain(*attn_in)
         r_k = tk.res(a, tp["w_proj"][0], tp["proj_b"][0], x.clone(), dims, sc("proj_s"), q)
         r = tk.res_plain(a, tp["w_proj"][0], tp["proj_b"][0], x.clone(), dims, sc("proj_s"), q)
         h_k = tk.fc_relu(r, tp["ln2"][0], tp["w_fc"][0], tp["b_fc"][0], dims, sc("fc_s"), q)
         h = tk.fc_relu_plain(r, tp["ln2"][0], tp["w_fc"][0], tp["b_fc"][0], dims, sc("fc_s"), q)
         o_k = tk.res(h, tp["w_out"][0], tp["b_out"][0], r.clone(), dims, sc("out_s"), q)
         o = tk.res_plain(h, tp["w_out"][0], tp["b_out"][0], r.clone(), dims, sc("out_s"), q)
+        r_timed, r_timed_plain = r.clone(), r.clone()  # the residuals the timed launches add into
         torch.cuda.synchronize()
         checks = {
             f"t_qkv_ln{sfx}": ([zx_k, ck[2][0].float(), ck[3][0].float()], [zx, cp[2][0].float(), cp[3][0].float()],
@@ -1305,8 +1317,9 @@ def phase_t_decode(torch, tctx: dict, report: dict, quants: dict = TQUANTS) -> d
                                                  sc("qkv_s"), q),
                                lambda: tk.qkv_ln_plain(x, tp["ln1"][0], tp["w_qkv"][0], cp[2][0], cp[3][0], c, dims,
                                                        sc("qkv_s"), q)),
-            f"t_res{sfx}": (lambda: tk.res(h, tp["w_out"][0], tp["b_out"][0], r.clone(), dims, sc("out_s"), q),
-                            lambda: tk.res_plain(h, tp["w_out"][0], tp["b_out"][0], r.clone(), dims, sc("out_s"), q)),
+            f"t_res{sfx}": (lambda: tk.res(h, tp["w_out"][0], tp["b_out"][0], r_timed, dims, sc("out_s"), q),
+                            lambda: tk.res_plain(h, tp["w_out"][0], tp["b_out"][0], r_timed_plain, dims, sc("out_s"),
+                                                 q)),
             f"t_fc_relu{sfx}": (lambda: tk.fc_relu(r, tp["ln2"][0], tp["w_fc"][0], tp["b_fc"][0], dims, sc("fc_s"), q),
                                 lambda: tk.fc_relu_plain(r, tp["ln2"][0], tp["w_fc"][0], tp["b_fc"][0], dims,
                                                          sc("fc_s"), q)),
@@ -1322,11 +1335,11 @@ def phase_t_decode(torch, tctx: dict, report: dict, quants: dict = TQUANTS) -> d
                                 bf16_weights(torch, tp["w_fc"][0], sc("fc_s"))),
         }
         if q == "none":
-            checks["tdecode_attn_split"] = (list(parts_k), list(parts), TOL_BF16)
-            checks["tdecode_attn_combine"] = ([a_k], [a], TOL_F32)
-            timers["tdecode_attn_split"] = (lambda: tk.attn_split(*attn_in), lambda: tk.attn_split_plain(*attn_in))
-            timers["tdecode_attn_combine"] = (lambda: tk.attn_combine(*parts, dims),
-                                              lambda: tk.attn_combine_plain(*parts, dims))
+            # The partials against the plain splits, the output against the
+            # plain combine of the plain partials.
+            checks["tdecode_attn"] = ([*parts_k, a_k], [*parts, a], TOL_BF16)
+            timers["tdecode_attn"] = (lambda: tk.attention(*attn_in),
+                                      lambda: tk.attn_combine_plain(*tk.attn_split_plain(*attn_in), dims))
         for name, (outs, refs, tol) in checks.items():
             errs = [rel_err(a_, b_) for a_, b_ in zip(outs, refs)]
             worst_abs, worst_rel = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -1337,10 +1350,10 @@ def phase_t_decode(torch, tctx: dict, report: dict, quants: dict = TQUANTS) -> d
             if name in costs:
                 xin, cost, w16 = costs[name]
                 lib = linear_time(torch, xin, w16)
-            elif name == "tdecode_attn_split":
-                # SDPA over the 2054 slots of each (b, h), the rolled BD term
-                # in a float mask; the keys, values and mask are built
-                # outside the timing.
+            else:
+                # tdecode_attn. SDPA over the 2054 slots of each (b, h), the
+                # rolled BD term in a float mask; the keys, values and mask
+                # are built outside the timing.
                 u = torch.remainder(torch.arange(S, device=DEVICE) - c - 1, S)
                 qh = zx[:, :dm].reshape(BATCH, H, 1, hd).to(torch.bfloat16)
                 keys = torch.cat([cp[0][0][:, :6], cp[2][0]], dim=1).reshape(BATCH, 6 + S, H, hd).transpose(1, 2)
@@ -1350,20 +1363,23 @@ def phase_t_decode(torch, tctx: dict, report: dict, quants: dict = TQUANTS) -> d
                 mask = mask.to(torch.bfloat16)
                 lib = library_time(torch, "SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
                     qh, keys, vals, attn_mask=mask, scale=dims.scale))
+                # The rings, rel tables and q read once; the workspace
+                # partials and the output written once.
                 cost = bound(nbytes(cp[2][0], cp[3][0], tp["rel_ring"][0], cp[0][0], cp[1][0], tp["rel_meta"][0],
-                                    *parts_k) + 4 * BATCH * dm, 3 * 2.0 * hd * (S + 6) * BATCH * H, F32_FLOPS)
-            else:
-                cost = bound(nbytes(*parts_k, a_k), 3.0 * parts_k[2].numel(), F32_FLOPS)
+                                    *parts_k, a_k) + 4 * BATCH * dm, 3 * 2.0 * hd * (S + 6) * BATCH * H, F32_FLOPS)
             say(f"[7 tdecode {name}] max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol rel {tol}); kernel {ms:.4f} ms "
                 f"(device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
                 f"({cost['bound_by']}), {lib.text()}")
             need(all(bool(torch.isfinite(t_).all()) for t_ in outs), f"{name}: non-finite output")
             need(worst_rel <= tol, f"{name} disagrees with its plain version")
             report[name] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib.ms, **cost}
-        e_pair = rel_err(pair_k, twin)[1]
-        say(f"[7 tdecode attention {quant}] split + combine vs the TPU kernel's math (stale-row fix, one softmax): "
+        e_pair = rel_err(a_k, twin)[1]
+        say(f"[7 tdecode attention {quant}] tdecode_attn vs the TPU kernel's math (stale-row fix, one softmax): "
             f"rel {e_pair:.3e} (tol {TOL_T_STEP})")
         need(e_pair <= TOL_T_STEP, "kernel F's attention disagrees with the plain twin")
+        if q == "none":
+            attn_repeat(torch, attn_in)
+            attn_ragged(torch, dims)
 
         # Teacher-forced steps from a shared state: the kernel chain, the
         # plain twin chain and the f32 TransformerLM.step, each step from the
@@ -1402,13 +1418,99 @@ def phase_t_decode(torch, tctx: dict, report: dict, quants: dict = TQUANTS) -> d
             f"twin chain logits rel {worst_twin:.3e}, rings rel {worst_ring:.3e}, top-3 values rel {worst_val:.3e} (tol "
             f"{TOL_T_STEP}); top-3 indices equal at {idx_equal}/{idx_checked} separated candidates; vs the f32 "
             f"TransformerLM.step logits rel {worst_f32:.3e} (tol {TOL_T_F32[quant]}); step with the kernels "
-            f"{step_ms:.4f} ms (device, CUDA graph of the step's 50 launches: {fmt_ms(step_dev_ms)}), plain twins "
+            f"{step_ms:.4f} ms (device, CUDA graph of the step's 42 launches: {fmt_ms(step_dev_ms)}), plain twins "
             f"{plain_step_ms:.4f} ms")
         need(max(worst_twin, worst_ring, worst_val) <= TOL_T_STEP,
              f"{quant} kernel F steps disagree with the plain twin")
         need(idx_equal == idx_checked, f"{quant} kernel F steps picked other top-3 candidates")
         need(worst_f32 <= TOL_T_F32[quant], f"{quant} kernel F steps disagree with TransformerLM.step")
     return packs
+
+
+def attn_repeat(torch, attn_in) -> None:
+    """[7 tdecode_attn repeat] two launches back to back, replays of one
+    launch captured in a CUDA graph, and a launch after them give the same
+    bits: the block that combines a (batch group, head) resets its ticket."""
+    from musicgen_tpu_torch.ops import tdecode_kernel as tk
+
+    first, second = tk.attention(*attn_in), tk.attention(*attn_in)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.attention(*attn_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tk.attention(*attn_in)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(captured.clone())
+    after = tk.attention(*attn_in)
+    torch.cuda.synchronize()
+    same = [torch.equal(first, t) for t in (second, *replays, after)]
+    say(f"[7 tdecode_attn repeat] a second launch, 3 CUDA-graph replays and a launch after them bit-identical to "
+        f"the first: {same}")
+    need(all(same), "tdecode_attn gives other bits on a repeated launch (a ticket was not reset)")
+
+
+def attn_ragged(torch, dims) -> None:
+    """[7 tdecode_attn ragged] the attention at batch 1, 5 and 8 on a ring of
+    ATTN_RAGGED_S slots (a ragged last split), the newest slot at each of
+    ATTN_RAGGED_C, seeded inputs with ring slot c holding the new K and V as
+    the chain leaves it: the partials and output against the plain splits
+    and combine (TOL_BF16), the output against the TPU kernel's math
+    (TOL_T_STEP); then the wrapper refuses a batch of 9, a head width of 64
+    and an f32 ring."""
+    import dataclasses
+
+    from musicgen_tpu_torch.ops import tdecode_kernel as tk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    S, dm = ATTN_RAGGED_S, dims.d_model
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=DEVICE, generator=gen)).to(torch.bfloat16)
+
+    worst_pair = worst_tpu = 0.0
+    for b in ATTN_RAGGED_B:
+        d = dataclasses.replace(dims, batch=b, ring=S)
+        zx = torch.randn(b, 3 * dm, device=DEVICE, generator=gen)
+        zx[:, :dm] *= 3.0  # sharp enough that the splits' maxima differ
+        ins = [rnd(b, S, dm), rnd(b, S, dm), rnd(S, dm, scale=0.5), rnd(b, tk.META_ROWS, dm),
+               rnd(b, tk.META_ROWS, dm), rnd(tk.META_ROWS, dm, scale=0.5)]
+        for c in ATTN_RAGGED_C:
+            ins[0][:, c], ins[1][:, c] = zx[:, dm:2 * dm].to(torch.bfloat16), zx[:, 2 * dm:].to(torch.bfloat16)
+            args = (zx, *ins, c, d)
+            out, parts = tk.attention(*args, partials=True)
+            parts_p = tk.attn_split_plain(*args)
+            out_p, twin = tk.attn_combine_plain(*parts_p, d), tk.attention_plain(*args)
+            worst_pair = max(worst_pair, *(rel_err(x, y)[1] for x, y in zip((*parts, out), (*parts_p, out_p))))
+            worst_tpu = max(worst_tpu, rel_err(out, twin)[1])
+            need(bool(torch.isfinite(out).all()), f"tdecode_attn at batch {b}, c {c}: non-finite output")
+    refused = []
+    zx9 = torch.zeros(9, 3 * dm, device=DEVICE)
+    ring9 = torch.zeros(9, S, dm, dtype=torch.bfloat16, device=DEVICE)
+    meta9 = torch.zeros(9, tk.META_ROWS, dm, dtype=torch.bfloat16, device=DEVICE)
+    zx1, ring1, rel1, meta1, rel_meta = zx[:1], ins[0][:1], ins[2], ins[3][:1], ins[5]
+    d1 = dataclasses.replace(dims, batch=1, ring=S)
+    for what, call in (
+            ("a batch of 9", lambda: tk.attention(zx9, ring9, ring9, rel1, meta9, meta9, rel_meta, 0,
+                                                  dataclasses.replace(d1, batch=9))),
+            ("a head width of 64", lambda: tk.attention(zx1, ring1, ring1, rel1, meta1, meta1, rel_meta, 0,
+                                                        dataclasses.replace(d1, n_heads=2 * d1.n_heads,
+                                                                            head_dim=d1.head_dim // 2))),
+            ("an f32 ring", lambda: tk.attention(zx1, ring1.float(), ring1, rel1, meta1, meta1, rel_meta, 0, d1))):
+        try:
+            call()
+        except ValueError:
+            refused.append(what)
+    torch.cuda.synchronize()
+    say(f"[7 tdecode_attn ragged] batch {ATTN_RAGGED_B}, ring {S} (4 splits, the last of {S % tk.ATTN_SPLIT}), "
+        f"newest slot {ATTN_RAGGED_C}: vs the plain splits and combine rel {worst_pair:.3e} (tol {TOL_BF16}); vs "
+        f"the TPU kernel's math rel {worst_tpu:.3e} (tol {TOL_T_STEP}); refuses {refused}")
+    need(worst_pair <= TOL_BF16 and worst_tpu <= TOL_T_STEP, "tdecode_attn disagrees at a ragged shape")
+    need(len(refused) == 3, f"tdecode_attn refused only {refused}")
 
 
 def phase_t_wrap(torch, corpus: Path) -> None:
@@ -1457,7 +1559,7 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
     """[7 cli] `--model transformer` through the CLI: --fused-decode auto,
     greedy and stochastic (two bands each), and int8w (one band); every new
     token grammatical, the .mid files re-extract, and each run, counted from
-    zero, launches kernel D 8 times a prefill and kernel F's 50 launches a
+    zero, launches kernel D 8 times a prefill and kernel F's 42 launches a
     token. int8_only runs int8w alone, bf16_only the two auto runs."""
     from musicgen_tpu_torch.cli import generate as cli
     from musicgen_tpu_torch.midi import extract_midi
@@ -1481,8 +1583,7 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
                 "--fused-decode", mode] + (["--greedy"] if greedy else [])
         n = len(bands)
         sfx = "_w8a16" if mode == "int8w" else ""
-        want = {f"t_qkv_ln{sfx}": L * LENGTH * n, "tdecode_attn_split": L * LENGTH * n,
-                "tdecode_attn_combine": L * LENGTH * n, f"t_res{sfx}": 2 * L * LENGTH * n,
+        want = {f"t_qkv_ln{sfx}": L * LENGTH * n, "tdecode_attn": L * LENGTH * n, f"t_res{sfx}": 2 * L * LENGTH * n,
                 f"t_fc_relu{sfx}": L * LENGTH * n, f"lm_head_ln{sfx}": LENGTH * n, "sample_tail": LENGTH * n}
         ssd_scan.launches = 0
         ak.LAUNCHES.clear()
@@ -2542,6 +2643,16 @@ def phase_bf16_paths(torch, report: dict) -> None:
     phase_probes(torch, report)
 
 
+def phase_transformer(torch, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+    """Phase 7: the Transformer's generation, kernels D and F."""
+    phase_t_flash(torch, report)
+    tctx = phase_t_prefill(torch, corpus, meta_path)
+    tpacks = phase_t_decode(torch, tctx, report)
+    phase_t_wrap(torch, corpus)
+    phase_t_cli(torch, tctx, corpus, meta_path, root, report)
+    phase_t_loop(torch, tctx, tpacks)
+
+
 def phase_flash_paths(torch, report: dict) -> None:
     """--only flash: every row of phases 7 and 8 that launches kernel D or E,
     with the checks and timings of the full run: [7 flash], [7 prefill],
@@ -2568,8 +2679,8 @@ def phase_flash_paths(torch, report: dict) -> None:
 def main() -> int:
     t_start = time.perf_counter()
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("9", "10", "int8", "bf16", "flash"):
-        print("usage: python3 chip_smoke.py [--only 9|10|int8|bf16|flash]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("7", "9", "10", "int8", "bf16", "flash"):
+        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash]", file=sys.stderr)
         return 2
     import torch
 
@@ -2585,6 +2696,11 @@ def main() -> int:
     phase_build()
     report: dict = {}
     torch.set_grad_enabled(False)
+    if only == "7":
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            phase_transformer(torch, *synth_corpus(root), root, report)
+        return finish(torch, card, report, T_KERNELS, t_start)
     if only == "9":
         with tempfile.TemporaryDirectory() as tmp:
             root = Path(tmp)
@@ -2619,13 +2735,7 @@ def main() -> int:
         del model, ctx, packs
         torch.cuda.empty_cache()
 
-        phase_t_flash(torch, report)
-        tctx = phase_t_prefill(torch, corpus, meta_path)
-        tpacks = phase_t_decode(torch, tctx, report)
-        phase_t_wrap(torch, corpus)
-        phase_t_cli(torch, tctx, corpus, meta_path, root, report)
-        phase_t_loop(torch, tctx, tpacks)
-        del tctx, tpacks
+        phase_transformer(torch, corpus, meta_path, root, report)
         torch.cuda.empty_cache()
 
         phase_flash_bwd(torch, report)

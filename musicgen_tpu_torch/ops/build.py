@@ -47,8 +47,7 @@ SIGNATURES = {
     "mg_t_qkv_ln": [_P] * 6 + [_I, _I, _I, _F, _P, _P, _I, _I, _I, _P],
     "mg_t_fc_relu": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "mg_t_res": [_P] * 5 + [_I, _I, _I, _I, _P],
-    "mg_tdecode_attn_split": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _I, _P, _P, _P, _P],
-    "mg_tdecode_attn_combine": [_P] * 4 + [_I] * 4 + [_P],
+    "mg_tdecode_attn": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _I] + [_P] * 6,
     "mg_slstm_scan": [_P] * 5 + [_I] * 4 + [_P],
     "mg_x_gemv": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "mg_xm_prep": [_P] * 6 + [_I] * 2 + [_P],

@@ -14,16 +14,16 @@ a step is a sequence of launches on one stream:
   for each of the L layers:
     t_qkv_ln              LN1 + QKV GEMV; the new K, V rows (bf16) go into
                           ring slot c                          (decode_gemv.cu)
-    tdecode_attn_split    scores, partial softmax and V sums over S / 64
-                          splits of the ring + the 6 meta slots (tdecode_attn.cu)
-    tdecode_attn_combine  the splits' combine                   (tdecode_attn.cu)
+    tdecode_attn          scores, softmax and V sums over S / 64 splits of
+                          the ring + the 6 meta slots, and the splits'
+                          combine, in one launch             (tdecode_attn.cu)
     t_res                 x += attn . W_proj + b                (decode_gemv.cu)
     t_fc_relu             relu(LN2(x) . W_fc + b)               (decode_gemv.cu)
     t_res                 x += h . W_out + b                    (decode_gemv.cu)
   lm_head_ln              LN_f + lm_head + bias (kernel B's)    (decode_gemv.cu)
   sample_tail             grammar, penalty, exact top-3         (decode_tail.cu)
 
-50 launches a token at L = 8 (49 without the tail). The plain twins below
+42 launches a token at L = 8 (41 without the tail). The plain twins below
 follow the JAX math line for line (`_attn_math`, `_ffn_math`, `_head_math`,
 `_tail_math`): activations f32, rounded to bf16 before each product, f32
 sums, the probabilities rounded to bf16 before the V readout, and the TPU
@@ -52,6 +52,7 @@ from .grammar import grammar_mask
 
 HEAD_DIM = 128  # head width of the attention kernels
 ATTN_SPLIT = 64  # ring slots one attention block takes
+ATTN_GROUP = 4  # batch rows one attention block stages (csrc/tdecode_attn.cu MAX_BG)
 META_ROWS = 8  # metadata slots padded to 8 rows in the pack and caches
 # The pack a --fused-decode quant builds -> how its products run.
 QUANT_MODES = {"bf16": "none", "int8w": "w8a16"}
@@ -271,7 +272,7 @@ def attn_splits(dims: TDims) -> int:
 
 
 def attn_split_plain(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c: int, dims: TDims):
-    """The split kernel's partials: per (b*h, split) the max m, the sum
+    """The attention kernel's partials: per (b*h, split) the max m, the sum
     l = sum exp(s - m) and the V sum of bf16(exp(s - m)) over the split's
     ring slots (split 0 also the 6 meta slots). Returns (part_m, part_l
     (B*H, n), part_acc (B*H, n, hd))."""
@@ -364,9 +365,31 @@ def qkv_ln(x, ln1, w_qkv, k_ring, v_ring, c: int, dims: TDims, w_s=None, quant: 
     return zx
 
 
-def attn_split(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c: int, dims: TDims):
+# device -> the attention's int32 tickets, shared by every launch on the
+# device: launches must be ordered on one stream (a CUDA graph's replays are).
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """At least n tickets, one per (batch group, head), on `dev`: zeroed once
+    when made; every launch leaves them zero (csrc/tdecode_attn.cu)."""
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tdecode_attn: launch it once before a CUDA-graph capture, which makes its tickets")
+        t = _TICKETS[dev] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return t
+
+
+def attention(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c: int, dims: TDims, partials: bool = False):
+    """The kernel chain's attention (B, dm), one launch; on CPU tensors the
+    plain pair attn_combine_plain(attn_split_plain(...)). With partials=True
+    it returns (out, (part_m, part_l, part_acc)), the splits' partials in
+    attn_split_plain's layout."""
     if not zx.is_cuda:
-        return attn_split_plain(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c, dims)
+        parts = attn_split_plain(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c, dims)
+        out = attn_combine_plain(*parts, dims)
+        return (out, parts) if partials else out
     b, dev = zx.shape[0], zx.device
     dm, S, H = dims.d_model, dims.ring, dims.n_heads
     if dims.head_dim != HEAD_DIM:
@@ -377,42 +400,24 @@ def attn_split(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c: int, d
                            ("rel_ring", rel_ring, (S, dm)), ("k_meta", k_meta, (b, META_ROWS, dm)),
                            ("v_meta", v_meta, (b, META_ROWS, dm)), ("rel_meta", rel_meta, (META_ROWS, dm))):
         _need(t, name, torch.bfloat16, shape, dev)
-    n = attn_splits(dims)
-    part_m = torch.empty(b * H, n, dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(b * H, n, HEAD_DIM, dtype=torch.float32, device=dev)
+    n, rows = attn_splits(dims), b * H
+    # The workspace: part_m and part_l (rows, n), then part_acc (rows, n, 128),
+    # passed as pointers: three views of it would cost host time every launch.
+    work = torch.empty(rows * n * (HEAD_DIM + 2), dtype=torch.float32, device=dev)
+    tickets = _tickets(dev, -(-b // ATTN_GROUP) * H)
+    out = torch.empty(b, dm, dtype=torch.float32, device=dev)
+    ptr = work.data_ptr()
     lib = load_library()
-    err = lib.mg_tdecode_attn_split(zx.data_ptr(), 3 * dm, k_ring.data_ptr(), v_ring.data_ptr(), rel_ring.data_ptr(),
-                                    k_meta.data_ptr(), v_meta.data_ptr(), rel_meta.data_ptr(), b, H, S, dm, c,
-                                    NUM_META, dims.scale, ATTN_SPLIT, part_m.data_ptr(), part_l.data_ptr(),
-                                    part_acc.data_ptr(), stream_ptr(zx))
-    check(lib, err, "tdecode_attn_split")
-    _count("tdecode_attn_split")
-    return part_m, part_l, part_acc
-
-
-def attn_combine(part_m, part_l, part_acc, dims: TDims):
-    if not part_m.is_cuda:
-        return attn_combine_plain(part_m, part_l, part_acc, dims)
-    bh, n = part_m.shape
-    dev, H = part_m.device, dims.n_heads
-    if bh % H:
-        raise ValueError(f"partials of {bh} rows do not divide into {H} heads")
-    _need(part_m, "part_m", torch.float32, (bh, n), dev)
-    _need(part_l, "part_l", torch.float32, (bh, n), dev)
-    _need(part_acc, "part_acc", torch.float32, (bh, n, HEAD_DIM), dev)
-    out = torch.empty(bh // H, dims.d_model, dtype=torch.float32, device=dev)
-    lib = load_library()
-    err = lib.mg_tdecode_attn_combine(part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-                                      bh // H, H, dims.d_model, n, stream_ptr(part_m))
-    check(lib, err, "tdecode_attn_combine")
-    _count("tdecode_attn_combine")
-    return out
-
-
-def attention(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c: int, dims: TDims):
-    """The kernel chain's attention: split, then combine (two launches)."""
-    return attn_combine(*attn_split(zx, k_ring, v_ring, rel_ring, k_meta, v_meta, rel_meta, c, dims), dims)
+    err = lib.mg_tdecode_attn(zx.data_ptr(), 3 * dm, k_ring.data_ptr(), v_ring.data_ptr(), rel_ring.data_ptr(),
+                              k_meta.data_ptr(), v_meta.data_ptr(), rel_meta.data_ptr(), b, H, S, dm, c, NUM_META,
+                              dims.scale, ATTN_SPLIT, ptr, ptr + 4 * rows * n, ptr + 8 * rows * n, tickets.data_ptr(),
+                              out.data_ptr(), stream_ptr(zx))
+    check(lib, err, "tdecode_attn")
+    _count("tdecode_attn")
+    if not partials:
+        return out
+    return out, (work[:rows * n].view(rows, n), work[rows * n:2 * rows * n].view(rows, n),
+                 work[2 * rows * n:].view(rows, n, HEAD_DIM))
 
 
 def res(x, w, bias, resid, dims: TDims, w_s=None, quant: str = "none"):
