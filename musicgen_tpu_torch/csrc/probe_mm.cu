@@ -56,12 +56,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
-
 // Steps s0, s0 + 8, ... (kUnroll of them) of columns a and b, zero past K.
 __device__ __forceinline__ void load_steps(uint4 (&va)[kUnroll], uint4 (&vb)[kUnroll], const __nv_bfloat16* wa,
                                            const __nv_bfloat16* wb, int s0, int steps) {

@@ -19,7 +19,15 @@ softmax walks 128-column key tiles in order (the TPU kernel's block_k) and
 rounds the probabilities to bf16 before P.V; the backward rounds p and dS to
 bf16 before their products. Launches are counted in LAUNCHES:
 "flash_relpos" (the prefill's D), "flash_relpos_lse" (D with its LSE output,
-the training forward), "flash_bwd_dq" and "flash_bwd_dkv" (E1 and E2).
+the training forward), and E's five (BackwardLaunch): "flash_bwd_stage",
+"flash_bwd_dq" (E1), "flash_bwd_dkv" (E2), "flash_bwd_drel" (E3) and
+"flash_bwd_drel_combine". Each of E's launches has a plain version here:
+bwd_stage_plain (bit for bit), flash_relpos_attention_bwd_plain (dq, dk,
+dv), drel_slots_plain (the slots, in the kernel's order of tiles but with
+einsum's order inside a tile, so within bf16 rounding) and
+drel_combine_plain (bit for bit on the same slots). The kernel sums dRel in
+a fixed order with no atomics, so its dRel has the same bits on every
+call.
 
 `flash_relpos_attention_train` is the differentiable form (a
 torch.autograd.Function: D with LSE forward, E backward). The other two
@@ -38,6 +46,7 @@ from .build import check, load_library, refuse_grad, stream_ptr
 HEAD_DIM = 128  # the head width kernels D and E are written for
 BLOCK_K = 128  # key tile of the online softmax (the TPU kernel's block_k)
 NEG = -1e30  # finite mask value (pallas_attention.NEG_INF)
+DRL_TILE = 64  # kernel E's tile: the rows of a query tile, and of a dRel slot's half
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -160,12 +169,9 @@ def flash_relpos_attention_lse(q, k, v, rel_emb, scale: float, n_meta: int = NUM
     return _launch_forward(q, k, v, rel_emb, scale, n_meta, True)
 
 
-def flash_relpos_attention_bwd_plain(q, k, v, rel_emb, out, lse, dout, scale: float, n_meta: int = NUM_META):
-    """(dq, dk, dv, drel) with kernel E's arithmetic, in plain PyTorch.
-
-    drel has rel_emb's shape (H, R >= T, D), zero in rows >= T. The (t, s)
-    pairs of BD are gathered into rel-index order with an index map (the
-    inverse of rel_shift), where the TPU kernel rolls and permutes."""
+def _bwd_scores_plain(q, k, v, rel_emb, lse, dout, delta, scale: float, n_meta: int):
+    """(q, k, dO, rel in bf16 as f32, p, bf16(dS)): the probabilities and the
+    score gradient that every launch of kernel E recomputes."""
     b, h, t, d = q.shape
     qb, kb, vb, dob = (_bf16(x.float()) for x in (q, k, v, dout))
     rel = _bf16(rel_emb[:, :t, :].float())
@@ -175,8 +181,25 @@ def flash_relpos_attention_bwd_plain(q, k, v, rel_emb, out, lse, dout, scale: fl
     s = torch.where(visible, s, NEG)
     p = torch.exp(s - lse.reshape(b, h, t, 1))
     dp = torch.einsum("bhtd,bhsd->bhts", dob, vb)
-    delta = (out.float() * dout.float()).sum(dim=-1, keepdim=True)
-    ds = _bf16(p * (dp - delta) * scale)
+    ds = _bf16(p * (dp - delta.reshape(b, h, t, 1)) * scale)
+    return qb, kb, dob, rel, p, ds
+
+
+def _delta_plain(out, dout) -> torch.Tensor:
+    """delta = rowsum(out * dO), f32 (B*H, T)."""
+    b, h, t, _ = out.shape
+    return (out.float() * dout.float()).sum(dim=-1).reshape(b * h, t)
+
+
+def flash_relpos_attention_bwd_plain(q, k, v, rel_emb, out, lse, dout, scale: float, n_meta: int = NUM_META):
+    """(dq, dk, dv, drel) with kernel E's arithmetic, in plain PyTorch.
+
+    drel has rel_emb's shape (H, R >= T, D), zero in rows >= T. The (t, s)
+    pairs of BD are gathered into rel-index order with an index map (the
+    inverse of rel_shift), where the TPU kernel rolls and permutes."""
+    b, h, t, d = q.shape
+    qb, kb, dob, rel, p, ds = _bwd_scores_plain(q, k, v, rel_emb, lse, dout, _delta_plain(out, dout), scale,
+                                                n_meta)
     dv = torch.einsum("bhts,bhtd->bhsd", _bf16(p), dob)
     dk = torch.einsum("bhts,bhtd->bhsd", ds, qb)
     # band[t, i] = dS[t, s] at rel index i = s - t + T - 1, for s <= t.
@@ -189,24 +212,94 @@ def flash_relpos_attention_bwd_plain(q, k, v, rel_emb, out, lse, dout, scale: fl
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), drel.to(rel_emb.dtype)
 
 
+def bwd_stage_plain(q, k, v, rel_emb, out, dout):
+    """(stage, delta): the stage launch's outputs in plain PyTorch: its bf16
+    buffer of (4*B*H + H) * T * 128 values, q, k, v and dO as (B*H, T, 128)
+    and then the first T rows of rel as (H, T, 128), each contiguous (the
+    offsets csrc/flash_relpos_bwd.cu computes); and delta = rowsum(out * dO)."""
+    t = q.shape[2]
+    parts = [x.float().to(torch.bfloat16).reshape(-1) for x in (q, k, v, dout)]
+    parts.append(rel_emb[:, :t].float().to(torch.bfloat16).reshape(-1))
+    return torch.cat(parts), _delta_plain(out, dout)
+
+
+def n_diagonals(t: int) -> int:
+    """Tile diagonals of kernel E3 at length t: one a 64-row query tile."""
+    return -(-t // DRL_TILE)
+
+
+def drel_slots_plain(q, k, v, rel_emb, lse, dout, delta, scale: float, n_meta: int = NUM_META):
+    """Kernel E3's slots in plain PyTorch: f32 (H, n, 128, 128), n =
+    n_diagonals(T). Slot (h, d) sums, over b and then the key tiles kt of
+    diagonal d (query tile kt + d), in that order, dP_band^T . Q of the
+    64 x 64 tile, with dP_band[r][c - r + 63] = bf16(dS)[r][c] for c <= t:
+    window row w of slot d is rel row T - 64 - 64 d + w."""
+    b, h, t, d = q.shape
+    qb, _, _, _, _, ds = _bwd_scores_plain(q, k, v, rel_emb, lse, dout, delta, scale, n_meta)
+    n, tile = n_diagonals(t), DRL_TILE
+    tp = n * tile
+    below, _ = _masks(t, n_meta, q.device)
+    dsp = torch.zeros(b, h, tp, tp, dtype=torch.float32, device=q.device)
+    dsp[..., :t, :t] = torch.where(below, ds, 0.0)
+    qp = torch.zeros(b, h, tp, d, dtype=torch.float32, device=q.device)
+    qp[:, :, :t] = qb
+    r = torch.arange(tile, device=q.device)
+    col = torch.arange(2 * tile, device=q.device)[None, :] + r[:, None] - (tile - 1)  # [r][w] -> c
+    valid = (col >= 0) & (col < tile)
+    slots = torch.zeros(h, n, 2 * tile, d, dtype=torch.float32, device=q.device)
+    for dg in range(n):
+        acc = slots[:, dg]
+        for bi in range(b):
+            for kt in range(n - dg):
+                q0, k0 = (kt + dg) * tile, kt * tile
+                blk = dsp[bi, :, q0:q0 + tile, k0:k0 + tile]  # (h, r, c)
+                band = torch.where(valid, torch.gather(blk, -1, col.clamp(0, tile - 1).expand(h, -1, -1)), 0.0)
+                acc += torch.einsum("hrw,hrd->hwd", band, qp[bi, :, q0:q0 + tile])
+    return slots
+
+
+def drel_combine_plain(slots: torch.Tensor, t: int, rows: int) -> torch.Tensor:
+    """The combine in plain PyTorch: drel f32 (H, rows, 128) with rel row
+    i < t = slot d1 at window row w1 plus, where it exists, slot d1 + 1 at w1
+    + 64 (d1 = (t - 1 - i) // 64, w1 = i - t + 64 + 64 d1), in that order;
+    rows >= t are zero."""
+    h, n, _, d = slots.shape
+    i = torch.arange(t, device=slots.device)
+    d1 = (t - 1 - i) // DRL_TILE
+    w1 = i - t + DRL_TILE + DRL_TILE * d1
+    lo = slots[:, d1, w1]
+    has_hi = (d1 + 1 < n)[None, :, None]
+    hi = slots[:, (d1 + 1).clamp(max=n - 1), w1 + DRL_TILE]
+    drel = torch.zeros(h, rows, d, dtype=torch.float32, device=slots.device)
+    drel[:, :t] = torch.where(has_hi, lo + hi, lo)
+    return drel
+
+
 def flash_relpos_attention_bwd(q, k, v, rel_emb, out, lse, dout, scale: float, n_meta: int = NUM_META):
-    """(dq, dk, dv, drel): kernel E (E1 then E2) on CUDA tensors, the plain
+    """(dq, dk, dv, drel): kernel E's five launches on CUDA tensors, the plain
     version on CPU tensors. q, k, v as for kernel D; out, dout: (B, H, T,
     128); lse: f32 (B*H, T) from flash_relpos_attention_lse. dq, dk, dv are
     contiguous (B, H, T, 128); drel has rel_emb's shape, zero in rows >= T."""
     if not q.is_cuda:
         return flash_relpos_attention_bwd_plain(q, k, v, rel_emb, out, lse, dout, scale, n_meta)
     launch = BackwardLaunch(q, k, v, rel_emb, out, lse, dout, scale, n_meta)
-    launch.dq()
-    launch.dkv()
+    launch.run()
     return launch.grads()
 
 
+def _rows_ok(x: torch.Tensor) -> bool:
+    return x.stride(3) == 1 and x.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in x.stride()[:3])
+
+
 class BackwardLaunch:
-    """Kernel E's two launches on one set of checked inputs and outputs:
-    E1 (`dq`: dQ and dRel) and E2 (`dkv`: dK and dV), each on the current
-    stream when it is called. delta = rowsum(out * dout) is computed here in
-    plain PyTorch, as the JAX package left it to XLA."""
+    """Kernel E's five launches on one set of checked inputs, buffers and
+    outputs, each on the current stream when it is called, in this order:
+    `stage` ("flash_bwd_stage": bf16 q, k, v, dO, rel into `stage`, delta =
+    rowsum(out * dO) into `delta`), `dq` ("flash_bwd_dq", E1), `dkv`
+    ("flash_bwd_dkv", E2), `drel` ("flash_bwd_drel", E3: the tile diagonals'
+    slots) and `combine` ("flash_bwd_drel_combine": the slots into drel);
+    `run` makes all five. The staging buffer (38 MB at the training shape)
+    and the slots (17 MB) are made here, once a backward call."""
 
     def __init__(self, q, k, v, rel_emb, out, lse, dout, scale: float, n_meta: int = NUM_META):
         what = "flash_relpos_attention_bwd"
@@ -215,37 +308,63 @@ class BackwardLaunch:
         b, h, t, d = q.shape
         if dout.shape != q.shape or out.shape != q.shape or lse.shape != (b * h, t):
             raise ValueError(f"{what}: out and dout must be {tuple(q.shape)}, lse ({b * h}, {t})")
-        dout = dout.to(torch.float32).contiguous()
+        dout, out = (x.to(torch.float32) for x in (dout, out))
+        dout, out = (x if _rows_ok(x) else x.contiguous() for x in (dout, out))
         lse = lse.to(torch.float32).contiguous()
-        delta = (out.float() * dout).sum(dim=-1).reshape(b * h, t).contiguous()
-        self.dq_, self.dk_, self.dv_ = (torch.empty(b, h, t, d, dtype=torch.float32, device=q.device)
-                                        for _ in range(3))
-        self.drel = torch.zeros(rel.shape, dtype=torch.float32, device=q.device)
+        dev = q.device
+        self.stage_buf = torch.empty((4 * b + 1) * h * t * d, dtype=torch.bfloat16, device=dev)
+        self.delta = torch.empty(b * h, t, dtype=torch.float32, device=dev)
+        self.slots = torch.empty(h, n_diagonals(t), 2 * DRL_TILE, d, dtype=torch.float32, device=dev)
+        self.dq_, self.dk_, self.dv_ = (torch.empty(b, h, t, d, dtype=torch.float32, device=dev) for _ in range(3))
+        self.drel_ = torch.empty(rel.shape, dtype=torch.float32, device=dev)
         self.rel_dtype = rel_emb.dtype
-        self.keep = (q, k, v, rel, dout, lse, delta)  # alive until the launches are queued
-        sb, sh, st = q.stride()[:3]
-        dsb, dsh, dst = dout.stride()[:3]
-        self.common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st, dout.data_ptr(), dsb, dsh, dst,
-                       rel.data_ptr(), rel.stride(0), lse.data_ptr(), delta.data_ptr())
+        self.keep = (q, k, v, rel, out, dout, lse)  # alive until the launches are queued
+        self.stage_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], dout.data_ptr(),
+                           *dout.stride()[:3], out.data_ptr(), *out.stride()[:3], rel.data_ptr(), rel.stride(0),
+                           self.stage_buf.data_ptr(), self.delta.data_ptr(), b, h, t, d)
+        self.common = (self.stage_buf.data_ptr(), lse.data_ptr(), self.delta.data_ptr())
         self.shape = (b, h, t, d, n_meta, float(scale))
         self.lib = load_library()
 
+    def _done(self, err: int, name: str) -> None:
+        check(self.lib, err, name)
+        LAUNCHES[name] += 1
+
+    def stage(self) -> None:
+        """bf16 q, k, v, dO and rel into the staging buffer; delta."""
+        self._done(self.lib.mg_flash_bwd_stage(*self.stage_args, stream_ptr(self.dq_)), "flash_bwd_stage")
+
     def dq(self) -> None:
-        """E1: dQ, and dRel added into the zero-filled table."""
-        err = self.lib.mg_flash_bwd_dq(*self.common, self.dq_.data_ptr(), self.drel.data_ptr(),
-                                       self.drel.stride(0), *self.shape, stream_ptr(self.dq_))
-        check(self.lib, err, "flash_bwd_dq")
-        LAUNCHES["flash_bwd_dq"] += 1
+        """E1: dQ."""
+        self._done(self.lib.mg_flash_bwd_dq(*self.common, self.dq_.data_ptr(), *self.shape, stream_ptr(self.dq_)),
+                   "flash_bwd_dq")
 
     def dkv(self) -> None:
         """E2: dK and dV."""
-        err = self.lib.mg_flash_bwd_dkv(*self.common, self.dk_.data_ptr(), self.dv_.data_ptr(), *self.shape,
-                                        stream_ptr(self.dk_))
-        check(self.lib, err, "flash_bwd_dkv")
-        LAUNCHES["flash_bwd_dkv"] += 1
+        self._done(self.lib.mg_flash_bwd_dkv(*self.common, self.dk_.data_ptr(), self.dv_.data_ptr(), *self.shape,
+                                             stream_ptr(self.dq_)), "flash_bwd_dkv")
+
+    def drel(self) -> None:
+        """E3: each tile diagonal's dRel band into its slot."""
+        self._done(self.lib.mg_flash_bwd_drel(*self.common, self.slots.data_ptr(), *self.shape,
+                                              stream_ptr(self.dq_)), "flash_bwd_drel")
+
+    def combine(self) -> None:
+        """The slots into drel, rows >= T zero."""
+        b, h, t = self.shape[:3]
+        self._done(self.lib.mg_flash_bwd_drel_combine(self.slots.data_ptr(), self.drel_.data_ptr(),
+                                                      self.drel_.stride(0), h, t, self.drel_.shape[1],
+                                                      stream_ptr(self.dq_)), "flash_bwd_drel_combine")
+
+    def run(self) -> None:
+        self.stage()
+        self.dq()
+        self.dkv()
+        self.drel()
+        self.combine()
 
     def grads(self):
-        return self.dq_, self.dk_, self.dv_, self.drel.to(self.rel_dtype)
+        return self.dq_, self.dk_, self.dv_, self.drel_.to(self.rel_dtype)
 
 
 class FlashRelposAttention(torch.autograd.Function):

@@ -42,8 +42,11 @@ SIGNATURES = {
     "mg_lm_head_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mg_sample_tail": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
     "mg_flash_relpos": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "mg_flash_bwd_dq": [_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P, _P, _P, _P, _L] + [_I] * 5 + [_F, _P],
-    "mg_flash_bwd_dkv": [_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P, _P, _P, _P] + [_I] * 5 + [_F, _P],
+    "mg_flash_bwd_stage": [_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P, _P] + [_I] * 4 + [_P],
+    "mg_flash_bwd_dq": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "mg_flash_bwd_dkv": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "mg_flash_bwd_drel": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "mg_flash_bwd_drel_combine": [_P, _P, _L, _I, _I, _I, _P],
     "mg_t_qkv_ln": [_P] * 6 + [_I, _I, _I, _F, _P, _P, _I, _I, _I, _P],
     "mg_t_fc_relu": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "mg_t_res": [_P] * 5 + [_I, _I, _I, _I, _P],

@@ -56,6 +56,46 @@ def test_plain_backward_matches_jax_kernel():
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("t", [40, 133, 200])
+def test_drel_slots_and_combine(t, b):
+    """Kernel E3's slots and the combine, in their plain versions: the slot
+    sum against the plain backward's drel (1e-6: the same bf16 terms summed
+    in f32 in another order) and against JAX's custom VJP in interpret mode
+    (1e-3, as above); the combine gives the same bits twice."""
+    q, k, v, rel, do = _inputs(3 + t + b, b=b, t=t)
+    scale = 0.05
+    _, vjp = jax.vjp(lambda *a: jax_flash_train(*a, scale, interpret=True), *(jnp.asarray(x) for x in (q, k, v, rel)))
+    want = np.asarray(vjp(jnp.asarray(do))[3])
+    tq, tk, tv, trel, tdo = (torch.from_numpy(x) for x in (q, k, v, rel, do))
+    o, lse = ak.flash_relpos_attention_plain(tq, tk, tv, trel, scale, with_lse=True)
+    drel = ak.flash_relpos_attention_bwd_plain(tq, tk, tv, trel, o, lse, tdo, scale)[3]
+    delta = (o * tdo).sum(-1).reshape(b * 2, t)
+    slots = ak.drel_slots_plain(tq, tk, tv, trel, lse, tdo, delta, scale, NUM_META)
+    assert slots.shape == (2, ak.n_diagonals(t), 128, 128)
+    got = ak.drel_combine_plain(slots, t, trel.shape[1])
+    assert got.shape == trel.shape and float(got[:, t:].abs().max()) == 0.0
+    assert _rel(got, drel) < 1e-6
+    assert _rel(got, want) < 1e-3
+    assert torch.equal(got, ak.drel_combine_plain(slots, t, trel.shape[1]))
+
+
+def test_bwd_staging_layout():
+    """The stage launch's plain outputs: bf16 q, k, v, dO as (B*H, T, 128) and
+    rel's first T rows as (H, T, 128), one after another in one buffer, and
+    delta = rowsum(out * dO)."""
+    q, k, v, rel, do = _inputs(4, b=2, t=37)
+    tq, tk, tv, trel, tdo = (torch.from_numpy(x) for x in (q, k, v, rel, do))
+    out = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
+    stage, delta = ak.bwd_stage_plain(tq, tk, tv, trel, out, tdo)
+    n = 4 * 37 * 128
+    assert stage.dtype == torch.bfloat16 and stage.shape == (4 * n + 2 * 37 * 128,)
+    for i, x in enumerate((tq, tk, tv, tdo)):
+        assert torch.equal(stage[i * n:(i + 1) * n].view(4, 37, 128), x.to(torch.bfloat16).reshape(4, 37, 128))
+    assert torch.equal(stage[4 * n:].view(2, 37, 128), trel[:, :37].to(torch.bfloat16))
+    assert torch.equal(delta, (out * tdo).sum(-1).reshape(4, 37))
+
+
 def test_plain_lse_is_the_rows_logsumexp():
     q, k, v, rel, _ = _inputs(1, t=70)
     tq, tk, tv, trel = (torch.from_numpy(x) for x in (q, k, v, rel))
