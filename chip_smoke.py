@@ -25,13 +25,15 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   4q. kernels B' (int8 GEMVs, W8A16 and W8A8) against their plain versions on
      the inputs of phase 4, then 16 teacher-forced steps per format.
   6. kernel C, the resident whole-generation kernel, in bf16, W8A16 and W8A8:
-     [6 resident] 64 greedy tokens against the plain chain stepped over the
-     emitted stream; [6 chain] 2,000 tokens, greedy and stochastic, against
-     the per-token kernel chain with the same pick and uniforms (identical
-     streams, bitwise-equal final states); [6 cli] the CLI with --fused-decode
-     resident, resident-int8w, int8 and int8w (grammar, MIDI, launch
-     counters); [6 loop] tok/s/seq of the resident loop beside the per-token
-     chain's, with weight bytes per token and the share of the HBM roofline.
+     [6 resident] the launch's grid, block and shared memory, and 64 greedy
+     tokens against the plain chain stepped over the emitted stream; [6
+     chain] 2,000 tokens, greedy and stochastic, against the per-token
+     kernel chain with the same pick and uniforms (identical streams,
+     bitwise-equal final states); [6 loop] C's ms a token (tok/s/seq) and
+     its share of the HBM roofline beside its yardstick, kernel B's chain
+     step in a CUDA graph, and (with --parent DIR) the parent tree's C timed
+     in turns; [6 cli] the CLI with --fused-decode resident, resident-int8w,
+     int8 and int8w (grammar, MIDI, launch counters).
   7. the Transformer at the reference size (8 blocks, d_model 1024, 8 heads
      of 128, block 2048; seeded random weights), kernels D and F:
      [7 flash] kernel D against its plain version at (2*8, 2054, 128) (its
@@ -117,6 +119,13 @@ resident], [6 chain], [6 loop] and the [6 cli] runs in bf16, [7 prefill],
 xdecode], the bf16 [9 cli] runs and [9 loop] in bf16 and sb16, and phase
 10; its kernels line holds the launches of those CLI runs (and of
 kernel_ablate.run), each counted from zero, as the full run does.
+`--only resident` runs phases 1 and 2 and every row that launches kernel C
+([6 resident], [6 chain], [6 loop] and the resident [6 cli] runs); its
+kernels line holds C's three forms from those CLI runs, each counted from
+zero. `--parent DIR` (with any of the above, or none) names another
+checkout of the port, such as an unpacked `git archive` of the parent
+commit: [6 loop] builds its kernels into DIR/build and times its C beside
+this tree's.
 `--only flash` runs
 phases 1 and 2 and every row that launches kernel D or E: [7 flash],
 [7 prefill], [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd] with its repeat
@@ -300,6 +309,7 @@ BF16_KERNELS = ["in_proj_conv", "out_proj_rms", "lm_head_ln", "generate_resident
                 "t_fc_relu", "xm_up", "xm_down", "xs_in", "xs_ffn_up", "xs_ffn_down", "ablate_gemv"]
 FLASH_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("flash_relpos.cu",
                                                                                  "flash_relpos_bwd.cu"))]
+RESIDENT_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith("generate_resident.cu")]
 
 
 class SmokeFailure(RuntimeError):
@@ -487,6 +497,8 @@ def phase_build() -> float:
     say(f"[2 build] {secs:.2f} s -> {build.library_path()}; {len(spills)} of {len(usage)} kernels spill registers")
     for name, regs, frame in usage:
         say(f"    ptxas {name}: {regs}; {frame}")
+    resident = sorted((name, regs, frame) for name, regs, frame in usage if "generate_kernel" in name)
+    say("[2 build] kernel C: " + "; ".join(f"{name} {regs}, {frame}" for name, regs, frame in resident))
     return secs
 
 
@@ -946,7 +958,7 @@ def phase_resident(torch, model, ctx: dict, report: dict, quants: dict = QUANTS)
         carry_r, carry_p = clone(ctx["carry"]), clone(ctx["carry"])
         toks, _, _ = gk.fused_generate(dp, vals0, idxs0, last0, *carry_r, pen0, None, dims, n, True, q)
         torch.cuda.synchronize()
-        grid = gk.fused_generate.grid
+        launch = gk.fused_generate.launch
         # The plain chain stepped over the emitted stream, and once more from
         # the prefill state perturbed by 1e-6 (its own noise floor).
         noise = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -973,7 +985,8 @@ def phase_resident(torch, model, ctx: dict, report: dict, quants: dict = QUANTS)
         e_ssm, r_ssm = rel_err(carry_r[1], carry_p[1])
         r_noise = max(rel_err(carry_n[0], carry_p[0])[1], rel_err(carry_n[1], carry_p[1])[1])
         tol = max(TOL_STEPS, 2 * r_noise)
-        say(f"[6 resident {quant}] grid {grid} x 1024 threads; {n} greedy tokens: top-1 equal at "
+        say(f"[6 resident {quant}] grid {launch['grid']} x {launch['threads']} threads, shared memory "
+            f"{launch['dynamic_smem']} + {launch['static_smem']} B a block; {n} greedy tokens: top-1 equal at "
             f"{top1_equal}/{top1_checked} separated steps; outside the plain top-3 at steps {misses} "
             f"(none allowed before {TOP3_STRICT_TOKENS}); final states vs the plain chain over the emitted "
             f"stream: conv rel {r_conv:.3e}, ssm rel {r_ssm:.3e} (tol {tol:.3e}; plain chain from a state "
@@ -1010,61 +1023,105 @@ def phase_resident(torch, model, ctx: dict, report: dict, quants: dict = QUANTS)
     return packs
 
 
-def phase_loop(torch, ctx: dict, packs: dict, report: dict) -> None:
-    """[6 loop] tok/s/seq of the resident loop (one launch per generation)
-    beside the per-token kernel chain's (sample_tokens_fused_tail), from one
-    prefill, stochastic, LENGTH tokens; the weight bytes each token streams
-    and the share of the HBM roofline they reach."""
+def parent_generate_kernel(parent: Path):
+    """The ops.generate_kernel module of another checkout of the port (`--parent
+    DIR`: a tree such as the parent commit's `git archive`, unpacked),
+    imported as the package `parent_mtt`: its own build (into DIR/build),
+    launch counters and kernel C, timed beside this tree's in [6 loop]."""
+    import importlib
+    import importlib.util
+
+    init = parent / "musicgen_tpu_torch" / "__init__.py"
+    need(init.exists(), f"--parent {parent}: no musicgen_tpu_torch package there")
+    if "parent_mtt" not in sys.modules:
+        spec = importlib.util.spec_from_file_location("parent_mtt", init, submodule_search_locations=[str(init.parent)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["parent_mtt"] = mod
+        spec.loader.exec_module(mod)
+    pgk = importlib.import_module("parent_mtt.ops.generate_kernel")
+    t0 = time.perf_counter()
+    pgk.load_library()
+    say(f"[6 loop] the parent tree's kernels built in {time.perf_counter() - t0:.1f} s from {parent}")
+    return pgk
+
+
+def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None = None) -> None:
+    """[6 loop] kernel C in ms a token (host clock around one launch of
+    LENGTH stochastic tokens) and its share of the HBM roofline, beside its
+    yardstick, kernel B's chain step (32 launches, no pick) in a CUDA graph,
+    and, with `--parent DIR`, the parent tree's C on the same inputs, timed
+    in turns (parent, this, this, parent). Then tok/s/seq of the host-paced
+    per-token kernel chain (sample_tokens_fused_tail) from one prefill."""
+    from musicgen_tpu_torch.ops import decode_kernel as dk
     from musicgen_tpu_torch.ops import generate_kernel as gk
+    from musicgen_tpu_torch.ops.grammar import field_bucket
     from musicgen_tpu_torch.sample import sampler
 
     dims = ctx["dims"]
     vals0, idxs0, last0, pen0 = resident_start(torch, ctx)
+    pgk = parent_generate_kernel(parent) if parent is not None else None
     cfg = sampler.SamplerConfig(num_tokens=LENGTH, ring_size=max(PROMPT, 2048))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    bucket = field_bucket(last0)
     for quant, dp in packs.items():
         q = QUANTS[quant]
         weight_bytes = sum(dp[k].numel() * dp[k].element_size()
                            for k in ("w_in", "w_out", "lm_w", "w_in_s", "w_out_s", "lm_s") if k in dp)
         u = torch.rand((LENGTH, BATCH, 2), generator=gen, device=DEVICE)
-        carry = clone(ctx["carry"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        gk.fused_generate(dp, vals0, idxs0, last0, *carry, pen0, u, dims, LENGTH, False, q)
-        end.record()
-        torch.cuda.synchronize()
-        res_s = time.perf_counter() - t0
-        dev_s = start.elapsed_time(end) / 1e3
+
+        def one(mod):
+            carry = clone(ctx["carry"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            mod.fused_generate(dp, vals0, idxs0, last0, *carry, pen0, u, dims, LENGTH, False, q)
+            end.record()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+        if pgk is None:
+            res_s, dev_s = one(gk)
+            this_s, parent_s = [res_s], []
+        else:
+            p1, (res_s, dev_s), (r2, _), p2 = one(pgk), one(gk), one(gk), one(pgk)
+            this_s, parent_s = [res_s, r2], [p1[0], p2[0]]
+        ms = 1e3 * statistics.mean(this_s) / LENGTH
+        carry_g = clone(ctx["carry"])
+        step_graph = graph_ms(torch, lambda: dk.fused_sample_step(dp, last0, carry_g, pen0.hist, bucket, dims,
+                                                                  quant=q), calls=4)
         carry = clone(ctx["carry"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sampler.sample_tokens_fused_tail(dp, ctx["logits"], carry, ctx["prompt"], cfg, gen, dims, quant=quant)
         torch.cuda.synchronize()
         chain_s = time.perf_counter() - t0
-        share = weight_bytes / HBM_BYTES_PER_S / (res_s / LENGTH)
+        share = weight_bytes / HBM_BYTES_PER_S / (ms / 1e3)
         name = f"generate_resident_{'bf16' if q == 'none' else q}"
-        say(f"[6 loop {quant}] resident: {LENGTH} tokens in {res_s:.3f} s = {LENGTH / res_s:.1f} tok/s/seq "
-            f"({1e3 * res_s / LENGTH:.4f} ms/token; device {dev_s:.3f} s between events, idle share "
-            f"{max(0.0, 1 - dev_s / res_s):.4f}); per-token kernel chain: {LENGTH / chain_s:.1f} tok/s/seq "
-            f"({1e3 * chain_s / LENGTH:.4f} ms/token); weights {weight_bytes} B/token = "
-            f"{weight_bytes / (res_s / LENGTH) / 1e9:.1f} GB/s, {100 * share:.2f}% of the 3.35 TB/s roofline; "
-            f"batch {BATCH}")
+        parent_txt = ("the parent tree's C not measured (no --parent)" if pgk is None else
+                      f"the parent tree's C {' / '.join(f'{1e3 * x / LENGTH:.4f}' for x in parent_s)} ms/token "
+                      f"(this tree {' / '.join(f'{1e3 * x / LENGTH:.4f}' for x in this_s)}; in turns parent, this, "
+                      f"this, parent)")
+        say(f"[6 loop {quant}] kernel C: {ms:.4f} ms/token = {1e3 / ms:.1f} tok/s/seq at batch {BATCH} "
+            f"(device {dev_s:.3f} s between events for {LENGTH} tokens, idle share {max(0.0, 1 - dev_s / res_s):.4f}); "
+            f"weights {weight_bytes} B/token = {weight_bytes / ms / 1e6:.1f} GB/s, {100 * share:.2f}% of the 3.35 TB/s "
+            f"roofline (bound {1e3 * weight_bytes / HBM_BYTES_PER_S:.4f} ms); yardstick: kernel B's chain step "
+            f"(32 launches, no pick) in a CUDA graph {fmt_ms(step_graph)}; {parent_txt}; per-token kernel chain "
+            f"host-paced {LENGTH / chain_s:.1f} tok/s/seq ({1e3 * chain_s / LENGTH:.4f} ms/token)")
         # Per token: the pack's weights stream once (166 MB in bf16 cannot
         # stay in the 50 MB L2 between tokens); the states are not counted.
         n_weights = sum(dp[k].numel() for k in ("w_in", "w_out", "lm_w"))
-        report[name].update(ms=1e3 * res_s / LENGTH, **bound(weight_bytes, 2.0 * BATCH * n_weights, BF16_FLOPS))
+        report[name].update(ms=ms, **bound(weight_bytes, 2.0 * BATCH * n_weights, BF16_FLOPS))
 
 
 def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict,
-                       int8_only: bool = False, bf16_only: bool = False) -> None:
+                       int8_only: bool = False, bf16_only: bool = False, resident_only: bool = False) -> None:
     """[6 cli] the CLI with --fused-decode resident (greedy and sampled, two
     bands), resident-int8w, int8 and int8w (one band each), and
     sampler.generate(resident=True, quant="int8"), the one resident format
     no CLI value takes: grammar, MIDI and exact launch counts, each run
     counted from zero. int8_only leaves out the bf16 runs, bf16_only the
-    int8 ones."""
+    int8 ones, resident_only the per-token ones (int8, int8w)."""
     import numpy as np
 
     from musicgen_tpu_torch.cli import generate as cli
@@ -1088,7 +1145,8 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
             ("resident-int8w", False, ["Bach"], {"generate_resident_w8a16": 1}),
             ("int8", False, ["Mozart"], per_token("w8a8")),
             ("int8w", False, ["Mozart"], per_token("w8a16"))]
-    runs = [r for r in runs if ("int8" in r[0] or not int8_only) and ("int8" not in r[0] or not bf16_only)]
+    runs = [r for r in runs if ("int8" in r[0] or not int8_only) and ("int8" not in r[0] or not bf16_only)
+            and (r[0].startswith("resident") or not resident_only)]
     totals: dict = {}
     for i, (mode, greedy, bands, want) in enumerate(runs):
         out = root / f"gen6_{i}"
@@ -2828,12 +2886,40 @@ def phase_flash_paths(torch, report: dict) -> None:
         phase_train_cli(torch, corpus, meta_path, root, report, ("transformer",))
 
 
+def parse_args(argv: list) -> tuple:
+    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident] [--parent DIR]; None where absent or wrong."""
+    opts, rest = {}, list(argv)
+    while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
+        opts[rest[0]] = rest[1]
+        rest = rest[2:]
+    only = opts.get("--only")
+    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident"):
+        return None
+    return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
+
+
+def phase_resident_paths(torch, report: dict, parent: Path | None) -> None:
+    """--only resident: every row that launches kernel C, with the checks
+    and timings of the full run: [6 resident], [6 chain], [6 loop] and the
+    resident [6 cli] runs with [6 api resident int8]. C's launches are those
+    of the CLI runs, each counted from zero, as in the full run."""
+    model = mamba_model(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        ctx = decode_context(torch, model, corpus, meta_path)
+        packs = phase_resident(torch, model, ctx, report)
+        phase_loop(torch, ctx, packs, report, parent)
+        phase_cli_resident(torch, model, corpus, meta_path, root, report, resident_only=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
-    only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("7", "9", "10", "int8", "bf16", "flash"):
-        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash]", file=sys.stderr)
+    args = parse_args(sys.argv[1:])
+    if args is None:
+        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident] [--parent DIR]", file=sys.stderr)
         return 2
+    only, parent = args
     import torch
 
     if not torch.cuda.is_available():
@@ -2870,6 +2956,9 @@ def main() -> int:
     if only == "flash":
         phase_flash_paths(torch, report)
         return finish(torch, card, report, FLASH_KERNELS, t_start)
+    if only == "resident":
+        phase_resident_paths(torch, report, parent)
+        return finish(torch, card, report, RESIDENT_KERNELS, t_start)
     phase_ssd(torch, report)
 
     model = mamba_model(torch)
@@ -2882,7 +2971,7 @@ def main() -> int:
         phase_int8(torch, model, ctx, report)
         phase_cli(torch, model, corpus, meta_path, root, report)
         packs = phase_resident(torch, model, ctx, report)
-        phase_loop(torch, ctx, packs, report)
+        phase_loop(torch, ctx, packs, report, parent)
         phase_cli_resident(torch, model, corpus, meta_path, root, report)
         del model, ctx, packs
         torch.cuda.empty_cache()

@@ -55,7 +55,7 @@ _FUSED = {
 }
 # The JAX CLI's other values, and what they wait for.
 _FUSED_NOT_PORTED = {
-    "int8w-gptq": "GPTQ calibration (ops/gptq.collect_hessians, ROADMAP queue 1 item 12)",
+    "int8w-gptq": "GPTQ calibration (ops/gptq.collect_hessians, ROADMAP queue 1 item 7)",
 }
 
 

@@ -7,12 +7,16 @@
 // Each function handles one work item:
 //   gemv_team    the output columns of one GEMV that a 256-thread team owns
 //                (tiles of 16 columns on the tensor cores, every format),
-//                after the team's prologue;
+//                after the team's prologue; its parts (gemv_prologue,
+//                gemv_mma_chunk, gemv_write_sums, gemv_finish_tile) are what
+//                the resident kernel runs on weights it has copied into
+//                shared memory (gemv_load_chunk_smem);
 //   mixer_item   one (batch row, head) of the SSM state update (256 threads);
-//   tail_row     the grammar/penalty/top-3 tail of one row (a 1024-thread
-//                block).
+//   tail_row     the grammar/penalty/top-3 tail of one row (a block of 1024
+//                threads, or of 512, each standing for two).
 // A per-token kernel is a grid of such items; the resident kernel walks the
-// same items over its persistent blocks between grid barriers. A column's
+// same items over its persistent blocks, each stage waiting for the ones it
+// reads. A column's
 // reduction order and a row's statistics depend only on the item, never on
 // which block computes it, so both paths compute the same bits. The build
 // passes -fmad=false for the same reason: no multiply-add is contracted
@@ -104,6 +108,13 @@ __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast
 // __syncthreads).
 __device__ __forceinline__ void team_sync(int bar) {
   asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(TEAM) : "memory");
+}
+
+// 16 bytes from shared memory at a shared-window address.
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -403,6 +414,174 @@ __device__ __forceinline__ void gemv_load_chunk(uint4 (&wa)[gemv_kchunk<FMT>()][
   }
 }
 
+// The same weights from a tile's rows in shared memory (the resident kernel's
+// ring, csrc/generate_resident.cu): sa and sb are the shared-memory addresses
+// of columns n0 + g and n0 + g + 8 at the lane's first k of step s, so the
+// 16-byte words and the zeros are those gemv_load_chunk gives.
+template <int FMT>
+__device__ __forceinline__ void gemv_load_chunk_smem(uint4 (&wa)[gemv_kchunk<FMT>()][gemv_wv<FMT>()],
+                                                     uint4 (&wb)[gemv_kchunk<FMT>()][gemv_wv<FMT>()], uint32_t sa,
+                                                     uint32_t sb, bool oka, bool okb, int s, int sstep, int SG,
+                                                     int krem) {
+  constexpr int KC = gemv_kchunk<FMT>(), WV = gemv_wv<FMT>(), STEP_BYTES = KSTEP * (FMT == kBf16 ? 2 : 1);
+#pragma unroll
+  for (int u = 0; u < KC; ++u) {
+    const int su = s + u * sstep;
+#pragma unroll
+    for (int v = 0; v < WV; ++v) {
+      const bool in = su < SG && (FMT != kBf16 || su * KSTEP + 32 * v < krem);
+      const uint32_t off = (uint32_t)((su - s) * STEP_BYTES + 64 * v);
+      wa[u][v] = in && oka ? lds128(sa + off) : make_uint4(0u, 0u, 0u, 0u);
+      wb[u][v] = in && okb ? lds128(sb + off) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// A team's share of a GEMV's tiles: which groups and steps each warp sums,
+// where the staged activations and the sums live (gemv_team).
+struct GemvGeom {
+  int gsz, G, SG;     // k of a group, groups, 64-k steps of a group
+  int wpg, g0, gstep; // warps sharing a group; this warp's first group and group stride
+  int s0, sstep;      // this warp's first step in a group and step stride
+  int slots, ld;      // slots of group sums; bytes of a staged row
+  int gq, t, warp, lk, krem;
+};
+
+template <int FMT>
+__device__ __forceinline__ GemvGeom gemv_geom(const GemvArgs& a, int tid) {
+  GemvGeom q;
+  const int lane = tid % 32;
+  q.warp = tid / 32;
+  q.gq = lane / 4;
+  q.t = lane % 4;
+  q.gsz = FMT == kBf16 ? gemv_kpad(a.K) : (a.qgroup > 0 ? a.qgroup : QGROUP);
+  q.G = FMT == kBf16 ? 1 : a.K / q.gsz;
+  q.SG = q.gsz / KSTEP;
+  // This warp's share of every tile: groups g0, g0 + gstep, ... below G, and
+  // in each the steps s0, s0 + sstep, ... below SG; wpg warps share a group.
+  q.wpg = q.G < WARPS ? WARPS / q.G : 1;
+  q.g0 = q.G < WARPS ? (q.warp < q.G * q.wpg ? q.warp / q.wpg : q.G) : q.warp;
+  q.gstep = q.G < WARPS ? q.G : WARPS;
+  q.s0 = q.warp % q.wpg;
+  q.sstep = q.wpg;
+  q.slots = gemv_slots(q.G);
+  q.ld = gemv_stage_ld(a.K, FMT);
+  q.lk = FMT == kBf16 ? 8 * q.t : 16 * q.t;  // this lane's first k of a step
+  q.krem = a.K - q.lk;                        // bf16 (one group): the k left from it in step 0
+  return q;
+}
+
+// The team's prologue: row statistics (kRms, kLayerNorm), then pro(x) staged.
+template <int PRO, int FMT>
+__device__ __forceinline__ void gemv_prologue(const GemvArgs& a, GemvSmem& sm, char* xs, int tid, int bar) {
+  if (PRO != kPlain) gemv_row_stats_exact<PRO>(a, sm, tid, bar);
+  gemv_stage<PRO, FMT>(a, sm, xs, tid, bar);
+}
+
+// The products of one chunk of steps s, s + sstep, ... of group g on the
+// loaded weights wa, wb (gemv_load_chunk or gemv_load_chunk_smem).
+template <int FMT>
+__device__ __forceinline__ void gemv_mma_chunk(float (&cf)[4], int (&ci)[4],
+                                               const uint4 (&wa)[gemv_kchunk<FMT>()][gemv_wv<FMT>()],
+                                               const uint4 (&wb)[gemv_kchunk<FMT>()][gemv_wv<FMT>()],
+                                               const char* xrow, int g, int s, const GemvGeom& q, int R) {
+  constexpr int KC = gemv_kchunk<FMT>();
+#pragma unroll
+  for (int u = 0; u < KC; ++u) {
+    const int su = s + u * q.sstep;
+    if (su >= q.SG) break;
+    const int k = g * q.gsz + su * KSTEP + q.lk;  // this lane's first k of the step
+    if constexpr (FMT != kW8A8) {
+      // The lane's 16 x in the order of its 16 weights: bf16 k + 0..7
+      // and k + 32..39, W8A16 k + 0..15.
+      uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
+      if (q.gq < R) {
+        x0 = *reinterpret_cast<const uint4*>(xrow + 2 * k);
+        x1 = *reinterpret_cast<const uint4*>(xrow + 2 * k + (FMT == kBf16 ? 64 : 16));
+      }
+      const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      // mma j: k-slots 2t, 2t+1 <- the lane's weights 4j + 0, 1; slots
+      // 2t+8, 2t+9 <- 4j + 2, 3. bf16: words 2j and 2j + 1 of its 32
+      // bytes, fed to the mma as loaded; W8A16: bytes 4j .. 4j + 3 of
+      // its 16, converted to bf16 in registers.
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t a0, a1, a2, a3;
+        if constexpr (FMT == kBf16) {
+          a0 = word_of(wa[u][j / 2], 2 * (j % 2));
+          a1 = word_of(wb[u][j / 2], 2 * (j % 2));
+          a2 = word_of(wa[u][j / 2], 2 * (j % 2) + 1);
+          a3 = word_of(wb[u][j / 2], 2 * (j % 2) + 1);
+        } else {
+          const uint32_t ba = word_of(wa[u][0], j) ^ 0x80808080u, bb = word_of(wb[u][0], j) ^ 0x80808080u;
+          a0 = s8x2_to_bf16x2(ba, 0);
+          a1 = s8x2_to_bf16x2(bb, 0);
+          a2 = s8x2_to_bf16x2(ba, 2);
+          a3 = s8x2_to_bf16x2(bb, 2);
+        }
+        mma_bf16_16816(cf, a0, a1, a2, a3, xw[2 * j], xw[2 * j + 1]);
+      }
+    } else {
+      uint4 xq = make_uint4(0u, 0u, 0u, 0u);
+      if (q.gq < R) xq = *reinterpret_cast<const uint4*>(xrow + k);
+      const uint32_t xw[4] = {xq.x, xq.y, xq.z, xq.w};
+      const uint32_t w_a[4] = {wa[u][0].x, wa[u][0].y, wa[u][0].z, wa[u][0].w};
+      const uint32_t w_b[4] = {wb[u][0].x, wb[u][0].y, wb[u][0].z, wb[u][0].w};
+      // mma j: k-slots 4t..4t+3 <- k + 8j + 0..3; slots 4t+16..4t+19 <- k + 8j + 4..7.
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma_s8_16832(ci, w_a[2 * j], w_b[2 * j], w_a[2 * j + 1], w_b[2 * j + 1], xw[2 * j], xw[2 * j + 1]);
+    }
+  }
+}
+
+// A warp's sums of group g into its slot of the tile's buffer of sums.
+template <int FMT>
+__device__ __forceinline__ void gemv_write_sums(uint32_t* tsums, const float (&cf)[4], const int (&ci)[4], int g,
+                                                const GemvGeom& q, int R) {
+  // c[0], c[1]: column gq, rows 2t, 2t + 1; c[2], c[3]: column gq + 8.
+  uint32_t* slot = tsums + (size_t)(q.G < WARPS ? q.warp : g) * TILE_N * R;
+  const uint32_t c[4] = {FMT == kW8A8 ? (uint32_t)ci[0] : __float_as_uint(cf[0]),
+                         FMT == kW8A8 ? (uint32_t)ci[1] : __float_as_uint(cf[1]),
+                         FMT == kW8A8 ? (uint32_t)ci[2] : __float_as_uint(cf[2]),
+                         FMT == kW8A8 ? (uint32_t)ci[3] : __float_as_uint(cf[3])};
+  if (2 * q.t < R) {
+    slot[(2 * q.t) * TILE_N + q.gq] = c[0];
+    slot[(2 * q.t) * TILE_N + q.gq + 8] = c[2];
+  }
+  if (2 * q.t + 1 < R) {
+    slot[(2 * q.t + 1) * TILE_N + q.gq] = c[1];
+    slot[(2 * q.t + 1) * TILE_N + q.gq + 8] = c[3];
+  }
+}
+
+// After the team barrier that ends a tile: one thread per (row, column) adds
+// the warps' sums of each group in warp order; in int8 each group's sum is
+// scaled whole and the groups added in order; then the epilogue.
+template <int EPI, int FMT>
+__device__ __forceinline__ void gemv_finish_tile(const GemvArgs& a, const GemvSmem& sm, const uint32_t* tsums, int n0,
+                                                 int tid, const GemvGeom& q) {
+  if (tid < TILE_N * a.R && (FMT != kBf16 || n0 + tid % TILE_N < a.N)) {
+    const int r = tid / TILE_N, n = n0 + tid % TILE_N;
+    float acc = 0.f;
+    for (int g = 0; g < q.G; ++g) {
+      const uint32_t* p = tsums + (size_t)(q.G < WARPS ? g * q.wpg : g) * TILE_N * a.R + tid;
+      // The scale's load first: its latency overlaps the reads of the sums.
+      const float sw = FMT == kBf16 ? 1.f : __ldg(a.w_s + (size_t)g * a.N + n);
+      if (FMT == kW8A8) {
+        int part = (int)p[0];
+        for (int u = 1; u < q.wpg; ++u) part += (int)p[(size_t)u * TILE_N * a.R];
+        acc = acc + (float)part * sm.sx[r * q.G + g] * sw;
+      } else {
+        float part = __uint_as_float(p[0]);
+        for (int u = 1; u < q.wpg; ++u) part = part + __uint_as_float(p[(size_t)u * TILE_N * a.R]);
+        acc = FMT == kBf16 ? part : acc + part * sw;
+      }
+    }
+    gemv_epilogue<EPI>(a, r, n, acc);
+  }
+}
+
 // The columns team `team` of `n_teams` owns, and their products: tiles of
 // TILE_N columns, tile = team, team + n_teams, ... A team without a tile
 // returns at once (the test is uniform over the team, so its barriers stay
@@ -412,143 +591,51 @@ __device__ void gemv_team(const GemvArgs& a, GemvSmem& sm, int team, int n_teams
   constexpr int KC = gemv_kchunk<FMT>(), WV = gemv_wv<FMT>(), ESZ = FMT == kBf16 ? 2 : 1;
   const int n_tiles = gemv_tiles(a.N);
   if (team >= n_tiles) return;
-  const int lane = tid % 32, warp = tid / 32, gq = lane / 4, t = lane % 4;
-  const int gsz = FMT == kBf16 ? gemv_kpad(a.K) : (a.qgroup > 0 ? a.qgroup : QGROUP);
-  const int G = FMT == kBf16 ? 1 : a.K / gsz, SG = gsz / KSTEP;
-  // This warp's share of every tile: groups g0, g0 + gstep, ... below G, and
-  // in each the steps s0, s0 + sstep, ... below SG; wpg warps share a group.
-  const int wpg = G < WARPS ? WARPS / G : 1;
-  const int g0 = G < WARPS ? (warp < G * wpg ? warp / wpg : G) : warp;
-  const int gstep = G < WARPS ? G : WARPS;
-  const int s0 = warp % wpg, sstep = wpg;
-  const int slots = gemv_slots(G), ld = gemv_stage_ld(a.K, FMT);
-  const int lk = FMT == kBf16 ? 8 * t : 16 * t;  // this lane's first k of a step
-  const int krem = a.K - lk;                      // bf16 (one group): the k left from it in step 0
+  const GemvGeom q = gemv_geom<FMT>(a, tid);
   uint32_t* sums = reinterpret_cast<uint32_t*>(dyn);
-  char* xs = dyn + gemv_sums_bytes(a.R, G);
+  char* xs = dyn + gemv_sums_bytes(a.R, q.G);
   const char* wbytes = static_cast<const char*>(a.w);
 
   // The first chunk's weights are in flight while the prologue runs.
   uint4 wa[KC][WV], wb[KC][WV];
-  if (g0 < G) {
-    const int na = team * TILE_N + gq;
-    const char* pa = wbytes + (size_t)na * a.K * ESZ + (size_t)(lk + g0 * gsz) * ESZ;
-    gemv_load_chunk<FMT>(wa, wb, pa, pa + (size_t)8 * a.K * ESZ, FMT != kBf16 || na < a.N, FMT != kBf16 || na + 8 < a.N,
-                         s0, sstep, SG, krem);
+  if (q.g0 < q.G) {
+    const int na = team * TILE_N + q.gq;
+    const char* pa = wbytes + (size_t)na * a.K * ESZ + (size_t)(q.lk + q.g0 * q.gsz) * ESZ;
+    gemv_load_chunk<FMT>(wa, wb, pa, pa + (size_t)8 * a.K * ESZ, FMT != kBf16 || na < a.N,
+                         FMT != kBf16 || na + 8 < a.N, q.s0, q.sstep, q.SG, q.krem);
   }
-  if (PRO != kPlain) gemv_row_stats_exact<PRO>(a, sm, tid, bar);
-  gemv_stage<PRO, FMT>(a, sm, xs, tid, bar);
+  gemv_prologue<PRO, FMT>(a, sm, xs, tid, bar);
 
-  const char* xrow = xs + (size_t)gq * ld;  // this lane's row of x: the mma's column gq
+  const char* xrow = xs + (size_t)q.gq * q.ld;  // this lane's row of x: the mma's column gq
   bool loaded = true;
   int buf = 0;
   for (int tile = team; tile < n_tiles; tile += n_teams, buf ^= 1) {
     const int n0 = tile * TILE_N;
-    const bool oka = FMT != kBf16 || n0 + gq < a.N, okb = FMT != kBf16 || n0 + gq + 8 < a.N;
-    uint32_t* tsums = sums + (size_t)buf * slots * TILE_N * a.R;
-    for (int g = g0; g < G; g += gstep) {
-      const char* pa = wbytes + (size_t)(n0 + gq) * a.K * ESZ + (size_t)(lk + g * gsz) * ESZ;
+    const bool oka = FMT != kBf16 || n0 + q.gq < a.N, okb = FMT != kBf16 || n0 + q.gq + 8 < a.N;
+    uint32_t* tsums = sums + (size_t)buf * q.slots * TILE_N * a.R;
+    for (int g = q.g0; g < q.G; g += q.gstep) {
+      const char* pa = wbytes + (size_t)(n0 + q.gq) * a.K * ESZ + (size_t)(q.lk + g * q.gsz) * ESZ;
       const char* pb = pa + (size_t)8 * a.K * ESZ;
       float cf[4] = {0.f, 0.f, 0.f, 0.f};
       int ci[4] = {0, 0, 0, 0};
-      for (int s = s0; s < SG; s += KC * sstep) {
-        if (!loaded) gemv_load_chunk<FMT>(wa, wb, pa, pb, oka, okb, s, sstep, SG, krem);
+      for (int s = q.s0; s < q.SG; s += KC * q.sstep) {
+        if (!loaded) gemv_load_chunk<FMT>(wa, wb, pa, pb, oka, okb, s, q.sstep, q.SG, q.krem);
         loaded = false;
-#pragma unroll
-        for (int u = 0; u < KC; ++u) {
-          const int su = s + u * sstep;
-          if (su >= SG) break;
-          const int k = g * gsz + su * KSTEP + lk;  // this lane's first k of the step
-          if constexpr (FMT != kW8A8) {
-            // The lane's 16 x in the order of its 16 weights: bf16 k + 0..7
-            // and k + 32..39, W8A16 k + 0..15.
-            uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
-            if (gq < a.R) {
-              x0 = *reinterpret_cast<const uint4*>(xrow + 2 * k);
-              x1 = *reinterpret_cast<const uint4*>(xrow + 2 * k + (FMT == kBf16 ? 64 : 16));
-            }
-            const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-            // mma j: k-slots 2t, 2t+1 <- the lane's weights 4j + 0, 1; slots
-            // 2t+8, 2t+9 <- 4j + 2, 3. bf16: words 2j and 2j + 1 of its 32
-            // bytes, fed to the mma as loaded; W8A16: bytes 4j .. 4j + 3 of
-            // its 16, converted to bf16 in registers.
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              uint32_t a0, a1, a2, a3;
-              if constexpr (FMT == kBf16) {
-                a0 = word_of(wa[u][j / 2], 2 * (j % 2));
-                a1 = word_of(wb[u][j / 2], 2 * (j % 2));
-                a2 = word_of(wa[u][j / 2], 2 * (j % 2) + 1);
-                a3 = word_of(wb[u][j / 2], 2 * (j % 2) + 1);
-              } else {
-                const uint32_t ba = word_of(wa[u][0], j) ^ 0x80808080u, bb = word_of(wb[u][0], j) ^ 0x80808080u;
-                a0 = s8x2_to_bf16x2(ba, 0);
-                a1 = s8x2_to_bf16x2(bb, 0);
-                a2 = s8x2_to_bf16x2(ba, 2);
-                a3 = s8x2_to_bf16x2(bb, 2);
-              }
-              mma_bf16_16816(cf, a0, a1, a2, a3, xw[2 * j], xw[2 * j + 1]);
-            }
-          } else {
-            uint4 xq = make_uint4(0u, 0u, 0u, 0u);
-            if (gq < a.R) xq = *reinterpret_cast<const uint4*>(xrow + k);
-            const uint32_t xw[4] = {xq.x, xq.y, xq.z, xq.w};
-            const uint32_t w_a[4] = {wa[u][0].x, wa[u][0].y, wa[u][0].z, wa[u][0].w};
-            const uint32_t w_b[4] = {wb[u][0].x, wb[u][0].y, wb[u][0].z, wb[u][0].w};
-            // mma j: k-slots 4t..4t+3 <- k + 8j + 0..3; slots 4t+16..4t+19 <- k + 8j + 4..7.
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              mma_s8_16832(ci, w_a[2 * j], w_b[2 * j], w_a[2 * j + 1], w_b[2 * j + 1], xw[2 * j], xw[2 * j + 1]);
-          }
-        }
+        gemv_mma_chunk<FMT>(cf, ci, wa, wb, xrow, g, s, q, a.R);
       }
-      // c[0], c[1]: column gq, rows 2t, 2t + 1; c[2], c[3]: column gq + 8.
-      uint32_t* slot = tsums + (size_t)(G < WARPS ? warp : g) * TILE_N * a.R;
-      const uint32_t c[4] = {FMT == kW8A8 ? (uint32_t)ci[0] : __float_as_uint(cf[0]),
-                             FMT == kW8A8 ? (uint32_t)ci[1] : __float_as_uint(cf[1]),
-                             FMT == kW8A8 ? (uint32_t)ci[2] : __float_as_uint(cf[2]),
-                             FMT == kW8A8 ? (uint32_t)ci[3] : __float_as_uint(cf[3])};
-      if (2 * t < a.R) {
-        slot[(2 * t) * TILE_N + gq] = c[0];
-        slot[(2 * t) * TILE_N + gq + 8] = c[2];
-      }
-      if (2 * t + 1 < a.R) {
-        slot[(2 * t + 1) * TILE_N + gq] = c[1];
-        slot[(2 * t + 1) * TILE_N + gq + 8] = c[3];
-      }
+      gemv_write_sums<FMT>(tsums, cf, ci, g, q, a.R);
     }
     // The next tile's first chunk is in flight through the barrier and this
     // tile's epilogue.
-    if (g0 < G && tile + n_teams < n_tiles) {
-      const int na = (tile + n_teams) * TILE_N + gq;
-      const char* pa = wbytes + (size_t)na * a.K * ESZ + (size_t)(lk + g0 * gsz) * ESZ;
+    if (q.g0 < q.G && tile + n_teams < n_tiles) {
+      const int na = (tile + n_teams) * TILE_N + q.gq;
+      const char* pa = wbytes + (size_t)na * a.K * ESZ + (size_t)(q.lk + q.g0 * q.gsz) * ESZ;
       gemv_load_chunk<FMT>(wa, wb, pa, pa + (size_t)8 * a.K * ESZ, FMT != kBf16 || na < a.N,
-                           FMT != kBf16 || na + 8 < a.N, s0, sstep, SG, krem);
+                           FMT != kBf16 || na + 8 < a.N, q.s0, q.sstep, q.SG, q.krem);
       loaded = true;
     }
     team_sync(bar);
-    // One thread per (row, column): the warps' sums of each group in warp
-    // order; in int8 each group's sum scaled whole and the groups added in
-    // order.
-    if (tid < TILE_N * a.R && (FMT != kBf16 || n0 + tid % TILE_N < a.N)) {
-      const int r = tid / TILE_N, n = n0 + tid % TILE_N;
-      float acc = 0.f;
-      for (int g = 0; g < G; ++g) {
-        const uint32_t* p = tsums + (size_t)(G < WARPS ? g * wpg : g) * TILE_N * a.R + tid;
-        // The scale's load first: its latency overlaps the reads of the sums.
-        const float sw = FMT == kBf16 ? 1.f : __ldg(a.w_s + (size_t)g * a.N + n);
-        if (FMT == kW8A8) {
-          int part = (int)p[0];
-          for (int q = 1; q < wpg; ++q) part += (int)p[(size_t)q * TILE_N * a.R];
-          acc = acc + (float)part * sm.sx[r * G + g] * sw;
-        } else {
-          float part = __uint_as_float(p[0]);
-          for (int q = 1; q < wpg; ++q) part = part + __uint_as_float(p[(size_t)q * TILE_N * a.R]);
-          acc = FMT == kBf16 ? part : acc + part * sw;
-        }
-      }
-      gemv_epilogue<EPI>(a, r, n, acc);
-    }
+    gemv_finish_tile<EPI, FMT>(a, sm, tsums, n0, tid, q);
   }
 }
 
@@ -604,21 +691,30 @@ static __device__ void mixer_item(const float* zx, int nz, int di, const float* 
   const float b0 = row[2 * di + lane], b1 = row[2 * di + lane + 32];
   const float c0 = row[2 * di + MIX_N + lane], c1 = row[2 * di + MIX_N + lane + 32];
 
+  // Every load of the warp's rows first, so that their latencies overlap
+  // (a store to the state could alias a later row's loads, so the compiler
+  // would not hoist them itself); then the same arithmetic row by row.
+  float xv[ROWS_PER_WARP], zv[ROWS_PER_WARP], st0[ROWS_PER_WARP], st1[ROWS_PER_WARP];
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     const int ch = h * MIX_P + warp * ROWS_PER_WARP + i;
-    const float xv = row[di + ch];
-    const float dtx = xv * dtv;
+    const float* srow = ssm + (size_t)ch * R * MIX_N + (size_t)b * MIX_N;
+    xv[i] = row[di + ch];
+    zv[i] = row[ch];
+    st0[i] = srow[lane];
+    st1[i] = srow[lane + 32];
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    const int ch = h * MIX_P + warp * ROWS_PER_WARP + i;
+    const float dtx = xv[i] * dtv;
     float* srow = ssm + (size_t)ch * R * MIX_N + (size_t)b * MIX_N;
-    const float s0 = srow[lane] * decay + dtx * b0;
-    const float s1 = srow[lane + 32] * decay + dtx * b1;
+    const float s0 = st0[i] * decay + dtx * b0;
+    const float s1 = st1[i] * decay + dtx * b1;
     srow[lane] = s0;
     srow[lane + 32] = s1;
     const float yv = warp_sum(s0 * c0 + s1 * c1);
-    if (lane == 0) {
-      const float z = row[ch];
-      g[(size_t)b * di + ch] = (yv + xv * dd) * (z * sigmoidf_(z));
-    }
+    if (lane == 0) g[(size_t)b * di + ch] = (yv + xv[i] * dd) * (zv[i] * sigmoidf_(zv[i]));
   }
 }
 
@@ -627,14 +723,27 @@ static __device__ void mixer_item(const float* zx, int nz, int di, const float* 
 // i < V:  lse = logsumexp(x);  w = (lse - x) * grammar[bucket];
 //         w /= min(exp(hist * ln base), 1.2)  (base 1.01 pitch, 1.02 dyn);
 // top-3 of w by three argmax passes, ties to the lowest index; pad ids get 0.
-// w lives in shared memory (Vp floats) between the passes.
+// w lives in shared memory (Vp floats) between the passes. The row's logits
+// are first copied into w, and the grammar and window counts read, many
+// loads a thread in flight at a time (tail_u4, tail_u): the logits were just written (by
+// other blocks, in the resident kernel) and come from L2, one round trip a
+// batch instead of one a pass and element. Each thread still adds its
+// elements in index order, so the sums are those of one load at a time.
 // ---------------------------------------------------------------------------
 
+// The block reductions of the tail, for NTR real threads (NTR divides
+// TAIL_NT): the maximum and the arg-maximum do not depend on the order; the
+// sum adds TAIL_NT virtual threads' values (virtual thread threadIdx.x + j
+// NTR's in v[j]) in the order a TAIL_NT-thread block adds them, so 512
+// threads (the resident kernel) and 1024 (kernel B's sample_tail) compute
+// the same bits.
+template <int NTR>
 static __device__ float block_max(float v, float* red) {
+  constexpr int NW = NTR / 32;
   v = warp_max(v);
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
-  v = threadIdx.x < TAIL_NW ? red[threadIdx.x] : -INFINITY;
+  v = threadIdx.x < NW ? red[threadIdx.x] : -INFINITY;
   if (threadIdx.x < 32) v = warp_max(v);
   if (threadIdx.x == 0) red[0] = v;
   __syncthreads();
@@ -643,17 +752,21 @@ static __device__ float block_max(float v, float* red) {
   return v;
 }
 
-static __device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+template <int NTR>
+static __device__ float block_sum(const float (&v)[TAIL_NT / NTR], float* red) {
+#pragma unroll
+  for (int j = 0; j < TAIL_NT / NTR; ++j) {
+    const float w = warp_sum(v[j]);
+    if (threadIdx.x % 32 == 0) red[(threadIdx.x + j * NTR) / 32] = w;
+  }
   __syncthreads();
-  v = threadIdx.x < TAIL_NW ? red[threadIdx.x] : 0.f;
-  if (threadIdx.x < 32) v = warp_sum(v);
-  if (threadIdx.x == 0) red[0] = v;
+  float s = threadIdx.x < TAIL_NW ? red[threadIdx.x] : 0.f;
+  if (threadIdx.x < 32) s = warp_sum(s);
+  if (threadIdx.x == 0) red[0] = s;
   __syncthreads();
-  v = red[0];
+  s = red[0];
   __syncthreads();
-  return v;
+  return s;
 }
 
 // (v, i) beats (bv, bi) when larger, or equal with a lower index.
@@ -664,11 +777,13 @@ __device__ __forceinline__ void arg_better(float& bv, int& bi, float v, int i) {
   }
 }
 
+template <int NTR>
 static __device__ void block_argmax(const float* w, int n, float* red_v, int* red_i, float& out_v,
                              int& out_i) {
+  constexpr int NW = NTR / 32;
   float bv = -INFINITY;
   int bi = 0x7fffffff;
-  for (int i = threadIdx.x; i < n; i += TAIL_NT) arg_better(bv, bi, w[i], i);
+  for (int i = threadIdx.x; i < n; i += NTR) arg_better(bv, bi, w[i], i);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
@@ -681,8 +796,8 @@ static __device__ void block_argmax(const float* w, int n, float* red_v, int* re
   }
   __syncthreads();
   if (threadIdx.x < 32) {
-    bv = threadIdx.x < TAIL_NW ? red_v[threadIdx.x] : -INFINITY;
-    bi = threadIdx.x < TAIL_NW ? red_i[threadIdx.x] : 0x7fffffff;
+    bv = threadIdx.x < NW ? red_v[threadIdx.x] : -INFINITY;
+    bi = threadIdx.x < NW ? red_i[threadIdx.x] : 0x7fffffff;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
@@ -700,36 +815,87 @@ static __device__ void block_argmax(const float* w, int n, float* red_v, int* re
   __syncthreads();
 }
 
+// Loads a thread keeps in flight in the tail's passes over global memory:
+// the copy of the logits (float4 when aligned: one batch at Vp = 17,920) and
+// the grammar and window counts (two or three batches).
+template <int NTR>
+__host__ __device__ constexpr int tail_u4() { return 5 * (TAIL_NT / NTR); }
+template <int NTR>
+__host__ __device__ constexpr int tail_u() { return NTR == TAIL_NT ? 8 : 18; }
+
 // x: the row's Vp logits; grow: its grammar row; hrow: its V window counts.
-// Thread 0 writes vals[0..2] and idx[0..2].
+// Thread 0 writes vals[0..2] and idx[0..2]. NTR threads (a divisor of
+// TAIL_NT); red_v and red_i hold TAIL_NW entries.
+template <int NTR = TAIL_NT>
 static __device__ void tail_row(const float* x, int Vp, int V, const float* grow, const int* hrow,
                          int dyn_start, int length_start, float* vals, int64_t* idx, float* w,
                          float* red_v, int* red_i) {
-  float m = -INFINITY;
-  for (int i = threadIdx.x; i < V; i += TAIL_NT) m = fmaxf(m, x[i]);
-  m = block_max(m, red_v);
-  float s = 0.f;
-  for (int i = threadIdx.x; i < V; i += TAIL_NT) s += expf(x[i] - m);
-  const float lse = logf(block_sum(s, red_v)) + m;
-
-  for (int i = threadIdx.x; i < Vp; i += TAIL_NT) {
-    float wv = 0.f;
-    if (i < V) {
-      const float mk = __ldg(grow + i);
-      if (mk > 0.f) {
-        const float lb = i < dyn_start ? kLn101 : (i < length_start ? kLn102 : 0.f);
-        const float pen = fminf(expf((float)hrow[i] * lb), 1.2f);
-        wv = (lse - x[i]) * mk / pen;
-      }
+  static_assert(TAIL_NT % NTR == 0 && NTR >= TAIL_NW, "a tail block has a divisor of TAIL_NT threads");
+  constexpr int U4 = tail_u4<NTR>(), U = tail_u<NTR>();
+  if (Vp % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* w4 = reinterpret_cast<float4*>(w);
+    for (int base = threadIdx.x; base < Vp / 4; base += U4 * NTR) {
+      float4 v[U4];
+#pragma unroll
+      for (int u = 0; u < U4; ++u) v[u] = base + u * NTR < Vp / 4 ? x4[base + u * NTR] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < U4; ++u)
+        if (base + u * NTR < Vp / 4) w4[base + u * NTR] = v[u];
     }
-    w[i] = wv;
+  } else {
+    for (int base = threadIdx.x; base < Vp; base += U * NTR) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = base + u * NTR < Vp ? x[base + u * NTR] : 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (base + u * NTR < Vp) w[base + u * NTR] = v[u];
+    }
+  }
+  __syncthreads();
+  float m = -INFINITY;
+  for (int i = threadIdx.x; i < V; i += NTR) m = fmaxf(m, w[i]);
+  m = block_max<NTR>(m, red_v);
+  float s[TAIL_NT / NTR];
+#pragma unroll
+  for (int j = 0; j < TAIL_NT / NTR; ++j) {
+    float a = 0.f;
+    for (int i = threadIdx.x + j * NTR; i < V; i += TAIL_NT) a += expf(w[i] - m);
+    s[j] = a;
+  }
+  const float lse = logf(block_sum<NTR>(s, red_v)) + m;
+
+  // Each thread rewrites only its own ids, so x[i] is read from w[i] before
+  // w[i] is written.
+  for (int base = threadIdx.x; base < Vp; base += U * NTR) {
+    float mk[U];
+    int hc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * NTR;
+      mk[u] = i < V ? __ldg(grow + i) : 0.f;
+      hc[u] = i < V ? hrow[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * NTR;
+      if (i >= Vp) break;
+      float wv = 0.f;
+      if (i < V && mk[u] > 0.f) {
+        const float lb = i < dyn_start ? kLn101 : (i < length_start ? kLn102 : 0.f);
+        const float pen = fminf(expf((float)hc[u] * lb), 1.2f);
+        wv = (lse - w[i]) * mk[u] / pen;
+      }
+      w[i] = wv;
+    }
   }
   __syncthreads();
 
   for (int k = 0; k < 3; ++k) {
     float bv;
     int bi;
-    block_argmax(w, Vp, red_v, red_i, bv, bi);
+    block_argmax<NTR>(w, Vp, red_v, red_i, bv, bi);
     if (threadIdx.x == 0) {
       vals[k] = bv;
       idx[k] = bi;

@@ -14,45 +14,116 @@
 //   head      LayerNorm + lm_head + bias;
 //   tail      grammar, penalty and exact top-3 -> the next candidates.
 //
-// What bounds it on an H100: the weights, streamed from HBM once per token
-// (166 MB in bf16, 84 MB in int8 with its scales, at batch 2 and full width),
-// and the grid barriers. The TPU kernel ran a sequential (token, stage) grid
-// with everything else in VMEM; Hopper blocks run in no order, so here the
-// grid is a persistent cooperative launch (as many 1024-thread blocks as can
-// be co-resident, one per SM at the main path) and each dependent stage ends
-// in `grid.sync()`: in_proj -> mixer -> out_proj for each layer, then the
-// head, then tail + pick: 3L + 2 = 32 barriers per token at L = 10. The tail
-// and the pick of row b run in block b; the pick and the penalty push are
-// done by its thread 0, which owns the row's window (a data-dependent loop
-// that no other thread waits for until the next barrier).
+// Every work item runs the device functions of decode_ops.cuh that the
+// per-token kernel chain (kernel B) runs: a GEMV tile's arithmetic
+// (gemv_prologue, gemv_mma_chunk, gemv_write_sums, gemv_finish_tile),
+// mixer_item and tail_row. Only where a tile's weights come from, which SM
+// computes an item and how stages wait on each other differ, so C and the
+// chain compute the same bits and, with the same uniforms, emit the same
+// tokens.
 //
-// Each stage walks the same work items as the per-token kernels, through the
-// same device functions (decode_ops.cuh): a 1024-thread block holds four
-// 256-thread GEMV/mixer teams, or one tail row. So the resident kernel and
-// the per-token kernel chain compute the same bits, and with the same
-// uniforms emit the same tokens.
+// What bounds it on an H100: the weights, streamed from HBM once a token
+// (165.8 MB in bf16, 84.2 MB in int8 with its scales at full width: 49.5 /
+// 25.1 us at 3.35 TB/s), and the chain of 3L + 2 dependent stages a token
+// (32 at L = 10), each some microseconds of latency: a wait for the stage
+// it reads, loads of activations another SM just wrote, a few products,
+// the epilogue, the signal. The TPU kernel ran a sequential (token, stage)
+// grid whose BlockSpec double buffers fetched stage s + 1's weights while
+// stage s computed. The first port kept its stages but not that overlap,
+// and took 0.32 ms a token in bf16 (0.38 in int8) on an H100 80GB HBM3 at
+// 700 W; its ablation (PERF.md, section 6) put 44 us in the 32 grid.sync()
+// barriers, 32 us in packing out_proj and the mixer onto 16 SMs, 29 us in
+// the tail, and showed every stage several microseconds longer than its
+// bytes, with 144-168 B of stack a thread spilled at 64 registers.
 //
-// Nothing but the weights (and one embedding row per token) comes from
-// outside the chip's caches in steady state: the conv and SSM states (1 MB
-// and 10.5 MB at batch 2), the window counts, the ring, the candidates and
-// the activations stay in device memory, updated in place, and at about 12
-// MB fit in the 50 MB L2, which the weight stream shares (whether they stay
-// there is not measured). Keeping them in shared memory is later work. The
-// launch never falls back: if the grid cannot be co-resident or the device
-// refuses a cooperative launch, the error is returned and the wrapper raises.
-#include <cooperative_groups.h>
-
+// Design: a persistent cooperative grid of one 512-thread block an SM (so
+// 128 registers a thread and no spill), two 256-thread teams a block.
+//  1. Spread (against the packing): the wrapper's plan
+//     (ops/generate_kernel.resident_plan) hands each team its tiles and
+//     mixer items, interleaved across blocks, so that a stage with fewer
+//     items than teams puts one on each of that many SMs; out_proj's 64
+//     tiles and the mixer's 64 items each on 64 SMs, on different teams.
+//     Each team copies its part of the plan into shared memory.
+//  2. A ring of weights (against the weight round trips): the whole token's
+//     weight stream is known before it starts, so each team owns `slots`
+//     shared-memory slots of 16 weight rows x `kch` k (a chunk: one in_proj
+//     or lm_head tile, half an out_proj tile) and keeps them full with TMA
+//     bulk copies (cp.async.bulk, one a row, into rows padded by 64 bytes so
+//     that a quarter-warp's two rows fall on distinct banks), each slot
+//     completing on its own mbarrier. When a team has finished a tile, its
+//     last warp refills the tile's slots with the team's next chunks in
+//     stream order (layer by layer in_proj, out_proj, then lm_head, then
+//     the next token), across every stage boundary. The GEMV warps wait on
+//     the slot's mbarrier (parity: the chunk's sequence number over the
+//     slots) and read the weights from shared memory
+//     (gemv_load_chunk_smem). The refill of a stage's last tile comes after
+//     the stage's signal: the issuing warp only arrives at the signal's
+//     barrier and waits for thread 0's release, so the burst of refills
+//     that the whole grid issues at once stalls neither the signal's fence
+//     nor the warps that go on.
+//  3. Signals, not grid barriers: a stage's teams each add their item count
+//     to the stage's counter (red.release.gpu after a barrier), and a team
+//     that has work in a later stage waits (one thread spinning on relaxed
+//     loads, one acquire fence, then a team barrier) only for the stage it
+//     reads: in_proj(l) on out_proj(l - 1) (or the picks, at l = 0), the
+//     mixer on in_proj, out_proj on the mixer, the head on the last
+//     out_proj, the tail on the head. A team with nothing to do in a stage
+//     does not wait for it. The counters only grow: stage s of token t waits
+//     for (t + 1) x its items.
+//  4. L2 prefetch (against the misses the weight stream causes: 166 MB a
+//     token through a 50 MB L2 evicts every constant and state between two
+//     uses): when a team reaches a stage, one thread prefetches
+//     (cp.async.bulk.prefetch.L2) what its next stage reads besides weights.
+//  5. The tail and pick of row b stay on block b: tail_row on 512 threads
+//     with the sum order of 1024 (shared with kernel B's sample_tail, whose
+//     copies and loads it now batches); the pick and the penalty push on
+//     thread 0, as before.
+//
+// Shared memory a block (the wrapper's plan computes the same budget):
+//   region   max(Vp f32 of the tail's w, 2 teams x gemv_smem_bytes of the
+//            larger K): 71,680 B at batch 2 (82,944 at batch 8);
+//   ring     2 teams x slots x 16 rows x (kch x esz + 64): kch = 1024,
+//            33,792 B a slot in bf16 and 17,408 in int8; 2 slots a team in
+//            bf16 (135,168 B) and 4 in int8 (139,264 B);
+//   static   the teams' GemvSmem, plans and copy cursors, the tail's
+//            reductions, the mbarriers: about 4 KB;
+// at most 227 KB (232,448 B) an SM. The tail's w and the teams' GEMV
+// regions are never live at once: the tail starts after the head's
+// epilogues and the next prologue after the pick.
+//
+// On an H100 80GB HBM3 at 700 W this design takes 0.196 ms a token in bf16
+// and 0.225-0.228 in int8 (the first port's: 0.319 / 0.376-0.380 in the same
+// run).
+// What still holds it back (PERF.md, section 6): each layer's three stages take
+// about 14 us where their bytes need 3.9 us: a wait for the producers'
+// signals, activations from L2, a few products and an epilogue, each some
+// hundreds of nanoseconds to microseconds under the weight stream's load;
+// the head streams 36.7 MB through two slots a team; the tail is one block a
+// row.
+//
+// The states (conv and SSM, 1 MB and 10.5 MB at batch 2), the window counts,
+// the ring of the window, the activations and the logits stay in device
+// memory, updated in place. The launch never falls back: if the grid cannot
+// be co-resident or the plan does not fit, the error is returned and the
+// wrapper raises.
 #include <algorithm>
 
 #include "decode_ops.cuh"
 
-namespace cgrp = cooperative_groups;
 using namespace mg;
 
 namespace {
 
-constexpr int NT = TAIL_NT;          // 1024 threads: 4 GEMV/mixer teams, or one tail row
+constexpr int NT = 512;                    // threads of a block: 2 teams, or one tail row
 constexpr int TEAMS = NT / TEAM;
+constexpr int kIssuer = TEAM - 32;         // first thread of the warp that issues a team's copies
+constexpr int MAX_SLOTS = 8;               // ring slots a GEMV team may have
+constexpr int SLOT_PAD = 64;               // bytes after each weight row of a slot
+constexpr int ROW_ALIGN = 128;
+constexpr int kKinds = 4;                  // the plan's work kinds
+constexpr int MAX_TEAM_ITEMS = 32;         // items of all kinds a team may have (the plan checks it)
+enum { kIn = 0, kMix = 1, kOut = 2, kHead = 3 };
+constexpr int kCounterStride = 32;         // ints between two stages' counters (one 128-byte line each)
 constexpr float kRmsEps = 1e-5f;
 constexpr float kLnEps = 1e-6f;
 
@@ -92,16 +163,352 @@ struct ResidentArgs {
   float* g;                    // (B, d_inner)
   float* logits;               // (B, Vp)
   int64_t* tokens;             // (B, N) output
+  // schedule
+  const int* plan;             // per team: kKinds x (start, count), then the item lists
+  int* counters;               // (3L + 2) x kCounterStride, zero at launch
   int L, B, d_model, d_inner, nheads, headdim, d_state, conv_dim, d_in_proj, Vp, V;
   int dyn_start, length_start, time_start, tempo_start, ring, window_ticks, n_tokens, greedy;
-  int team_bytes;              // dynamic shared memory of one GEMV team (set by the launch)
+  int kch, slots, n_blocks;
+  // set by the launch
+  int team_bytes;              // dynamic shared memory of one GEMV team's sums and staged rows
+  int region_bytes;            // the tail's w, or the GEMV teams' regions
+  int slot_row;                // bytes of a weight row in a slot
 };
-constexpr int kNumPtrs = 32;
-constexpr int kNumInts = 19;
+constexpr int kNumPtrs = 34;
+constexpr int kNumInts = 22;
 
 __device__ __forceinline__ int bucket_of(const ResidentArgs& a, int64_t tok) {
   return (tok >= a.dyn_start) + (tok >= a.length_start) + (tok >= a.time_start) +
          (tok >= a.tempo_start);
+}
+
+// ---------------------------------------------------------------------------
+// Signals between stages and the mbarriers of the ring.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// One thread waits until a stage's counter reaches target (relaxed reads,
+// then one acquire fence: the acquire pattern); then the team's (or
+// block's) barrier orders every thread's later reads after the producers'
+// writes.
+__device__ __forceinline__ void spin_until(const int* ctr, int target) {
+  while (ld_relaxed(ctr) < target) {
+  }
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void team_wait(const int* ctr, int target, int tid, int bar) {
+  if (tid == 0) spin_until(ctr, target);
+  team_sync(bar);
+}
+
+// After the team's last store of a stage: every thread's writes, then one
+// release-add of the team's item count.
+__device__ __forceinline__ void team_signal(int* ctr, int n, int tid, int bar) {
+  team_sync(bar);
+  if (tid == 0) red_release_add(ctr, n);
+}
+
+// A team's signal barrier (named barrier TEAMS + bar, used for nothing
+// else): the issuing warp only arrives at it (bar.arrive), so it must be
+// another barrier than the team's own, which that warp may reach again
+// before the others have passed this one.
+__device__ __forceinline__ void signal_arrive(int bar) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(TEAMS + bar), "r"(TEAM) : "memory");
+}
+
+__device__ __forceinline__ void signal_sync(int bar) {
+  asm volatile("bar.sync %0, %1;" ::"r"(TEAMS + bar), "r"(TEAM) : "memory");
+}
+
+// Warp 0 tells the issuing warp that the signal is out (named barrier
+// 2 TEAMS + bar, of those two warps).
+__device__ __forceinline__ void released_arrive(int bar) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(2 * TEAMS + bar), "r"(64) : "memory");
+}
+
+__device__ __forceinline__ void released_sync(int bar) {
+  asm volatile("bar.sync %0, %1;" ::"r"(2 * TEAMS + bar), "r"(64) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT_%=:\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "\t@!p bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The plan and a GEMV team's weight stream.
+// ---------------------------------------------------------------------------
+
+// A team's part of the plan, copied into shared memory at the start: each
+// kind's count and first item in `items`.
+struct TeamPlan {
+  int count[kKinds], first[kKinds];
+  int items[MAX_TEAM_ITEMS];
+};
+
+__device__ void load_team_plan(const ResidentArgs& a, int team, TeamPlan& tp, int tid, int bar) {
+  const int* h = a.plan + (size_t)team * 2 * kKinds;
+  if (tid < kKinds) {
+    int first = 0;
+    for (int k = 0; k < tid; ++k) first += __ldg(h + 2 * k + 1);
+    tp.count[tid] = __ldg(h + 2 * tid + 1);
+    tp.first[tid] = first;
+    for (int i = 0; i < tp.count[tid]; ++i) tp.items[first + i] = __ldg(a.plan + __ldg(h + 2 * tid) + i);
+  }
+  team_sync(bar);
+}
+
+__device__ __forceinline__ const int* plan_items(const TeamPlan& tp, int kind) { return tp.items + tp.first[kind]; }
+__device__ __forceinline__ int plan_count(const TeamPlan& tp, int kind) { return tp.count[kind]; }
+
+// The matrix of a GEMV kind at layer l: weights, N and K.
+struct Mat {
+  const char* w;
+  int N, K;
+};
+
+template <int FMT>
+__device__ __forceinline__ Mat mat_of(const ResidentArgs& a, int kind, int l) {
+  constexpr int ESZ = FMT == kBf16 ? 2 : 1;
+  if (kind == kIn)
+    return {static_cast<const char*>(a.w_in) + (size_t)l * a.d_in_proj * a.d_model * ESZ, a.d_in_proj, a.d_model};
+  if (kind == kOut)
+    return {static_cast<const char*>(a.w_out) + (size_t)l * a.d_model * a.d_inner * ESZ, a.d_model, a.d_inner};
+  return {static_cast<const char*>(a.lm_w), a.Vp, a.d_model};
+}
+
+__device__ __forceinline__ int chunks_of(const ResidentArgs& a, int K) { return (K + a.kch - 1) / a.kch; }
+
+// Where a GEMV team's copies stand in its stream: chunk c of item idx of
+// kind at layer l, and how many chunks are issued of `total`.
+struct Cursor {
+  int l, kind, idx, c, issued, total;
+};
+
+// Past the kinds in which the team has no item (or no item left), in stream
+// order: (in, out) for each layer, then head, then the next token.
+__device__ void cursor_skip_empty(const ResidentArgs& a, Cursor& cu, const TeamPlan& tp) {
+  while (cu.issued < cu.total && cu.idx >= plan_count(tp, cu.kind)) {
+    cu.idx = 0;
+    if (cu.kind == kIn) {
+      cu.kind = kOut;
+    } else if (cu.kind == kOut) {
+      if (cu.l + 1 < a.L) {
+        cu.l += 1;
+        cu.kind = kIn;
+      } else {
+        cu.kind = kHead;
+      }
+    } else {
+      cu.l = 0;
+      cu.kind = kIn;
+    }
+  }
+}
+
+// The last warp of a GEMV team (not one of the epilogue's) issues its next
+// `n` chunks (each into slot issued % slots): lane 0 arms the slot's
+// mbarrier with the chunk's bytes, lanes 0..15 copy one weight row each.
+template <int FMT>
+__device__ void ring_issue(const ResidentArgs& a, Cursor& shared_cu, const TeamPlan& tp, uint32_t ring, uint32_t full,
+                           int n, int lane) {
+  constexpr int ESZ = FMT == kBf16 ? 2 : 1;
+  Cursor cu = shared_cu;
+  for (int i = 0; i < n && cu.issued < cu.total; ++i) {
+    const Mat m = mat_of<FMT>(a, cu.kind, cu.l);
+    const int n0 = plan_items(tp, cu.kind)[cu.idx] * TILE_N, k0 = cu.c * a.kch;
+    const int rows = min(TILE_N, m.N - n0), width = min(a.kch, m.K - k0);
+    const int slot = cu.issued % a.slots;
+    const uint32_t dst = ring + (uint32_t)slot * TILE_N * a.slot_row, bar = full + 8u * slot;
+    if (lane == 0) {
+      // The slot's last reads (generic proxy) come before the copy's writes.
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_expect(bar, (uint32_t)(rows * width * ESZ));
+    }
+    __syncwarp();
+    if (lane < rows)
+      bulk_copy(dst + (uint32_t)lane * a.slot_row, m.w + ((size_t)(n0 + lane) * m.K + k0) * ESZ,
+                (uint32_t)(width * ESZ), bar);
+    cu.issued += 1;
+    cu.c += 1;
+    if (cu.c == chunks_of(a, m.K)) {
+      cu.c = 0;
+      cu.idx += 1;
+      cursor_skip_empty(a, cu, tp);
+    }
+  }
+  __syncwarp();
+  if (lane == 0) shared_cu = cu;
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// L2 prefetch of what a team's next stage reads besides its weights: the
+// layer's constants and the states its items update, which the weight
+// stream (166 MB a token in bf16) has evicted from the 50 MB L2 since the
+// previous token, so that each would cost a dependent HBM round trip under
+// full load. One thread issues them when the team reaches a stage, for the
+// stage after it. They are hints: a range is cut inward to whole 16-byte
+// units.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
+  const uintptr_t lo = (reinterpret_cast<uintptr_t>(p) + 15) & ~(uintptr_t)15;
+  const uintptr_t hi = (reinterpret_cast<uintptr_t>(p) + bytes) & ~(uintptr_t)15;
+  if (hi > lo)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(lo), "r"((uint32_t)(hi - lo)) : "memory");
+}
+
+// Columns [c0, c1) of each of `rows` rows of `ld` floats from p.
+__device__ __forceinline__ void prefetch_cols(const float* p, int rows, int ld, int c0, int c1) {
+  for (int r = 0; r < rows; ++r) prefetch_l2(p + (size_t)r * ld + c0, (size_t)(c1 - c0) * sizeof(float));
+}
+
+// The int8 group scales (G, N) of columns [n0, n0 + 16).
+__device__ __forceinline__ void prefetch_scales(const float* w_s, int G, int N, int n0) {
+  if (w_s != nullptr) prefetch_cols(w_s, G, N, n0, min(n0 + TILE_N, N));
+}
+
+template <int FMT>
+__device__ void prefetch_stage(const ResidentArgs& a, const TeamPlan& tp, int kind, int l) {
+  const int di = a.d_inner, dc = a.conv_dim, nh = a.nheads;
+  const int n = plan_count(tp, kind);
+  const int* items = plan_items(tp, kind);
+  for (int i = 0; i < n; ++i) {
+    const int it = items[i];
+    if (kind == kIn) {
+      const int n0 = it * TILE_N, n1 = min(n0 + TILE_N, a.d_in_proj);
+      if (FMT != kBf16) prefetch_scales(a.w_in_s + (size_t)l * (a.d_model / QGROUP) * a.d_in_proj, a.d_model / QGROUP,
+                                        a.d_in_proj, n0);
+      const int c0 = max(n0, di) - di, c1 = min(n1, di + dc) - di;
+      if (c0 < c1) {
+        prefetch_cols(a.conv_w + (size_t)l * 4 * dc, 4, dc, c0, c1);
+        prefetch_cols(a.conv_b + (size_t)l * dc, 1, dc, c0, c1);
+        prefetch_cols(a.conv + (size_t)l * a.B * 3 * dc, a.B * 3, dc, c0, c1);
+      }
+      const int h0 = max(n0, di + dc) - di - dc, h1 = min(n1, di + dc + nh) - di - dc;
+      if (h0 < h1) prefetch_cols(a.dt_bias + (size_t)l * nh, 1, nh, h0, h1);
+    } else if (kind == kMix) {
+      const int h = it % nh;
+      // The head's 64 state rows (every batch row's columns): contiguous.
+      prefetch_l2(a.ssm + ((size_t)l * di + (size_t)h * MIX_P) * a.B * a.d_state,
+                  (size_t)MIX_P * a.B * a.d_state * sizeof(float));
+    } else if (kind == kOut) {
+      if (i == 0) prefetch_l2(a.norm_w + (size_t)l * di, (size_t)di * sizeof(float));
+      if (FMT != kBf16) prefetch_scales(a.w_out_s + (size_t)l * (di / QGROUP) * a.d_model, di / QGROUP, a.d_model,
+                                        it * TILE_N);
+    } else {
+      if (i == 0) {
+        prefetch_l2(a.ln_w, (size_t)a.d_model * sizeof(float));
+        prefetch_l2(a.ln_b, (size_t)a.d_model * sizeof(float));
+      }
+      prefetch_cols(a.lm_b, 1, a.Vp, it * TILE_N, min(it * TILE_N + TILE_N, a.Vp));
+      if (FMT != kBf16) prefetch_scales(a.lm_s, a.d_model / QGROUP, a.Vp, it * TILE_N);
+    }
+  }
+}
+
+// The team's stage after (kind, l) in its order (in, mix, out for each layer,
+// then head, then the next token's), and its prefetch.
+template <int FMT>
+__device__ void prefetch_next(const ResidentArgs& a, const TeamPlan& tp, int kind, int l) {
+  for (int step = 0; step < 3 * a.L + 1; ++step) {
+    if (kind == kHead) {
+      kind = kIn;
+      l = 0;
+    } else if (kind == kIn) {
+      kind = kMix;
+    } else if (kind == kMix) {
+      kind = kOut;
+    } else if (l + 1 < a.L) {
+      kind = kIn;
+      l += 1;
+    } else {
+      kind = kHead;
+    }
+    if (plan_count(tp, kind) > 0) {
+      prefetch_stage<FMT>(a, tp, kind, l);
+      return;
+    }
+  }
+}
+
+// A GEMV team's tiles of one stage, their weights from the ring. The
+// prologue, the products, the sums and the epilogue are gemv_team's (the same
+// functions); chunk c of a tile is the team's chunk cseq + c of its stream.
+// The refill of the last tile's slots is left to ring_signal, after the
+// stage's signal.
+template <int PRO, int EPI, int FMT>
+__device__ void ring_gemv(const ResidentArgs& ra, const GemvArgs& a, GemvSmem& sm, const TeamPlan& tp, int kind,
+                          int tid, int bar, char* dyn, uint32_t ring, uint32_t full, int& cseq, Cursor& cu) {
+  constexpr int KC = gemv_kchunk<FMT>(), WV = gemv_wv<FMT>(), ESZ = FMT == kBf16 ? 2 : 1;
+  const GemvGeom q = gemv_geom<FMT>(a, tid);
+  uint32_t* sums = reinterpret_cast<uint32_t*>(dyn);
+  char* xs = dyn + gemv_sums_bytes(a.R, q.G);
+  gemv_prologue<PRO, FMT>(a, sm, xs, tid, bar);
+
+  const char* xrow = xs + (size_t)q.gq * q.ld;  // this lane's row of x: the mma's column gq
+  const int n_ch = chunks_of(ra, a.K), row = ra.slot_row;
+  uint4 wa[KC][WV], wb[KC][WV];
+  const int* tiles = plan_items(tp, kind);
+  const int n_tiles = plan_count(tp, kind);
+  int buf = 0;
+  for (int i = 0; i < n_tiles; ++i, buf ^= 1) {
+    const int n0 = tiles[i] * TILE_N;
+    const bool oka = FMT != kBf16 || n0 + q.gq < a.N, okb = FMT != kBf16 || n0 + q.gq + 8 < a.N;
+    uint32_t* tsums = sums + (size_t)buf * q.slots * TILE_N * a.R;
+    int waited = -1;
+    for (int g = q.g0; g < q.G; g += q.gstep) {
+      float cf[4] = {0.f, 0.f, 0.f, 0.f};
+      int ci[4] = {0, 0, 0, 0};
+      for (int s = q.s0; s < q.SG; s += KC * q.sstep) {
+        const int kk = g * q.gsz + s * KSTEP, c = kk / ra.kch, seq = cseq + c, slot = seq % ra.slots;
+        if (c != waited) {
+          mbar_wait(full + 8u * slot, (uint32_t)((seq / ra.slots) & 1));
+          waited = c;
+        }
+        const uint32_t sa =
+            ring + (uint32_t)(slot * TILE_N + q.gq) * row + (uint32_t)((kk - c * ra.kch + q.lk) * ESZ);
+        gemv_load_chunk_smem<FMT>(wa, wb, sa, sa + 8 * row, oka, okb, s, q.sstep, q.SG, q.krem);
+        gemv_mma_chunk<FMT>(cf, ci, wa, wb, xrow, g, s, q, a.R);
+      }
+      gemv_write_sums<FMT>(tsums, cf, ci, g, q, a.R);
+    }
+    team_sync(bar);
+    // The tile's slots are free: the last warp refills them with the stream's
+    // next chunks while the epilogue's threads (tid < 16 R) store.
+    if (tid >= kIssuer && i + 1 < n_tiles) ring_issue<FMT>(ra, cu, tp, ring, full, n_ch, tid - kIssuer);
+    cseq += n_ch;
+    gemv_finish_tile<EPI, FMT>(a, sm, tsums, n0, tid, q);
+  }
 }
 
 // Pick token t of row b, emit it, push it into the window and gather its
@@ -162,83 +569,162 @@ __device__ void pick_push_embed(const ResidentArgs& a, int b, int t, int* s_tok)
   __syncthreads();
 }
 
+// The end of a GEMV stage: the team's signal, then the refill of its last
+// tile's `n_ch` slots. The issuing warp arrives at the signal's barrier
+// without waiting, and issues once thread 0's release is out: a copy the TMA
+// unit cannot take yet (the whole grid refills at once after in_proj)
+// stalls that warp alone, and the release's fence does not queue behind the
+// refill's reads.
+template <int FMT>
+__device__ void ring_signal(const ResidentArgs& a, int* ctr, int n, int tid, int bar, Cursor& cu, const TeamPlan& tp,
+                            uint32_t ring, uint32_t full, int n_ch) {
+  if (tid >= kIssuer) {
+    signal_arrive(bar);
+    released_sync(bar);
+    ring_issue<FMT>(a, cu, tp, ring, full, n_ch, tid - kIssuer);
+  } else {
+    signal_sync(bar);
+    if (tid == 0) red_release_add(ctr, n);
+    if (tid < 32) released_arrive(bar);
+  }
+}
+
 template <int FMT>
 __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
-  // Dynamic shared memory: the tail's Vp weights, or each team's GEMV sums
-  // and staged activations. The two are never live at once: a grid barrier
-  // separates every GEMV stage from every tail stage.
-  extern __shared__ uint4 dyn_smem[];
+  // Dynamic shared memory: [region: the tail's Vp weights, or each GEMV
+  // team's sums and staged activations][ring: each GEMV team's slots].
+  extern __shared__ __align__(128) unsigned char dyn_smem[];
   float* tail_w = reinterpret_cast<float*>(dyn_smem);
   __shared__ GemvSmem gsm[TEAMS];
   __shared__ float red_v[TAIL_NW];
   __shared__ int red_i[TAIL_NW];
   __shared__ int s_tok;
-  cgrp::grid_group grid = cgrp::this_grid();
+  __shared__ __align__(8) uint64_t full_bars[TEAMS][MAX_SLOTS];
+  __shared__ Cursor cursors[TEAMS];
+  __shared__ TeamPlan plans[TEAMS];
 
   const int team_in = threadIdx.x / TEAM, tid = threadIdx.x % TEAM, bar = 1 + team_in;
-  const int team = blockIdx.x * TEAMS + team_in, n_teams = gridDim.x * TEAMS;
+  const int team = blockIdx.x * TEAMS + team_in;
+  const int L = a.L, di = a.d_inner, dip = a.d_in_proj, nh = a.nheads;
+  int* c_in = a.counters;
+  int* c_mix = a.counters + (size_t)L * kCounterStride;
+  int* c_out = a.counters + (size_t)2 * L * kCounterStride;
+  int* c_head = a.counters + (size_t)3 * L * kCounterStride;
+  int* c_tail = a.counters + (size_t)(3 * L + 1) * kCounterStride;
+  const int n_in = gemv_tiles(dip), n_out = gemv_tiles(a.d_model), n_head = gemv_tiles(a.Vp), n_mix = a.B * nh;
+
   GemvSmem& sm = gsm[team_in];
   char* dyn = reinterpret_cast<char*>(dyn_smem) + (size_t)team_in * a.team_bytes;
-  const size_t esz = FMT == kBf16 ? 2 : 1;
-  const int di = a.d_inner, dc = a.conv_dim, nh = a.nheads, dm = a.d_model, dip = a.d_in_proj;
-  const int g_in = dm / QGROUP, g_out = di / QGROUP;
+  const uint32_t ring = smem_u32(dyn_smem + a.region_bytes) + (uint32_t)team_in * a.slots * TILE_N * a.slot_row;
+  const uint32_t full = smem_u32(&full_bars[team_in][0]);  // slot s's mbarrier at full + 8 s
+  Cursor& cu = cursors[team_in];
+  TeamPlan& tp = plans[team_in];
+  int cseq = 0;  // chunks of the stream this team has consumed
 
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) pick_push_embed(a, b, 0, &s_tok);
-  grid.sync();
+  load_team_plan(a, team, tp, tid, bar);
+  if (tid == 0) {
+    for (int s = 0; s < a.slots; ++s) mbar_init(full + 8u * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    const int per_token = a.L * (plan_count(tp, kIn) * chunks_of(a, a.d_model) +
+                                 plan_count(tp, kOut) * chunks_of(a, di)) +
+                          plan_count(tp, kHead) * chunks_of(a, a.d_model);
+    cu = {0, kIn, 0, 0, 0, per_token * a.n_tokens};
+    cursor_skip_empty(a, cu, tp);
+  }
+  __syncthreads();
+  if (tid >= kIssuer) ring_issue<FMT>(a, cu, tp, ring, full, a.slots, tid - kIssuer);
+  if (blockIdx.x < a.B) {
+    pick_push_embed(a, blockIdx.x, 0, &s_tok);
+    if (threadIdx.x == 0) red_release_add(c_tail, 1);
+  }
 
   for (int t = 0; t < a.n_tokens; ++t) {
-    for (int l = 0; l < a.L; ++l) {
-      GemvArgs in = {};
-      in.x = a.x;
-      in.w = static_cast<const char*>(a.w_in) + (size_t)l * dip * dm * esz;
-      in.w_s = FMT == kBf16 ? nullptr : a.w_in_s + (size_t)l * g_in * dip;
-      in.out = a.zx;
-      in.R = a.B; in.K = dm; in.N = dip;
-      in.di = di; in.dc = dc; in.nh = nh;
-      in.conv_w = a.conv_w + (size_t)l * 4 * dc;
-      in.conv_b = a.conv_b + (size_t)l * dc;
-      in.dt_bias = a.dt_bias + (size_t)l * nh;
-      in.conv_state = a.conv + (size_t)l * a.B * 3 * dc;
-      gemv_team<kPlain, kInProj, FMT>(in, sm, team, n_teams, tid, bar, dyn);
-      grid.sync();
+    for (int l = 0; l < L; ++l) {
+      if (plan_count(tp, kIn) > 0) {
+        GemvArgs in = {};
+        const Mat m = mat_of<FMT>(a, kIn, l);
+        in.x = a.x;
+        in.w = m.w;
+        in.w_s = FMT == kBf16 ? nullptr : a.w_in_s + (size_t)l * (a.d_model / QGROUP) * dip;
+        in.out = a.zx;
+        in.R = a.B; in.K = a.d_model; in.N = dip;
+        in.di = di; in.dc = a.conv_dim; in.nh = nh;
+        in.conv_w = a.conv_w + (size_t)l * 4 * a.conv_dim;
+        in.conv_b = a.conv_b + (size_t)l * a.conv_dim;
+        in.dt_bias = a.dt_bias + (size_t)l * nh;
+        in.conv_state = a.conv + (size_t)l * a.B * 3 * a.conv_dim;
+        if (tid == 0) prefetch_next<FMT>(a, tp, kIn, l);
+        if (l == 0)
+          team_wait(c_tail, a.B * (t + 1), tid, bar);
+        else
+          team_wait(c_out + (size_t)(l - 1) * kCounterStride, n_out * (t + 1), tid, bar);
+        ring_gemv<kPlain, kInProj, FMT>(a, in, sm, tp, kIn, tid, bar, dyn, ring, full, cseq, cu);
+        ring_signal<FMT>(a, c_in + (size_t)l * kCounterStride, plan_count(tp, kIn), tid, bar, cu, tp, ring, full,
+                         chunks_of(a, a.d_model));
+      }
 
-      float* ssm = a.ssm + (size_t)l * di * a.B * a.d_state;
-      for (int item = team; item < a.B * nh; item += n_teams)
-        mixer_item(a.zx, dip, di, a.a_h + (size_t)l * nh, a.d_h + (size_t)l * nh, ssm, a.g, a.B,
-                   item / nh, item % nh, tid);
-      grid.sync();
+      const int n_my_mix = plan_count(tp, kMix);
+      if (n_my_mix > 0) {
+        if (tid == 0) prefetch_next<FMT>(a, tp, kMix, l);
+        team_wait(c_in + (size_t)l * kCounterStride, n_in * (t + 1), tid, bar);
+        float* ssm = a.ssm + (size_t)l * di * a.B * a.d_state;
+        const int* mix = plan_items(tp, kMix);
+        for (int i = 0; i < n_my_mix; ++i) {
+          const int item = mix[i];
+          mixer_item(a.zx, dip, di, a.a_h + (size_t)l * nh, a.d_h + (size_t)l * nh, ssm, a.g, a.B, item / nh,
+                     item % nh, tid);
+        }
+        team_signal(c_mix + (size_t)l * kCounterStride, n_my_mix, tid, bar);
+      }
 
-      GemvArgs out = {};
-      out.x = a.g;
-      out.w = static_cast<const char*>(a.w_out) + (size_t)l * dm * di * esz;
-      out.w_s = FMT == kBf16 ? nullptr : a.w_out_s + (size_t)l * g_out * dm;
-      out.out = a.x;
-      out.R = a.B; out.K = di; out.N = dm;
-      out.pw = a.norm_w + (size_t)l * di;
-      out.eps = kRmsEps;
-      gemv_team<kRms, kStore, FMT>(out, sm, team, n_teams, tid, bar, dyn);
-      grid.sync();
+      if (plan_count(tp, kOut) > 0) {
+        GemvArgs out = {};
+        const Mat m = mat_of<FMT>(a, kOut, l);
+        out.x = a.g;
+        out.w = m.w;
+        out.w_s = FMT == kBf16 ? nullptr : a.w_out_s + (size_t)l * (di / QGROUP) * a.d_model;
+        out.out = a.x;
+        out.R = a.B; out.K = di; out.N = a.d_model;
+        out.pw = a.norm_w + (size_t)l * di;
+        out.eps = kRmsEps;
+        if (tid == 0) prefetch_next<FMT>(a, tp, kOut, l);
+        team_wait(c_mix + (size_t)l * kCounterStride, n_mix * (t + 1), tid, bar);
+        ring_gemv<kRms, kStore, FMT>(a, out, sm, tp, kOut, tid, bar, dyn, ring, full, cseq, cu);
+        ring_signal<FMT>(a, c_out + (size_t)l * kCounterStride, plan_count(tp, kOut), tid, bar, cu, tp, ring, full,
+                         chunks_of(a, di));
+      }
     }
 
-    GemvArgs head = {};
-    head.x = a.x;
-    head.w = a.lm_w;
-    head.w_s = FMT == kBf16 ? nullptr : a.lm_s;
-    head.out = a.logits;
-    head.R = a.B; head.K = dm; head.N = a.Vp;
-    head.pw = a.ln_w; head.pb = a.ln_b; head.eps = kLnEps; head.bias = a.lm_b;
-    gemv_team<kLayerNorm, kBias, FMT>(head, sm, team, n_teams, tid, bar, dyn);
-    grid.sync();
-
-    if (t + 1 < a.n_tokens) {
-      for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-        const int64_t prev = a.last[b];
-        tail_row(a.logits + (size_t)b * a.Vp, a.Vp, a.V, a.gram + (size_t)bucket_of(a, prev) * a.Vp,
-                 a.hist + (size_t)b * a.V, a.dyn_start, a.length_start, a.cand_v + b * 3,
-                 a.cand_i + b * 3, tail_w, red_v, red_i);
-        pick_push_embed(a, b, t + 1, &s_tok);
+    if (plan_count(tp, kHead) > 0) {
+      GemvArgs head = {};
+      head.x = a.x;
+      head.w = a.lm_w;
+      head.w_s = FMT == kBf16 ? nullptr : a.lm_s;
+      head.out = a.logits;
+      head.R = a.B; head.K = a.d_model; head.N = a.Vp;
+      head.pw = a.ln_w; head.pb = a.ln_b; head.eps = kLnEps; head.bias = a.lm_b;
+      if (tid == 0) prefetch_next<FMT>(a, tp, kHead, L - 1);
+      if (blockIdx.x < a.B && team_in == 0 && tid == 0) {
+        // The tail's grammar row (the bucket of the token consumed last) and
+        // window counts.
+        prefetch_l2(a.gram + (size_t)bucket_of(a, a.last[blockIdx.x]) * a.Vp, (size_t)a.Vp * sizeof(float));
+        prefetch_l2(a.hist + (size_t)blockIdx.x * a.V, (size_t)a.V * sizeof(int));
       }
-      grid.sync();
+      team_wait(c_out + (size_t)(L - 1) * kCounterStride, n_out * (t + 1), tid, bar);
+      ring_gemv<kLayerNorm, kBias, FMT>(a, head, sm, tp, kHead, tid, bar, dyn, ring, full, cseq, cu);
+      ring_signal<FMT>(a, c_head, plan_count(tp, kHead), tid, bar, cu, tp, ring, full, chunks_of(a, a.d_model));
+    }
+
+    if (t + 1 < a.n_tokens && blockIdx.x < a.B) {
+      const int b = blockIdx.x;
+      if (threadIdx.x == 0) spin_until(c_head, n_head * (t + 1));
+      __syncthreads();
+      const int64_t prev = a.last[b];
+      tail_row<NT>(a.logits + (size_t)b * a.Vp, a.Vp, a.V, a.gram + (size_t)bucket_of(a, prev) * a.Vp,
+                   a.hist + (size_t)b * a.V, a.dyn_start, a.length_start, a.cand_v + b * 3, a.cand_i + b * 3,
+                   tail_w, red_v, red_i);
+      pick_push_embed(a, b, t + 1, &s_tok);
+      if (threadIdx.x == 0) red_release_add(c_tail, 1);
     }
   }
 }
@@ -249,13 +735,23 @@ bool resident_shape_ok(const ResidentArgs& a, int fmt) {
   if (a.conv_dim != a.d_inner + 2 * a.d_state || a.d_in_proj != 2 * a.d_inner + 2 * a.d_state + a.nheads)
     return false;
   if (a.V < 3 || a.V > a.Vp) return false;
+  // The ring copies whole 64-k steps: no K tail.
+  if (a.d_model % KSTEP != 0 || a.d_inner % KSTEP != 0) return false;
   return gemv_shape_ok(a.B, a.d_model, a.d_in_proj, fmt) && gemv_shape_ok(a.B, a.d_inner, a.d_model, fmt) &&
          gemv_shape_ok(a.B, a.d_model, a.Vp, fmt);
 }
 
+// The plan's chunk and slots: a chunk is a whole number of steps (bf16) or
+// groups (int8), and a tile's chunks fit the ring at once.
+bool ring_ok(const ResidentArgs& a, int fmt) {
+  const int unit = fmt == kBf16 ? KSTEP : QGROUP;
+  if (a.kch < unit || a.kch % unit != 0) return false;
+  const int most = std::max((a.d_model + a.kch - 1) / a.kch, (a.d_inner + a.kch - 1) / a.kch);
+  return a.slots >= most && a.slots <= MAX_SLOTS;
+}
+
 template <int FMT>
-int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, int* grid_out,
-                    void* stream) {
+int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, int* info_out, void* stream) {
   if (n_ptrs != kNumPtrs || n_ints != kNumInts) return (int)cudaErrorInvalidValue;
   ResidentArgs a;
   int i = 0;
@@ -291,6 +787,8 @@ int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, 
   a.g = static_cast<float*>(const_cast<void*>(p[i++]));
   a.logits = static_cast<float*>(const_cast<void*>(p[i++]));
   a.tokens = static_cast<int64_t*>(const_cast<void*>(p[i++]));
+  a.plan = static_cast<const int*>(p[i++]);
+  a.counters = static_cast<int*>(const_cast<void*>(p[i++]));
   int j = 0;
   a.L = v[j++]; a.B = v[j++]; a.d_model = v[j++]; a.d_inner = v[j++]; a.nheads = v[j++];
   a.headdim = v[j++]; a.d_state = v[j++]; a.conv_dim = v[j++]; a.d_in_proj = v[j++];
@@ -298,9 +796,12 @@ int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, 
   a.time_start = v[j++]; a.tempo_start = v[j++]; a.ring = v[j++]; a.window_ticks = v[j++];
   a.n_tokens = v[j++];
   a.greedy = v[j++];
-  if (i != kNumPtrs || j != kNumInts || !resident_shape_ok(a, FMT)) return (int)cudaErrorInvalidValue;
+  a.kch = v[j++]; a.slots = v[j++]; a.n_blocks = v[j++];
+  if (i != kNumPtrs || j != kNumInts || !resident_shape_ok(a, FMT) || !ring_ok(a, FMT))
+    return (int)cudaErrorInvalidValue;
   if (FMT != kBf16 && (a.w_in_s == nullptr || a.w_out_s == nullptr || a.lm_s == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (a.plan == nullptr || a.counters == nullptr || a.n_blocks < a.B) return (int)cudaErrorInvalidValue;
 
   int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -308,20 +809,30 @@ int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, 
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
+  const size_t esz = FMT == kBf16 ? 2 : 1;
   const size_t team_bytes = std::max(gemv_smem_bytes(a.B, a.d_model, QGROUP, FMT),
                                      gemv_smem_bytes(a.B, a.d_inner, QGROUP, FMT));
+  const size_t region = (std::max((size_t)a.Vp * sizeof(float), TEAMS * team_bytes) + ROW_ALIGN - 1) /
+                        ROW_ALIGN * ROW_ALIGN;
   a.team_bytes = (int)team_bytes;
-  const size_t smem = std::max((size_t)a.Vp * sizeof(float), TEAMS * team_bytes);
+  a.region_bytes = (int)region;
+  a.slot_row = (int)(a.kch * esz + SLOT_PAD);
+  const size_t smem = region + (size_t)TEAMS * a.slots * TILE_N * a.slot_row;
   e = cudaFuncSetAttribute(generate_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, generate_kernel<FMT>, NT, smem);
   if (e != cudaSuccess) return (int)e;
-  const int grid = per_sm * mg_sm_count();
-  if (grid < a.B) return (int)cudaErrorCooperativeLaunchTooLarge;
-  *grid_out = grid;
+  if (a.n_blocks > per_sm * mg_sm_count()) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, generate_kernel<FMT>);
+  if (e != cudaSuccess) return (int)e;
+  info_out[0] = a.n_blocks;
+  info_out[1] = NT;
+  info_out[2] = (int)smem;
+  info_out[3] = (int)attr.sharedSizeBytes;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)generate_kernel<FMT>, dim3(grid), dim3(NT), args, smem,
+  e = cudaLaunchCooperativeKernel((const void*)generate_kernel<FMT>, dim3(a.n_blocks), dim3(NT), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -331,18 +842,20 @@ int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, 
 
 // One entry point per weight format. ptrs: the kNumPtrs device pointers in
 // ResidentArgs order (null for the scales of the bf16 pack); ints: the
-// kNumInts sizes in ResidentArgs order. *grid_out receives the grid size.
+// kNumInts sizes in ResidentArgs order. info_out receives 4 ints: the grid,
+// the threads a block, and the dynamic and static shared memory a block.
+
 MG_EXPORT int mg_generate_resident_bf16(const void* const* ptrs, int n_ptrs, const int* ints,
-                                        int n_ints, int* grid_out, void* stream) {
-  return launch_resident<kBf16>(ptrs, n_ptrs, ints, n_ints, grid_out, stream);
+                                        int n_ints, int* info_out, void* stream) {
+  return launch_resident<kBf16>(ptrs, n_ptrs, ints, n_ints, info_out, stream);
 }
 
 MG_EXPORT int mg_generate_resident_w8a16(const void* const* ptrs, int n_ptrs, const int* ints,
-                                         int n_ints, int* grid_out, void* stream) {
-  return launch_resident<kW8A16>(ptrs, n_ptrs, ints, n_ints, grid_out, stream);
+                                         int n_ints, int* info_out, void* stream) {
+  return launch_resident<kW8A16>(ptrs, n_ptrs, ints, n_ints, info_out, stream);
 }
 
 MG_EXPORT int mg_generate_resident_w8a8(const void* const* ptrs, int n_ptrs, const int* ints,
-                                        int n_ints, int* grid_out, void* stream) {
-  return launch_resident<kW8A8>(ptrs, n_ptrs, ints, n_ints, grid_out, stream);
+                                        int n_ints, int* info_out, void* stream) {
+  return launch_resident<kW8A8>(ptrs, n_ptrs, ints, n_ints, info_out, stream);
 }

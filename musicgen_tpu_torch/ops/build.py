@@ -63,7 +63,8 @@ SIGNATURES = {
     "mg_ablate_gemv": [_P] * 4 + [_I] * 4 + [_P],
     "mg_ablate_stream": [_P] * 6 + [_I] * 6 + [_F, _P, _P],
     "mg_ablate_nossd": [_P] * 4 + [_I] * 5 + [_F, _P],
-    # (pointer array, its length, int array, its length, grid size out, stream)
+    # (pointer array, its length, int array, its length, 4 ints out: grid, threads, dynamic and static
+    # shared memory a block; stream)
     **{f"mg_generate_resident_{fmt}": [_P, _I, _P, _I, _P, _P] for fmt in ("bf16", "w8a16", "w8a8")},
 }
 

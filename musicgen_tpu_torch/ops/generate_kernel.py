@@ -23,13 +23,24 @@ ops=PLAIN_OPS it is the plain version of the kernel; with ops=KERNEL_OPS it
 is the per-token kernel chain with the resident kernel's pick, which the
 resident kernel matches bit for bit on the card.
 
+The kernel is a persistent cooperative grid of one 512-thread block an SM,
+two 256-thread teams a block. `resident_plan` is the schedule the wrapper
+hands it: which team computes each in_proj, out_proj and lm_head tile and
+each mixer item, and the ring of shared-memory slots through which TMA bulk
+copies stream each team's weights ahead of the stages that read them
+(csrc/generate_resident.cu). `plan_stream` is the plain version of a team's
+weight stream, in the order the kernel consumes it. Stages wait on counters
+of the items they read, which the wrapper zeroes for every launch.
+
 Both advance the conv and SSM states IN PLACE (the TPU kernel returned new
 arrays); the penalty state passed in is not modified.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -44,8 +55,11 @@ from ..sample.sampler import (
 )
 from .build import check, load_library, stream_ptr
 from .decode_kernel import (
+    INT8_KSTEP,
+    INT8_TILE,
     LAUNCHES,
     PLAIN_OPS,
+    QUANT_GROUP,
     DecodeDims,
     StepOps,
     _kernel_dims,
@@ -98,10 +112,129 @@ def fused_generate_plain(dp: dict, init_vals, init_idxs, init_last, conv, ssm, p
     return torch.stack(out, dim=1), conv, ssm
 
 
+# ---------------------------------------------------------------------------
+# The kernel's schedule: which team computes what, and its ring of weights
+# ---------------------------------------------------------------------------
+
+TEAMS = 2  # 256-thread teams of a 512-thread block (csrc/generate_resident.cu), each with its own ring
+MAX_SLOTS = 8  # ring slots a team may have (MAX_SLOTS)
+MAX_TEAM_ITEMS = 32  # items of all kinds a team may have: its plan is copied to shared memory
+KCH = 1024  # k of a ring chunk at most
+SLOT_PAD = 64  # bytes after each weight row of a slot (SLOT_PAD)
+SMEM_PER_BLOCK = 232_448  # shared memory a block may have on an H100 (227 KB)
+STATIC_SMEM = 8192  # the kernel's static shared memory (about 4 KB), rounded up
+KINDS = ("in", "mix", "out", "head")  # the plan's work kinds, in the kernel's enum order
+COUNTER_STRIDE = 32  # ints between two of the kernel's stage counters
+
+
+def gemv_smem_bytes(rows: int, k: int, quant: str) -> int:
+    """csrc/decode_ops.cuh gemv_smem_bytes: one GEMV team's two buffers of
+    group sums and its staged rows of activations."""
+    kpad = -(-k // INT8_KSTEP) * INT8_KSTEP
+    groups = 1 if quant == "none" else k // QUANT_GROUP
+    slots = max(groups, 8)
+    stage_ld = {"none": 2 * (kpad + 32), "w8a16": 2 * (k + 8), "w8a8": k + 64}[quant]
+    return 2 * slots * INT8_TILE * rows * 4 + rows * stage_ld
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentPlan:
+    """What the wrapper hands kernel C besides the tensors: the grid, the
+    ring's chunk (kch k of 16 weight rows) and slots a team, the dynamic
+    shared memory a block, and for each team (block * TEAMS + team in the
+    block) its items of each kind, in KINDS order: in_proj tiles, mixer
+    items b * nheads + h, out_proj tiles, lm_head tiles."""
+    n_blocks: int
+    kch: int
+    slots: int
+    slot_bytes: int
+    region_bytes: int
+    smem: int
+    items: Tuple[Tuple[Tuple[int, ...], ...], ...]  # [team][kind] -> items
+
+    def chunks(self, k: int) -> int:
+        return -(-k // self.kch)
+
+    def tensor(self, device) -> torch.Tensor:
+        """The plan as the kernel reads it (int32): for each team, (start,
+        count) of each kind's list, then the lists."""
+        head: List[int] = []
+        body: List[int] = []
+        base = len(self.items) * 2 * len(KINDS)
+        for lists in self.items:
+            for lst in lists:
+                head += [base + len(body), len(lst)]
+                body += lst
+        return torch.tensor(head + body, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_plan(dims: DecodeDims, n_blocks: int, quant: str = "none") -> ResidentPlan:
+    """Kernel C's schedule for a grid of n_blocks (one block an SM).
+
+    The teams are interleaved across the blocks (team i in this order is
+    team i // n_blocks of block i % n_blocks), so that a stage with fewer
+    items than teams puts one on each of that many SMs: in_proj and lm_head
+    tile i and mixer item i (b * nheads + h) go to team i mod their count,
+    out_proj tile j to team -1 - j (with the fewest in_proj tiles and no
+    mixer item). The ring: a chunk is kch k of a tile's 16 rows (1024 at
+    most, whole 64-k steps in bf16 and 256-k groups in int8); each team has
+    as many slots as fit beside the larger of the tail's Vp f32 and the two
+    teams' GEMV regions (MAX_SLOTS at most), and at least a tile's chunks."""
+    if n_blocks < dims.batch:
+        raise ValueError(f"the resident grid needs a block per batch row: {n_blocks} < {dims.batch}")
+    esz, unit = (2, INT8_KSTEP) if quant == "none" else (1, QUANT_GROUP)
+    kch = min(KCH, -(-max(dims.d_model, dims.d_inner) // unit) * unit)
+    slot_bytes = INT8_TILE * (kch * esz + SLOT_PAD)
+    team_bytes = max(gemv_smem_bytes(dims.batch, dims.d_model, quant), gemv_smem_bytes(dims.batch, dims.d_inner, quant))
+    region = -(-max(4 * dims.padded_vocab, TEAMS * team_bytes) // 128) * 128
+    slots = min(MAX_SLOTS, (SMEM_PER_BLOCK - STATIC_SMEM - region) // (TEAMS * slot_bytes))
+    most = max(-(-dims.d_model // kch), -(-dims.d_inner // kch))
+    if slots < most:
+        raise ValueError(f"kernel C's ring does not fit: {slots} slots of {slot_bytes} B a team beside {region} B, "
+                         f"a tile needs {most}")
+    order = [(i % n_blocks) * TEAMS + i // n_blocks for i in range(TEAMS * n_blocks)]
+    items = [[[] for _ in KINDS] for _ in range(TEAMS * n_blocks)]
+    tiles = lambda n: -(-n // INT8_TILE)  # noqa: E731
+    for i in range(tiles(dims.d_in_proj)):
+        items[order[i % len(order)]][0].append(i)
+    for i in range(dims.batch * dims.nheads):
+        items[order[i % len(order)]][1].append(i)
+    for j in range(tiles(dims.d_model)):
+        items[order[(-1 - j) % len(order)]][2].append(j)
+    for i in range(tiles(dims.padded_vocab)):
+        items[order[i % len(order)]][3].append(i)
+    most_items = max(sum(len(lst) for lst in team) for team in items)
+    if most_items > MAX_TEAM_ITEMS:
+        raise ValueError(f"kernel C's plan gives a team {most_items} items, more than {MAX_TEAM_ITEMS}: "
+                         f"{n_blocks} blocks are too few")
+    return ResidentPlan(n_blocks=n_blocks, kch=kch, slots=slots, slot_bytes=slot_bytes, region_bytes=region,
+                        smem=region + TEAMS * slots * slot_bytes,
+                        items=tuple(tuple(tuple(lst) for lst in team) for team in items))
+
+
+def plan_stream(plan: ResidentPlan, dims: DecodeDims, team: int) -> List[Tuple[int, str, int, int]]:
+    """The chunks a team's ring copies for one token, in the order the kernel
+    consumes them: (layer, kind, tile, chunk), each layer's in_proj
+    tiles, then its out_proj tiles, then the lm_head tiles."""
+    lists = dict(zip(KINDS, plan.items[team]))
+    out = []
+    for layer in range(dims.n_layers):
+        for kind, k in (("in", dims.d_model), ("out", dims.d_inner)):
+            out += [(layer, kind, tile, c) for tile in lists[kind] for c in range(plan.chunks(k))]
+    out += [(dims.n_layers, "head", tile, c) for tile in lists["head"] for c in range(plan.chunks(dims.d_model))]
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _plan_tensor(plan: ResidentPlan, device) -> torch.Tensor:
+    return plan.tensor(device)
+
+
 # Pointer and size order of csrc/generate_resident.cu ResidentArgs.
 _WEIGHT_KEYS = ("w_in", "w_in_s", "w_out", "w_out_s", "conv_w", "conv_b", "dt_bias", "a_h", "d_h",
                 "norm_w", "ln_w", "ln_b", "lm_w", "lm_s", "lm_b", "gram", "embed")
-_N_PTRS, _N_INTS = 32, 19
+_N_PTRS, _N_INTS = 34, 22
 
 
 def fused_generate(dp: dict, init_vals, init_idxs, init_last, conv, ssm, pen_state: PenaltyState,
@@ -156,26 +289,30 @@ def fused_generate(dp: dict, init_vals, init_idxs, init_last, conv, ssm, pen_sta
         "logits": torch.empty(b, dims.padded_vocab, dtype=f32, device=dev),
     }
     tokens = torch.empty(b, n, dtype=i64, device=dev)
+    plan = resident_plan(dims, torch.cuda.get_device_properties(dev).multi_processor_count, quant)
+    counters = torch.zeros((3 * L + 2) * COUNTER_STRIDE, dtype=torch.int32, device=dev)
     tensors = [dp.get(k) for k in _WEIGHT_KEYS] + [uniforms, conv, ssm] + list(state.values()) \
-        + list(act.values()) + [tokens]
+        + list(act.values()) + [tokens, _plan_tensor(plan, dev), counters]
     ptrs = [0 if t is None else t.data_ptr() for t in tensors]
     ints = [L, b, dims.d_model, dims.d_inner, dims.nheads, dims.headdim, dims.d_state, dims.conv_dim,
             dims.d_in_proj, dims.padded_vocab, dims.vocab_size, dims.dyn_start, dims.length_start,
-            VOCAB.time_start, VOCAB.tempo_start, ring, WINDOW_TICKS, n, int(greedy)]
+            VOCAB.time_start, VOCAB.tempo_start, ring, WINDOW_TICKS, n, int(greedy), plan.kch, plan.slots,
+            plan.n_blocks]
     assert len(ptrs) == _N_PTRS and len(ints) == _N_INTS
     name = f"generate_resident_{'bf16' if quant == 'none' else quant}"
     lib = load_library()
-    grid = ctypes.c_int(0)
+    info = (ctypes.c_int * 4)()
     err = getattr(lib, f"mg_{name}")((ctypes.c_void_p * _N_PTRS)(*ptrs), _N_PTRS,
-                                    (ctypes.c_int * _N_INTS)(*ints), _N_INTS, ctypes.byref(grid),
-                                    stream_ptr(conv))
+                                    (ctypes.c_int * _N_INTS)(*ints), _N_INTS, info, stream_ptr(conv))
     check(lib, err, name)
     LAUNCHES[name] += 1
-    fused_generate.grid = grid.value
+    fused_generate.launch = dict(zip(("grid", "threads", "dynamic_smem", "static_smem"), info))
     return tokens, conv, ssm
 
 
-fused_generate.grid = 0  # blocks of the last cooperative launch
+# The last cooperative launch: blocks, threads a block, dynamic and static
+# shared memory a block (bytes).
+fused_generate.launch = {}
 
 
 @torch.no_grad()

@@ -1,0 +1,141 @@
+"""Kernel C's schedule (musicgen_tpu_torch.ops.generate_kernel
+resident_plan), the host-side plan the wrapper hands to
+csrc/generate_resident.cu: which team computes each GEMV tile and mixer
+item, the ring's chunks and slots, and the shared memory a block takes.
+
+Checked at the main path's dims (the reference Mamba-2, batch 2, and batch
+8, the most rows a GEMV carries) on an H100 SXM (132 SMs) and PCIe (114),
+and at a small config of 2 layers, in every weight format:
+  * every (stage, tile) and mixer item of a token is assigned exactly once;
+  * each GEMV team's ring stream keeps the kernel's stage order;
+  * each block's ring and regions fit its shared memory, with room for a
+    whole tile's chunks;
+  * the plan tensor decodes to the same lists.
+"""
+import pytest
+import torch
+
+from musicgen_tpu_torch.config import MambaConfig
+from musicgen_tpu_torch.ops import generate_kernel as gk
+from musicgen_tpu_torch.ops.decode_kernel import DecodeDims
+
+FULL = MambaConfig()
+SMALL = MambaConfig(d_model=128, n_layers=2)
+CASES = [(FULL, 2, 132), (FULL, 2, 114), (FULL, 8, 132), (SMALL, 2, 132), (SMALL, 1, 114)]
+IDS = ["full-b2-sxm", "full-b2-pcie", "full-b8-sxm", "small-b2-sxm", "small-b1-pcie"]
+QUANTS = ["none", "w8a16", "w8a8"]
+
+
+def tiles(n):
+    return -(-n // 16)
+
+
+def plan_for(cfg, batch, n_sm, quant):
+    dims = DecodeDims.create(cfg, batch)
+    return dims, gk.resident_plan(dims, n_sm, quant)
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("cfg,batch,n_sm", CASES, ids=IDS)
+def test_every_item_is_assigned_exactly_once(cfg, batch, n_sm, quant):
+    dims, plan = plan_for(cfg, batch, n_sm, quant)
+    assert plan.n_blocks == n_sm and len(plan.items) == gk.TEAMS * n_sm
+    want = {"in": tiles(dims.d_in_proj), "mix": dims.batch * dims.nheads, "out": tiles(dims.d_model),
+            "head": tiles(dims.padded_vocab)}
+    for k, kind in enumerate(gk.KINDS):
+        got = sorted(i for team in plan.items for i in team[k])
+        assert got == list(range(want[kind])), kind
+    assert max(sum(len(lst) for lst in team) for team in plan.items) <= gk.MAX_TEAM_ITEMS
+
+
+@pytest.mark.parametrize("cfg,batch,n_sm", CASES, ids=IDS)
+def test_each_stage_spreads_over_the_blocks(cfg, batch, n_sm):
+    """A stage with fewer items than blocks puts at most one on a block; no
+    block holds more than its share (rounded up) of any stage."""
+    dims, plan = plan_for(cfg, batch, n_sm, "none")
+    for k, kind in enumerate(gk.KINDS):
+        per_block = [sum(len(plan.items[b * gk.TEAMS + t][k]) for t in range(gk.TEAMS)) for b in range(n_sm)]
+        total = sum(per_block)
+        assert max(per_block) == -(-total // n_sm), kind
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("cfg,batch,n_sm", CASES, ids=IDS)
+def test_streams_keep_the_kernel_order(cfg, batch, n_sm, quant):
+    """Each GEMV team's chunks come in the kernel's stage order (in_proj(l),
+    out_proj(l), ..., lm_head), each tile's chunks together; over all teams
+    every (layer, kind, tile, chunk) of a token is streamed exactly once."""
+    dims, plan = plan_for(cfg, batch, n_sm, quant)
+    order = {"in": 0, "out": 1, "head": 2}
+    k_of = {"in": dims.d_model, "out": dims.d_inner, "head": dims.d_model}
+    seen = []
+    for team in range(len(plan.items)):
+        stream = gk.plan_stream(plan, dims, team)
+        keys = [(layer, order[kind]) for layer, kind, _, _ in stream]
+        assert keys == sorted(keys)
+        for (l0, k0, t0, c0), (l1, k1, t1, c1) in zip(stream, stream[1:]):
+            if (l0, k0, t0) == (l1, k1, t1):
+                assert c1 == c0 + 1
+            else:
+                assert c0 == plan.chunks(k_of[k0]) - 1 and c1 == 0
+        seen += stream
+    want = [(layer, kind, tile, c) for layer in range(dims.n_layers)
+            for kind, n in (("in", tiles(dims.d_in_proj)), ("out", tiles(dims.d_model)))
+            for tile in range(n) for c in range(plan.chunks(k_of[kind]))]
+    want += [(dims.n_layers, "head", tile, c) for tile in range(tiles(dims.padded_vocab))
+             for c in range(plan.chunks(dims.d_model))]
+    assert sorted(seen) == sorted(want) and len(seen) == len(want)
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("cfg,batch,n_sm", CASES, ids=IDS)
+def test_ring_fits_shared_memory(cfg, batch, n_sm, quant):
+    dims, plan = plan_for(cfg, batch, n_sm, quant)
+    esz, unit = (2, 64) if quant == "none" else (1, 256)
+    assert plan.kch % unit == 0 and plan.kch <= gk.KCH
+    assert plan.slot_bytes == 16 * (plan.kch * esz + gk.SLOT_PAD)
+    assert (plan.kch * esz + gk.SLOT_PAD) % 128 == 64  # a quarter-warp's two rows on distinct banks
+    most = max(plan.chunks(dims.d_model), plan.chunks(dims.d_inner))
+    assert most <= plan.slots <= gk.MAX_SLOTS
+    region = max(4 * dims.padded_vocab, gk.TEAMS * max(gk.gemv_smem_bytes(batch, dims.d_model, quant),
+                                                           gk.gemv_smem_bytes(batch, dims.d_inner, quant)))
+    assert plan.region_bytes >= region and plan.region_bytes % 128 == 0
+    assert plan.smem == plan.region_bytes + gk.TEAMS * plan.slots * plan.slot_bytes
+    assert plan.smem + gk.STATIC_SMEM <= gk.SMEM_PER_BLOCK
+
+
+def test_main_path_budget():
+    """The budget the kernel's header states: 2 slots of 33,792 B a team in
+    bf16 and 4 of 17,408 in int8, beside the tail's 71,680 B."""
+    dims = DecodeDims.create(FULL, 2)
+    bf16, int8 = gk.resident_plan(dims, 132, "none"), gk.resident_plan(dims, 132, "w8a8")
+    assert (bf16.kch, bf16.slots, bf16.slot_bytes, bf16.region_bytes, bf16.smem) == (1024, 2, 33_792, 71_680, 206_848)
+    assert (int8.slots, int8.slot_bytes, int8.smem) == (4, 17_408, 210_944)
+    # out_proj's 64 tiles and the mixer's 64 items each on 64 blocks, one a
+    # block, on other teams; out_proj on teams with one in_proj tile.
+    for k in (1, 2):
+        assert len({t // gk.TEAMS for t, lists in enumerate(bf16.items) if lists[k]}) == 64
+    assert not any(lists[1] and lists[2] for lists in bf16.items)
+    assert all(len(bf16.items[t][0]) == 1 for t, lists in enumerate(bf16.items) if lists[2])
+
+
+def test_plan_tensor_decodes_to_the_lists():
+    dims, plan = plan_for(SMALL, 2, 132, "w8a8")
+    flat = plan.tensor("cpu")
+    assert flat.dtype == torch.int32
+    for team, lists in enumerate(plan.items):
+        for k, lst in enumerate(lists):
+            start, count = (int(v) for v in flat[team * 8 + 2 * k: team * 8 + 2 * k + 2])
+            assert flat[start:start + count].tolist() == list(lst)
+
+
+def test_plan_refuses_a_grid_without_a_block_per_row():
+    with pytest.raises(ValueError, match="block per batch row"):
+        gk.resident_plan(DecodeDims.create(SMALL, 4), 2, "none")
+
+
+def test_plan_refuses_a_grid_too_small_for_the_team_lists():
+    """A team's lists are copied into shared memory of MAX_TEAM_ITEMS ints:
+    on 8 SMs lm_head alone gives a team 70 tiles."""
+    with pytest.raises(ValueError, match="too few"):
+        gk.resident_plan(DecodeDims.create(SMALL, 2), 8, "none")
