@@ -80,17 +80,22 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      (1, 4, 7, 10); seeded random weights), kernels H and G: [9 slstm] kernel
      H against its plain scan at (2, 2054, 4, 256), with the scan's own noise
      floor; [9 prefill] the full prefill's last logits with H against the
-     plain scan, 4 launches of H; [9 xdecode ...] each kernel G launch against
-     its plain version in bf16, W8A16 and with the matrix memory stored in
-     bf16 (sb16), then 64 teacher-forced steps from a shared state against the
+     plain scan, 4 launches of H; [9 xdecode ...] each launch of kernel G's
+     chain against its plain version in bf16, W8A16 and with the matrix
+     memory stored in bf16 (sb16), then in bf16, W8A16, sb16 and
+     W8A16-sb16 64 teacher-forced steps from a shared state against the
      plain chain and the f32 XLSTMLM.step, with the plain chain's noise floor
-     ([9 drift]); [9 cli] `--model xlstm` with --fused-decode auto (greedy and
-     stochastic, 2,000 tokens), int8w, sb16 and int8w-sb16 (shorter), on,
-     int8 and off (shorter still): grammar, MIDI, 4 launches of H a prefill
-     and G's 68 a token (none with off); [9 loop]
-     tok/s/seq of the G chain in each format beside the plain step's, the
-     device time of one step in a CUDA graph, bytes per token and the share of
-     the HBM roofline.
+     ([9 drift]); [9 xstep] G's one-launch step over the same 64 steps, bit
+     for bit with the chain (logits, top-3, the six carry tensors) and on
+     two CUDA-graph replays, its ms host-paced and in a graph beside the
+     chain's and the bound; [9 cli] `--model xlstm` with --fused-decode auto
+     (greedy and stochastic, 2,000 tokens), int8w, sb16 and int8w-sb16
+     (shorter), on, int8 and off (shorter still): grammar, MIDI, 4 launches
+     of H a prefill and 2 a token (G's step and B's tail; none with off);
+     [9 loop] tok/s/seq of G's one-launch step and of its chain in each
+     format, in turns (with --parent DIR, the parent tree's G before and
+     after), beside the plain step's, the device time of one step in a CUDA
+     graph, bytes per token and the share of the HBM roofline.
  10. the two Hopper probes: [10 probe_mm] kernel I (the bf16 weight-streaming
      product) against its plain version at (8, 1024) x (1024, 4352), one
      chain step's exact launches, and [10 hw] the entry point
@@ -109,9 +114,10 @@ full run takes no arguments).
 `--only int8` runs phases 1 and 2 and every row that launches the int8
 GEMVs (decode_ops.cuh gemv_team in W8A16 or W8A8): [4q] and [4q steps_*], [6 resident],
 [6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
-[7 tdecode] and [7 cli int8w] in W8A16, [9 prefill], [9 xdecode] and the
-[9 cli] runs in W8A16; its kernels line holds the launches of those CLI
-runs, each counted from zero, as the full run does. `--only bf16` runs
+[7 tdecode] and [7 cli int8w] in W8A16, [9 prefill], [9 xdecode], [9
+xstep], the [9 cli] runs and [9 loop] in W8A16 and W8A16-sb16; its kernels
+line holds the launches of those CLI runs (G's chain: of its [9 loop] runs),
+each counted from zero, as the full run does. `--only bf16` runs
 phases 1 and 2 and every row that launches the bf16 GEMV (gemv_team in
 bf16): [4] and [4 steps], [4 gemv ragged], [5 cli] and [5 loop], [6
 resident], [6 chain], [6 loop] and the [6 cli] runs in bf16, [7 prefill],
@@ -124,8 +130,8 @@ kernel_ablate.run), each counted from zero, as the full run does.
 kernels line holds C's three forms from those CLI runs, each counted from
 zero. `--parent DIR` (with any of the above, or none) names another
 checkout of the port, such as an unpacked `git archive` of the parent
-commit: [6 loop] builds its kernels into DIR/build and times its C beside
-this tree's.
+commit: [6 loop] and [9 loop] build its kernels into DIR/build and time
+its C and its G beside this tree's.
 `--only flash` runs
 phases 1 and 2 and every row that launches kernel D or E: [7 flash],
 [7 prefill], [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd] with its repeat
@@ -257,14 +263,14 @@ TOL_H = 2e-4
 # The full prefill's last logits with kernel H against the plain scan: the same
 # f32 noise through 11 blocks.
 TOL_X_PREFILL = 1e-3
-XQUANTS = {"bf16": "none", "int8w": "w8a16", "bf16-sb16": "none"}  # kernel G's formats -> how the products run
+XQUANTS = {"bf16": "none", "int8w": "w8a16", "bf16-sb16": "none", "int8w-sb16": "w8a16"}  # kernel G's formats
 TOL_W8A16 = 2e-2  # a W8A16 GEMV against its plain version (bf16 activations, int8 weights, f32 sums)
 # The kernel chain against the plain chain from a shared state, each step: the
 # plain chain's own response to a 1e-6 perturbation of the state sets the
 # floor (printed); the tolerance is the larger of TOL_T_STEP and twice it.
 # Against the f32 XLSTMLM.step: the JAX test's tolerances
 # (tests/test_pallas_xlstm_decode.py), as a share of the largest logit.
-TOL_X_F32 = {"bf16": 0.05, "int8w": 0.12, "bf16-sb16": 0.05}
+TOL_X_F32 = {"bf16": 0.05, "int8w": 0.12, "bf16-sb16": 0.05, "int8w-sb16": 0.12}
 X_CLI_SHORT = 200  # tokens of the int8w / sb16 / int8w-sb16 CLI runs
 X_CLI_TINY = 64  # tokens of the on / int8 / off CLI runs
 X_LOOP_TOKENS = 500
@@ -294,19 +300,23 @@ KERNEL_INFO = {
        for name in ("xm_up", "xm_prep", "xm_gates", "xm_memory", "xm_out", "xm_down", "xs_prep", "xs_in", "xs_cell",
                     "xs_ffn_up", "xs_ffn_down", "xm_memory_sb16", "xm_up_w8a16", "xm_down_w8a16", "xs_in_w8a16",
                     "xs_ffn_up_w8a16", "xs_ffn_down_w8a16")},
+    **{name: ("musicgen_tpu_torch/csrc/xlstm_step.cu", "musicgen_tpu/ops/pallas_xlstm_decode.py:410")
+       for name in ("xlstm_step", "xlstm_step_w8a16", "xlstm_step_sb16", "xlstm_step_w8a16_sb16")},
     "probe_mm": ("musicgen_tpu_torch/csrc/probe_mm.cu", "experiments/hw_characterize.py:33"),
     **{name: ("musicgen_tpu_torch/csrc/decode_ablate.cu", "experiments/kernel_ablate.py:54")
        for name in ("ablate_stream", "ablate_gemv", "ablate_nossd")},
 }
 # The phases of --only 9 and --only 10: the kernels a report of that phase holds.
-X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("slstm_scan.cu", "xlstm_decode.cu"))]
+X_KERNELS = [name for name, (src, _) in KERNEL_INFO.items()
+             if src.endswith(("slstm_scan.cu", "xlstm_decode.cu", "xlstm_step.cu"))]
 T_KERNELS = ["flash_relpos", *(name for name, (_, replaces) in KERNEL_INFO.items()
                                if "transformer_decode" in replaces)]
 PROBE_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("probe_mm.cu", "decode_ablate.cu"))]
-INT8_KERNELS = [name for name in KERNEL_INFO if name.endswith(("_w8a16", "_w8a8"))]
+INT8_KERNELS = [name for name in KERNEL_INFO if name.endswith(("_w8a16", "_w8a8")) or "_w8a16_" in name]
 # The kernels that run the bf16 GEMV (decode_ops.cuh gemv_team in bf16): the --only bf16 report.
 BF16_KERNELS = ["in_proj_conv", "out_proj_rms", "lm_head_ln", "generate_resident_bf16", "t_qkv_ln", "t_res",
-                "t_fc_relu", "xm_up", "xm_down", "xs_in", "xs_ffn_up", "xs_ffn_down", "ablate_gemv"]
+                "t_fc_relu", "xm_up", "xm_down", "xs_in", "xs_ffn_up", "xs_ffn_down", "xlstm_step", "xlstm_step_sb16",
+                "ablate_gemv"]
 FLASH_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("flash_relpos.cu",
                                                                                  "flash_relpos_bwd.cu"))]
 RESIDENT_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith("generate_resident.cu")]
@@ -497,8 +507,9 @@ def phase_build() -> float:
     say(f"[2 build] {secs:.2f} s -> {build.library_path()}; {len(spills)} of {len(usage)} kernels spill registers")
     for name, regs, frame in usage:
         say(f"    ptxas {name}: {regs}; {frame}")
-    resident = sorted((name, regs, frame) for name, regs, frame in usage if "generate_kernel" in name)
-    say("[2 build] kernel C: " + "; ".join(f"{name} {regs}, {frame}" for name, regs, frame in resident))
+    for label, key in (("kernel C", "generate_kernel"), ("kernel G's step", "xstep_kernel")):
+        rows = sorted((name, regs, frame) for name, regs, frame in usage if key in name)
+        say(f"[2 build] {label}: " + "; ".join(f"{name} {regs}, {frame}" for name, regs, frame in rows))
     return secs
 
 
@@ -1023,11 +1034,11 @@ def phase_resident(torch, model, ctx: dict, report: dict, quants: dict = QUANTS)
     return packs
 
 
-def parent_generate_kernel(parent: Path):
-    """The ops.generate_kernel module of another checkout of the port (`--parent
-    DIR`: a tree such as the parent commit's `git archive`, unpacked),
-    imported as the package `parent_mtt`: its own build (into DIR/build),
-    launch counters and kernel C, timed beside this tree's in [6 loop]."""
+def parent_module(parent: Path, name: str, tag: str):
+    """ops.<name> of another checkout of the port (`--parent DIR`: a tree
+    such as the parent commit's `git archive`, unpacked), imported as the
+    package `parent_mtt`: its own build (into DIR/build), launch counters
+    and kernels, timed beside this tree's."""
     import importlib
     import importlib.util
 
@@ -1038,11 +1049,11 @@ def parent_generate_kernel(parent: Path):
         mod = importlib.util.module_from_spec(spec)
         sys.modules["parent_mtt"] = mod
         spec.loader.exec_module(mod)
-    pgk = importlib.import_module("parent_mtt.ops.generate_kernel")
+    module = importlib.import_module(f"parent_mtt.ops.{name}")
     t0 = time.perf_counter()
-    pgk.load_library()
-    say(f"[6 loop] the parent tree's kernels built in {time.perf_counter() - t0:.1f} s from {parent}")
-    return pgk
+    importlib.import_module("parent_mtt.ops.build").load_library()
+    say(f"{tag} the parent tree's kernels built (or loaded) in {time.perf_counter() - t0:.1f} s from {parent}")
+    return module
 
 
 def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None = None) -> None:
@@ -1059,7 +1070,7 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None 
 
     dims = ctx["dims"]
     vals0, idxs0, last0, pen0 = resident_start(torch, ctx)
-    pgk = parent_generate_kernel(parent) if parent is not None else None
+    pgk = parent_module(parent, "generate_kernel", "[6 loop]") if parent is not None else None
     cfg = sampler.SamplerConfig(num_tokens=LENGTH, ring_size=max(PROMPT, 2048))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2297,8 +2308,9 @@ def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> d
     teacher-forced steps per format from the prefill state: each step's
     kernel chain against the plain chain from the same state (and from that
     state perturbed by 1e-6, the noise floor) and against the f32
-    XLSTMLM.step; [9 drift] the free-running plain chains; in each format
-    of `quants`. Returns the packs by format."""
+    XLSTMLM.step; [9 drift] the free-running plain chains; [9 xstep] the
+    one-launch step over the same steps from its own carry (x_step_check);
+    in each format of `quants`. Returns the packs of `quants` by format."""
     import torch.nn.functional as F
 
     from musicgen_tpu_torch.ops import decode_kernel as dk
@@ -2311,7 +2323,7 @@ def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> d
     di, d, v = dims.m_inner, dims.d_model, dims.vocab_size
     packs = {"bf16": xk.build_xlstm_decode_params(model, BATCH, "bf16"),
              "int8w": xk.build_xlstm_decode_params(model, BATCH, "int8w")}
-    packs["bf16-sb16"] = packs["bf16"]
+    packs["bf16-sb16"], packs["int8w-sb16"] = packs["bf16"], packs["int8w"]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     x = F.embedding(prompt[:, -1], packs["bf16"]["embed"]) + 0.1 * torch.randn(BATCH, d, device=DEVICE, generator=gen)
     for quant, q in quants.items():
@@ -2363,12 +2375,9 @@ def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> d
                  "xs_in": (xs[0], "s_w_if", 0),
                  "xs_ffn_up": (c, "s_ffn_up", nbytes(wp["s_ln_ffn"][0], wp["s_ffn_up_b"][0])),
                  "xs_ffn_down": (u, "s_ffn_down", nbytes(wp["s_ffn_down_b"][0]) + 4 * BATCH * d)}
-        if quant == "bf16":
-            names = list(kernels)
-        elif quant == "int8w":
-            names = list(gemvs)
-        else:
-            names = ["xm_memory"]
+        # Each launch once: every launch in bf16, the GEMVs in W8A16, the
+        # matrix memory stored in bf16.
+        names = {"bf16": list(kernels), "int8w": list(gemvs), "bf16-sb16": ["xm_memory"]}.get(quant, [])
 
         def fresh(name):
             a = args[name]
@@ -2428,9 +2437,10 @@ def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> d
             return cr
 
         pen = init_penalty_state(prompt, max(PROMPT, 2048))
-        ck, free_p, free_q = clone(carry0), clone(carry0), perturbed(carry0)
-        worst_plain = worst_noise = worst_state = worst_val = worst_f32 = 0.0
+        ck, cs, free_p, free_q = clone(carry0), clone(carry0), clone(carry0), perturbed(carry0)
+        worst_plain = worst_noise = worst_state = worst_val = worst_f32 = worst_step = 0.0
         idx_checked = idx_equal = 0
+        step_bits = True
         for step in range(TEACHER_STEPS):
             tok = xctx["teacher"][:, step]
             pen = push_token(pen, tok)
@@ -2438,54 +2448,139 @@ def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> d
             cp, cn = clone(ck), perturbed(ck)
             lf, _ = model.step(tok, xk.unstack_xlstm_states(cp, dims))
             lk = xk.xlstm_decode_logits(wp, tok, ck, dims, quant=q)
+            ls = xk.xlstm_step(wp, tok, cs, dims, q)
             lp = xk.xlstm_decode_logits(wp, tok, cp, dims, ops=xk.PLAIN_OPS, quant=q)
             ln = xk.xlstm_decode_logits(wp, tok, cn, dims, ops=xk.PLAIN_OPS, quant=q)
             worst_plain = max(worst_plain, rel_err(lk[:, :v], lp[:, :v])[1])
+            worst_step = max(worst_step, rel_err(ls[:, :v], lp[:, :v])[0])
             worst_noise = max(worst_noise, rel_err(ln[:, :v], lp[:, :v])[1])
             worst_state = max(worst_state, *(rel_err(a.float(), b_.float())[1] for a, b_ in zip(ck, cp)))
             worst_f32 = max(worst_f32, rel_err(lk[:, :v], lf)[1])
             vk, ik = dk.sample_tail(lk, wp["gram"], pen.hist, bucket, dims)
+            vs, is_ = dk.sample_tail(ls, wp["gram"], pen.hist, bucket, dims)
             vp, ip = dk.sample_tail_plain(lp, wp["gram"], pen.hist, bucket, dims)
             worst_val = max(worst_val, rel_err(vk, vp)[1])
             checked, equal = top3_agreement(torch, vk, ik, vp, ip)
             idx_checked, idx_equal = idx_checked + checked, idx_equal + equal
+            # [9 xstep]: the one-launch step from its own carry, bit for bit.
+            step_bits &= (torch.equal(ls, lk) and torch.equal(vs, vk) and torch.equal(is_, ik)
+                          and all(torch.equal(a, b_) for a, b_ in zip(cs, ck)))
             free_k = xk.xlstm_decode_logits(wp, tok, free_p, dims, ops=xk.PLAIN_OPS, quant=q)
             free_n = xk.xlstm_decode_logits(wp, tok, free_q, dims, ops=xk.PLAIN_OPS, quant=q)
         torch.cuda.synchronize()
         drift_kernel, drift_noise = rel_err(lk[:, :v], free_k[:, :v])[1], rel_err(free_n[:, :v], free_k[:, :v])[1]
         tol = max(TOL_T_STEP, 2.0 * worst_noise)
-        step_ms = cuda_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, ck, pen.hist, bucket, dims, q), iters=20)
-        step_dev_ms = graph_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, ck, pen.hist, bucket, dims, q),
-                               calls=2)
+        chain = xk.KERNEL_OPS
+        step_ms = cuda_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, ck, pen.hist, bucket, dims, q, ops=chain),
+                          iters=20)
+        step_dev_ms = graph_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, ck, pen.hist, bucket, dims, q,
+                                                                         ops=chain), calls=2)
         plain_step_ms = cuda_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, cp, pen.hist, bucket, dims, q,
                                                                           ops=xk.PLAIN_OPS), iters=5, warmup=1)
         say(f"[9 xdecode steps {quant}] {TEACHER_STEPS} teacher-forced steps, each from a shared state: vs the plain "
             f"chain logits rel {worst_plain:.3e}, states rel {worst_state:.3e}, top-3 values rel {worst_val:.3e} "
             f"(tol {tol:.3e} = max({TOL_T_STEP}, 2x the plain chain's response to a 1e-6 perturbation, "
             f"{worst_noise:.3e})); top-3 indices equal at {idx_equal}/{idx_checked} separated candidates; vs the f32 "
-            f"XLSTMLM.step logits rel {worst_f32:.3e} (tol {TOL_X_F32[quant]}); step with the kernels {step_ms:.4f} "
-            f"ms (device, CUDA graph of the step's {dims.launches_per_token()} launches: {fmt_ms(step_dev_ms)}), "
-            f"plain chain {plain_step_ms:.4f} ms")
+            f"XLSTMLM.step logits rel {worst_f32:.3e} (tol {TOL_X_F32[quant]}); step with the kernel chain "
+            f"{step_ms:.4f} ms (device, CUDA graph of the step's {dims.launches_per_token()} launches: "
+            f"{fmt_ms(step_dev_ms)}), plain chain {plain_step_ms:.4f} ms")
         say(f"[9 drift {quant}] after {TEACHER_STEPS} free-running steps from the prefill state: kernel chain vs "
             f"plain chain logits rel {drift_kernel:.3e}; plain chain vs itself from a state perturbed by 1e-6: "
             f"{drift_noise:.3e}")
         need(max(worst_plain, worst_val, worst_state) <= tol, f"{quant} kernel G steps disagree with the plain chain")
         need(idx_equal == idx_checked, f"{quant} kernel G steps picked other top-3 candidates")
         need(worst_f32 <= TOL_X_F32[quant], f"{quant} kernel G steps disagree with XLSTMLM.step")
-    return packs
+        x_step_check(torch, xk, wp, tok, cs, ck, pen, bucket, dims, q, quant, step_bits, worst_step, step_ms,
+                     step_dev_ms, plain_step_ms, report)
+    return {k: packs[k] for k in quants}
+
+
+def x_step_bound(wp, carry) -> dict:
+    """Bound of one xLSTM step: the pack's weights and scales read once (the
+    embedding row and the grammar table are not the step's), the recurrent
+    states read and written once; 2 flops per weight and row at the bf16
+    peak."""
+    big = [t for k, t in wp.items() if k not in ("embed", "gram")]
+    return bound(nbytes(*big) + 2 * nbytes(*carry), 2.0 * BATCH * sum(t.numel() for t in big), BF16_FLOPS)
+
+
+def x_step_check(torch, xk, wp, tok, cs, ck, pen, bucket, dims, q, quant, step_bits, worst_step, chain_ms,
+                 chain_dev_ms, plain_ms, report) -> None:
+    """[9 xstep] the one-launch step: bit for bit with the chain over the
+    teacher-forced steps (logits, top-3 values and indices, the six carry
+    tensors), within [9 xdecode steps]' tolerances of the plain chain and
+    the f32 step (the same logits), a CUDA-graph replay bit for bit with a
+    direct launch, and its ms host-paced and in a CUDA graph beside the
+    chain's and the bound."""
+    launch = dict(xk.xlstm_step.launch)
+    start, c1, c2 = clone(cs), clone(cs), clone(cs)
+    direct = xk.xlstm_step(wp, tok, c1, dims, q).clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xk.xlstm_step(wp, tok, clone(cs), dims, q)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # captured, not run: c2 still holds the start
+        replayed = xk.xlstm_step(wp, tok, c2, dims, q)
+    replay_bits = True
+    for _ in range(2):  # twice from the same carry: the counters reset between replays
+        for a, b_ in zip(c2, start):
+            a.copy_(b_)
+        graph.replay()
+        torch.cuda.synchronize()
+        replay_bits &= torch.equal(replayed, direct) and all(torch.equal(a, b_) for a, b_ in zip(c1, c2))
+    ms = cuda_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, cs, pen.hist, bucket, dims, q), iters=50)
+    dev_ms = graph_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, cs, pen.hist, bucket, dims, q), calls=8)
+    one_ms = graph_ms(torch, lambda: xk.xlstm_step(wp, tok, cs, dims, q), calls=8)
+    cost = x_step_bound(wp, cs)
+    name = xk.step_name(q, quant.endswith("-sb16"))
+    say(f"[9 xstep {quant}] one launch a token ({launch['grid']} blocks x {launch['threads']} threads, "
+        f"{launch['dynamic_smem']} B dynamic + {launch['static_smem']} B static shared memory): {TEACHER_STEPS} "
+        f"teacher-forced steps bit for bit with the chain (logits, top-3 values and indices, all six carry tensors): "
+        f"{step_bits}; a CUDA-graph replay bit for bit with a direct launch: {replay_bits}; logits max_abs vs the "
+        f"plain chain {worst_step:.3e}; step with the tail {ms:.4f} ms host-paced, {fmt_ms(dev_ms)} in a CUDA graph "
+        f"(the launch alone {fmt_ms(one_ms)}); the chain {chain_ms:.4f} / {fmt_ms(chain_dev_ms)}; plain chain "
+        f"{plain_ms:.4f} ms; bound {cost['bound_ms']:.4f} ms ({cost['bound_by']})")
+    # Where the step's time goes: %globaltimer stamps of each team's wait
+    # and signal over 5 launches, by stage kind (xdecode_kernel.stage_times).
+    n_teams = xk.STEP_TEAMS * launch["grid"]
+    split: dict = {}
+    for _ in range(5):
+        stamps = torch.zeros(len(xk.step_stages(dims)), n_teams, 2, dtype=torch.int64, device=DEVICE)
+        xk.xlstm_step(wp, tok, cs, dims, q, stamps=stamps)
+        for kind, wait_us, work_us in xk.stage_times(stamps.cpu(), dims):
+            row = split.setdefault(kind, [0.0, 0.0, 0])
+            row[0], row[1], row[2] = row[0] + wait_us, row[1] + work_us, row[2] + 1
+    say(f"[9 xstep {quant} stages] us a stage (the first team past its wait after the previous stage's last signal; "
+        f"from there to the stage's last signal) x stages a token: " + "; ".join(
+            f"{kind} {w / n:.2f} + {t / n:.2f} x{n // 5}" for kind, (w, t, n) in split.items()))
+    need(step_bits, f"{quant}: the one-launch step differs from the kernel chain")
+    need(replay_bits, f"{quant}: a CUDA-graph replay of the step differs from a direct launch")
+    report[name] = {"max_abs_err": worst_step, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **cost}
 
 
 def x_launches(dims, length: int, n: int, quant: str) -> dict:
-    """Kernel G's launches (and kernel B's head and tail) in `n` generations
-    of `length` tokens with the sampler tail, by --fused-decode mode."""
+    """Kernel G's launches (and kernel B's tail) in `n` generations of
+    `length` tokens, by --fused-decode mode: one launch of the step and one
+    of the tail a token (none with off)."""
     if quant == "off":
         return {}
+    k = length * n
+    step = "xlstm_step" + ("_w8a16" if quant.startswith("int8") else "") + ("_sb16" if quant.endswith("sb16") else "")
+    assert dims.launches_per_token(step=True) == 2
+    return {step: k, "sample_tail": k}
+
+
+def chain_launches(dims, n: int, quant: str) -> dict:
+    """The kernel chain's launches in n tokens of [9 loop] in a format of
+    XQUANTS (kernel B's head and tail included)."""
     sfx = "_w8a16" if quant.startswith("int8") else ""
     mem = "xm_memory_sb16" if quant.endswith("sb16") else "xm_memory"
-    m, s_, k = dims.n_mlstm, dims.n_slstm, length * n
-    return {f"xm_up{sfx}": m * k, "xm_prep": m * k, "xm_gates": m * k, mem: m * k, "xm_out": m * k,
-            f"xm_down{sfx}": m * k, "xs_prep": s_ * k, f"xs_in{sfx}": 2 * s_ * k, "xs_cell": s_ * k,
-            f"xs_ffn_up{sfx}": s_ * k, f"xs_ffn_down{sfx}": s_ * k, f"lm_head_ln{sfx}": k, "sample_tail": k}
+    m, s_ = dims.n_mlstm * n, dims.n_slstm * n
+    return {f"xm_up{sfx}": m, "xm_prep": m, "xm_gates": m, mem: m, "xm_out": m, f"xm_down{sfx}": m, "xs_prep": s_,
+            f"xs_in{sfx}": 2 * s_, "xs_cell": s_, f"xs_ffn_up{sfx}": s_, f"xs_ffn_down{sfx}": s_,
+            f"lm_head_ln{sfx}": n, "sample_tail": n}
 
 
 def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict,
@@ -2495,8 +2590,9 @@ def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, re
     int8w-sb16 for X_CLI_SHORT tokens; on, int8 and off (the plain step) for
     X_CLI_TINY: every new token grammatical, the .mid files re-extract, and
     each run, counted from zero, launches kernel H 4 times a prefill and
-    kernel G's launches a token (none with off). int8_only runs the W8A16
-    values alone (int8w, int8w-sb16, int8), bf16_only the others."""
+    kernel G's one-launch step and kernel B's tail once a token (none with
+    off). int8_only runs the W8A16 values alone (int8w, int8w-sb16, int8),
+    bf16_only the others."""
     from musicgen_tpu_torch.cli import generate as cli
     from musicgen_tpu_torch.midi import extract_midi
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -2557,50 +2653,87 @@ def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, re
         report[name]["launches"] = cnt
 
 
-def phase_x_loop(torch, xctx: dict, packs: dict) -> None:
-    """[9 loop] tok/s/seq of the kernel G chain with the sampler tail in each
-    format (X_LOOP_TOKENS stochastic tokens from one prefill) beside the
-    plain XLSTMLM.step's, in the same call; the device time of one step from
-    a CUDA graph; the bytes a token moves (the pack's weights and scales
-    read once, the recurrent states read and written) and their share of the
-    HBM roofline."""
+def phase_x_loop(torch, xctx: dict, packs: dict, report: dict, parent: Path | None = None) -> None:
+    """[9 loop] tok/s/seq of kernel G in each format of `packs`
+    (X_LOOP_TOKENS stochastic tokens from one prefill, through
+    sample_tokens_fused_tail): the one-launch step and the kernel chain, in
+    turns (step, chain, chain, step), and with `--parent DIR` the parent
+    tree's G (its chain) before and after them; beside the plain
+    XLSTMLM.step's, in the same call. Also the device time of one step with
+    the tail from a CUDA graph (each path), the bytes a token moves (the
+    pack's weights and scales read once, the recurrent states read and
+    written) and their share of the HBM roofline. The first chain run of
+    each format, counted from zero, launches exactly its 68 a token, and
+    sets the chain kernels' launches in the report; each step run 2."""
+    from musicgen_tpu_torch.ops import decode_kernel as dk
     from musicgen_tpu_torch.ops import xdecode_kernel as xk
     from musicgen_tpu_torch.ops.grammar import field_bucket
     from musicgen_tpu_torch.sample import sampler
 
     model, prompt, meta = xctx["model"], xctx["prompt"], xctx["meta"]
     dims = xk.XDims.create(model.cfg, BATCH)
+    pxk = parent_module(parent, "xdecode_kernel", "[9 loop]") if parent is not None else None
     cfg = sampler.SamplerConfig(num_tokens=X_LOOP_TOKENS, ring_size=max(PROMPT, 2048))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    totals: dict = {}
     for quant, wp in packs.items():
         q = XQUANTS[quant]
         prefill, _ = sampler.make_sampler(model, "xlstm", wp, quant)
-        logits, carry = prefill(prompt, meta)
+        logits0, carry0 = prefill(prompt, meta)
         weights = nbytes(*(t for k, t in wp.items() if k not in ("embed", "gram")))
-        state = 2 * nbytes(*carry)
+        state = 2 * nbytes(*carry0)
         per_token = weights + state
-
-        def step(pack, token, st, hist, bucket, stream_idx):
-            return xk.fused_xlstm_sample_step(pack, token, st, hist, bucket, dims, q)
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        toks = sampler.sample_tokens_fused_tail(wp, logits, carry, prompt, cfg, gen, dims, fused_step=step)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        steps = {"step": lambda pack, token, st, hist, bucket, i: xk.fused_xlstm_sample_step(
+                     pack, token, st, hist, bucket, dims, q),
+                 "chain": lambda pack, token, st, hist, bucket, i: xk.fused_xlstm_sample_step(
+                     pack, token, st, hist, bucket, dims, q, ops=xk.KERNEL_OPS)}
+        if pxk is not None:
+            pdims = pxk.XDims.create(model.cfg, BATCH)
+            steps["parent"] = lambda pack, token, st, hist, bucket, i: pxk.fused_xlstm_sample_step(
+                pack, token, st, hist, bucket, pdims, q)
+        order = (["parent"] if pxk else []) + ["step", "chain", "chain", "step"] + (["parent"] if pxk else [])
+        secs: dict = {}
+        for path in order:
+            carry = clone(carry0)
+            dk.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = sampler.sample_tokens_fused_tail(wp, logits0, carry, prompt, cfg, gen, dims, fused_step=steps[path])
+            torch.cuda.synchronize()
+            secs.setdefault(path, []).append(time.perf_counter() - t0)
+            if path == "parent":
+                continue
+            want = (x_launches(dims, X_LOOP_TOKENS, 1, {"int8w": "int8w", "bf16-sb16": "sb16"}.get(quant, quant))
+                    if path == "step" else chain_launches(dims, X_LOOP_TOKENS, quant))
+            need(dict(dk.LAUNCHES) == want,
+                 f"[9 loop {quant}] the {path} launched {dict(dk.LAUNCHES)}, expected {want}")
+            if path == "chain" and len(secs[path]) == 1:
+                for name, cnt in want.items():
+                    if name in report and not name.startswith(("lm_head_ln", "sample_tail")):
+                        totals[name] = totals.get(name, 0) + cnt
         tok = toks[:, -1]
         pen = sampler.init_penalty_state(torch.cat([prompt, toks], dim=1), max(PROMPT, 2048))
         bucket = field_bucket(tok)  # outside the capture: it copies its boundaries to the card
-        dev_ms = graph_ms(torch, lambda: step(wp, tok, carry, pen.hist, bucket, 0), calls=2)
+        dev = {path: graph_ms(torch, lambda f=steps[path]: f(wp, tok, carry, pen.hist, bucket, 0), calls=2)
+               for path in secs}
         bound_ms = 1e3 * per_token / HBM_BYTES_PER_S
-        share = bound_ms / (1e3 * secs / X_LOOP_TOKENS)
-        dev_share = "not measured" if dev_ms is None else f"{100 * bound_ms / dev_ms:.2f}%"
-        say(f"[9 loop {quant}] kernel G chain: {X_LOOP_TOKENS} tokens in {secs:.3f} s = "
-            f"{X_LOOP_TOKENS / secs:.1f} tok/s/seq ({1e3 * secs / X_LOOP_TOKENS:.4f} ms/token, {100 * share:.2f}% of "
-            f"the 3.35 TB/s roofline); one step in a CUDA graph {fmt_ms(dev_ms)} ({dev_share} of the roofline); "
-            f"{per_token} B/token = {weights} B of weights + {state} B of recurrent state read and written "
-            f"({bound_ms:.4f} ms/token bound); batch {BATCH}; prefill with kernel H {xctx['prefill_ms']:.3f} ms, "
-            f"with the plain scan {xctx['plain_prefill_ms']:.3f} ms")
+
+        def rate(path):
+            ms = 1e3 * statistics.mean(secs[path]) / X_LOOP_TOKENS
+            runs = " / ".join(f"{1e3 * x / X_LOOP_TOKENS:.4f}" for x in secs[path])
+            dev_share = "not measured" if dev[path] is None else f"{100 * bound_ms / dev[path]:.2f}%"
+            return (f"{1e3 / ms:.1f} tok/s/seq ({runs} ms/token, {100 * bound_ms / ms:.2f}% of the 3.35 TB/s "
+                    f"roofline; one step in a CUDA graph {fmt_ms(dev[path])}, {dev_share})")
+
+        parent_txt = ("the parent tree's G not measured (no --parent)" if pxk is None else
+                      f"the parent tree's G chain {rate('parent')}")
+        say(f"[9 loop {quant}] {X_LOOP_TOKENS} tokens a run, in turns ({', '.join(order)}): kernel G one-launch step "
+            f"{rate('step')}; kernel chain {rate('chain')}; {parent_txt}; {per_token} B/token = {weights} B of "
+            f"weights + {state} B of recurrent state read and written ({bound_ms:.4f} ms/token bound); batch "
+            f"{BATCH}; prefill with kernel H {xctx['prefill_ms']:.3f} ms, with the plain scan "
+            f"{xctx['plain_prefill_ms']:.3f} ms")
+    for name, cnt in totals.items():
+        report[name]["launches"] = cnt
     prefill, step = sampler.make_sampler(model, "xlstm")
     logits, states = prefill(prompt, meta)
     plain_cfg = sampler.SamplerConfig(num_tokens=X_PLAIN_LOOP_TOKENS, ring_size=max(PROMPT, 2048))
@@ -2613,12 +2746,12 @@ def phase_x_loop(torch, xctx: dict, packs: dict) -> None:
         f"{X_PLAIN_LOOP_TOKENS / secs:.1f} tok/s/seq ({1e3 * secs / X_PLAIN_LOOP_TOKENS:.3f} ms/token)")
 
 
-def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
+def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict, parent: Path | None = None) -> None:
     phase_x_slstm(torch, report)
     xctx = phase_x_prefill(torch, corpus, meta_path)
     packs = phase_x_decode(torch, xctx, report)
     phase_x_cli(torch, xctx, corpus, meta_path, root, report)
-    phase_x_loop(torch, xctx, packs)
+    phase_x_loop(torch, xctx, packs, report, parent)
 
 
 # ---------------------------------------------------------------------------
@@ -2812,8 +2945,9 @@ def phase_int8_paths(torch, report: dict) -> None:
         del tctx
         torch.cuda.empty_cache()
         xctx = phase_x_prefill(torch, corpus, meta_path)
-        phase_x_decode(torch, xctx, report, {"int8w": XQUANTS["int8w"]})
+        xpacks = phase_x_decode(torch, xctx, report, {q: XQUANTS[q] for q in ("int8w", "int8w-sb16")})
         phase_x_cli(torch, xctx, corpus, meta_path, root, report, int8_only=True)
+        phase_x_loop(torch, xctx, xpacks, report)
 
 
 def phase_bf16_paths(torch, report: dict) -> None:
@@ -2847,7 +2981,7 @@ def phase_bf16_paths(torch, report: dict) -> None:
         xctx = phase_x_prefill(torch, corpus, meta_path)
         xpacks = phase_x_decode(torch, xctx, report, {q: XQUANTS[q] for q in ("bf16", "bf16-sb16")})
         phase_x_cli(torch, xctx, corpus, meta_path, root, report, bf16_only=True)
-        phase_x_loop(torch, xctx, xpacks)
+        phase_x_loop(torch, xctx, xpacks, report)
         del xctx, xpacks
     torch.cuda.empty_cache()
     phase_probes(torch, report)
@@ -2942,7 +3076,7 @@ def main() -> int:
     if only == "9":
         with tempfile.TemporaryDirectory() as tmp:
             root = Path(tmp)
-            phase_xlstm(torch, *synth_corpus(root), root, report)
+            phase_xlstm(torch, *synth_corpus(root), root, report, parent)
         return finish(torch, card, report, X_KERNELS, t_start)
     if only == "10":
         phase_probes(torch, report)
@@ -2987,7 +3121,7 @@ def main() -> int:
         phase_train_cli(torch, corpus, meta_path, root, report)
         torch.cuda.empty_cache()
 
-        phase_xlstm(torch, corpus, meta_path, root, report)
+        phase_xlstm(torch, corpus, meta_path, root, report, parent)
     torch.cuda.empty_cache()
     phase_probes(torch, report)
     return finish(torch, card, report, list(KERNEL_INFO), t_start)

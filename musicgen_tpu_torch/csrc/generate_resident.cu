@@ -108,7 +108,7 @@
 // wrapper raises.
 #include <algorithm>
 
-#include "decode_ops.cuh"
+#include "grid_sync.cuh"
 
 using namespace mg;
 
@@ -183,62 +183,23 @@ __device__ __forceinline__ int bucket_of(const ResidentArgs& a, int64_t tok) {
 }
 
 // ---------------------------------------------------------------------------
-// Signals between stages and the mbarriers of the ring.
+// The named barriers of a team's signal (grid_sync.cuh has the counters'
+// primitives) and the mbarriers of the ring.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int ld_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release_add(int* p, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// One thread waits until a stage's counter reaches target (relaxed reads,
-// then one acquire fence: the acquire pattern); then the team's (or
-// block's) barrier orders every thread's later reads after the producers'
-// writes.
-__device__ __forceinline__ void spin_until(const int* ctr, int target) {
-  while (ld_relaxed(ctr) < target) {
-  }
-  asm volatile("fence.acq_rel.gpu;" ::: "memory");
-}
-
-__device__ __forceinline__ void team_wait(const int* ctr, int target, int tid, int bar) {
-  if (tid == 0) spin_until(ctr, target);
-  team_sync(bar);
-}
-
-// After the team's last store of a stage: every thread's writes, then one
-// release-add of the team's item count.
-__device__ __forceinline__ void team_signal(int* ctr, int n, int tid, int bar) {
-  team_sync(bar);
-  if (tid == 0) red_release_add(ctr, n);
-}
 
 // A team's signal barrier (named barrier TEAMS + bar, used for nothing
 // else): the issuing warp only arrives at it (bar.arrive), so it must be
 // another barrier than the team's own, which that warp may reach again
 // before the others have passed this one.
-__device__ __forceinline__ void signal_arrive(int bar) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(TEAMS + bar), "r"(TEAM) : "memory");
-}
+__device__ __forceinline__ void signal_arrive(int bar) { named_arrive(TEAMS + bar, TEAM); }
 
-__device__ __forceinline__ void signal_sync(int bar) {
-  asm volatile("bar.sync %0, %1;" ::"r"(TEAMS + bar), "r"(TEAM) : "memory");
-}
+__device__ __forceinline__ void signal_sync(int bar) { named_sync(TEAMS + bar, TEAM); }
 
 // Warp 0 tells the issuing warp that the signal is out (named barrier
 // 2 TEAMS + bar, of those two warps).
-__device__ __forceinline__ void released_arrive(int bar) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(2 * TEAMS + bar), "r"(64) : "memory");
-}
+__device__ __forceinline__ void released_arrive(int bar) { named_arrive(2 * TEAMS + bar, 64); }
 
-__device__ __forceinline__ void released_sync(int bar) {
-  asm volatile("bar.sync %0, %1;" ::"r"(2 * TEAMS + bar), "r"(64) : "memory");
-}
+__device__ __forceinline__ void released_sync(int bar) { named_sync(2 * TEAMS + bar, 64); }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
@@ -379,13 +340,6 @@ __device__ void ring_issue(const ResidentArgs& a, Cursor& shared_cu, const TeamP
 // stage after it. They are hints: a range is cut inward to whole 16-byte
 // units.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
-  const uintptr_t lo = (reinterpret_cast<uintptr_t>(p) + 15) & ~(uintptr_t)15;
-  const uintptr_t hi = (reinterpret_cast<uintptr_t>(p) + bytes) & ~(uintptr_t)15;
-  if (hi > lo)
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(lo), "r"((uint32_t)(hi - lo)) : "memory");
-}
 
 // Columns [c0, c1) of each of `rows` rows of `ld` floats from p.
 __device__ __forceinline__ void prefetch_cols(const float* p, int rows, int ld, int c0, int c1) {

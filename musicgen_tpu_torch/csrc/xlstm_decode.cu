@@ -1,27 +1,40 @@
-// Kernel G: the one-token decode step of the whole xLSTM stack, as a chain of
-// launches on one stream (ops/xdecode_kernel.py chains them).
+// Kernel G as a chain of launches, one a stage: the per-stage form of the
+// xLSTM decode step (ops/xdecode_kernel.py KERNEL_OPS chains them). The
+// one-launch step (xlstm_step.cu) runs the same items and is what generation
+// takes on the card; this chain is its oracle, held launch by launch to the
+// plain versions (chip_smoke.py [9 xdecode <stage>]) and bit for bit to the
+// step ([9 xstep]).
 //
 // Replaces musicgen_tpu/ops/pallas_xlstm_decode.py `_xlstm_kernel` (via
 // `fused_xlstm_logits_step` and `fused_xlstm_sample_step`): its mLSTM block
 // (`_mlstm_block_math` :208) and sLSTM block (`_slstm_block_math` :321), in
-// its three formats: bf16 weights, W8A16 weights (`_w8dot`), and the mLSTM
-// matrix memory stored in bf16 (`-sb16`; f32 math). The head and the sampler
-// tail are kernel B's launches (mg_lm_head_ln, mg_sample_tail).
+// its formats: bf16 weights, W8A16 weights (`_w8dot`), and the mLSTM matrix
+// memory stored in bf16 (`-sb16`; f32 math). The head and the sampler tail
+// are kernel B's launches (mg_lm_head_ln, mg_sample_tail).
 //
-// Per mLSTM block (x is the (B, d) f32 residual stream):
+// Per mLSTM block (x is the (B, d) f32 residual stream), each launch a grid
+// of xlstm_ops.cuh items:
 //   mg_x_gemv LN+store       up = W_up LN(x)                       [x_m | z]
 //   mg_xm_prep               conv step + silu -> x_c; q, k = blockwise(x_c),
-//                            v = blockwise(x_m)
-//   mg_xm_gates              i, f = W_gate [q | k | v] + b in f32; m, f', i';
-//                            n = f' n + i' k / sqrt(DK); denom = max(|q.n|, e^-m)
-//   mg_xm_memory             S = f' S + (i' k / sqrt(DK)) v^T;  h = q.S / denom
+//                            v = blockwise(x_m)                (a thread each)
+//   mg_xm_gates              one block a (b, h): i, f = W_gate [q | k | v] + b
+//                            in f32 (16-channel partials added in order); m,
+//                            f', i'; n = f' n + i' k / sqrt(DK);
+//                            denom = max(|q.n|, e^-m)
+//   mg_xm_memory             one block a (b, h, 16 rows): S = f' S +
+//                            (i' k / sqrt(DK)) v^T and the rows' readout
+//                            partials; the last block of a (b, h) (ticket)
+//                            adds them in order: h = q.S / denom
 //   mg_xm_out                headnorm(h) * outnorm + skip * x_c, * silu(z)
 //   mg_x_gemv plain+residual x += W_down y
 // Per sLSTM block:
-//   mg_xs_prep               xn = LN(x); conv step + silu -> x_c
+//   mg_xs_prep               one block a (row, 128 columns): xn = LN(x);
+//                            conv step + silu -> x_c
 //   mg_x_gemv (twice)        W_if x_c -> [i | f];  W_zo xn -> [z | o]
-//   mg_xs_cell               bf16(h) . R_h (bf16), exp-gated cell, group norm,
-//                            x += gn(h) * gn_scale
+//   mg_xs_cell               one block a (head, 16 units): bf16(h) . R_h
+//                            (bf16, both rows on one read), the exp-gated
+//                            cell; the last block of a head (ticket): group
+//                            norm, x += gn(h) * gn_scale
 //   mg_x_gemv LN+bias+gelu   u = gelu(W_up LN(x) + b)  (pad lanes stay 0)
 //   mg_x_gemv bias+residual  x += W_down u + b
 //
@@ -36,38 +49,21 @@
 //
 // What bounds it on an H100: bytes. At batch 2 a token reads about 190 MB of
 // bf16 weights and reads and writes the 7 mLSTM matrix memories (117 MB in
-// f32, 59 MB in bf16); a few FMAs per byte. Design: the GEMVs are kernel B's
+// f32, 59 MB in bf16); a few FMAs per byte. The GEMVs are kernel B's
 // (decode_ops.cuh gemv_team: tiles of 16 columns on the tensor cores, bf16
-// or W8A16 weights, x staged once a team; all rows on one weight read);
-// mg_xm_memory reads each S element once and writes it
-// once (a warp per 32 columns of one (b, h), 8 warps splitting the 512 rows,
-// the readout reduced across warps in shared memory); the small launches are
-// elementwise or one block per (b, h). 68 launches a token with the tail:
-// the host paces the chain (a CUDA graph of the step and fewer, fused
-// launches are later work).
+// or W8A16 weights, x staged once a team); the other stages are spread over
+// many blocks, each thread keeping several loads in flight. 68 launches a
+// token with the head and the tail; the host paces them.
 #include <math.h>
 
-#include "decode_ops.cuh"
+#include "xlstm_ops.cuh"
 
 using namespace mg;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDk = 1024;  // mLSTM head width the memory kernel stages
-constexpr int kMaxDh = 256;   // sLSTM head width (one thread per gate column)
-
-// Sum over the block (blockDim.x a multiple of 32, at most 1024 threads).
-__device__ float block_sum_all(float v, float* red) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nw = blockDim.x / 32;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < nw; ++w) s += red[w];
-  return s;
-}
+constexpr int kMaxChunks = 512;  // gate chunks of the gates kernel: di <= 8192
 
 // ---------------------------------------------------------------------------
 // The GEMVs
@@ -97,249 +93,110 @@ __global__ void xm_prep_kernel(const float* __restrict__ up, const float* __rest
   const int nb = di / 4;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= B * nb) return;
-  const int b = idx / nb, n = idx % nb;
-  const float* xm = up + (size_t)b * 2 * di + 4 * n;
-  float* cs = conv_state + (size_t)b * 3 * di;
-  float xmv[4], xc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = 4 * n + j;
-    xmv[j] = xm[j];
-    const float s0 = cs[c], s1 = cs[di + c], s2 = cs[2 * di + c];
-    const float y = s0 * __ldg(conv_w + c) + s1 * __ldg(conv_w + di + c) + s2 * __ldg(conv_w + 2 * di + c) +
-                    xmv[j] * __ldg(conv_w + 3 * di + c) + __ldg(conv_b + c);
-    cs[c] = s1;
-    cs[di + c] = s2;
-    cs[2 * di + c] = xmv[j];
-    xc[j] = y * sigmoidf_(y);
-  }
-  float* row = buf + (size_t)b * 4 * di;
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {  // q, k from x_c; v from x_m; W[p, n, j, i] (out j, in i)
-    const float* w = qkv_w + ((size_t)p * nb + n) * 16;
-    const float* src = p < 2 ? xc : xmv;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc = fmaf(src[i], __ldg(w + 4 * j + i), acc);
-      row[(size_t)p * di + 4 * n + j] = acc;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) row[3 * (size_t)di + 4 * n + j] = xc[j];
+  xm_prep_group(up, conv_w, conv_b, conv_state, qkv_w, buf, di, idx / nb, idx % nb);
 }
 
-// One block per (b, h): the f32 gate products, the stabilised gates, the
-// normalizer update and the readout's denominator. sc (B, H, 4) =
-// (f', i', denom, unused).
-__global__ void __launch_bounds__(kThreads) xm_gates_kernel(const float* __restrict__ buf,
-                                                            const float* __restrict__ w_gate,
-                                                            const float* __restrict__ gate_b, float* __restrict__ n_st,
-                                                            float* __restrict__ m_st, float* __restrict__ sc, int H,
-                                                            int di) {
-  __shared__ float red[32];
-  __shared__ float gates[2];
-  const int b = blockIdx.x / H, h = blockIdx.x % H, DK = di / H;
-  const float* gin = buf + (size_t)b * 4 * di;  // [q | k | v], 3 di
-  const float* wi = w_gate + (size_t)h * 3 * di;
-  const float* wf = w_gate + (size_t)(H + h) * 3 * di;
-  float si = 0.f, sf = 0.f;
-  for (int c = threadIdx.x; c < 3 * di; c += blockDim.x) {
-    const float g = gin[c];
-    si = fmaf(g, __ldg(wi + c), si);
-    sf = fmaf(g, __ldg(wf + c), sf);
-  }
-  si = block_sum_all(si, red);
-  sf = block_sum_all(sf, red);
-  if (threadIdx.x == 0) {
-    gates[0] = si + __ldg(gate_b + h);
-    gates[1] = sf + __ldg(gate_b + H + h);
-  }
+// One block per (b, h): the gate partials of every 16-channel chunk, added
+// in chunk order; the stabilised gates, the normalizer update and the
+// readout's denominator. sc (B, H, 4) = (f', i', denom, 0).
+__global__ void __launch_bounds__(TEAM) xm_gates_kernel(const float* __restrict__ buf,
+                                                        const float* __restrict__ w_gate,
+                                                        const float* __restrict__ gate_b, float* __restrict__ n_st,
+                                                        float* __restrict__ m_st, float* __restrict__ sc, int H,
+                                                        int di) {
+  __shared__ __align__(16) float part[2 * kMaxChunks];
+  __shared__ float red[WARPS];
+  __shared__ float act[3];
+  const int b = blockIdx.x / H, h = blockIdx.x % H, nch = di / XM_CHUNK, tid = threadIdx.x;
+  for (int i = tid; i < 2 * nch; i += TEAM) part[i] = xm_gate_partial(buf, w_gate, di, b, i < nch ? h : H + h, i % nch);
   __syncthreads();
-  const float i_pre = gates[0], f_pre = gates[1];
-  const float log_f = -softplusf_(-f_pre);  // jax.nn.log_sigmoid
-  const float m_prev = m_st[b * H + h];
-  const float m_new = fmaxf(log_f + m_prev, i_pre);
-  const float f_act = expf(log_f + m_prev - m_new);
-  const float i_act = expf(i_pre - m_new);
-  const float rs = 1.0f / sqrtf((float)DK);
-  float* n = n_st + ((size_t)b * H + h) * DK;
-  const float* q = gin + (size_t)h * DK;
-  const float* k = gin + di + (size_t)h * DK;
-  float qn = 0.f;
-  for (int kk = threadIdx.x; kk < DK; kk += blockDim.x) {
-    const float nv = f_act * n[kk] + i_act * (k[kk] * rs);
-    n[kk] = nv;
-    qn = fmaf(q[kk], nv, qn);
-  }
-  qn = block_sum_all(qn, red);
-  if (threadIdx.x == 0) {
-    m_st[b * H + h] = m_new;
+  if (tid < 32) xm_gates_warp(part, part + nch, nch, gate_b, m_st[b * H + h], H, h, tid, act);
+  __syncthreads();
+  const float denom = xm_norm_denom(buf, n_st, act[0], act[1], act[2], b, h, H, di, tid, 0, red);
+  if (tid == 0) {
+    m_st[b * H + h] = act[2];
     float* o = sc + ((size_t)b * H + h) * 4;
-    o[0] = f_act;
-    o[1] = i_act;
-    o[2] = fmaxf(fabsf(qn), expf(-m_new));
+    o[0] = act[0];
+    o[1] = act[1];
+    o[2] = denom;
     o[3] = 0.f;
   }
 }
 
-__device__ __forceinline__ float load_s(const float* s, size_t i) { return s[i]; }
-__device__ __forceinline__ float load_s(const __nv_bfloat16* s, size_t i) { return __bfloat162float(s[i]); }
-__device__ __forceinline__ void store_s(float* s, size_t i, float v) { s[i] = v; }
-__device__ __forceinline__ void store_s(__nv_bfloat16* s, size_t i, float v) { s[i] = __float2bfloat16_rn(v); }
+// A block of tickets per (b, h) or head: the block that draws the last
+// ticket of its group (an acquire-release atomic after the block's barrier)
+// runs the group's combine and resets the ticket, so the next launch and a
+// CUDA-graph replay start clean.
+__device__ __forceinline__ bool last_of(unsigned* ticket, unsigned n) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned drawn;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(drawn) : "l"(ticket) : "memory");
+    last = drawn == n - 1;
+    if (last) *ticket = 0u;
+  }
+  __syncthreads();
+  return last;
+}
 
-// Grid (B * H, DV / 32), 8 warps: warp w walks rows kk of its eighth of DK
-// for the block's 32 columns; every S element is read once and written once.
+// One block per (b, h, row chunk): xm_memory_rows; the last block of a
+// (b, h) adds the chunks' readout partials in order, over sc's denominator.
 template <typename S>
-__global__ void __launch_bounds__(kThreads) xm_memory_kernel(const float* __restrict__ buf,
-                                                             const float* __restrict__ sc, S* __restrict__ s_st,
-                                                             float* __restrict__ h_att, int H, int di) {
-  __shared__ float q_s[kMaxDk], ik_s[kMaxDk];
-  __shared__ float red[WARPS][32];
-  const int b = blockIdx.x / H, h = blockIdx.x % H, DK = di / H, DV = DK;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int vv = blockIdx.y * 32 + lane;
-  const float* row = buf + (size_t)b * 4 * di;
-  const float* g = sc + ((size_t)b * H + h) * 4;
-  const float f_act = g[0], i_act = g[1], denom = g[2];
-  const float rs = 1.0f / sqrtf((float)DK);
-  for (int kk = threadIdx.x; kk < DK; kk += blockDim.x) {
-    q_s[kk] = row[(size_t)h * DK + kk];
-    ik_s[kk] = i_act * (row[di + (size_t)h * DK + kk] * rs);
-  }
-  __syncthreads();
-  const float v = row[2 * (size_t)di + (size_t)h * DV + vv];
-  S* s = s_st + ((size_t)b * H + h) * DK * DV + vv;
-  const int rows = DK / WARPS, k0 = warp * rows;
-  float acc = 0.f;
-#pragma unroll 4
-  for (int kk = k0; kk < k0 + rows; ++kk) {
-    const float sn = load_s(s, (size_t)kk * DV) * f_act + ik_s[kk] * v;
-    store_s(s, (size_t)kk * DV, sn);
-    acc = fmaf(q_s[kk], sn, acc);
-  }
-  red[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) t += red[w][lane];
-    h_att[(size_t)b * di + (size_t)h * DV + vv] = t / denom;
-  }
+__global__ void __launch_bounds__(TEAM) xm_memory_kernel(const float* __restrict__ buf, const float* __restrict__ sc,
+                                                         S* __restrict__ s_st, float* __restrict__ mpart,
+                                                         unsigned* __restrict__ tickets, float* __restrict__ h_att,
+                                                         int H, int di) {
+  __shared__ float red[4 * TEAM];
+  const int DK = di / H, nrc = DK / xm_rows_per_item(DK);
+  const int bh = blockIdx.x / nrc, b = bh / H, h = bh % H;
+  const float* g = sc + (size_t)bh * 4;
+  xm_memory_rows<S>(buf, s_st, g, mpart, b, h, blockIdx.x % nrc, H, di, threadIdx.x, 0, red, NoPrelude());
+  if (last_of(tickets + bh, (unsigned)nrc)) xm_head_readout(mpart, g[2], h_att, b, h, H, di, threadIdx.x);
 }
 
 // One block per (b, h): y = (headnorm(h) * outnorm + skip * x_c) * silu(z).
-__global__ void __launch_bounds__(kThreads) xm_out_kernel(const float* __restrict__ h_att,
-                                                          const float* __restrict__ buf, const float* __restrict__ up,
-                                                          const float* __restrict__ outnorm,
-                                                          const float* __restrict__ skip, float* __restrict__ y,
-                                                          int H, int di, float eps) {
-  __shared__ float red[32];
-  const int b = blockIdx.x / H, h = blockIdx.x % H, DV = di / H;
-  const float* hr = h_att + (size_t)b * di + (size_t)h * DV;
-  float s1 = 0.f, s2 = 0.f;
-  for (int e = threadIdx.x; e < DV; e += blockDim.x) {
-    const float v = hr[e];
-    s1 += v;
-    s2 += v * v;
-  }
-  s1 = block_sum_all(s1, red);
-  s2 = block_sum_all(s2, red);
-  const float mean = s1 / DV, var = s2 / DV - mean * mean;
-  const float inv = 1.f / sqrtf(var + eps);
-  for (int e = threadIdx.x; e < DV; e += blockDim.x) {
-    const int c = h * DV + e;
-    const float hn = (hr[e] - mean) * inv * __ldg(outnorm + c) + __ldg(skip + c) * buf[((size_t)b * 4 + 3) * di + c];
-    const float z = up[(size_t)b * 2 * di + di + c];
-    y[(size_t)b * di + c] = hn * (z * sigmoidf_(z));
-  }
+__global__ void __launch_bounds__(TEAM) xm_out_kernel(const float* __restrict__ h_att, const float* __restrict__ buf,
+                                                      const float* __restrict__ up,
+                                                      const float* __restrict__ outnorm,
+                                                      const float* __restrict__ skip, float* __restrict__ y, int H,
+                                                      int di, float eps) {
+  __shared__ float red[WARPS];
+  xm_out_item(h_att, buf, up, outnorm, skip, y, blockIdx.x / H, blockIdx.x % H, H, di, eps, threadIdx.x, 0, red);
 }
 
 // ---------------------------------------------------------------------------
 // sLSTM
 // ---------------------------------------------------------------------------
 
-// One block per row: xn = LN(x) (eps, E[x^2] - mean^2), then the conv step on
-// xn and silu. xs (2, B, d) = [x_c; xn].
-__global__ void __launch_bounds__(kThreads) xs_prep_kernel(const float* __restrict__ x, const float* __restrict__ ln,
-                                                           const float* __restrict__ conv_w,
-                                                           const float* __restrict__ conv_b,
-                                                           float* __restrict__ conv_state, float* __restrict__ xs, int d,
-                                                           float eps) {
-  __shared__ float red[32];
-  const int b = blockIdx.x;
-  const float* xr = x + (size_t)b * d;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    const float v = xr[c];
-    s1 += v;
-    s2 += v * v;
-  }
-  s1 = block_sum_all(s1, red);
-  s2 = block_sum_all(s2, red);
-  const float mean = s1 / d, inv = 1.f / sqrtf(s2 / d - mean * mean + eps);
-  float* cs = conv_state + (size_t)b * 3 * d;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    const float xn = (xr[c] - mean) * inv * __ldg(ln + c) + __ldg(ln + d + c);
-    const float s0 = cs[c], s1c = cs[d + c], s2c = cs[2 * d + c];
-    const float y = s0 * __ldg(conv_w + c) + s1c * __ldg(conv_w + d + c) + s2c * __ldg(conv_w + 2 * d + c) +
-                    xn * __ldg(conv_w + 3 * d + c) + __ldg(conv_b + c);
-    cs[c] = s1c;
-    cs[d + c] = s2c;
-    cs[2 * d + c] = xn;
-    xs[(size_t)b * d + c] = y * sigmoidf_(y);
-    xs[((size_t)gridDim.x + b) * d + c] = xn;
-  }
+// One block per (row, 128 columns): xn = LN(x), the conv step on xn and
+// silu. xs (2, B, d) = [x_c; xn].
+__global__ void __launch_bounds__(TEAM) xs_prep_kernel(const float* __restrict__ x, const float* __restrict__ ln,
+                                                       const float* __restrict__ conv_w,
+                                                       const float* __restrict__ conv_b,
+                                                       float* __restrict__ conv_state, float* __restrict__ xs, int B,
+                                                       int d, float eps) {
+  __shared__ double red64[2 * WARPS];
+  const int nch = (d + XS_PREP_COLS - 1) / XS_PREP_COLS;
+  xs_prep_item(x, ln, conv_w, conv_b, conv_state, xs, B, d, eps, blockIdx.x / nch, blockIdx.x % nch, threadIdx.x, 0,
+               red64);
 }
 
-// One block per (b, h), one thread per gate column j = g * DH + e: the
-// recurrent term bf16(h_prev) . R_h[:, j] (bf16 weights, f32 sums), the
-// exp-gated cell, the head's group norm and the residual. State hcnm
-// (4, B, H, DH) in place; x (B, d) += gn(h) * gn_scale.
-__global__ void __launch_bounds__(4 * kMaxDh) xs_cell_kernel(
-    const float* __restrict__ wif, const float* __restrict__ wzo, const __nv_bfloat16* __restrict__ r_w,
-    const float* __restrict__ bias, const float* __restrict__ gn, float* __restrict__ hcnm, float* __restrict__ x,
-    int B, int H, int DH, float eps) {
-  __shared__ float hb[kMaxDh];
-  __shared__ float pre[4 * kMaxDh];
-  __shared__ float red[32];
-  const int b = blockIdx.x / H, h = blockIdx.x % H, d = H * DH;
-  const int j = threadIdx.x, g = j / DH, e = j % DH;
-  const size_t plane = (size_t)B * H * DH, off = ((size_t)b * H + h) * DH;
-  if (j < DH) hb[j] = bf16_round(hcnm[off + j]);
-  __syncthreads();
-  {
-    const __nv_bfloat16* rc = r_w + (size_t)h * DH * 4 * DH + j;  // R_h[:, j], stride 4 DH
-    float acc = 0.f;
-    for (int dd = 0; dd < DH; ++dd) acc = fmaf(hb[dd], __bfloat162float(rc[(size_t)dd * 4 * DH]), acc);
-    const int c = h * DH + e;
-    const float wxv = g < 2 ? wif[(size_t)b * 2 * d + (size_t)g * d + c] : wzo[(size_t)b * 2 * d + (size_t)(g - 2) * d + c];
-    pre[j] = (wxv + acc) + __ldg(bias + (size_t)g * d + c);
-  }
-  __syncthreads();
-  float hv = 0.f;
-  if (j < DH) {
-    const float ip = pre[j], fp = pre[DH + j], zp = pre[2 * DH + j], op = pre[3 * DH + j];
-    const float m_prev = hcnm[3 * plane + off + j];
-    const float m_new = fmaxf(fp + m_prev, ip);
-    const float i_act = expf(ip - m_new);
-    const float f_act = expf(fp + m_prev - m_new);
-    const float c = f_act * hcnm[plane + off + j] + i_act * tanhf(zp);
-    const float n = f_act * hcnm[2 * plane + off + j] + i_act;
-    hv = sigmoidf_(op) * c / n;
-    hcnm[off + j] = hv;
-    hcnm[plane + off + j] = c;
-    hcnm[2 * plane + off + j] = n;
-    hcnm[3 * plane + off + j] = m_new;
-  }
-  const float s1 = block_sum_all(j < DH ? hv : 0.f, red);
-  const float s2 = block_sum_all(j < DH ? hv * hv : 0.f, red);
-  if (j < DH) {
-    const float mean = s1 / DH, inv = 1.f / sqrtf(s2 / DH - mean * mean + eps);
-    const int c = h * DH + j;
-    x[(size_t)b * d + c] = x[(size_t)b * d + c] + (hv - mean) * inv * __ldg(gn + c);
-  }
+// One block per (head, XS_UNITS units): xs_cell_item; the last block of a
+// head runs its group norm and residual for every row (xs_gn_item).
+__global__ void __launch_bounds__(TEAM) xs_cell_kernel(const float* __restrict__ wif, const float* __restrict__ wzo,
+                                                       const __nv_bfloat16* __restrict__ r_w,
+                                                       const float* __restrict__ bias, const float* __restrict__ gn,
+                                                       float* __restrict__ hcnm, float* __restrict__ hnew,
+                                                       unsigned* __restrict__ tickets, float* __restrict__ x, int B,
+                                                       int H, int DH, float eps) {
+  extern __shared__ __align__(16) unsigned char cell_smem[];
+  __shared__ float red[WARPS];
+  const int groups = DH / XS_UNITS, h = blockIdx.x / groups;
+  xs_cell_item(wif, wzo, r_w, bias, hcnm, hnew, B, H, DH, h, blockIdx.x % groups, threadIdx.x, 0,
+               reinterpret_cast<char*>(cell_smem));
+  if (last_of(tickets + h, (unsigned)groups))
+    for (int b = 0; b < B; ++b) xs_gn_item(hnew, gn, hcnm, x, H, DH, eps, b, h, threadIdx.x, 0, red);
 }
 
 }  // namespace
@@ -376,24 +233,32 @@ MG_EXPORT int mg_xm_prep(const float* up, const float* conv_w, const float* conv
 
 MG_EXPORT int mg_xm_gates(const float* buf, const float* w_gate, const float* gate_b, float* n_st, float* m_st,
                           float* sc, int B, int H, int di, void* stream) {
-  if (B < 1 || H < 1 || di % H != 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || di % H != 0 || di % (4 * XM_CHUNK) != 0 || di / XM_CHUNK > kMaxChunks)
+    return (int)cudaErrorInvalidValue;
   xm_gates_kernel<<<B * H, kThreads, 0, (cudaStream_t)stream>>>(buf, w_gate, gate_b, n_st, m_st, sc, H, di);
   return (int)cudaGetLastError();
 }
 
-// s_bf16: 0 for an f32 matrix memory, 1 for bf16 storage (-sb16).
-MG_EXPORT int mg_xm_memory(const float* buf, const float* sc, void* s_st, float* h_att, int B, int H, int di,
-                           int s_bf16, void* stream) {
-  if (B < 1 || H < 1 || di % H != 0) return (int)cudaErrorInvalidValue;
+// The shapes of the matrix memory's items (xlstm_ops.cuh xm_memory_rows).
+static bool xm_memory_shape_ok(int H, int di) {
+  if (H < 1 || di % H != 0) return false;
   const int DK = di / H;
-  if (DK > kMaxDk || DK % 32 != 0 || DK % WARPS != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * H, DK / 32);
+  return DK % 4 == 0 && kThreads % (DK / 4) == 0 && DK % xm_rows_per_item(DK) == 0;
+}
+
+// s_bf16: 0 for an f32 matrix memory, 1 for bf16 storage (-sb16). mpart:
+// (B, H, nrc, DV) f32 scratch; tickets: B * H zeros (left zero).
+MG_EXPORT int mg_xm_memory(const float* buf, const float* sc, void* s_st, float* mpart, void* tickets, float* h_att,
+                           int B, int H, int di, int s_bf16, void* stream) {
+  if (B < 1 || !xm_memory_shape_ok(H, di)) return (int)cudaErrorInvalidValue;
+  const int DK = di / H, grid = B * H * (DK / xm_rows_per_item(DK));
+  unsigned* t = static_cast<unsigned*>(tickets);
   if (s_bf16)
     xm_memory_kernel<__nv_bfloat16><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        buf, sc, static_cast<__nv_bfloat16*>(s_st), h_att, H, di);
+        buf, sc, static_cast<__nv_bfloat16*>(s_st), mpart, t, h_att, H, di);
   else
-    xm_memory_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(buf, sc, static_cast<float*>(s_st), h_att,
-                                                                         H, di);
+    xm_memory_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(buf, sc, static_cast<float*>(s_st), mpart, t,
+                                                                         h_att, H, di);
   return (int)cudaGetLastError();
 }
 
@@ -407,14 +272,24 @@ MG_EXPORT int mg_xm_out(const float* h_att, const float* buf, const float* up, c
 MG_EXPORT int mg_xs_prep(const float* x, const float* ln, const float* conv_w, const float* conv_b, float* conv_state,
                          float* xs, int B, int d, float eps, void* stream) {
   if (B < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  xs_prep_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(x, ln, conv_w, conv_b, conv_state, xs, d, eps);
+  const int grid = B * ((d + XS_PREP_COLS - 1) / XS_PREP_COLS);
+  xs_prep_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, ln, conv_w, conv_b, conv_state, xs, B, d, eps);
   return (int)cudaGetLastError();
 }
 
+// hnew: (B, d) f32 scratch; tickets: H zeros (left zero).
 MG_EXPORT int mg_xs_cell(const float* wif, const float* wzo, const void* r_w, const float* bias, const float* gn,
-                         float* hcnm, float* x, int B, int H, int DH, float eps, void* stream) {
-  if (B < 1 || H < 1 || DH < 1 || DH > kMaxDh || (4 * DH) % 32 != 0) return (int)cudaErrorInvalidValue;
-  xs_cell_kernel<<<B * H, 4 * DH, 0, (cudaStream_t)stream>>>(wif, wzo, static_cast<const __nv_bfloat16*>(r_w), bias,
-                                                              gn, hcnm, x, B, H, DH, eps);
+                         float* hcnm, float* hnew, void* tickets, float* x, int B, int H, int DH, float eps,
+                         void* stream) {
+  if (B < 1 || B > MAXR || H < 1 || DH < XS_UNITS || DH % XS_UNITS != 0 || DH > kThreads)
+    return (int)cudaErrorInvalidValue;
+  const int smem = xs_cell_smem_bytes(B, DH);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(xs_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  xs_cell_kernel<<<H * (DH / XS_UNITS), kThreads, smem, (cudaStream_t)stream>>>(
+      wif, wzo, static_cast<const __nv_bfloat16*>(r_w), bias, gn, hcnm, hnew, static_cast<unsigned*>(tickets), x, B,
+      H, DH, eps);
   return (int)cudaGetLastError();
 }

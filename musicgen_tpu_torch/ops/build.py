@@ -55,10 +55,13 @@ SIGNATURES = {
     "mg_x_gemv": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "mg_xm_prep": [_P] * 6 + [_I] * 2 + [_P],
     "mg_xm_gates": [_P] * 6 + [_I] * 3 + [_P],
-    "mg_xm_memory": [_P] * 4 + [_I] * 4 + [_P],
+    "mg_xm_memory": [_P] * 6 + [_I] * 4 + [_P],
     "mg_xm_out": [_P] * 6 + [_I] * 3 + [_F, _P],
     "mg_xs_prep": [_P] * 6 + [_I] * 2 + [_F, _P],
-    "mg_xs_cell": [_P] * 7 + [_I] * 3 + [_F, _P],
+    "mg_xs_cell": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # (pointer array, its length, int array, its length, fmt, s_bf16, 4 ints out: grid, threads, dynamic and
+    # static shared memory a block; stream)
+    "mg_xlstm_step": [_P, _I, _P, _I, _I, _I, _P, _P],
     "mg_probe_mm": [_P] * 3 + [_I] * 3 + [_P],
     "mg_ablate_gemv": [_P] * 4 + [_I] * 4 + [_P],
     "mg_ablate_stream": [_P] * 6 + [_I] * 6 + [_F, _P, _P],

@@ -75,10 +75,10 @@ def random_params(jm, prompt, meta, seed: int = 0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def make_setup(quant: str, sb16: bool = False):
+def make_setup(quant: str, sb16: bool = False, embedding_dim: int = 64):
     """A small model on both sides (3 blocks of width 64, sLSTM at 1), one
     JAX prefill, both packs in `quant` and both stacked states."""
-    jcfg = JaxXLSTMConfig(embedding_dim=64, num_blocks=3, slstm_at=(1,), metadata_vocab_size=16)
+    jcfg = JaxXLSTMConfig(embedding_dim=embedding_dim, num_blocks=3, slstm_at=(1,), metadata_vocab_size=16)
     cfg = XLSTMConfig(**dataclasses.asdict(jcfg))
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (B, P))
@@ -143,7 +143,7 @@ def check_state_roundtrip(s):
             assert torch.equal(b, want), (kind, i)
 
 
-def check_logits_steps(s, n_steps=2):
+def check_logits_steps(s, n_steps=2, ops=xk.PLAIN_OPS):
     """Each step from the JAX kernel's carry: the plain chain's logits and
     new carry against fused_xlstm_logits_step(interpret=True)'s."""
     jstep = jax.jit(lambda wp, tok, carry: jxd.fused_xlstm_logits_step(wp, tok, carry, s["jcfg"], s["jdims"],
@@ -155,8 +155,7 @@ def check_logits_steps(s, n_steps=2):
         carry = _port_carry(s, jcarry)
         want, jcarry = jstep(s["jwp"], jnp.asarray(tok, jnp.int32), jcarry)
         with torch.no_grad():
-            got, carry = xk.fused_xlstm_logits_step(s["wp"], torch.from_numpy(tok), carry, s["dims"], q,
-                                                    ops=xk.PLAIN_OPS)
+            got, carry = xk.fused_xlstm_logits_step(s["wp"], torch.from_numpy(tok), carry, s["dims"], q, ops=ops)
         assert got.shape == (B, s["cfg"].vocab_size)
         assert _rel(got, want) < STEP_REL
         for a, b in zip(carry, _port_carry(s, jcarry)):
@@ -231,7 +230,9 @@ def test_steps_match_f32_step(setup):
 
 
 def test_kernel_launch_count_at_the_reference_size():
-    """68 launches a token at 7 mLSTM + 4 sLSTM blocks with the tail."""
+    """68 launches a token at 7 mLSTM + 4 sLSTM blocks with the tail on the
+    chain; 2 on the one-launch path (the step and the tail)."""
     dims = xk.XDims.create(XLSTMConfig(), B)
     assert (dims.n_mlstm, dims.n_slstm, dims.ffn_pad, dims.m_dh, dims.s_dh) == (7, 4, 1408, 512, 256)
     assert dims.launches_per_token() == 68 and dims.launches_per_token(tail=False) == 67
+    assert dims.launches_per_token(step=True) == 2 and dims.launches_per_token(tail=False, step=True) == 1
