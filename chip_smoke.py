@@ -79,8 +79,17 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   9. the xLSTM at the reference size (11 blocks, d_model 1024, sLSTM at
      (1, 4, 7, 10); seeded random weights), kernels H and G: [9 slstm] kernel
      H against its plain scan at (2, 2054, 4, 256), with the scan's own noise
-     floor; [9 prefill] the full prefill's last logits with H against the
-     plain scan, 4 launches of H; [9 xdecode ...] each launch of kernel G's
+     floor, its launch (cluster size CS, rows a cluster BR, blocks, threads,
+     shared memory, cudaOccupancyMaxActiveClusters, ptxas registers and
+     spills), its ms host-paced and in a CUDA graph and us a step, the
+     cluster of 16 beside the cluster of 8 in turns, and timer stamps of a
+     step's product, cell and barrier (with --parent DIR, the parent tree's
+     H in turns too); [9 slstm shapes] H against the plain scan at four
+     other shapes, one of them two row groups, and its refusals; [9 slstm
+     repeat] two launches and three CUDA-graph replays bit for bit; [9
+     prefill] the full prefill's last logits with H against the plain scan,
+     4 launches of H (with --parent DIR, the prefill with the parent tree's H
+     timed in turns); [9 xdecode ...] each launch of kernel G's
      chain against its plain version in bf16, W8A16 and with the matrix
      memory stored in bf16 (sb16), then in bf16, W8A16, sb16 and
      W8A16-sb16 64 teacher-forced steps from a shared state against the
@@ -130,8 +139,8 @@ kernel_ablate.run), each counted from zero, as the full run does.
 kernels line holds C's three forms from those CLI runs, each counted from
 zero. `--parent DIR` (with any of the above, or none) names another
 checkout of the port, such as an unpacked `git archive` of the parent
-commit: [6 loop] and [9 loop] build its kernels into DIR/build and time
-its C and its G beside this tree's.
+commit: [6 loop], [9 slstm], [9 prefill] and [9 loop] build its kernels
+into DIR/build and time its C, its H and its G beside this tree's.
 `--only flash` runs
 phases 1 and 2 and every row that launches kernel D or E: [7 flash],
 [7 prefill], [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd] with its repeat
@@ -366,6 +375,24 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_ms(torch, fn, iters: int = 5, warmup: int = 1) -> float:
+    """Median device time of fn() in ms over `iters` calls, each between
+    its own CUDA events and synchronised (a host-paced call: the host's
+    pauses count, but one slow call does not move the median)."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def graph_ms(torch, fn, calls: int = 20, replays: int = 5):
@@ -2215,59 +2242,217 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
 
 
 @contextlib.contextmanager
-def plain_slstm_scan():
-    """XLSTMLM.prefill with kernel H's plain version, on the card: the
-    reference the kernel's prefill is held to."""
+def slstm_scan_as(fn):
+    """XLSTMLM.prefill with `fn` in kernel H's place (its plain version, or
+    the parent tree's H), on the card."""
     from musicgen_tpu_torch.models import xlstm
-    from musicgen_tpu_torch.ops.slstm import slstm_sequential
 
     saved = xlstm.slstm_scan
-    xlstm.slstm_scan = slstm_sequential
+    xlstm.slstm_scan = fn
     try:
         yield
     finally:
         xlstm.slstm_scan = saved
 
 
-def phase_x_slstm(torch, report: dict) -> None:
-    """[9 slstm] kernel H against its plain scan at the prefill's shape
-    (B, T, H, DH) = (2, 2054, 4, 256), with the scan's own noise floor."""
-    from musicgen_tpu_torch.ops.slstm import powerlaw_blockdependent_bias, slstm_sequential
-    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+def plain_slstm_scan():
+    """XLSTMLM.prefill with kernel H's plain version: the reference the
+    kernel's prefill is held to."""
+    from musicgen_tpu_torch.ops.slstm import slstm_sequential
 
-    b, t, h, dh = BATCH, PROMPT + 6, 4, 256
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return slstm_scan_as(slstm_sequential)
+
+
+# [9 slstm shapes]: the (B, T, H, DH) at which H is held to the plain scan
+# besides the prefill's; the last spans two row groups of BR = 8.
+H_SHAPES = ((1, 1, 1, 8), (3, 37, 2, 64), (5, 129, 4, 128), (9, 200, 4, 256))
+H_STAMP_STEPS = 256
+
+
+def slstm_inputs(torch, b: int, t: int, h: int, dh: int, seed: int = SEED):
+    """Kernel H's inputs at (B, T, H, DH): standard normal wx, R scaled by
+    1/sqrt(DH), the forget bias of block 1 of 11, the rest zero."""
+    from musicgen_tpu_torch.ops.slstm import powerlaw_blockdependent_bias
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     wx = torch.randn(b, t, 4, h, dh, device=DEVICE, generator=gen)
     r = torch.randn(4, h, dh, dh, device=DEVICE, generator=gen) / math.sqrt(dh)
     bias = torch.zeros(4, h, dh, device=DEVICE)
     bias[1] = powerlaw_blockdependent_bias(h, dh, 1, 11).to(DEVICE)
-    h_k, s_k = slstm_scan(wx, r, bias)
+    return wx, r, bias, gen
+
+
+def slstm_check(outs, refs, noisy):
+    """(worst abs, worst rel, floor): the kernel's outputs against the plain
+    scan's, and the plain scan's own drift from a 1e-6 perturbation of wx."""
+    errs = [rel_err(a, b_) for a, b_ in zip(outs, refs)]
+    floor = max(rel_err(a, b_)[1] for a, b_ in zip(noisy, refs))
+    return max(e[0] for e in errs), max(e[1] for e in errs), floor
+
+
+def slstm_stamps(torch, sk, wx, r, bias, cs: int) -> str:
+    """One launch of H with timer stamps of the first cluster's rank 0,
+    thread 0, over H_STAMP_STEPS steps: the median us a step spends in its
+    product (from the step's start through the waits for the slices of h
+    and the block barrier after the product), its cell (the slices' sums,
+    the update, the pushes into every rank) and its end (the end-of-step
+    block barrier to the next step's start); clock64 cycles scaled by the
+    launch's %globaltimer span."""
+    n = min(H_STAMP_STEPS, wx.shape[1])
+    st = torch.zeros(4 + 3 * n, dtype=torch.int64, device=DEVICE)
+    sk.slstm_scan(wx, r, bias, cs=cs, stamps=st)
+    torch.cuda.synchronize()
+    v = st.cpu().tolist()
+    ns_per_cycle = (v[2] - v[0]) / max(v[3] - v[1], 1)
+    step = [v[4 + 3 * i:7 + 3 * i] for i in range(n)]
+    parts = {"product": [b_ - a for a, b_, _ in step[1:-1]], "cell": [c - b_ for _, b_, c in step[1:-1]],
+             "end": [step[i + 1][0] - step[i][2] for i in range(1, n - 1)]}
+    txt = ", ".join(f"{k} {1e-3 * ns_per_cycle * statistics.median(x):.3f}" for k, x in parts.items())
+    return (f"stamps (cs {cs}, median us a step over {n - 2} steps): {txt}; the whole launch "
+            f"{1e-3 * (v[2] - v[0]) / wx.shape[1]:.3f} us a step ({ns_per_cycle:.4f} ns a cycle)")
+
+
+def phase_x_slstm(torch, report: dict, psk=None) -> None:
+    """[9 slstm] kernel H against its plain scan at the prefill's shape
+    (B, T, H, DH) = (2, 2054, 4, 256), with the scan's own noise floor, its
+    launch geometry, its times (host-paced, in a CUDA graph, us a step),
+    the cluster of 16 beside the cluster of 8 in turns, its stamps and, with
+    the parent tree's slstm_kernel `psk`, the parent's H in turns."""
+    from musicgen_tpu_torch.ops import build
+    from musicgen_tpu_torch.ops import slstm_kernel as sk
+    from musicgen_tpu_torch.ops.slstm import slstm_sequential
+
+    b, t, h, dh = BATCH, PROMPT + 6, 4, 256
+    wx, r, bias, gen = slstm_inputs(torch, b, t, h, dh)
+    h_k, s_k = sk.slstm_scan(wx, r, bias)
     h_p, s_p = slstm_sequential(wx, r, bias)
     h_n, s_n = slstm_sequential(wx * (1.0 + 1e-6 * torch.randn(wx.shape, device=DEVICE, generator=gen)), r, bias)
     torch.cuda.synchronize()
-    errs = [rel_err(h_k, h_p)] + [rel_err(a, b_) for a, b_ in zip(s_k, s_p)]
-    floor = max([rel_err(h_n, h_p)[1]] + [rel_err(a, b_)[1] for a, b_ in zip(s_n, s_p)])
-    worst_abs, worst_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    worst_abs, worst_rel, floor = slstm_check((h_k, *s_k), (h_p, *s_p), (h_n, *s_n))
     tol = max(TOL_H, 2.0 * floor)
     need(all(bool(torch.isfinite(a).all()) for a in (h_k, *s_k)), "slstm_scan: non-finite output")
-    ms = cuda_ms(torch, lambda: slstm_scan(wx, r, bias), iters=5, warmup=1)
-    dev_ms = graph_ms(torch, lambda: slstm_scan(wx, r, bias), calls=2, replays=3)
+    need(worst_rel <= tol, f"slstm_scan (kernel H) disagrees with slstm_sequential: rel {worst_rel:.3e}")
+    main_cs = sk.scan_geometry(b, t, h, dh).cs
+    alt = sk.PORTABLE_CLUSTER if main_cs == sk.CLUSTER else sk.CLUSTER
+    h_a, s_a = sk.slstm_scan(wx, r, bias, cs=alt)
+    alt_abs, alt_rel, _ = slstm_check((h_a, *s_a), (h_p, *s_p), (h_n, *s_n))
+    need(alt_rel <= tol, f"slstm_scan with clusters of {alt} disagrees with slstm_sequential: rel {alt_rel:.3e}")
+
+    log = build.library_path().parent / "build.log"
+    launched = tuple(f"slstm_cluster_kernel<{min(b, sk.ROWS)}, {cs}>" for cs in (main_cs, alt))
+    usage = [f"{name} {regs}, {frame}" for name, regs, frame in (ptxas_usage(log.read_text()) if log.exists() else [])
+             if name.startswith(launched)]
+    for cs in (main_cs, alt):
+        geo = sk.scan_geometry(b, t, h, dh, cs)
+        say(f"[9 slstm launch] cs {geo.cs} x br {geo.rows}: {geo.groups} row group(s), grid {geo.grid} = "
+            f"{geo.blocks} blocks of {geo.threads} threads, {geo.smem} B of dynamic shared memory a block "
+            f"({geo.slab} B of R); cudaOccupancyMaxActiveClusters "
+            f"{sk.max_active_clusters(geo, b, t, h, dh)}")
+    say(f"[9 slstm launch] ptxas: " + ("; ".join(usage) if usage else "not in the build log"))
+
+    def run(cs):
+        return lambda: sk.slstm_scan(wx, r, bias, cs=cs)
+
+    ms = cuda_ms(torch, run(main_cs), iters=5, warmup=1)
+    pack_ms = graph_ms(torch, lambda: sk.pack_r_slabs(r, main_cs), calls=10, replays=3)
+    turns = {}
+    for cs in (main_cs, alt, alt, main_cs):
+        turns.setdefault(cs, []).append(graph_ms(torch, run(cs), calls=2, replays=3))
+    if psk is not None:
+        for who in ("parent", "this", "this", "parent"):
+            fn = (lambda: psk.slstm_scan(wx, r, bias)) if who == "parent" else run(main_cs)
+            turns.setdefault(who, []).append(graph_ms(torch, fn, calls=2, replays=3))
     plain_ms = cuda_ms(torch, lambda: slstm_sequential(wx, r, bias), iters=2, warmup=1)
     # Bound: wx, R and the bias read once, h and the final state written once;
     # 2 flops per recurrent weight, step and batch row, at the f32 peak.
     cost = bound(nbytes(wx, r, bias, h_k, *s_k), 2.0 * b * t * 4 * h * dh * dh, F32_FLOPS)
+
+    def graph_txt(key):
+        vals = turns[key]
+        if any(v is None for v in vals):
+            return "not measured"
+        mean = statistics.mean(vals)
+        return f"{' / '.join(f'{v:.4f}' for v in vals)} ms ({1e3 * mean / t:.3f} us/step)"
+
+    parent_txt = ("the parent tree's H not measured (no --parent)" if psk is None else
+                  f"the parent tree's H in a graph {graph_txt('parent')} (this tree {graph_txt('this')}; in "
+                  f"turns parent, this, this, parent)")
     say(f"[9 slstm] (B,T,H,DH)=({b},{t},{h},{dh}): h and final state max_abs {worst_abs:.3e} rel {worst_rel:.3e} "
         f"(tol {tol:.3e} = max({TOL_H}, 2x the plain scan's drift from a 1e-6 perturbation of wx, {floor:.3e})); "
-        f"kernel {ms:.4f} ms = {1e3 * ms / t:.3f} us/step (device, CUDA graph: {fmt_ms(dev_ms)}), plain scan "
-        f"{plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}), library none")
-    need(worst_rel <= tol, "slstm_scan (kernel H) disagrees with slstm_sequential")
+        f"clusters of {alt}: max_abs {alt_abs:.3e} rel {alt_rel:.3e}; kernel (cs {main_cs}) {ms:.4f} ms = "
+        f"{1e3 * ms / t:.3f} us/step host-paced, in a CUDA graph cs {main_cs} {graph_txt(main_cs)}, cs {alt} "
+        f"{graph_txt(alt)} (in turns {main_cs}, {alt}, {alt}, {main_cs}; each call includes pack_r_slabs, "
+        f"{fmt_ms(pack_ms)} alone in a graph); {parent_txt}; plain scan {plain_ms:.4f} ms, bound "
+        f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}), library none")
+    for cs in (main_cs, alt):
+        say(f"[9 slstm stamps] {slstm_stamps(torch, sk, wx, r, bias, cs)}")
     report["slstm_scan"] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **cost}
+    phase_x_slstm_shapes(torch, sk)
+    phase_x_slstm_repeat(torch, sk, wx, r, bias)
 
 
-def phase_x_prefill(torch, corpus: Path, meta_path: Path) -> dict:
+def phase_x_slstm_shapes(torch, sk) -> None:
+    """[9 slstm shapes] H against the plain scan at H_SHAPES, held as [9
+    slstm]; then the refusals: shapes the kernel does not take raise."""
+    from musicgen_tpu_torch.ops.slstm import slstm_sequential
+
+    for b, t, h, dh in H_SHAPES:
+        wx, r, bias, gen = slstm_inputs(torch, b, t, h, dh, seed=SEED + t)
+        sk.slstm_scan.launches = 0
+        h_k, s_k = sk.slstm_scan(wx, r, bias)
+        need(sk.slstm_scan.launches == 1, "slstm_scan did not launch its kernel")
+        h_p, s_p = slstm_sequential(wx, r, bias)
+        h_n, s_n = slstm_sequential(wx * (1.0 + 1e-6 * torch.randn(wx.shape, device=DEVICE, generator=gen)), r,
+                                    bias)
+        torch.cuda.synchronize()
+        need(all(bool(torch.isfinite(a).all()) for a in (h_k, *s_k)), f"slstm_scan {(b, t, h, dh)}: non-finite")
+        worst_abs, worst_rel, floor = slstm_check((h_k, *s_k), (h_p, *s_p), (h_n, *s_n))
+        tol = max(TOL_H, 2.0 * floor)
+        geo = sk.scan_geometry(b, t, h, dh)
+        say(f"[9 slstm shapes] (B,T,H,DH)=({b},{t},{h},{dh}): {geo.groups} row group(s) of {geo.rows}, grid "
+            f"{geo.grid}, {geo.smem} B shared a block; max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol {tol:.3e})")
+        need(worst_rel <= tol, f"slstm_scan {(b, t, h, dh)} disagrees with slstm_sequential")
+    refused = []
+    for dh in (12, 264):
+        wx, r, bias, _ = slstm_inputs(torch, 1, 4, 1, dh)
+        try:
+            sk.slstm_scan(wx, r, bias)
+        except ValueError as e:
+            refused.append(f"DH = {dh}: {str(e)[:80]}")
+    say(f"[9 slstm shapes] refused: {'; '.join(refused)}")
+    need(len(refused) == 2, "slstm_scan took a shape its kernel does not take")
+
+
+def phase_x_slstm_repeat(torch, sk, wx, r, bias) -> None:
+    """[9 slstm repeat] two launches and three replays of a CUDA graph of
+    one launch give the same bits (no atomics, nothing left over between
+    launches)."""
+    first = sk.slstm_scan(wx, r, bias)
+    second = sk.slstm_scan(wx, r, bias)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sk.slstm_scan(wx, r, bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_h, g_s = sk.slstm_scan(wx, r, bias)
+    same = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(a, b_) for a, b_ in zip((g_h, *g_s), (first[0], *first[1]))))
+    twice = all(torch.equal(a, b_) for a, b_ in zip((second[0], *second[1]), (first[0], *first[1])))
+    say(f"[9 slstm repeat] second launch {'bit for bit' if twice else 'differs'}; graph replays "
+        f"{', '.join('bit for bit' if x else 'differ' for x in same)}")
+    need(twice and all(same), "kernel H is not deterministic across launches and graph replays")
+
+
+def phase_x_prefill(torch, corpus: Path, meta_path: Path, psk=None) -> dict:
     """[9 prefill] the full-size XLSTMLM's prefill with kernel H against the
-    plain scan on the card; returns the model, the prompt and the prefill
-    states."""
+    plain scan on the card (and, with the parent tree's slstm_kernel `psk`,
+    timed in turns with the parent's H); returns the model, the prompt and
+    the prefill states."""
     import numpy as np
 
     from musicgen_tpu_torch.config import XLSTMConfig
@@ -2286,7 +2471,22 @@ def phase_x_prefill(torch, corpus: Path, meta_path: Path) -> dict:
     logits_k, states = model.prefill(prompt, meta)
     torch.cuda.synchronize()
     launches = slstm_scan.launches
-    ms = cuda_ms(torch, lambda: model.prefill(prompt, meta), iters=3, warmup=1)
+    ms = median_ms(torch, lambda: model.prefill(prompt, meta))
+    dev_ms = graph_ms(torch, lambda: model.prefill(prompt, meta), calls=1, replays=3)
+    parent_txt = "the parent tree's H not measured (no --parent)"
+    if psk is not None:
+        turns: dict = {}
+        for who in ("parent", "this", "this", "parent"):
+            with slstm_scan_as(psk.slstm_scan if who == "parent" else slstm_scan):
+                turns.setdefault(who, []).append((median_ms(torch, lambda: model.prefill(prompt, meta)),
+                                                  graph_ms(torch, lambda: model.prefill(prompt, meta), calls=1,
+                                                           replays=3)))
+
+        def txt(who):
+            return " / ".join(f"{h_:.3f} ({fmt_ms(d_)})" for h_, d_ in turns[who])
+
+        parent_txt = (f"with the parent tree's H {txt('parent')} (this tree {txt('this')}; in turns parent, this, "
+                      f"this, parent; host-paced, the median of 5 calls, and in a CUDA graph)")
     with plain_slstm_scan():
         logits_p, _ = model.prefill(prompt, meta)
         plain_ms = cuda_ms(torch, lambda: model.prefill(prompt, meta), iters=2, warmup=1)
@@ -2294,7 +2494,8 @@ def phase_x_prefill(torch, corpus: Path, meta_path: Path) -> dict:
     need(bool(torch.isfinite(logits_k).all()), "xlstm prefill logits are not finite")
     say(f"[9 prefill] XLSTMLM {n_params} parameters, (B, T) = ({BATCH}, {PROMPT}+6): {launches} kernel H launches; "
         f"last logits vs the plain scan max_abs {err:.3e} rel {rel_e:.3e} (tol {TOL_X_PREFILL}); prefill with "
-        f"kernel H {ms:.3f} ms, with the plain scan {plain_ms:.3f} ms")
+        f"kernel H {ms:.3f} ms (median of 5; in a CUDA graph {fmt_ms(dev_ms)}), {parent_txt}, with the plain scan "
+        f"{plain_ms:.3f} ms")
     need(launches == len(model.cfg.slstm_at), f"prefill launched kernel H {launches} times")
     need(rel_e <= TOL_X_PREFILL, "prefill with kernel H disagrees with the plain scan")
     return {"model": model, "prompt": prompt, "meta": meta, "teacher": teacher, "states": states,
@@ -2747,8 +2948,9 @@ def phase_x_loop(torch, xctx: dict, packs: dict, report: dict, parent: Path | No
 
 
 def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict, parent: Path | None = None) -> None:
-    phase_x_slstm(torch, report)
-    xctx = phase_x_prefill(torch, corpus, meta_path)
+    psk = parent_module(parent, "slstm_kernel", "[9 slstm]") if parent is not None else None
+    phase_x_slstm(torch, report, psk)
+    xctx = phase_x_prefill(torch, corpus, meta_path, psk)
     packs = phase_x_decode(torch, xctx, report)
     phase_x_cli(torch, xctx, corpus, meta_path, root, report)
     phase_x_loop(torch, xctx, packs, report, parent)

@@ -51,7 +51,9 @@ SIGNATURES = {
     "mg_t_fc_relu": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "mg_t_res": [_P] * 5 + [_I, _I, _I, _I, _P],
     "mg_tdecode_attn": [_P, _I] + [_P] * 6 + [_I] * 6 + [_F, _I] + [_P] * 6,
-    "mg_slstm_scan": [_P] * 5 + [_I] * 4 + [_P],
+    # (wx, slabs, bias, h_out, state, B, T, H, DH, CS, rows, smem, stamps or null, stamped steps, stream)
+    "mg_slstm_scan": [_P] * 5 + [_I] * 7 + [_P, _I, _P],
+    "mg_slstm_scan_clusters": [_I] * 7 + [_P],
     "mg_x_gemv": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "mg_xm_prep": [_P] * 6 + [_I] * 2 + [_P],
     "mg_xm_gates": [_P] * 6 + [_I] * 3 + [_P],
