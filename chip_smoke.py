@@ -12,7 +12,12 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   3. kernel A (ssd_scan) against its plain version at the main-path shape.
   4. kernel B at full width: each decode kernel against its plain version on
      the same inputs, then 64 teacher-forced decode steps of the kernel chain
-     against the plain chain from one shared prefill state; [4 gemv ragged]
+     against the plain chain from one shared prefill state; [4 sample_tail
+     <case>] the tail on the cases of TAIL_CASES (one and eight rows, a
+     ragged vocabulary, ties, few allowed ids, the window cap), [4
+     sample_tail repeat] its bits over 10 launches and CUDA-graph replays,
+     [4 sample_tail time] (with --parent DIR the parent tree's tail in
+     turns); [4 gemv ragged]
      the bf16 GEMV against _product at two shapes no main path takes (a
      ragged last tile and a K tail; 8 rows at K = 4096).
   5. the main path through the CLI: a seeded random full-size MambaLM saved
@@ -32,7 +37,7 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      bitwise-equal final states); [6 loop] C's ms a token (tok/s/seq) and
      its share of the HBM roofline beside its yardstick, kernel B's chain
      step in a CUDA graph, and (with --parent DIR) the parent tree's C timed
-     in turns; [6 cli] the CLI with --fused-decode resident, resident-int8w,
+     in 10 pairs of turns, each tree's median and mean; [6 cli] the CLI with --fused-decode resident, resident-int8w,
      int8 and int8w (grammar, MIDI, launch counters).
   7. the Transformer at the reference size (8 blocks, d_model 1024, 8 heads
      of 128, block 2048; seeded random weights), kernels D and F:
@@ -139,8 +144,14 @@ kernel_ablate.run), each counted from zero, as the full run does.
 kernels line holds C's three forms from those CLI runs, each counted from
 zero. `--parent DIR` (with any of the above, or none) names another
 checkout of the port, such as an unpacked `git archive` of the parent
-commit: [6 loop], [9 slstm], [9 prefill] and [9 loop] build its kernels
-into DIR/build and time its C, its H and its G beside this tree's.
+commit: [4 sample_tail time], [6 loop], [9 slstm], [9 prefill] and [9 loop]
+build its kernels into DIR/build and time its tail, its C, its H and its G
+beside this tree's.
+`--only tail` runs phases 1 and 2 and every row that holds the sampler tail
+(kernel B's sample_tail and C's spread tail): phase 4 with its [4 sample_tail
+...] rows, [5 cli], [6 resident], [6 chain], [6 loop], [7 tdecode] with its
+steps and [9 xdecode] with [9 xstep]; its kernels line holds sample_tail
+with the launches of [5 cli] (the full run's adds F's and G's CLI runs).
 `--only flash` runs
 phases 1 and 2 and every row that launches kernel D or E: [7 flash],
 [7 prefill], [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd] with its repeat
@@ -184,6 +195,10 @@ RESIDENT_CHECK_TOKENS = 64
 # over the first TOP3_STRICT_TOKENS; the final states are held to
 # max(TOL_STEPS, 2x the drift of the plain chain from a 1e-6-perturbed start).
 TOP3_STRICT_TOKENS = 16
+# [6 loop] with --parent DIR: rounds of (parent, this, this, parent), kernel C
+# a token as the median and the mean of each tree's runs (2 x LOOP_TURNS
+# each: 10 parent/this pairs).
+LOOP_TURNS = 5
 PLAIN_LOOP_TOKENS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at 700 W)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
@@ -808,6 +823,153 @@ def phase_gemv_ragged(torch) -> None:
         need(rel <= TOL_BF16, f"the bf16 GEMV at ({r}, {k}, {n}) disagrees with _product")
 
 
+# [4 sample_tail ...]: the cases the tail is held to beside the main shape,
+# as (inputs, rows, V, Vp): one and eight rows, a vocabulary the slices
+# cover raggedly (V = Vp = 1,000: slices of 16 ids, slice 62 of 8 and slice
+# 63 empty), tied logits, a grammar row that allows fewer than three ids
+# (the rest of the top-3 are zero weights, lowest index first; with V < Vp,
+# pad ids never beat a real id of equal weight), and window counts past the
+# 1.2 cap.
+TAIL_CASES = {
+    "R=1": ("random", 1, 17914, 17920),
+    "R=8": ("random", 8, 17914, 17920),
+    "V=1000": ("random", 3, 1000, 1000),
+    "V=1001 ties": ("ties", 2, 1001, 1001),
+    "ties": ("ties", 2, 17914, 17920),
+    "few allowed": ("few_allowed", 2, 17914, 17920),
+    "few allowed V<Vp": ("few_allowed", 2, 1000, 1024),
+    "window cap": ("window_cap", 2, 17914, 17920),
+}
+TAIL_REPEATS = 10
+
+
+def tail_inputs(torch, kind: str, rows: int, v: int, vp: int, seed: int = SEED):
+    """(logits (R, Vp), gram (5, Vp), hist (R, V) int32, bucket (R,)) on the
+    card for one TAIL_CASES case, seeded numpy as tests/test_torch_tail_plan.py
+    makes them; the pad logits are random (the tail must ignore them)."""
+    import numpy as np
+
+    from musicgen_tpu_torch.ops.grammar import grammar_mask
+
+    rng = np.random.default_rng(seed)
+    logits = (3.0 * rng.standard_normal((rows, vp))).astype(np.float32)
+    if v == 17914:
+        gram = np.zeros((5, vp), np.float32)
+        gram[:, :v] = grammar_mask().numpy()
+    else:
+        gram = ((rng.random((5, vp)) < 0.6) * rng.integers(1, 4, (5, vp))).astype(np.float32)
+        gram[:, v:] = 0.0
+    hist = np.zeros((rows, v), np.int32)
+    for r in range(rows):
+        hit = rng.integers(0, v, v // 10)
+        hist[r, hit] = rng.integers(1, 30, len(hit))
+    bucket = rng.integers(0, 5, rows)
+    if kind == "ties":
+        logits = (0.5 * rng.integers(0, 4, (rows, vp))).astype(np.float32)
+        hist[:] = 0
+    elif kind == "few_allowed":
+        gram[0] = 0.0
+        gram[0, [v // 2, v - 1]] = 1.0
+        gram[1] = 0.0
+        gram[1, v // 3] = 2.0
+        bucket = np.arange(rows) % 2
+    elif kind == "window_cap":
+        hist[:] = rng.integers(0, 60, (rows, v))
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in (logits, gram, hist, bucket.astype(np.int64)))
+
+
+def tail_dims(dims, v: int, vp: int):
+    """The decode dims of a TAIL_CASES vocabulary (field boundaries at a
+    third and two thirds of a small one)."""
+    import dataclasses
+
+    if (v, vp) == (dims.vocab_size, dims.padded_vocab):
+        return dims
+    return dataclasses.replace(dims, vocab_size=v, padded_vocab=vp, dyn_start=v // 3, length_start=2 * v // 3)
+
+
+def tail_check(torch, dk, tag: str, args, dims) -> tuple:
+    """One launch of the tail against its plain version (indices equal,
+    values within TOL_F32 of the row's largest) and against the plain
+    partition sample_tail_sliced (printed). Returns the kernel's outputs."""
+    v_k, i_k = dk.sample_tail(*args, dims)
+    v_p, i_p = dk.sample_tail_plain(*args, dims)
+    v_s, _ = dk.sample_tail_sliced(*args, dims)
+    torch.cuda.synchronize()
+    err, rel = rel_err(v_k, v_p)
+    same = bool(torch.equal(i_k, i_p))
+    say(f"[4 sample_tail {tag}] indices {'equal' if same else 'DIFFER'} to the plain version; "
+        f"values max_abs {err:.3e} rel {rel:.3e} (tol rel {TOL_F32}); vs the plain partition max_abs "
+        f"{rel_err(v_k, v_s)[0]:.3e}")
+    need(same, f"sample_tail {tag}: top-3 indices {i_k.tolist()} vs the plain {i_p.tolist()}")
+    need(rel <= TOL_F32 and bool(torch.isfinite(v_k).all()), f"sample_tail {tag} disagrees with its plain version")
+    return v_k, i_k
+
+
+def phase_tail(torch, ctx: dict, parent: Path | None = None) -> None:
+    """[4 sample_tail ...] kernel B's tail beyond the main shape of [4
+    sample_tail]: fresh inputs at the main shape and each of TAIL_CASES
+    against its plain version (kernel C's tail, the same per-slice functions
+    spread over its SMs, is held to this one bit for bit by [6 chain]); [4
+    sample_tail repeat] the same bits over TAIL_REPEATS launches and over
+    CUDA-graph replays; [4 sample_tail time] ms host-paced and in a CUDA
+    graph, and with --parent DIR the parent tree's tail in turns, on the same
+    inputs."""
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+
+    dims = ctx["dims"]
+    main = tail_inputs(torch, "random", BATCH, dims.vocab_size, dims.padded_vocab)
+    cases = {f"main R={BATCH}": (main, dims), **{tag: (tail_inputs(torch, kind, rows, v, vp), tail_dims(dims, v, vp))
+                                                for tag, (kind, rows, v, vp) in TAIL_CASES.items()}}
+    for tag, (args, d) in cases.items():
+        tail_check(torch, dk, tag, args, d)
+
+    ref = dk.sample_tail(*main, dims)
+    same = all(all(torch.equal(a, b) for a, b in zip(dk.sample_tail(*main, dims), ref)) for _ in range(TAIL_REPEATS))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dk.sample_tail(*main, dims)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.sample_tail(*main, dims)
+    replays = []
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(all(torch.equal(a, b) for a, b in zip(out, ref)))
+    say(f"[4 sample_tail repeat] {TAIL_REPEATS} launches {'bit for bit' if same else 'DIFFER'}; CUDA-graph replays "
+        f"{'bit for bit' if all(replays) else 'DIFFER'} ({replays})")
+    need(same and all(replays), "sample_tail: repeat launches or graph replays differ")
+
+    pdk = parent_module(parent, "decode_kernel", "[4 sample_tail time]") if parent is not None else None
+    calls = {"this tree": lambda: dk.sample_tail(*main, dims)}
+    order = ["this tree"]
+    if pdk is not None:
+        calls["parent"] = lambda: pdk.sample_tail(*main, dims)
+        order = ["parent", *order]
+    turns = {}
+    for key in order + order[::-1]:  # parent, this, this, parent
+        turns.setdefault(key, []).append((cuda_ms(torch, calls[key]), graph_ms(torch, calls[key])))
+    say(f"[4 sample_tail time] (R, Vp) = ({BATCH}, {dims.padded_vocab}), ms host-paced (CUDA graph) in turns: "
+        + "; ".join(f"{k} " + " / ".join(f"{a:.4f} ({fmt_ms(b)})" for a, b in v) for k, v in turns.items())
+        + ("" if pdk is not None else "; the parent tree's tail not measured (no --parent)"))
+
+
+# The tail's launches on the main paths, by family (B: the Mamba CLI runs of
+# phases 5 and 6; F: the Transformer's of phase 7; G: the xLSTM's of phase
+# 9), each CLI run counted from zero.
+TAIL_LAUNCHES: dict = {}
+
+
+def count_tail(report: dict, family: str, n: int) -> None:
+    TAIL_LAUNCHES[family] = TAIL_LAUNCHES.get(family, 0) + n
+    report.setdefault("sample_tail", {})["launches"] = sum(TAIL_LAUNCHES.values())
+
+
 def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
     import numpy as np
 
@@ -857,7 +1019,9 @@ def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: d
         f"in {cli_s:.1f} s; grammatical; .mid files re-extract; launches {launches}")
     need(launches == want, f"launches in the CLI run {launches}, expected {want}")
     for name, n in want.items():
-        report.setdefault(name, {})["launches"] = n
+        if name != "sample_tail":
+            report.setdefault(name, {})["launches"] = n
+    count_tail(report, "B", want["sample_tail"])
 
     # The generation loop alone, kernels vs plain step, from one prefill.
     ds_items = [np.load(p) for p in sorted((corpus / "Bach").glob("*.npy"))[:BATCH]]
@@ -1088,8 +1252,11 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None 
     LENGTH stochastic tokens) and its share of the HBM roofline, beside its
     yardstick, kernel B's chain step (32 launches, no pick) in a CUDA graph,
     and, with `--parent DIR`, the parent tree's C on the same inputs, timed
-    in turns (parent, this, this, parent). Then tok/s/seq of the host-paced
-    per-token kernel chain (sample_tokens_fused_tail) from one prefill."""
+    in LOOP_TURNS rounds of (parent, this, this, parent), each tree's median
+    and mean reported; this tree's ms is the median of its runs and its
+    device time and idle share come from the same runs. Then tok/s/seq of
+    the host-paced per-token kernel chain (sample_tokens_fused_tail) from one
+    prefill."""
     from musicgen_tpu_torch.ops import decode_kernel as dk
     from musicgen_tpu_torch.ops import generate_kernel as gk
     from musicgen_tpu_torch.ops.grammar import field_bucket
@@ -1098,6 +1265,7 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None 
     dims = ctx["dims"]
     vals0, idxs0, last0, pen0 = resident_start(torch, ctx)
     pgk = parent_module(parent, "generate_kernel", "[6 loop]") if parent is not None else None
+    pdk = parent_module(parent, "decode_kernel", "[6 loop]") if parent is not None else None
     cfg = sampler.SamplerConfig(num_tokens=LENGTH, ring_size=max(PROMPT, 2048))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1119,15 +1287,30 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None 
             return time.perf_counter() - t0, start.elapsed_time(end) / 1e3
 
         if pgk is None:
-            res_s, dev_s = one(gk)
-            this_s, parent_s = [res_s], []
-        else:
-            p1, (res_s, dev_s), (r2, _), p2 = one(pgk), one(gk), one(gk), one(pgk)
-            this_s, parent_s = [res_s, r2], [p1[0], p2[0]]
-        ms = 1e3 * statistics.mean(this_s) / LENGTH
+            this_runs, parent_s = [one(gk)], []
+        else:  # LOOP_TURNS rounds of parent, this, this, parent
+            this_runs, parent_s = [], []
+            for _ in range(LOOP_TURNS):
+                p1, t1, t2, p2 = one(pgk), one(gk), one(gk), one(pgk)
+                this_runs += [t1, t2]
+                parent_s += [p1[0], p2[0]]
+        this_s = [r[0] for r in this_runs]
+        ms = 1e3 * statistics.median(this_s) / LENGTH
+        dev_s = statistics.median(r[1] for r in this_runs)
+        idle = max(0.0, 1 - sum(r[1] for r in this_runs) / sum(this_s))
         carry_g = clone(ctx["carry"])
-        step_graph = graph_ms(torch, lambda: dk.fused_sample_step(dp, last0, carry_g, pen0.hist, bucket, dims,
-                                                                  quant=q), calls=4)
+
+        def step_ms(mod):
+            return graph_ms(torch, lambda: mod.fused_sample_step(dp, last0, carry_g, pen0.hist, bucket, dims, quant=q),
+                            calls=4)
+
+        if pdk is None:
+            step_graph, step_txt = step_ms(dk), ""
+        else:  # parent, this, this, parent
+            p1, t1, t2, p2 = step_ms(pdk), step_ms(dk), step_ms(dk), step_ms(pdk)
+            step_graph = t1
+            step_txt = (f" (in turns with the parent tree's: this {fmt_ms(t1)} / {fmt_ms(t2)}, parent "
+                        f"{fmt_ms(p1)} / {fmt_ms(p2)})")
         carry = clone(ctx["carry"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1136,15 +1319,19 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None 
         chain_s = time.perf_counter() - t0
         share = weight_bytes / HBM_BYTES_PER_S / (ms / 1e3)
         name = f"generate_resident_{'bf16' if q == 'none' else q}"
+        per_tok = lambda xs: 1e3 * statistics.fmean(xs) / LENGTH  # noqa: E731
         parent_txt = ("the parent tree's C not measured (no --parent)" if pgk is None else
-                      f"the parent tree's C {' / '.join(f'{1e3 * x / LENGTH:.4f}' for x in parent_s)} ms/token "
-                      f"(this tree {' / '.join(f'{1e3 * x / LENGTH:.4f}' for x in this_s)}; in turns parent, this, "
-                      f"this, parent)")
+                      f"the parent tree's C median {1e3 * statistics.median(parent_s) / LENGTH:.4f} ms/token, "
+                      f"mean {per_tok(parent_s):.4f} ({' / '.join(f'{1e3 * x / LENGTH:.4f}' for x in parent_s)}); "
+                      f"this tree's median {ms:.4f}, mean {per_tok(this_s):.4f} "
+                      f"({' / '.join(f'{1e3 * x / LENGTH:.4f}' for x in this_s)}); in {LOOP_TURNS} rounds of "
+                      f"parent, this, this, parent")
         say(f"[6 loop {quant}] kernel C: {ms:.4f} ms/token = {1e3 / ms:.1f} tok/s/seq at batch {BATCH} "
-            f"(device {dev_s:.3f} s between events for {LENGTH} tokens, idle share {max(0.0, 1 - dev_s / res_s):.4f}); "
+            f"(device {dev_s:.3f} s between events for {LENGTH} tokens, median of this tree's {len(this_runs)} runs; "
+            f"idle share {idle:.4f} over them); "
             f"weights {weight_bytes} B/token = {weight_bytes / ms / 1e6:.1f} GB/s, {100 * share:.2f}% of the 3.35 TB/s "
             f"roofline (bound {1e3 * weight_bytes / HBM_BYTES_PER_S:.4f} ms); yardstick: kernel B's chain step "
-            f"(32 launches, no pick) in a CUDA graph {fmt_ms(step_graph)}; {parent_txt}; per-token kernel chain "
+            f"(32 launches, no pick) in a CUDA graph {fmt_ms(step_graph)}{step_txt}; {parent_txt}; per-token kernel chain "
             f"host-paced {LENGTH / chain_s:.1f} tok/s/seq ({1e3 * chain_s / LENGTH:.4f} ms/token)")
         # Per token: the pack's weights stream once (166 MB in bf16 cannot
         # stay in the 50 MB L2 between tokens); the states are not counted.
@@ -1216,6 +1403,7 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
         for name, n in want.items():
             if name.startswith(("generate_resident", "in_proj_conv_", "out_proj_rms_", "lm_head_ln_")):
                 totals[name] = totals.get(name, 0) + n
+        count_tail(report, "B", want.get("sample_tail", 0))
     if bf16_only:
         for name, n in totals.items():
             report[name]["launches"] = n
@@ -1724,6 +1912,7 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
         for name, cnt in {**want, "flash_relpos": flash}.items():
             if name in report and not name.startswith(("lm_head_ln", "sample_tail")):
                 totals[name] = totals.get(name, 0) + cnt
+        count_tail(report, "F", want["sample_tail"])
     for name, cnt in totals.items():
         report[name]["launches"] = cnt
 
@@ -2850,6 +3039,7 @@ def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, re
         for name, cnt in {**want, "slstm_scan": h_launches}.items():
             if name in report and not name.startswith(("lm_head_ln", "sample_tail")):
                 totals[name] = totals.get(name, 0) + cnt
+        count_tail(report, "G", want.get("sample_tail", 0))
     for name, cnt in totals.items():
         report[name]["launches"] = cnt
 
@@ -3222,14 +3412,45 @@ def phase_flash_paths(torch, report: dict) -> None:
         phase_train_cli(torch, corpus, meta_path, root, report, ("transformer",))
 
 
+def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
+    """--only tail: every row that holds the sampler tail (kernel B's
+    sample_tail and kernel C's spread tail), with the checks and timings of the
+    full run: phase 4 with [4 sample_tail ...] (with --parent DIR the parent
+    tree's tail in turns), [5 cli] (the tail's launches on the Mamba CLI
+    path, counted from zero), [6 resident], [6 chain] (C bit for bit with
+    B's chain and its tail), [6 loop] (with --parent DIR the parent tree's C
+    in turns), [7 tdecode] with its steps (kernel F's chain with the tail)
+    and [9 xdecode] with [9 xstep] (kernel G's step with the tail, bit for bit
+    with the chain) in every format."""
+    model = mamba_model(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        ctx = decode_context(torch, model, corpus, meta_path)
+        phase_decode(torch, model, ctx, report)
+        phase_tail(torch, ctx, parent)
+        phase_cli(torch, model, corpus, meta_path, root, report)
+        packs = phase_resident(torch, model, ctx, report)
+        phase_loop(torch, ctx, packs, report, parent)
+        del model, ctx, packs
+        torch.cuda.empty_cache()
+        tctx = phase_t_prefill(torch, corpus, meta_path)
+        phase_t_decode(torch, tctx, report)
+        del tctx
+        torch.cuda.empty_cache()
+        xctx = phase_x_prefill(torch, corpus, meta_path)
+        phase_x_decode(torch, xctx, report)
+
+
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident] [--parent DIR]; None where absent or wrong."""
+    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident|tail] [--parent DIR]; None where absent or
+    wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
         opts[rest[0]] = rest[1]
         rest = rest[2:]
     only = opts.get("--only")
-    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident"):
+    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident", "tail"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -3253,7 +3474,8 @@ def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident] [--parent DIR]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident|tail] [--parent DIR]",
+              file=sys.stderr)
         return 2
     only, parent = args
     import torch
@@ -3295,6 +3517,9 @@ def main() -> int:
     if only == "resident":
         phase_resident_paths(torch, report, parent)
         return finish(torch, card, report, RESIDENT_KERNELS, t_start)
+    if only == "tail":
+        phase_tail_paths(torch, report, parent)
+        return finish(torch, card, report, ["sample_tail"], t_start)
     phase_ssd(torch, report)
 
     model = mamba_model(torch)
@@ -3303,6 +3528,7 @@ def main() -> int:
         corpus, meta_path = synth_corpus(root)
         ctx = decode_context(torch, model, corpus, meta_path)
         phase_decode(torch, model, ctx, report)
+        phase_tail(torch, ctx, parent)
         phase_gemv_ragged(torch)
         phase_int8(torch, model, ctx, report)
         phase_cli(torch, model, corpus, meta_path, root, report)
@@ -3341,6 +3567,10 @@ def finish(torch, card: str, report: dict, names: list, t_start: float) -> int:
         need(r["launches"] > 0, f"{name} was not launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         **{k: r[k] for k in keys}})
+    if "sample_tail" in names:
+        say(f"[tail launches] sample_tail on the main paths: {sum(TAIL_LAUNCHES.values())} = "
+            + " + ".join(f"{n} ({fam})" for fam, n in TAIL_LAUNCHES.items())
+            + " (B: the Mamba CLI runs, F: the Transformer's, G: the xLSTM's)")
     say(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@
 //                the resident kernel runs on weights it has copied into
 //                shared memory (gemv_load_chunk_smem);
 //   mixer_item   one (batch row, head) of the SSM state update (256 threads);
-//   tail_row     the grammar/penalty/top-3 tail of one row (a block of 1024
-//                threads, or of 512, each standing for two).
+//   tail_slice_* one warp's slice of the grammar/penalty/top-3 tail of a
+//                row (kernel B spreads a row's 64 slices over a thread-block
+//                cluster, the resident kernel over its teams).
 // A per-token kernel is a grid of such items; the resident kernel walks the
 // same items over its persistent blocks, each stage waiting for the ones it
 // reads. A column's
@@ -86,8 +87,6 @@ constexpr int WARPS = 8;            // warps of a GEMV or mixer team
 constexpr int TEAM = WARPS * 32;    // 256 threads
 constexpr int QGROUP = 256;         // int8 K-group
 constexpr int GMAX = 16;            // int8 K-groups a row may have (K <= 4096)
-constexpr int TAIL_NT = 1024;       // threads of a tail row
-constexpr int TAIL_NW = TAIL_NT / 32;
 constexpr int MIX_P = 64;           // headdim the mixer is written for
 constexpr int MIX_N = 64;           // d_state
 constexpr float kLn101 = 0.00995033085316808f;   // ln 1.01
@@ -719,190 +718,218 @@ static __device__ void mixer_item(const float* zx, int nz, int di, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// Sampler tail of one row (a block of TAIL_NT threads). Over the real ids
-// i < V:  lse = logsumexp(x);  w = (lse - x) * grammar[bucket];
-//         w /= min(exp(hist * ln base), 1.2)  (base 1.01 pitch, 1.02 dyn);
-// top-3 of w by three argmax passes, ties to the lowest index; pad ids get 0.
-// w lives in shared memory (Vp floats) between the passes. The row's logits
-// are first copied into w, and the grammar and window counts read, many
-// loads a thread in flight at a time (tail_u4, tail_u): the logits were just written (by
-// other blocks, in the resident kernel) and come from L2, one round trip a
-// batch instead of one a pass and element. Each thread still adds its
-// elements in index order, so the sums are those of one load at a time.
+// Sampler tail of one row. Over the real ids i < V:
+//   lse = logsumexp(x);  w = (lse - x) * grammar[bucket];
+//   w /= min(exp(hist * ln base), 1.2)  (base 1.01 pitch, 1.02 dyn);
+// then the top-3 of w under (value descending, index ascending); pad ids in
+// [V, Vp) get weight 0.
+//
+// Every bit of the result is fixed by one partition of the row, whichever
+// blocks and warps compute it:
+//   slices  TAIL_S = 64 slices of n = ceil(Vp / 64) ids (tail_slice_ids),
+//           the last ones ragged or empty, each one warp's: lane l of slice
+//           s holds the ids s n + l + 32 k, k = 0, 1, ... (at most
+//           TAIL_EMAX = 9, so Vp <= 64 x 32 x 9 = 18,432: tail_shape_ok);
+//   slice   m_s = the largest real logit of the slice; s_s = each lane's
+//           exp(x - m_s) added in k order, the lanes added by the xor
+//           butterfly (16, 8, 4, 2, 1) of warp_sum;
+//   row     m = max_s m_s; total = the s_s * exp(m_s - m) added in slice
+//           order (tail_lse); lse = log(total) + m;
+//   top-3   each lane's sorted list of its ids' weights, merged with any
+//           other list in any order: a selection under a total order is
+//           exact, so it does not matter which warp holds which slice.
+// Nothing is added by an atomic. A slice's warp runs tail_slice_load,
+// tail_slice_pair, then (with the row's lse) tail_slice_top3; only the
+// exchange of the 64 pairs and the 64 lists differs between the two
+// kernels that run it: kernel B's sample_tail (decode_tail.cu) spreads a
+// row's slices over a thread-block cluster and exchanges them through
+// distributed shared memory; the resident kernel (C, generate_resident.cu)
+// spreads them over its teams and exchanges them through global memory
+// behind counters. So the two compute the same bits (-fmad=false and no
+// reassociation). ops/decode_kernel.sample_tail_sliced writes the same
+// partition in PyTorch.
 // ---------------------------------------------------------------------------
 
-// The block reductions of the tail, for NTR real threads (NTR divides
-// TAIL_NT): the maximum and the arg-maximum do not depend on the order; the
-// sum adds TAIL_NT virtual threads' values (virtual thread threadIdx.x + j
-// NTR's in v[j]) in the order a TAIL_NT-thread block adds them, so 512
-// threads (the resident kernel) and 1024 (kernel B's sample_tail) compute
-// the same bits.
-template <int NTR>
-static __device__ float block_max(float v, float* red) {
-  constexpr int NW = NTR / 32;
-  v = warp_max(v);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  v = threadIdx.x < NW ? red[threadIdx.x] : -INFINITY;
-  if (threadIdx.x < 32) v = warp_max(v);
-  if (threadIdx.x == 0) red[0] = v;
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
+constexpr int TAIL_S = 64;                     // slices of a row, one warp each
+constexpr int TAIL_LANES = 32;                 // lanes of a slice
+constexpr int TAIL_EMAX = 9;                   // ids a lane holds at most
+
+__host__ __device__ inline int tail_slice_ids(int Vp) { return (Vp + TAIL_S - 1) / TAIL_S; }
+
+// Whether the slices cover a row of Vp ids, V of them real.
+__host__ __device__ inline bool tail_shape_ok(int Vp, int V) {
+  return V >= 3 && V <= Vp && tail_slice_ids(Vp) <= TAIL_LANES * TAIL_EMAX;
 }
 
-template <int NTR>
-static __device__ float block_sum(const float (&v)[TAIL_NT / NTR], float* red) {
-#pragma unroll
-  for (int j = 0; j < TAIL_NT / NTR; ++j) {
-    const float w = warp_sum(v[j]);
-    if (threadIdx.x % 32 == 0) red[(threadIdx.x + j * NTR) / 32] = w;
-  }
-  __syncthreads();
-  float s = threadIdx.x < TAIL_NW ? red[threadIdx.x] : 0.f;
-  if (threadIdx.x < 32) s = warp_sum(s);
-  if (threadIdx.x == 0) red[0] = s;
-  __syncthreads();
-  s = red[0];
-  __syncthreads();
-  return s;
-}
+// A sorted list of the best three (weight, id) pairs seen.
+struct Top3 {
+  float v[3];
+  int i[3];
+};
 
 // (v, i) beats (bv, bi) when larger, or equal with a lower index.
-__device__ __forceinline__ void arg_better(float& bv, int& bi, float v, int i) {
-  if (v > bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
-  }
-}
+__device__ __forceinline__ bool tail_better(float v, int i, float bv, int bi) { return v > bv || (v == bv && i < bi); }
 
-template <int NTR>
-static __device__ void block_argmax(const float* w, int n, float* red_v, int* red_i, float& out_v,
-                             int& out_i) {
-  constexpr int NW = NTR / 32;
-  float bv = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int i = threadIdx.x; i < n; i += NTR) arg_better(bv, bi, w[i], i);
+__device__ __forceinline__ void top3_init(Top3& t) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    arg_better(bv, bi, ov, oi);
-  }
-  if (threadIdx.x % 32 == 0) {
-    red_v[threadIdx.x / 32] = bv;
-    red_i[threadIdx.x / 32] = bi;
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    bv = threadIdx.x < NW ? red_v[threadIdx.x] : -INFINITY;
-    bi = threadIdx.x < NW ? red_i[threadIdx.x] : 0x7fffffff;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      arg_better(bv, bi, ov, oi);
-    }
-    if (threadIdx.x == 0) {
-      red_v[0] = bv;
-      red_i[0] = bi;
-    }
-  }
-  __syncthreads();
-  out_v = red_v[0];
-  out_i = red_i[0];
-  __syncthreads();
-}
-
-// Loads a thread keeps in flight in the tail's passes over global memory:
-// the copy of the logits (float4 when aligned: one batch at Vp = 17,920) and
-// the grammar and window counts (two or three batches).
-template <int NTR>
-__host__ __device__ constexpr int tail_u4() { return 5 * (TAIL_NT / NTR); }
-template <int NTR>
-__host__ __device__ constexpr int tail_u() { return NTR == TAIL_NT ? 8 : 18; }
-
-// x: the row's Vp logits; grow: its grammar row; hrow: its V window counts.
-// Thread 0 writes vals[0..2] and idx[0..2]. NTR threads (a divisor of
-// TAIL_NT); red_v and red_i hold TAIL_NW entries.
-template <int NTR = TAIL_NT>
-static __device__ void tail_row(const float* x, int Vp, int V, const float* grow, const int* hrow,
-                         int dyn_start, int length_start, float* vals, int64_t* idx, float* w,
-                         float* red_v, int* red_i) {
-  static_assert(TAIL_NT % NTR == 0 && NTR >= TAIL_NW, "a tail block has a divisor of TAIL_NT threads");
-  constexpr int U4 = tail_u4<NTR>(), U = tail_u<NTR>();
-  if (Vp % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* w4 = reinterpret_cast<float4*>(w);
-    for (int base = threadIdx.x; base < Vp / 4; base += U4 * NTR) {
-      float4 v[U4];
-#pragma unroll
-      for (int u = 0; u < U4; ++u) v[u] = base + u * NTR < Vp / 4 ? x4[base + u * NTR] : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int u = 0; u < U4; ++u)
-        if (base + u * NTR < Vp / 4) w4[base + u * NTR] = v[u];
-    }
-  } else {
-    for (int base = threadIdx.x; base < Vp; base += U * NTR) {
-      float v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) v[u] = base + u * NTR < Vp ? x[base + u * NTR] : 0.f;
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (base + u * NTR < Vp) w[base + u * NTR] = v[u];
-    }
-  }
-  __syncthreads();
-  float m = -INFINITY;
-  for (int i = threadIdx.x; i < V; i += NTR) m = fmaxf(m, w[i]);
-  m = block_max<NTR>(m, red_v);
-  float s[TAIL_NT / NTR];
-#pragma unroll
-  for (int j = 0; j < TAIL_NT / NTR; ++j) {
-    float a = 0.f;
-    for (int i = threadIdx.x + j * NTR; i < V; i += TAIL_NT) a += expf(w[i] - m);
-    s[j] = a;
-  }
-  const float lse = logf(block_sum<NTR>(s, red_v)) + m;
-
-  // Each thread rewrites only its own ids, so x[i] is read from w[i] before
-  // w[i] is written.
-  for (int base = threadIdx.x; base < Vp; base += U * NTR) {
-    float mk[U];
-    int hc[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = base + u * NTR;
-      mk[u] = i < V ? __ldg(grow + i) : 0.f;
-      hc[u] = i < V ? hrow[i] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = base + u * NTR;
-      if (i >= Vp) break;
-      float wv = 0.f;
-      if (i < V && mk[u] > 0.f) {
-        const float lb = i < dyn_start ? kLn101 : (i < length_start ? kLn102 : 0.f);
-        const float pen = fminf(expf((float)hc[u] * lb), 1.2f);
-        wv = (lse - w[i]) * mk[u] / pen;
-      }
-      w[i] = wv;
-    }
-  }
-  __syncthreads();
-
   for (int k = 0; k < 3; ++k) {
-    float bv;
-    int bi;
-    block_argmax<NTR>(w, Vp, red_v, red_i, bv, bi);
-    if (threadIdx.x == 0) {
-      vals[k] = bv;
-      idx[k] = bi;
-      w[bi] = -1e30f;
-    }
-    __syncthreads();
+    t.v[k] = -INFINITY;
+    t.i[k] = 0x7fffffff;
   }
+}
+
+// (v, i) into the list, ids arriving in increasing order (a lane's scan):
+// an equal weight then never beats an entry, so the test is v > entry.
+__device__ __forceinline__ void top3_push(Top3& t, float v, int i) {
+  if (!(v > t.v[2])) return;
+  if (!(v > t.v[1])) {
+    t.v[2] = v;
+    t.i[2] = i;
+    return;
+  }
+  t.v[2] = t.v[1];
+  t.i[2] = t.i[1];
+  if (!(v > t.v[0])) {
+    t.v[1] = v;
+    t.i[1] = i;
+    return;
+  }
+  t.v[1] = t.v[0];
+  t.i[1] = t.i[0];
+  t.v[0] = v;
+  t.i[0] = i;
+}
+
+// The best three of the sorted lists a and (bv, bi), their ids disjoint,
+// into a: three steps of a merge, each taking the better of the two heads.
+__device__ __forceinline__ void top3_merge(Top3& a, const float (&bv)[3], const int (&bi)[3]) {
+  const bool t0 = tail_better(a.v[0], a.i[0], bv[0], bi[0]);
+  const float x1 = t0 ? a.v[1] : a.v[0], y1 = t0 ? bv[0] : bv[1];
+  const int xi1 = t0 ? a.i[1] : a.i[0], yi1 = t0 ? bi[0] : bi[1];
+  const bool t1 = tail_better(x1, xi1, y1, yi1);
+  // The heads after two picks: a2, b0 (a a); a1, b1 (a b or b a); a0, b2 (b b).
+  const bool aa = t0 && t1, bb = !t0 && !t1;
+  const float x2 = aa ? a.v[2] : (bb ? a.v[0] : a.v[1]), y2 = aa ? bv[0] : (bb ? bv[2] : bv[1]);
+  const int xi2 = aa ? a.i[2] : (bb ? a.i[0] : a.i[1]), yi2 = aa ? bi[0] : (bb ? bi[2] : bi[1]);
+  const bool t2 = tail_better(x2, xi2, y2, yi2);
+  const float c0 = t0 ? a.v[0] : bv[0];
+  const int ci0 = t0 ? a.i[0] : bi[0];
+  a.v[2] = t2 ? x2 : y2;
+  a.i[2] = t2 ? xi2 : yi2;
+  a.v[1] = t1 ? x1 : y1;
+  a.i[1] = t1 ? xi1 : yi1;
+  a.v[0] = c0;
+  a.i[0] = ci0;
+}
+
+// The lists of a warp's lanes (their ids disjoint) merged, in every lane
+// (a rolled loop: the resident kernel fetches the tail's code anew each
+// token).
+__device__ __forceinline__ void top3_warp(Top3& t) {
+#pragma unroll 1
+  for (int o = 16; o > 0; o >>= 1) {
+    float v[3];
+    int i[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      v[k] = __shfl_xor_sync(0xffffffffu, t.v[k], o);
+      i[k] = __shfl_xor_sync(0xffffffffu, t.i[k], o);
+    }
+    top3_merge(t, v, i);
+  }
+}
+
+// The row's top-3 from its 64 slices' lists, in every lane of a warp: lane
+// l merges lists l and l + 32, then the warp merges the lanes'.
+__device__ __forceinline__ void top3_rows(Top3& t, const Top3& lo, const Top3& hi) {
+  t = lo;
+  top3_merge(t, hi.v, hi.i);
+  top3_warp(t);
+}
+
+// The row's lse from the slices' (m_s, s_s), lane l of a warp holding the
+// pairs of slices l (m0, s0) and l + 32 (m1, s1): m = max_s m_s; each lane
+// forms its two terms s_s exp(m_s - m), and every lane adds the 64 terms in
+// slice order, so all 32 return the same bits. A slice without a real id
+// has (-inf, 0) and adds 0. Called by whole warps.
+__device__ __forceinline__ float tail_lse(float m0, float s0, float m1, float s1) {
+  const float m = warp_max(fmaxf(m0, m1));
+  const float t0 = s0 * expf(m0 - m), t1 = s1 * expf(m1 - m);
+  float total = 0.f;
+#pragma unroll
+  for (int s = 0; s < 32; ++s) total += __shfl_sync(0xffffffffu, t0, s);
+#pragma unroll
+  for (int s = 0; s < 32; ++s) total += __shfl_sync(0xffffffffu, t1, s);
+  return logf(total) + m;
+}
+
+// A lane's part of its warp's slice: the logits, grammar values and window
+// counts of ids base + 32 k (real below vend, in the row below end).
+struct TailSlice {
+  float xv[TAIL_EMAX], gv[TAIL_EMAX];
+  int hv[TAIL_EMAX];
+  int base, end, vend;
+};
+
+// Lane `lane` of slice s loads its ids, all in flight at once: x the row's
+// Vp logits, g its grammar row, h its V window counts. x and h may have
+// been written by other SMs (plain loads after the caller's acquire); the
+// grammar is read-only.
+__device__ __forceinline__ void tail_slice_load(TailSlice& t, const float* x, const float* g, const int* h, int Vp,
+                                                int V, int s, int lane) {
+  const int n = tail_slice_ids(Vp);
+  t.base = s * n + lane;
+  t.end = min((s + 1) * n, Vp);
+  t.vend = min(t.end, V);
+#pragma unroll
+  for (int k = 0; k < TAIL_EMAX; ++k) {
+    const int i = t.base + k * TAIL_LANES;
+    t.xv[k] = i < t.vend ? x[i] : 0.f;
+    t.hv[k] = i < t.vend ? h[i] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < TAIL_EMAX; ++k) {
+    const int i = t.base + k * TAIL_LANES;
+    t.gv[k] = i < t.vend ? __ldg(g + i) : 0.f;
+  }
+}
+
+// The slice's (m_s, s_s), in every lane of the warp.
+__device__ __forceinline__ void tail_slice_pair(const TailSlice& t, float& ms, float& ss) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < TAIL_EMAX; ++k)
+    if (t.base + k * TAIL_LANES < t.vend) m = fmaxf(m, t.xv[k]);
+  ms = warp_max(m);
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < TAIL_EMAX; ++k)
+    if (t.base + k * TAIL_LANES < t.vend) a += expf(t.xv[k] - ms);
+  ss = warp_sum(a);
+}
+
+// The weight of id i (x its logit, g its grammar value, h its window count).
+// Where the count is 0 or the id has no penalty base, the divisor is
+// exp(0) = 1 and the division exact, so neither is computed.
+__device__ __forceinline__ float tail_weight(int i, int V, float x, float g, int h, float lse, int dyn_start,
+                                             int length_start) {
+  if (i >= V || !(g > 0.f)) return 0.f;
+  const float wv = (lse - x) * g;
+  if (h == 0 || i >= length_start) return wv;
+  return wv / fminf(expf((float)h * (i < dyn_start ? kLn101 : kLn102)), 1.2f);
+}
+
+// The slice's weights, each lane's top-3 in one pass (its ids rise), merged
+// over the warp: the slice's list, in every lane.
+__device__ __forceinline__ void tail_slice_top3(const TailSlice& t, int V, float lse, int dyn_start, int length_start,
+                                                Top3& top) {
+  top3_init(top);
+#pragma unroll
+  for (int k = 0; k < TAIL_EMAX; ++k) {
+    const int i = t.base + k * TAIL_LANES;
+    if (i < t.end) top3_push(top, tail_weight(i, V, t.xv[k], t.gv[k], t.hv[k], lse, dyn_start, length_start), i);
+  }
+  top3_warp(top);
 }
 
 }  // namespace mg

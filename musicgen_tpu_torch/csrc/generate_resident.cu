@@ -17,8 +17,9 @@
 // Every work item runs the device functions of decode_ops.cuh that the
 // per-token kernel chain (kernel B) runs: a GEMV tile's arithmetic
 // (gemv_prologue, gemv_mma_chunk, gemv_write_sums, gemv_finish_tile),
-// mixer_item and tail_row. Only where a tile's weights come from, which SM
-// computes an item and how stages wait on each other differ, so C and the
+// mixer_item and the tail's tail_slice_*. Only where a tile's weights come
+// from, which SM computes an item and how stages wait on each other differ,
+// so C and the
 // chain compute the same bits and, with the same uniforms, emit the same
 // tokens.
 //
@@ -74,32 +75,43 @@
 //     token through a 50 MB L2 evicts every constant and state between two
 //     uses): when a team reaches a stage, one thread prefetches
 //     (cp.async.bulk.prefetch.L2) what its next stage reads besides weights.
-//  5. The tail and pick of row b stay on block b: tail_row on 512 threads
-//     with the sum order of 1024 (shared with kernel B's sample_tail, whose
-//     copies and loads it now batches); the pick and the penalty push on
-//     thread 0, as before.
+//  5. The tail spread over the SMs: each of a row's 64 one-warp slices
+//     (decode_ops.cuh, the functions of kernel B's cluster tail, so the two
+//     give the same bits) runs on a warp of its own SM, first team first
+//     (tail_slice_item): it waits for the head, loads its 280 logits,
+//     grammar values and counts, publishes its (m_s, s_s), polls the row's
+//     64 pairs, forms its weights and top-3 and publishes the list; slice
+//     0's warp polls the row's 64 lists, merges them and picks. The pairs
+//     and lists are 64-bit words that carry the token's tag, so a handoff is
+//     a store and a poll, with no fence, counter or second load. The pick
+//     loads what it reads besides the candidates while the lists arrive
+//     (pick_ahead) and moves the window's counts by integer reds, so after
+//     the merge only the embedding row is loaded before the signal. On one
+//     block a row the tail was issue-bound (a full-precision exp a real id)
+//     and its logits took Vp f32 of every block's shared memory; spread, a
+//     slice is some hundreds of instructions a lane, and the ring has that
+//     memory.
 //
 // Shared memory a block (the wrapper's plan computes the same budget):
-//   region   max(Vp f32 of the tail's w, 2 teams x gemv_smem_bytes of the
-//            larger K): 71,680 B at batch 2 (82,944 at batch 8);
+//   region   2 teams x gemv_smem_bytes of the larger K: 20,736 B in bf16
+//            at batch 2 (20,608 in W8A16, 12,544 in W8A8);
 //   ring     2 teams x slots x 16 rows x (kch x esz + 64): kch = 1024,
-//            33,792 B a slot in bf16 and 17,408 in int8; 2 slots a team in
-//            bf16 (135,168 B) and 4 in int8 (139,264 B);
-//   static   the teams' GemvSmem, plans and copy cursors, the tail's
-//            reductions, the mbarriers: about 4 KB;
-// at most 227 KB (232,448 B) an SM. The tail's w and the teams' GEMV
-// regions are never live at once: the tail starts after the head's
-// epilogues and the next prologue after the pick.
+//            33,792 B a slot in bf16 and 17,408 in int8; 3 slots a team in
+//            bf16 (202,752 B), 5 in W8A16 (174,080 B), 6 in W8A8 (208,896 B);
+//   static   the teams' GemvSmem, plans and copy cursors, the mbarriers;
+// at most 227 KB (232,448 B) an SM (ops/generate_kernel.resident_plan
+// computes the slots).
 //
-// On an H100 80GB HBM3 at 700 W this design takes 0.196 ms a token in bf16
-// and 0.225-0.228 in int8 (the first port's: 0.319 / 0.376-0.380 in the same
-// run).
+// On an H100 80GB HBM3 at 700 W this design took 0.196 ms a token in bf16
+// and 0.225-0.228 in int8 with the tail on one block a row (the first
+// port's: 0.319 / 0.376-0.380 in the same run), and takes 0.185-0.187 in
+// bf16 and 0.216-0.220 in int8 with the tail spread.
 // What still holds it back (PERF.md, section 6): each layer's three stages take
 // about 14 us where their bytes need 3.9 us: a wait for the producers'
 // signals, activations from L2, a few products and an epilogue, each some
 // hundreds of nanoseconds to microseconds under the weight stream's load;
-// the head streams 36.7 MB through two slots a team; the tail is one block a
-// row.
+// the head streams 36.7 MB through the teams' slots; the tail is two
+// exchanges through L2 behind counters.
 //
 // The states (conv and SSM, 1 MB and 10.5 MB at batch 2), the window counts,
 // the ring of the window, the activations and the logits stay in device
@@ -114,7 +126,7 @@ using namespace mg;
 
 namespace {
 
-constexpr int NT = 512;                    // threads of a block: 2 teams, or one tail row
+constexpr int NT = 512;                    // threads of a block: 2 teams
 constexpr int TEAMS = NT / TEAM;
 constexpr int kIssuer = TEAM - 32;         // first thread of the warp that issues a team's copies
 constexpr int MAX_SLOTS = 8;               // ring slots a GEMV team may have
@@ -165,13 +177,14 @@ struct ResidentArgs {
   int64_t* tokens;             // (B, N) output
   // schedule
   const int* plan;             // per team: kKinds x (start, count), then the item lists
-  int* counters;               // (3L + 2) x kCounterStride, zero at launch
+  int* counters;               // (3L + 2) x kCounterStride, then the tail's exchange (B x 64 x 5
+                               // u64), all zero at launch
   int L, B, d_model, d_inner, nheads, headdim, d_state, conv_dim, d_in_proj, Vp, V;
   int dyn_start, length_start, time_start, tempo_start, ring, window_ticks, n_tokens, greedy;
   int kch, slots, n_blocks;
   // set by the launch
   int team_bytes;              // dynamic shared memory of one GEMV team's sums and staged rows
-  int region_bytes;            // the tail's w, or the GEMV teams' regions
+  int region_bytes;            // the GEMV teams' regions
   int slot_row;                // bytes of a weight row in a slot
 };
 constexpr int kNumPtrs = 34;
@@ -465,62 +478,224 @@ __device__ void ring_gemv(const ResidentArgs& ra, const GemvArgs& a, GemvSmem& s
   }
 }
 
-// Pick token t of row b, emit it, push it into the window and gather its
-// embedding row into x[b]. Block-wide (all NT threads of the block).
-__device__ void pick_push_embed(const ResidentArgs& a, int b, int t, int* s_tok) {
-  if (threadIdx.x == 0) {
-    const int64_t prev = a.last[b];
-    const float* cv = a.cand_v + b * 3;
-    const int64_t* ci = a.cand_i + b * 3;
-    int64_t tok;
+// What pick t of row b reads besides its candidates, loaded ahead (no load
+// depends on the token): its two uniforms, the window's meta (start, head,
+// tick sum) in every lane, and in lane l < kAhead the ring entry start + l
+// if it is older than head. The pick then issues no load but the embedding
+// row's.
+constexpr int kAhead = 8;
+
+struct PickAhead {
+  float u_k, u_p;
+  int start, head, wsum;
+  int e_tok, e_c;  // lane l's ring entry start + l
+};
+
+__device__ __forceinline__ PickAhead pick_ahead(const ResidentArgs& a, int b, int t, int lane) {
+  const int* m = a.meta + b * 3;
+  PickAhead w;
+  w.u_k = a.greedy ? 0.f : __ldg(a.uniforms + ((size_t)t * a.B + b) * 2);
+  w.u_p = a.greedy ? 0.f : __ldg(a.uniforms + ((size_t)t * a.B + b) * 2 + 1);
+  w.start = m[0];
+  w.head = m[1];
+  w.wsum = m[2];
+  w.e_tok = 0;
+  w.e_c = 0;
+  const int e = w.start + lane;
+  if (lane < kAhead && e < w.head) {
+    w.e_tok = a.ring_tok[(size_t)b * a.ring + e % a.ring];
+    w.e_c = a.ring_c[(size_t)b * a.ring + e % a.ring];
+  }
+  return w;
+}
+
+// Pick token t of row b from its candidates `cand` (prev: the token it
+// consumed last; w: pick_ahead's loads), emit it, push it into the window
+// (sample/sampler.push_token), gather its embedding row into x[b] and
+// signal the tail's counter. One warp: lane 0 picks; the window's
+// evictions are a prefix of the entries ahead (each removes a count from
+// the tick sum, so the test wsum - ticks before it >= window_ticks can only
+// turn false), found by a scan over the lanes, lane 0 going on one entry at
+// a time past kAhead; the counts move by integer reds (exact in any order);
+// every lane gathers a part of the row (float4, d_model % 64 == 0 by
+// resident_shape_ok).
+__device__ void pick_push_embed(const ResidentArgs& a, int b, int t, int64_t prev, const Top3& cand,
+                                const PickAhead& w, int* c_tail) {
+  const int lane = threadIdx.x % 32;
+  int tok = 0;
+  if (lane == 0) {
     if (a.greedy) {
-      tok = ci[0];
+      tok = cand.i[0];
     } else {
       // sample/sampler._sample_k tables as P(k=1), P(k=2) per field bucket.
       const int bucket = bucket_of(a, prev);
-      const float u_k = __ldg(a.uniforms + ((size_t)t * a.B + b) * 2);
-      const float u_p = __ldg(a.uniforms + ((size_t)t * a.B + b) * 2 + 1);
+      const float u_k = w.u_k, u_p = w.u_p;
       const float p1 = bucket == 4 ? 0.6f : (bucket <= 1 ? 0.5f : 1.0f);
       const float p2 = bucket == 0 ? 0.5f : (bucket == 4 ? 0.4f : 0.0f);
       const int k = 1 + (u_k >= p1) + (u_k >= p1 + p2);
-      const float v0 = cv[0];
-      const float v1 = k >= 2 ? cv[1] : 0.f;
-      const float v2 = k >= 3 ? cv[2] : 0.f;
+      const float v0 = cand.v[0];
+      const float v1 = k >= 2 ? cand.v[1] : 0.f;
+      const float v2 = k >= 3 ? cand.v[2] : 0.f;
       const float r = u_p * (v0 + v1 + v2);
       const int choice = (r >= v0) + (r >= v0 + v1);
-      tok = ci[choice];
+      tok = cand.i[choice];
     }
     a.last[b] = tok;
     a.tokens[(size_t)b * a.n_tokens + t] = tok;
+  }
+  tok = __shfl_sync(0xffffffffu, tok, 0);
+  constexpr int U = 8;
+  const float4* erow = reinterpret_cast<const float4*>(a.embed + (size_t)tok * a.d_model);
+  float4* xrow = reinterpret_cast<float4*>(a.x + (size_t)b * a.d_model);
+  for (int base = lane; base < a.d_model / 4; base += U * 32) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      v[u] = base + u * 32 < a.d_model / 4 ? __ldg(erow + base + u * 32) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * 32 < a.d_model / 4) xrow[base + u * 32] = v[u];
+  }
 
-    // Penalty push (sample/sampler.push_token).
-    int* hist = a.hist + (size_t)b * a.V;
-    int* rt = a.ring_tok + (size_t)b * a.ring;
-    int* rc = a.ring_c + (size_t)b * a.ring;
-    int* m = a.meta + b * 3;
-    const int c_new = (tok >= a.time_start && tok < a.tempo_start) ? (int)(tok - a.time_start) : 0;
-    const int head = m[1];
-    rt[head % a.ring] = (int)tok;
-    rc[head % a.ring] = c_new;
-    hist[tok] += 1;
-    int start = m[0], wsum = m[2] + c_new;
+  // The push: the token into the ring at head, its count up, then the
+  // evictions while the tick sum is >= window_ticks and start <= head.
+  int* hist = a.hist + (size_t)b * a.V;
+  int* rt = a.ring_tok + (size_t)b * a.ring;
+  int* rc = a.ring_c + (size_t)b * a.ring;
+  const int c_new = (tok >= a.time_start && tok < a.tempo_start) ? tok - a.time_start : 0;
+  const int wsum = w.wsum + c_new;
+  const int e = w.start + lane;
+  const int e_tok = e == w.head ? tok : w.e_tok, e_c = e == w.head ? c_new : w.e_c;
+  int incl = lane < kAhead ? e_c : 0;  // ticks of the entries ahead up to this lane's
+#pragma unroll
+  for (int o = 1; o < kAhead; o <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  const bool evict = lane < kAhead && e <= w.head && wsum - (incl - e_c) >= a.window_ticks;
+  if (evict) red_add(hist + e_tok, -1);
+  const int n = __popc(__ballot_sync(0xffffffffu, evict));
+  const int ticks = __shfl_sync(0xffffffffu, incl, n > 0 ? n - 1 : 0);
+  if (lane == 0) {
+    rt[w.head % a.ring] = tok;
+    rc[w.head % a.ring] = c_new;
+    red_add(hist + tok, 1);
+    int start = w.start + n, ws = wsum - (n > 0 ? ticks : 0);
     // The window never starts past its newest token; the bound only guards
     // against an inconsistent window handed in by the caller.
-    while (wsum >= a.window_ticks && start <= head) {
+    while (n == kAhead && ws >= a.window_ticks && start <= w.head) {
       const int s = start % a.ring;
-      hist[rt[s]] -= 1;
-      wsum -= rc[s];
+      red_add(hist + rt[s], -1);
+      ws -= rc[s];
       start += 1;
     }
+    int* m = a.meta + b * 3;
     m[0] = start;
-    m[1] = head + 1;
-    m[2] = wsum;
-    *s_tok = (int)tok;
+    m[1] = w.head + 1;
+    m[2] = ws;
   }
-  __syncthreads();
-  const float* erow = a.embed + (size_t)(*s_tok) * a.d_model;
-  for (int k = threadIdx.x; k < a.d_model; k += NT) a.x[(size_t)b * a.d_model + k] = __ldg(erow + k);
-  __syncthreads();
+  __syncwarp();
+  if (lane == 0) red_release_add(c_tail, 1);
+}
+
+// Where the tail of token t exchanges its slices, per row b: the 64
+// slices' (m_s, s_s) and lists in 64-bit words that carry a tag of the
+// token, written and polled with no fence and no counter (a reader that
+// sees a word's tag sees its value). The next token's slices overwrite them
+// only after its head, which follows every pick of this token.
+struct TailExchange {
+  uint64_t* pairs;  // (B, TAIL_S, 2): (tag t + 1, the f32 bits of m_s), (tag, s_s)
+  uint64_t* lists;  // (B, TAIL_S, 3): each (value bits, id, tag): see tail_entry
+};
+
+// A list entry: the value's 32 bits, the id in 15 bits (an empty entry's
+// 0x7fffffff as kNoId, above every id of a row the slices cover), the
+// token's tag in 17 bits.
+constexpr uint32_t kNoId = 0x7fff;
+constexpr uint32_t kTagMask = 0x1ffff;
+static_assert(TAIL_S * TAIL_LANES * TAIL_EMAX < (int)kNoId, "a list entry holds every id in 15 bits");
+
+__device__ __forceinline__ uint64_t tail_entry(float v, int i, uint32_t tag) {
+  const uint32_t id = i == 0x7fffffff ? kNoId : (uint32_t)i;
+  return ((uint64_t)(tag & kTagMask) << 47) | ((uint64_t)id << 32) | __float_as_uint(v);
+}
+
+// Polls the three entries of each of two slices' lists until all six carry
+// `tag`, in every lane of the warp; unpacks them.
+__device__ __forceinline__ void tail_poll_lists(const uint64_t* lo_p, const uint64_t* hi_p, uint32_t tag, Top3& lo,
+                                                Top3& hi) {
+  uint64_t w[6];
+  bool ok;
+  do {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w[k] = ld_relaxed_u64(lo_p + k);
+      w[3 + k] = ld_relaxed_u64(hi_p + k);
+    }
+    ok = true;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) ok = ok && (uint32_t)(w[k] >> 47) == (tag & kTagMask);
+  } while (!__all_sync(0xffffffffu, ok));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const uint32_t il = (uint32_t)(w[k] >> 32) & kNoId, ih = (uint32_t)(w[3 + k] >> 32) & kNoId;
+    lo.v[k] = __uint_as_float((uint32_t)w[k]);
+    lo.i[k] = il == kNoId ? 0x7fffffff : (int)il;
+    hi.v[k] = __uint_as_float((uint32_t)w[3 + k]);
+    hi.i[k] = ih == kNoId ? 0x7fffffff : (int)ih;
+  }
+}
+
+// Slice s of row b of token t's tail, on one warp (any SM): wait for the
+// head's logits, load the slice, publish its (m_s, s_s), poll the row's 64
+// pairs, form lse, the weights and the slice's top-3 and publish the list.
+// Slice 0's warp then loads the row's window ahead, polls the row's 64
+// lists, merges them (decode_ops.cuh, the functions and bits of kernel B's
+// cluster tail) and picks token t + 1 of the row.
+__device__ void tail_slice_item(const ResidentArgs& a, const TailExchange& ex, int b, int s, int t,
+                                const int* c_head, int head_target, int* c_tail) {
+  const int lane = threadIdx.x % 32;
+  const uint32_t tag = (uint32_t)t + 1;
+  uint64_t* pairs = ex.pairs + (size_t)b * TAIL_S * 2;
+  uint64_t* lists = ex.lists + (size_t)b * TAIL_S * 3;
+  if (lane == 0) spin_until(c_head, head_target);
+  __syncwarp();
+  const int64_t prev = a.last[b];
+  TailSlice sl;
+  tail_slice_load(sl, a.logits + (size_t)b * a.Vp, a.gram + (size_t)bucket_of(a, prev) * a.Vp,
+                  a.hist + (size_t)b * a.V, a.Vp, a.V, s, lane);
+  float ms, ss;
+  tail_slice_pair(sl, ms, ss);
+  if (lane == 0) {
+    st_relaxed_u64(pairs + 2 * s, ((uint64_t)tag << 32) | __float_as_uint(ms));
+    st_relaxed_u64(pairs + 2 * s + 1, ((uint64_t)tag << 32) | __float_as_uint(ss));
+  }
+  uint64_t pw[4];
+  bool ok;
+  do {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      pw[k] = ld_relaxed_u64(pairs + 2 * lane + k);
+      pw[2 + k] = ld_relaxed_u64(pairs + 2 * (lane + 32) + k);
+    }
+    ok = true;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ok = ok && (uint32_t)(pw[k] >> 32) == tag;
+  } while (!__all_sync(0xffffffffu, ok));
+  const float lse = tail_lse(__uint_as_float((uint32_t)pw[0]), __uint_as_float((uint32_t)pw[1]),
+                             __uint_as_float((uint32_t)pw[2]), __uint_as_float((uint32_t)pw[3]));
+  Top3 top;
+  tail_slice_top3(sl, a.V, lse, a.dyn_start, a.length_start, top);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) st_relaxed_u64(lists + 3 * s + k, tail_entry(top.v[k], top.i[k], tag));
+  }
+  if (s != 0) return;
+  const PickAhead w = pick_ahead(a, b, t + 1, lane);
+  Top3 lo, hi;
+  tail_poll_lists(lists + 3 * lane, lists + 3 * (lane + 32), tag, lo, hi);
+  top3_rows(top, lo, hi);
+  pick_push_embed(a, b, t + 1, prev, top, w, c_tail);
 }
 
 // The end of a GEMV stage: the team's signal, then the refill of its last
@@ -545,14 +720,10 @@ __device__ void ring_signal(const ResidentArgs& a, int* ctr, int n, int tid, int
 
 template <int FMT>
 __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
-  // Dynamic shared memory: [region: the tail's Vp weights, or each GEMV
-  // team's sums and staged activations][ring: each GEMV team's slots].
+  // Dynamic shared memory: [region: each GEMV team's sums and staged
+  // activations][ring: each GEMV team's slots].
   extern __shared__ __align__(128) unsigned char dyn_smem[];
-  float* tail_w = reinterpret_cast<float*>(dyn_smem);
   __shared__ GemvSmem gsm[TEAMS];
-  __shared__ float red_v[TAIL_NW];
-  __shared__ int red_i[TAIL_NW];
-  __shared__ int s_tok;
   __shared__ __align__(8) uint64_t full_bars[TEAMS][MAX_SLOTS];
   __shared__ Cursor cursors[TEAMS];
   __shared__ TeamPlan plans[TEAMS];
@@ -565,6 +736,13 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
   int* c_out = a.counters + (size_t)2 * L * kCounterStride;
   int* c_head = a.counters + (size_t)3 * L * kCounterStride;
   int* c_tail = a.counters + (size_t)(3 * L + 1) * kCounterStride;
+  TailExchange ex;
+  ex.pairs = reinterpret_cast<uint64_t*>(a.counters + (size_t)(3 * L + 2) * kCounterStride);
+  ex.lists = ex.pairs + (size_t)a.B * TAIL_S * 2;
+  // This warp's slice of each token's tail, if any: slice q is warp q / (TEAMS
+  // n_blocks) of team (q / n_blocks) % TEAMS of block q % n_blocks, so the
+  // slices go to as many SMs as there are, first team first.
+  const int tail_q = (tid / 32) * TEAMS * a.n_blocks + team_in * a.n_blocks + blockIdx.x;
   const int n_in = gemv_tiles(dip), n_out = gemv_tiles(a.d_model), n_head = gemv_tiles(a.Vp), n_mix = a.B * nh;
 
   GemvSmem& sm = gsm[team_in];
@@ -587,9 +765,14 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
   }
   __syncthreads();
   if (tid >= kIssuer) ring_issue<FMT>(a, cu, tp, ring, full, a.slots, tid - kIssuer);
-  if (blockIdx.x < a.B) {
-    pick_push_embed(a, blockIdx.x, 0, &s_tok);
-    if (threadIdx.x == 0) red_release_add(c_tail, 1);
+  if (blockIdx.x < a.B && threadIdx.x < 32) {
+    Top3 cand;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      cand.v[k] = a.cand_v[blockIdx.x * 3 + k];
+      cand.i[k] = (int)a.cand_i[blockIdx.x * 3 + k];
+    }
+    pick_push_embed(a, blockIdx.x, 0, a.last[blockIdx.x], cand, pick_ahead(a, blockIdx.x, 0, threadIdx.x), c_tail);
   }
 
   for (int t = 0; t < a.n_tokens; ++t) {
@@ -669,17 +852,8 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
       ring_signal<FMT>(a, c_head, plan_count(tp, kHead), tid, bar, cu, tp, ring, full, chunks_of(a, a.d_model));
     }
 
-    if (t + 1 < a.n_tokens && blockIdx.x < a.B) {
-      const int b = blockIdx.x;
-      if (threadIdx.x == 0) spin_until(c_head, n_head * (t + 1));
-      __syncthreads();
-      const int64_t prev = a.last[b];
-      tail_row<NT>(a.logits + (size_t)b * a.Vp, a.Vp, a.V, a.gram + (size_t)bucket_of(a, prev) * a.Vp,
-                   a.hist + (size_t)b * a.V, a.dyn_start, a.length_start, a.cand_v + b * 3, a.cand_i + b * 3,
-                   tail_w, red_v, red_i);
-      pick_push_embed(a, b, t + 1, &s_tok);
-      if (threadIdx.x == 0) red_release_add(c_tail, 1);
-    }
+    if (t + 1 < a.n_tokens && tail_q < a.B * TAIL_S)
+      tail_slice_item(a, ex, tail_q / TAIL_S, tail_q % TAIL_S, t, c_head, n_head * (t + 1), c_tail);
   }
 }
 
@@ -688,7 +862,8 @@ bool resident_shape_ok(const ResidentArgs& a, int fmt) {
   if (a.headdim != MIX_P || a.d_state != MIX_N || a.nheads * MIX_P != a.d_inner) return false;
   if (a.conv_dim != a.d_inner + 2 * a.d_state || a.d_in_proj != 2 * a.d_inner + 2 * a.d_state + a.nheads)
     return false;
-  if (a.V < 3 || a.V > a.Vp) return false;
+  // The tail: slices that cover the row, a warp for each of the B x 64.
+  if (!tail_shape_ok(a.Vp, a.V) || a.n_blocks * (NT / 32) < a.B * TAIL_S) return false;
   // The ring copies whole 64-k steps: no K tail.
   if (a.d_model % KSTEP != 0 || a.d_inner % KSTEP != 0) return false;
   return gemv_shape_ok(a.B, a.d_model, a.d_in_proj, fmt) && gemv_shape_ok(a.B, a.d_inner, a.d_model, fmt) &&
@@ -766,8 +941,7 @@ int launch_resident(const void* const* p, int n_ptrs, const int* v, int n_ints, 
   const size_t esz = FMT == kBf16 ? 2 : 1;
   const size_t team_bytes = std::max(gemv_smem_bytes(a.B, a.d_model, QGROUP, FMT),
                                      gemv_smem_bytes(a.B, a.d_inner, QGROUP, FMT));
-  const size_t region = (std::max((size_t)a.Vp * sizeof(float), TEAMS * team_bytes) + ROW_ALIGN - 1) /
-                        ROW_ALIGN * ROW_ALIGN;
+  const size_t region = (TEAMS * team_bytes + ROW_ALIGN - 1) / ROW_ALIGN * ROW_ALIGN;
   a.team_bytes = (int)team_bytes;
   a.region_bytes = (int)region;
   a.slot_row = (int)(a.kch * esz + SLOT_PAD);

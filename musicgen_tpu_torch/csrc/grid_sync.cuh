@@ -22,6 +22,22 @@ __device__ __forceinline__ void red_release_add(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// A 64-bit word written and read whole at GPU scope, with no fence: a value
+// that carries its own tag (the resident kernel's tail exchange), so a
+// reader that sees the tag sees the value.
+__device__ __forceinline__ void st_relaxed_u64(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+// An integer add that returns nothing (exact, so its order does not matter).
+__device__ __forceinline__ void red_add(int* p, int v) {
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint64_t ld_relaxed_u64(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ uint64_t globaltimer_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));

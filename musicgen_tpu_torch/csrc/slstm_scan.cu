@@ -66,23 +66,6 @@ constexpr int kMaxRows = 8;    // BR, the rows of a cluster's group
 constexpr int kSmemLimit = 232448;  // 227 KB, the most shared memory a block can take
 constexpr uint32_t kSuspendNs = 1000000;  // an mbarrier wait's suspend-time hint
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// The address of `p` (this block's shared memory) in rank `rank`'s.
-__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
-  return a;
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
 }

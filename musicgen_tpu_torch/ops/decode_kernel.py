@@ -12,7 +12,8 @@ step is a sequence of launches on one stream:
     mixer_state    SSM state update + readout + gate        (decode_mixer.cu)
     out_proj_rms   gated RMSNorm + GEMV                     (decode_gemv.cu)
   lm_head_ln       LayerNorm + GEMV + bias                  (decode_gemv.cu)
-  sample_tail      grammar, penalty, exact top-3            (decode_tail.cu)
+  sample_tail      grammar, penalty, exact top-3: a thread-block cluster
+                   a row                                    (decode_tail.cu)
 
 The whole-generation kernel (ops/generate_kernel.py) runs the same device
 code for every token of a generation in one launch.
@@ -57,6 +58,14 @@ INT8_MAX_K = 4096  # K an int8 GEMV stages in shared memory (GMAX * QGROUP)
 BF16_MAX_K = 8192  # K a bf16 GEMV stages in shared memory (BF16_MAX_K)
 # The pack a --fused-decode quant builds -> how its products run.
 QUANT_MODES = {"bf16": "none", "int8": "w8a8", "int8w": "w8a16"}
+# The sampler tail's partition of a row (csrc/decode_ops.cuh): TAIL_SLICES
+# slices of ceil(Vp / TAIL_SLICES) ids, one warp of TAIL_LANES lanes a
+# slice, at most TAIL_MAX_PER_LANE ids a lane; kernel B runs a row on a
+# cluster of TAIL_CLUSTER blocks (csrc/decode_tail.cu CS).
+TAIL_SLICES = 64
+TAIL_LANES = 32
+TAIL_MAX_PER_LANE = 9
+TAIL_CLUSTER = 16
 _FMT = {"none": 0, "w8a16": 1, "w8a8": 2}  # csrc/decode_ops.cuh weight formats
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -342,6 +351,98 @@ def sample_tail_plain(logits, gram, hist, bucket, dims: DecodeDims):
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class TailGeometry:
+    """Kernel B's tail launch: `cluster` blocks a row of `threads` threads
+    (TAIL_SLICES / cluster slices each), `blocks` in all; a slice of
+    `slice_ids` ids, at most `per_lane` of them a lane."""
+    cluster: int
+    slice_ids: int
+    per_lane: int
+    threads: int
+    blocks: int
+
+
+def tail_geometry(vp: int, v: int, rows: int) -> TailGeometry:
+    """The sampler tail's launch for `rows` rows of `vp` logits (`v` real),
+    or ValueError where the kernel refuses it (csrc/decode_tail.cu
+    mg_sample_tail, decode_ops.cuh tail_shape_ok): 1..MAX_ROWS rows, 3 <= v
+    <= vp, and a row the slices cover (vp <= TAIL_SLICES x TAIL_LANES x
+    TAIL_MAX_PER_LANE = 18,432)."""
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"the sampler tail takes 1..{MAX_ROWS} rows, got {rows}")
+    if not 3 <= v <= vp:
+        raise ValueError(f"the sampler tail needs 3 <= V <= Vp, got V = {v}, Vp = {vp}")
+    n = -(-vp // TAIL_SLICES)
+    per_lane = -(-n // TAIL_LANES)
+    if per_lane > TAIL_MAX_PER_LANE:
+        raise ValueError(f"the sampler tail's slices cover rows of at most "
+                         f"{TAIL_SLICES * TAIL_LANES * TAIL_MAX_PER_LANE} ids, got Vp = {vp}")
+    return TailGeometry(cluster=TAIL_CLUSTER, slice_ids=n, per_lane=per_lane,
+                        threads=TAIL_LANES * TAIL_SLICES // TAIL_CLUSTER, blocks=rows * TAIL_CLUSTER)
+
+
+def _top3(vals: torch.Tensor, ids: torch.Tensor):
+    """The best three along the last dim under (value descending, index
+    ascending): the order of every top-3 merge of the tail."""
+    order = ids.argsort(dim=-1, stable=True)
+    vals, ids = vals.gather(-1, order), ids.gather(-1, order)
+    order = vals.argsort(dim=-1, descending=True, stable=True)[..., :3]
+    return vals.gather(-1, order), ids.gather(-1, order)
+
+
+def sample_tail_sliced(logits, gram, hist, bucket, dims: DecodeDims):
+    """sample_tail_plain computed in the kernels' partition of a row
+    (csrc/decode_ops.cuh): each slice's maximum m_s and its sum of exp(x -
+    m_s), each lane adding its ids in order and the slice's 32 lanes added by
+    the xor butterfly; lse from the slices' pairs added in slice order; each
+    lane's top-3 of the weights, merged within its slice, then across the
+    row's slices. Same contract as sample_tail_plain."""
+    b, vp, v = logits.shape[0], logits.shape[1], dims.vocab_size
+    geo = tail_geometry(vp, v, 1)
+    n, e, dev = geo.slice_ids, geo.per_lane, logits.device
+    s_ = torch.arange(TAIL_SLICES, device=dev)[:, None, None]
+    k_ = torch.arange(e, device=dev)[None, :, None]
+    l_ = torch.arange(TAIL_LANES, device=dev)[None, None, :]
+    ids = s_ * n + k_ * TAIL_LANES + l_  # (slice, k, lane)
+    held = ids < torch.clamp((s_ + 1) * n, max=vp)  # ids of the slice within the row
+    real = held & (ids < v)
+    x = logits[:, ids.clamp(max=vp - 1)]  # (B, slice, k, lane)
+    m_s = torch.where(real, x, -torch.inf).amax(dim=(2, 3))  # (B, slice)
+    terms = torch.where(real, torch.exp(x - m_s[:, :, None, None]), 0.0)
+    a = torch.zeros(b, TAIL_SLICES, TAIL_LANES, dtype=torch.float32, device=dev)
+    for k in range(e):
+        a = a + terms[:, :, k]
+    for o in (16, 8, 4, 2, 1):
+        a = a + a[..., torch.arange(TAIL_LANES, device=dev) ^ o]
+    s_s = a[..., 0]
+    m = m_s.amax(dim=1)
+    total = torch.zeros(b, dtype=torch.float32, device=dev)
+    for s in range(TAIL_SLICES):
+        total = total + s_s[:, s] * torch.exp(m_s[:, s] - m)
+    lse = (torch.log(total) + m)[:, None]
+
+    row_ids = torch.arange(vp, device=dev)
+    mask = gram[bucket]
+    w = torch.where((row_ids < v) & (mask > 0.0), (lse - logits) * mask, 0.0)
+    log_base = torch.where(
+        row_ids < dims.dyn_start, _LN_101, torch.where(row_ids < dims.length_start, _LN_102, 0.0)
+    ).to(torch.float32)
+    counts = F.pad(hist.to(torch.float32), (0, vp - v))
+    w = w / torch.clamp(torch.exp(counts * log_base), max=1.2)
+
+    # Each lane's list (its ids in order), then a slice's, then the row's.
+    none = torch.iinfo(torch.int64).max
+    lane_w = torch.where(held, w[:, ids.clamp(max=vp - 1)], -torch.inf).transpose(2, 3)  # (B, slice, lane, k)
+    lane_i = torch.where(held, ids, none).transpose(1, 2).expand(b, -1, -1, -1)
+    if e < 3:
+        pad = (0, 3 - e)
+        lane_w, lane_i = F.pad(lane_w, pad, value=-torch.inf), F.pad(lane_i, pad, value=none)
+    lv, li = _top3(lane_w, lane_i)  # (B, slice, lane, 3)
+    sv, si = _top3(lv.flatten(2), li.flatten(2))  # (B, slice, 3)
+    return _top3(sv.flatten(1), si.flatten(1))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -499,8 +600,11 @@ def lm_head_ln(x, ln_w, ln_b, lm_w, lm_b, dims: DecodeDims, w_s=None, quant: str
 
 
 def sample_tail(logits, gram, hist, bucket, dims: DecodeDims):
+    """The sampler tail (sample_tail_plain's contract); on CUDA one
+    thread-block cluster of TAIL_CLUSTER blocks a row (tail_geometry)."""
     if not logits.is_cuda:
         return sample_tail_plain(logits, gram, hist, bucket, dims)
+    tail_geometry(dims.padded_vocab, dims.vocab_size, logits.shape[0])
     b, dev, vp, v = logits.shape[0], logits.device, dims.padded_vocab, dims.vocab_size
     logits = logits.contiguous()
     _need(logits, "logits", torch.float32, (b, vp), dev)

@@ -30,7 +30,9 @@ each mixer item, and the ring of shared-memory slots through which TMA bulk
 copies stream each team's weights ahead of the stages that read them
 (csrc/generate_resident.cu). `plan_stream` is the plain version of a team's
 weight stream, in the order the kernel consumes it. Stages wait on counters
-of the items they read, which the wrapper zeroes for every launch.
+of the items they read, which the wrapper zeroes for every launch. The
+tail's 64 slices a row run one warp each across the SMs and exchange their
+pairs and lists through the scratch after the counters (`counter_words`).
 
 Both advance the conv and SSM states IN PLACE (the TPU kernel returned new
 arrays); the penalty state passed in is not modified.
@@ -60,6 +62,7 @@ from .decode_kernel import (
     LAUNCHES,
     PLAIN_OPS,
     QUANT_GROUP,
+    TAIL_SLICES,
     DecodeDims,
     StepOps,
     _kernel_dims,
@@ -122,9 +125,17 @@ MAX_TEAM_ITEMS = 32  # items of all kinds a team may have: its plan is copied to
 KCH = 1024  # k of a ring chunk at most
 SLOT_PAD = 64  # bytes after each weight row of a slot (SLOT_PAD)
 SMEM_PER_BLOCK = 232_448  # shared memory a block may have on an H100 (227 KB)
-STATIC_SMEM = 8192  # the kernel's static shared memory (about 4 KB), rounded up
+STATIC_SMEM = 8192  # the kernel's static shared memory (3,712 B), rounded up
 KINDS = ("in", "mix", "out", "head")  # the plan's work kinds, in the kernel's enum order
 COUNTER_STRIDE = 32  # ints between two of the kernel's stage counters
+WARPS = 16  # warps of a block (NT / 32); the tail runs one of its slices on each
+
+
+def counter_words(dims: DecodeDims) -> int:
+    """int32 words of kernel C's counters buffer (ResidentArgs.counters):
+    3L + 2 stage counters, a 128-byte line each, then the tail's exchange:
+    (B, 64) slices' pairs of 2 and lists of 3 tagged 64-bit words."""
+    return (3 * dims.n_layers + 2) * COUNTER_STRIDE + dims.batch * TAIL_SLICES * 2 * (2 + 3)
 
 
 def gemv_smem_bytes(rows: int, k: int, quant: str) -> int:
@@ -179,15 +190,19 @@ def resident_plan(dims: DecodeDims, n_blocks: int, quant: str = "none") -> Resid
     out_proj tile j to team -1 - j (with the fewest in_proj tiles and no
     mixer item). The ring: a chunk is kch k of a tile's 16 rows (1024 at
     most, whole 64-k steps in bf16 and 256-k groups in int8); each team has
-    as many slots as fit beside the larger of the tail's Vp f32 and the two
-    teams' GEMV regions (MAX_SLOTS at most), and at least a tile's chunks."""
+    as many slots as fit beside the two teams' GEMV regions (MAX_SLOTS at
+    most), and at least a tile's chunks. The first picks need a block a
+    batch row, the tail a warp for each of the batch's 64 slices a row."""
     if n_blocks < dims.batch:
         raise ValueError(f"the resident grid needs a block per batch row: {n_blocks} < {dims.batch}")
+    if n_blocks * WARPS < dims.batch * TAIL_SLICES:
+        raise ValueError(f"the resident grid needs a warp per tail slice: {n_blocks} blocks of {WARPS} warps "
+                         f"< {dims.batch} x {TAIL_SLICES}")
     esz, unit = (2, INT8_KSTEP) if quant == "none" else (1, QUANT_GROUP)
     kch = min(KCH, -(-max(dims.d_model, dims.d_inner) // unit) * unit)
     slot_bytes = INT8_TILE * (kch * esz + SLOT_PAD)
     team_bytes = max(gemv_smem_bytes(dims.batch, dims.d_model, quant), gemv_smem_bytes(dims.batch, dims.d_inner, quant))
-    region = -(-max(4 * dims.padded_vocab, TEAMS * team_bytes) // 128) * 128
+    region = -(-TEAMS * team_bytes // 128) * 128
     slots = min(MAX_SLOTS, (SMEM_PER_BLOCK - STATIC_SMEM - region) // (TEAMS * slot_bytes))
     most = max(-(-dims.d_model // kch), -(-dims.d_inner // kch))
     if slots < most:
@@ -290,7 +305,7 @@ def fused_generate(dp: dict, init_vals, init_idxs, init_last, conv, ssm, pen_sta
     }
     tokens = torch.empty(b, n, dtype=i64, device=dev)
     plan = resident_plan(dims, torch.cuda.get_device_properties(dev).multi_processor_count, quant)
-    counters = torch.zeros((3 * L + 2) * COUNTER_STRIDE, dtype=torch.int32, device=dev)
+    counters = torch.zeros(counter_words(dims), dtype=torch.int32, device=dev)
     tensors = [dp.get(k) for k in _WEIGHT_KEYS] + [uniforms, conv, ssm] + list(state.values()) \
         + list(act.values()) + [tokens, _plan_tensor(plan, dev), counters]
     ptrs = [0 if t is None else t.data_ptr() for t in tensors]

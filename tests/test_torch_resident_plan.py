@@ -10,6 +10,8 @@ and at a small config of 2 layers, in every weight format:
   * each GEMV team's ring stream keeps the kernel's stage order;
   * each block's ring and regions fit its shared memory, with room for a
     whole tile's chunks;
+  * the grid has a block a batch row and a warp a tail slice, and the
+    counters buffer holds the tail's exchange;
   * the plan tensor decodes to the same lists.
 """
 import pytest
@@ -97,20 +99,23 @@ def test_ring_fits_shared_memory(cfg, batch, n_sm, quant):
     assert (plan.kch * esz + gk.SLOT_PAD) % 128 == 64  # a quarter-warp's two rows on distinct banks
     most = max(plan.chunks(dims.d_model), plan.chunks(dims.d_inner))
     assert most <= plan.slots <= gk.MAX_SLOTS
-    region = max(4 * dims.padded_vocab, gk.TEAMS * max(gk.gemv_smem_bytes(batch, dims.d_model, quant),
-                                                           gk.gemv_smem_bytes(batch, dims.d_inner, quant)))
+    region = gk.TEAMS * max(gk.gemv_smem_bytes(batch, dims.d_model, quant),
+                            gk.gemv_smem_bytes(batch, dims.d_inner, quant))
     assert plan.region_bytes >= region and plan.region_bytes % 128 == 0
     assert plan.smem == plan.region_bytes + gk.TEAMS * plan.slots * plan.slot_bytes
     assert plan.smem + gk.STATIC_SMEM <= gk.SMEM_PER_BLOCK
 
 
 def test_main_path_budget():
-    """The budget the kernel's header states: 2 slots of 33,792 B a team in
-    bf16 and 4 of 17,408 in int8, beside the tail's 71,680 B."""
+    """The budget the kernel's header states: 3 slots of 33,792 B a team in
+    bf16, 5 and 6 of 17,408 in W8A16 and W8A8, beside the GEMV regions (the
+    tail keeps no row in shared memory)."""
     dims = DecodeDims.create(FULL, 2)
     bf16, int8 = gk.resident_plan(dims, 132, "none"), gk.resident_plan(dims, 132, "w8a8")
-    assert (bf16.kch, bf16.slots, bf16.slot_bytes, bf16.region_bytes, bf16.smem) == (1024, 2, 33_792, 71_680, 206_848)
-    assert (int8.slots, int8.slot_bytes, int8.smem) == (4, 17_408, 210_944)
+    int8w = gk.resident_plan(dims, 132, "w8a16")
+    assert (bf16.kch, bf16.slots, bf16.slot_bytes, bf16.region_bytes, bf16.smem) == (1024, 3, 33_792, 20_736, 223_488)
+    assert (int8w.slots, int8w.slot_bytes, int8w.region_bytes, int8w.smem) == (5, 17_408, 20_608, 194_688)
+    assert (int8.slots, int8.slot_bytes, int8.region_bytes, int8.smem) == (6, 17_408, 12_544, 221_440)
     # out_proj's 64 tiles and the mixer's 64 items each on 64 blocks, one a
     # block, on other teams; out_proj on teams with one in_proj tile.
     for k in (1, 2):
@@ -132,6 +137,26 @@ def test_plan_tensor_decodes_to_the_lists():
 def test_plan_refuses_a_grid_without_a_block_per_row():
     with pytest.raises(ValueError, match="block per batch row"):
         gk.resident_plan(DecodeDims.create(SMALL, 4), 2, "none")
+
+
+def test_plan_refuses_a_grid_without_a_warp_per_tail_slice():
+    """The tail runs each of a row's 64 slices on a warp of its own: 8 rows
+    need 512 warps, 32 blocks of 16."""
+    dims = DecodeDims.create(SMALL, 8)
+    with pytest.raises(ValueError, match="warp per tail slice"):
+        gk.resident_plan(dims, 31, "none")
+    assert gk.resident_plan(dims, 32, "none").n_blocks == 32
+
+
+@pytest.mark.parametrize("cfg,batch", [(FULL, 2), (FULL, 8), (SMALL, 1)], ids=["full-b2", "full-b8", "small-b1"])
+def test_counter_words_hold_the_tail_exchange(cfg, batch):
+    """3L + 2 stage counters, a 128-byte line each, then B x 64 slices'
+    pairs (2 words of 64 bits) and lists (3 words of 64 bits), 8-byte
+    aligned."""
+    dims = DecodeDims.create(cfg, batch)
+    lines = 3 * dims.n_layers + 2
+    assert gk.counter_words(dims) == lines * gk.COUNTER_STRIDE + batch * 64 * 5 * 2
+    assert lines * gk.COUNTER_STRIDE * 4 % 8 == 0
 
 
 def test_plan_refuses_a_grid_too_small_for_the_team_lists():
