@@ -17,7 +17,12 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      ragged vocabulary, ties, few allowed ids, the window cap), [4
      sample_tail repeat] its bits over 10 launches and CUDA-graph replays,
      [4 sample_tail time] (with --parent DIR the parent tree's tail in
-     turns); [4 gemv ragged]
+     turns); [4 mixer_state parent] (with --parent DIR) the mixer's quarter-
+     head items bit for bit with the parent tree's mixer and both timed in
+     turns; [4 edges] the chain with its programmatic dependent launches (the
+     mixer behind in_proj, out_proj behind the mixer) bit for bit with the
+     same launches without them over 64 steps and 3 CUDA-graph replays, and
+     the step in a graph with and without them; [4 gemv ragged]
      the bf16 GEMV against _product at two shapes no main path takes (a
      ragged last tile and a K tail; 8 rows at K = 4096).
   5. the main path through the CLI: a seeded random full-size MambaLM saved
@@ -38,7 +43,11 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      its share of the HBM roofline beside its yardstick, kernel B's chain
      step in a CUDA graph, and (with --parent DIR) the parent tree's C timed
      in 10 pairs of turns, each tree's median and mean; [6 cli] the CLI with --fused-decode resident, resident-int8w,
-     int8 and int8w (grammar, MIDI, launch counters).
+     int8 and int8w (grammar, MIDI, launch counters); [rows mamba auto|
+     resident] the CLI at --batch 16, greedy, 64 tokens: two groups of 8
+     rows, each kernel's launches, the grammar, and every row bit for bit
+     with that row run alone at batch 1 (also [rows transformer auto] in
+     phase 7 and [rows xlstm auto] in phase 9, at --batch 9).
   7. the Transformer at the reference size (8 blocks, d_model 1024, 8 heads
      of 128, block 2048; seeded random weights), kernels D and F:
      [7 flash] kernel D against its plain version at (2*8, 2054, 128) (its
@@ -139,6 +148,10 @@ resident], [6 chain], [6 loop] and the [6 cli] runs in bf16, [7 prefill],
 xdecode], the bf16 [9 cli] runs and [9 loop] in bf16 and sb16, and phase
 10; its kernels line holds the launches of those CLI runs (and of
 kernel_ablate.run), each counted from zero, as the full run does.
+`--only mixer` runs phases 1 and 2, phase 4, [5 cli], [6 resident], [6
+chain], [6 loop], the resident [6 cli] runs, the three families' [rows ...]
+runs and last [4 mixer_state parent] and [4 edges]; its kernels line holds
+kernel B's and C's launches.
 `--only resident` runs phases 1 and 2 and every row that launches kernel C
 ([6 resident], [6 chain], [6 loop] and the resident [6 cli] runs); its
 kernels line holds C's three forms from those CLI runs, each counted from
@@ -188,6 +201,7 @@ LENGTH = 2000
 TEACHER_STEPS = 64
 QUANT_STEPS = 16
 RESIDENT_CHECK_TOKENS = 64
+MIXER_REPEATS = 10  # steps of the state over which [4 mixer_state parent] holds the mixer to the parent's
 # [6 resident] steps the plain chain over the kernel's emitted stream from
 # the shared prefill state, so the two chains drift apart as the chain does
 # from itself (phase 4's [4 drift]: 7.7e-2 of the logits after 64 steps
@@ -344,6 +358,7 @@ BF16_KERNELS = ["in_proj_conv", "out_proj_rms", "lm_head_ln", "generate_resident
 FLASH_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith(("flash_relpos.cu",
                                                                                  "flash_relpos_bwd.cu"))]
 RESIDENT_KERNELS = [name for name, (src, _) in KERNEL_INFO.items() if src.endswith("generate_resident.cu")]
+MIXER_KERNELS = ["in_proj_conv", "mixer_state", "out_proj_rms", "lm_head_ln", "sample_tail", *RESIDENT_KERNELS]
 
 
 class SmokeFailure(RuntimeError):
@@ -777,6 +792,100 @@ def phase_decode(torch, model, ctx: dict, report: dict) -> None:
     need(worst_logit <= TOL_STEPS and worst_val <= TOL_STEPS and worst_state <= TOL_STEPS,
          "decode steps disagree with the plain chain")
     need(idx_equal == idx_checked, "decode steps picked other top-3 candidates")
+
+
+def phase_mixer(torch, ctx: dict, parent: Path | None = None) -> None:
+    """[4 mixer_state parent] kernel B's mixer (one block a quarter of a
+    (row, head)) against the parent tree's mixer on the same inputs, bit for
+    bit over MIXER_REPEATS steps of the state, and both alone, launched
+    plainly, host-paced and in a CUDA graph, in turns (parent, this, this,
+    parent); [4 edges] kernel B's chain with its programmatic dependent
+    launches (KERNEL_OPS: the mixer behind in_proj, out_proj behind the mixer)
+    against the same launches without them (SERIAL_OPS): TEACHER_STEPS
+    teacher-forced steps and 3 CUDA-graph replays bit for bit (logits and
+    both states), and the step in a CUDA graph with and without the edges,
+    in turns."""
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops.grammar import field_bucket
+    from musicgen_tpu_torch.sample.sampler import init_penalty_state
+
+    dims, dp, carry = ctx["dims"], ctx["dp"], ctx["carry"]
+    a_h, d_h = dp["a_h"][0], dp["d_h"][0]
+    zx = dk.in_proj_conv_plain(ctx["x"], dp["w_in"][0], dp["conv_w"][0], dp["conv_b"][0], dp["dt_bias"][0],
+                               carry[0][0].clone(), dims)
+    if parent is None:
+        say("[4 mixer_state parent] not measured (no --parent)")
+    else:
+        pdk = parent_module(parent, "decode_kernel", "[4 mixer_state parent]")
+        ss_t, ss_p = carry[1][0].clone(), carry[1][0].clone()
+        same = []
+        for _ in range(MIXER_REPEATS):
+            g_t = dk.mixer_state(zx, a_h, d_h, ss_t, dims)
+            g_p = pdk.mixer_state(zx, a_h, d_h, ss_p, dims)
+            torch.cuda.synchronize()
+            same.append(torch.equal(g_t, g_p) and torch.equal(ss_t, ss_p))
+        calls = {"parent": lambda: pdk.mixer_state(zx, a_h, d_h, ss_p, dims),
+                 "this tree": lambda: dk.mixer_state(zx, a_h, d_h, ss_t, dims)}
+        turns: dict = {}
+        for key in ("parent", "this tree", "this tree", "parent"):
+            turns.setdefault(key, []).append((cuda_ms(torch, calls[key]), graph_ms(torch, calls[key])))
+        blocks = dims.batch * dims.nheads * dk.MIXER_SPLIT
+        say(f"[4 mixer_state parent] (R, heads) = ({dims.batch}, {dims.nheads}): {blocks} blocks of a quarter head "
+            f"against the parent's; g and the state "
+            f"{'bit for bit' if all(same) else 'DIFFER'} over {MIXER_REPEATS} steps ({same}); ms host-paced (CUDA "
+            f"graph) in turns: " + "; ".join(f"{k} " + " / ".join(f"{a:.4f} ({fmt_ms(b)})" for a, b in v)
+                                            for k, v in turns.items()))
+        need(all(same), "mixer_state differs from the parent tree's mixer")
+
+    teacher = ctx["teacher"]
+    carry_e, carry_s = clone(carry), clone(carry)
+    steps_same = []
+    for s in range(TEACHER_STEPS):
+        tok = teacher[:, s]
+        le = dk.decode_logits(dp, tok, carry_e, dims)
+        ls = dk.decode_logits(dp, tok, carry_s, dims, ops=dk.SERIAL_OPS)
+        steps_same.append(torch.equal(le, ls) and all(torch.equal(a, b) for a, b in zip(carry_e, carry_s)))
+    torch.cuda.synchronize()
+    bad = [i for i, ok in enumerate(steps_same) if not ok]
+    tok = teacher[:, -1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm = clone(carry_e)
+        for _ in range(2):
+            dk.decode_logits(dp, tok, warm, dims)
+    torch.cuda.current_stream().wait_stream(side)
+    carry_h = clone(carry_e)
+    graph = torch.cuda.CUDAGraph()
+    replays, capture_error = [], None
+    try:
+        with torch.cuda.graph(graph):
+            out = dk.decode_logits(dp, tok, carry_e, dims)
+    except RuntimeError as e:
+        capture_error = str(e)[:300]
+    if capture_error is None:
+        for _ in range(3):
+            graph.replay()
+            ref = dk.decode_logits(dp, tok, carry_h, dims, ops=dk.SERIAL_OPS)
+            torch.cuda.synchronize()
+            replays.append(torch.equal(out, ref) and all(torch.equal(a, b) for a, b in zip(carry_e, carry_h)))
+    pen = init_penalty_state(ctx["prompt"], max(PROMPT, 2048))
+    bucket = field_bucket(tok)
+    ops = {"edges": dk.KERNEL_OPS, "serial": dk.SERIAL_OPS}
+    c_t = clone(carry)
+    turns = {}
+    for key in ("edges", "serial", "serial", "edges"):
+        turns.setdefault(key, []).append(graph_ms(torch, lambda: dk.sample_tail(
+            dk.decode_logits(dp, tok, c_t, dims, ops=ops[key]), dp["gram"], pen.hist, bucket, dims), calls=4))
+    say(f"[4 edges] kernel B's chain with programmatic dependent launches (the mixer behind in_proj, out_proj behind "
+        f"the mixer) against the same launches without them: {TEACHER_STEPS} teacher-forced steps "
+        f"{'bit for bit' if not bad else f'DIFFER at steps {bad}'}; CUDA graph of the chain with the edges: "
+        + (f"capture failed: {capture_error}" if capture_error else
+           f"{len(replays)} replays {'bit for bit' if all(replays) else 'DIFFER'} ({replays})")
+        + "; the step with the tail in a CUDA graph in turns: "
+        + "; ".join(f"{k} " + " / ".join(fmt_ms(v) for v in vs) for k, vs in turns.items()))
+    need(not bad and capture_error is None and len(replays) == 3 and all(replays),
+         "kernel B's chain with the dependent launches differs from the chain without them")
 
 
 def phase_gemv_ragged(torch) -> None:
@@ -1429,6 +1538,137 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
     totals["generate_resident_w8a8"] = 1
     for name, n in totals.items():
         report[name]["launches"] = n
+
+
+# [rows]: more batch rows than one decode launch carries (MAX_ROWS = 8): the
+# batch and the --fused-decode values of each family's CLI run.
+ROWS = {"mamba": (16, ("auto", "resident")), "transformer": (9, ("auto",)), "xlstm": (9, ("auto",))}
+ROWS_TOKENS = 64
+
+
+def batch_slice(torch, tree, j: int):
+    """Row j of a model's prefill state (tensors batch first, in dicts,
+    lists and tuples), as batch-1 copies."""
+    if isinstance(tree, torch.Tensor):
+        return tree[j:j + 1].clone()
+    if isinstance(tree, dict):
+        return {k: batch_slice(torch, v, j) for k, v in tree.items()}
+    return type(tree)(batch_slice(torch, v, j) for v in tree)
+
+
+def rows_launches(model, kind: str, mode: str, groups: int) -> tuple[dict, dict]:
+    """The launches of one CLI run of ROWS_TOKENS greedy tokens in `groups`
+    groups of at most 8 rows: (the prefill's kernel, its count), and the
+    decode kernels' counts by name."""
+    t = ROWS_TOKENS * groups
+    if kind == "mamba":
+        L = model.cfg.n_layers
+        if mode == "resident":
+            return {"ssd_scan": L * groups}, {"generate_resident_bf16": groups}
+        return {"ssd_scan": L * groups}, {"in_proj_conv": L * t, "mixer_state": L * t, "out_proj_rms": L * t,
+                                          "lm_head_ln": t, "sample_tail": t}
+    if kind == "transformer":
+        L = model.cfg.n_layer
+        return {"flash_relpos": L * groups}, {"t_qkv_ln": L * t, "tdecode_attn": L * t, "t_res": 2 * L * t,
+                                              "t_fc_relu": L * t, "lm_head_ln": t, "sample_tail": t}
+    n_slstm = len(model.cfg.slstm_at)
+    return {"slstm_scan": n_slstm * groups}, {"xlstm_step": t, "sample_tail": t}
+
+
+def phase_rows(torch, kind: str, model, corpus: Path, meta_path: Path, root: Path) -> None:
+    """[rows <kind> <mode>] `cli.generate --model <kind> --batch N --greedy
+    --length ROWS_TOKENS` on the card at N = ROWS[kind] (16 or 9): more rows
+    than one decode launch carries, so the sampler runs them in groups of
+    8. Checks the family's kernels' launches (each group's prefill and
+    tokens, none of the plain step), every new token grammatical, and each
+    row equal bit for bit to the same row run alone (sampler.generate at
+    batch 1, the same prompt, metadata and --fused-decode value) from its
+    group's prefill: the decode kernels' arithmetic of a row does not depend
+    on the other rows. The prefill itself (cuBLAS products, cuDNN's conv,
+    torch's reductions) may round a row otherwise at another batch size, and
+    the stack turns one rounding into other greedy tokens within a few steps:
+    its last logits at the group's rows against each row prefilled alone are
+    printed. Prints the tok/s/seq of sampler.generate at N rows (prefill
+    included)."""
+    import numpy as np
+
+    from musicgen_tpu_torch.cli import generate as cli
+    from musicgen_tpu_torch.data.dataset import TokenDataset
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+    from musicgen_tpu_torch.sample.sampler import generate
+
+    batch, modes = ROWS[kind]
+    groups = -(-batch // dk.MAX_ROWS)
+    ckpt = root / f"{kind}_random.pth"
+    if not ckpt.exists():
+        torch.save(model.state_dict(), ckpt)
+    ds = TokenDataset.from_directory(corpus / "Mozart", meta_path, block_len=PROMPT, seed=SEED)
+    items = [ds[i % len(ds)] for i in range(batch)]  # the CLI's rows
+    src = torch.from_numpy(np.stack([x for x, _, _ in items]).astype(np.int64)).to(DEVICE)
+    meta = torch.from_numpy(np.stack([m for _, _, m in items]).astype(np.int64)).to(DEVICE)
+    if kind == "transformer":
+        src = src[:, -PROMPT:]
+    p, mask = src.shape[1], grammar_mask()
+    for mode in modes:
+        fused, quant, resident = cli._FUSED[mode]
+        argv = ["--model", kind, "--ckpt", str(ckpt), "--data", str(corpus), "--metadata", str(meta_path),
+                "--composers", "Mozart", "--batch", str(batch), "--block-len", str(PROMPT),
+                "--length", str(ROWS_TOKENS), "--output", str(root / f"rows_{kind}_{mode}"), "--seed", str(SEED),
+                "--fused-decode", mode, "--greedy"]
+        ssd_scan.launches = slstm_scan.launches = 0
+        ak.LAUNCHES.clear()
+        dk.LAUNCHES.clear()
+        streams = torch.from_numpy(cli.main(argv)["Mozart"])
+        torch.cuda.synchronize()
+        counted = {"ssd_scan": ssd_scan.launches, "slstm_scan": slstm_scan.launches, **ak.LAUNCHES}
+        prefill = {k: v for k, v in counted.items() if v}
+        launches = dict(dk.LAUNCHES)
+        want_prefill, want = rows_launches(model, kind, mode, groups)
+        need(streams.shape == (batch, p + ROWS_TOKENS), f"[rows {kind} {mode}] stream shape {tuple(streams.shape)}")
+        need(torch.equal(streams[:, :p], src.cpu()), f"[rows {kind} {mode}] the streams do not start with the prompts")
+        grammatical = bool((mask[field_bucket(streams[:, p - 1:-1]), streams[:, p:]] > 0).all())
+
+        def one(rows):
+            return generate(model, kind, src[rows], meta[rows], ROWS_TOKENS, PROMPT,
+                            torch.Generator(device=DEVICE).manual_seed(SEED), greedy=True, fused=fused, quant=quant,
+                            resident=resident)
+
+        alone, prefill_rows, prefill_err = [], 0, 0.0
+        for g0 in range(0, batch, dk.MAX_ROWS):
+            rows = range(g0, min(g0 + dk.MAX_ROWS, batch))
+            logits_g, state_g = model.prefill(src[rows.start:rows.stop], meta[rows.start:rows.stop])
+            for i in rows:
+                own = model.prefill(src[i:i + 1], meta[i:i + 1])[0][:, -1]
+                prefill_rows += int(torch.equal(own, logits_g[i - g0:i - g0 + 1, -1]))
+                prefill_err = max(prefill_err, float((own - logits_g[i - g0:i - g0 + 1, -1]).abs().max()))
+                # The row alone, from its slice of the group's prefill.
+                model.prefill = lambda tokens, m, j=i - g0: (logits_g[j:j + 1], batch_slice(torch, state_g, j))
+                try:
+                    alone.append(one(slice(i, i + 1)).cpu())
+                finally:
+                    del model.prefill
+        differ = (torch.cat(alone) != streams).any(dim=1).nonzero().flatten().tolist()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(slice(0, batch))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        say(f"[rows {kind} {mode}] cli.generate --batch {batch} --greedy, {ROWS_TOKENS} tokens after a {p}-token "
+            f"prompt in {groups} groups: launches {launches}, prefill {prefill}; "
+            f"{'grammatical' if grammatical else 'UNGRAMMATICAL'}; rows equal to each row run alone at batch 1 from "
+            f"its group's prefill: {batch - len(differ)}/{batch}" + (f" (differ: {differ})" if differ else "")
+            + f"; the prefill's last logits at the group's rows against each row prefilled alone: bitwise equal "
+            f"{prefill_rows}/{batch}, max_abs {prefill_err:.3e}"
+            + f"; sampler.generate at {batch} rows {secs:.3f} s = {ROWS_TOKENS / secs:.1f} tok/s/seq (prefill "
+            f"included)")
+        need(launches == want and prefill == want_prefill,
+             f"[rows {kind} {mode}] launches {launches}, prefill {prefill}; expected {want}, {want_prefill}")
+        need(grammatical, f"[rows {kind} {mode}] a generated token breaks the grammar")
+        need(not differ, f"[rows {kind} {mode}] rows {differ} differ from the same rows run alone")
 
 
 # ---------------------------------------------------------------------------
@@ -3143,6 +3383,7 @@ def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict, 
     xctx = phase_x_prefill(torch, corpus, meta_path, psk)
     packs = phase_x_decode(torch, xctx, report)
     phase_x_cli(torch, xctx, corpus, meta_path, root, report)
+    phase_rows(torch, "xlstm", xctx["model"], corpus, meta_path, root)
     phase_x_loop(torch, xctx, packs, report, parent)
 
 
@@ -3386,6 +3627,7 @@ def phase_transformer(torch, corpus: Path, meta_path: Path, root: Path, report: 
     tpacks = phase_t_decode(torch, tctx, report)
     phase_t_wrap(torch, corpus)
     phase_t_cli(torch, tctx, corpus, meta_path, root, report)
+    phase_rows(torch, "transformer", tctx["model"], corpus, meta_path, root)
     phase_t_loop(torch, tctx, tpacks)
 
 
@@ -3443,16 +3685,47 @@ def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
 
 
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident|tail] [--parent DIR]; None where absent or
-    wrong."""
+    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident|tail|mixer] [--parent DIR]; None where absent
+    or wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
         opts[rest[0]] = rest[1]
         rest = rest[2:]
     only = opts.get("--only")
-    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident", "tail"):
+    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident", "tail", "mixer"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
+
+
+def phase_mixer_paths(torch, report: dict, parent: Path | None) -> None:
+    """--only mixer: every row that holds kernel B's mixer or the groups of
+    rows, with the checks and timings of the full run: phase 4 ([4
+    mixer_state] and B's other launches, [4 steps]), [5 cli] (B's launches),
+    [6 resident], [6 chain] (C, which runs the same mixer items, bit for bit
+    with B's chain), [6 loop] (with --parent DIR the parent tree's C and B's
+    step in turns), the resident [6 cli] runs, the [rows ...] CLI runs of
+    all three families, and last [4 mixer_state parent] and [4 edges]."""
+    from musicgen_tpu_torch.config import TransformerConfig, XLSTMConfig
+    from musicgen_tpu_torch.models import transformer, xlstm
+
+    model = mamba_model(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        ctx = decode_context(torch, model, corpus, meta_path)
+        phase_decode(torch, model, ctx, report)
+        phase_cli(torch, model, corpus, meta_path, root, report)
+        packs = phase_resident(torch, model, ctx, report)
+        phase_loop(torch, ctx, packs, report, parent)
+        phase_cli_resident(torch, model, corpus, meta_path, root, report, resident_only=True)
+        phase_rows(torch, "mamba", model, corpus, meta_path, root)
+        del packs
+        for kind, mod, cfg in (("transformer", transformer, TransformerConfig()), ("xlstm", xlstm, XLSTMConfig())):
+            other = mod.init_weights_(mod.empty_model(cfg, DEVICE), SEED).eval()
+            phase_rows(torch, kind, other, corpus, meta_path, root)
+            del other
+            torch.cuda.empty_cache()
+        phase_mixer(torch, ctx, parent)
 
 
 def phase_resident_paths(torch, report: dict, parent: Path | None) -> None:
@@ -3474,7 +3747,7 @@ def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident|tail] [--parent DIR]",
+        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident|tail|mixer] [--parent DIR]",
               file=sys.stderr)
         return 2
     only, parent = args
@@ -3520,6 +3793,9 @@ def main() -> int:
     if only == "tail":
         phase_tail_paths(torch, report, parent)
         return finish(torch, card, report, ["sample_tail"], t_start)
+    if only == "mixer":
+        phase_mixer_paths(torch, report, parent)
+        return finish(torch, card, report, MIXER_KERNELS, t_start)
     phase_ssd(torch, report)
 
     model = mamba_model(torch)
@@ -3528,6 +3804,7 @@ def main() -> int:
         corpus, meta_path = synth_corpus(root)
         ctx = decode_context(torch, model, corpus, meta_path)
         phase_decode(torch, model, ctx, report)
+        phase_mixer(torch, ctx, parent)
         phase_tail(torch, ctx, parent)
         phase_gemv_ragged(torch)
         phase_int8(torch, model, ctx, report)
@@ -3535,6 +3812,7 @@ def main() -> int:
         packs = phase_resident(torch, model, ctx, report)
         phase_loop(torch, ctx, packs, report, parent)
         phase_cli_resident(torch, model, corpus, meta_path, root, report)
+        phase_rows(torch, "mamba", model, corpus, meta_path, root)
         del model, ctx, packs
         torch.cuda.empty_cache()
 

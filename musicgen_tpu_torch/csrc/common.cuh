@@ -120,6 +120,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Programmatic dependent launch (Hopper). A kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization (mg_launch, dependent)
+// may start before the launch ahead of it on the stream has ended: once
+// every block of that launch has run grid_dep_trigger, or exited.
+// grid_dep_wait returns when that launch has ended and its writes are
+// visible; in a launch made without the attribute it returns at once. So a
+// block may read before grid_dep_wait only what the launch ahead does not
+// write. Kernel B's chain launches its mixer behind in_proj and out_proj
+// behind the mixer this way (ops/decode_kernel.KERNEL_OPS).
+__device__ __forceinline__ void grid_dep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void grid_dep_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+
+// Launch `kernel` on `stream`, as a programmatic dependent of the launch
+// ahead of it where `dependent`; returns the cudaError_t of the launch.
+template <typename... Params, typename... Args>
+cudaError_t mg_launch(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, void* stream, bool dependent,
+                      Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 // Streaming multiprocessors of the current device, read once per process.
 inline int mg_sm_count() {
   static int n = 0;

@@ -37,6 +37,14 @@
 //               bias in the epilogue.
 // Each block recomputes the per-row statistics of its prologue (and, in
 // W8A8, the per-(row, group) activation scales) instead of a separate launch.
+//
+// Programmatic dependent launch (common.cuh): every block of these kernels
+// lets the next launch start at once (grid_dep_trigger), and waits before
+// its prologue reads x (grid_dep_wait, after its first weights are in
+// flight). Kernel B's chain launches out_proj as a dependent of the mixer,
+// and the mixer as a dependent of in_proj; every other launch is plain, and
+// its wait returns at once. The arithmetic and its bits are the same either
+// way.
 #include "decode_ops.cuh"
 
 using namespace mg;
@@ -47,17 +55,18 @@ template <int PRO, int EPI, int FMT>
 __global__ void __launch_bounds__(TEAM, 4) gemv_kernel(GemvArgs a) {
   extern __shared__ uint4 gemv_dyn[];
   __shared__ GemvSmem sm;
-  gemv_team<PRO, EPI, FMT>(a, sm, blockIdx.x, gridDim.x, threadIdx.x, 1, reinterpret_cast<char*>(gemv_dyn));
+  grid_dep_trigger();
+  gemv_team<PRO, EPI, FMT, true>(a, sm, blockIdx.x, gridDim.x, threadIdx.x, 1, reinterpret_cast<char*>(gemv_dyn));
 }
 
 template <int PRO, int EPI>
-int launch(const GemvArgs& a, int fmt, void* stream) {
+int launch(const GemvArgs& a, int fmt, void* stream, bool dependent = false) {
   if (!gemv_shape_ok(a.R, a.K, a.N, fmt)) return (int)cudaErrorInvalidValue;
   if (fmt != kBf16 && a.w_s == nullptr) return (int)cudaErrorInvalidValue;
   switch (fmt) {
-    case kBf16: return gemv_launch(gemv_kernel<PRO, EPI, kBf16>, a, fmt, stream);
-    case kW8A16: return gemv_launch(gemv_kernel<PRO, EPI, kW8A16>, a, fmt, stream);
-    case kW8A8: return gemv_launch(gemv_kernel<PRO, EPI, kW8A8>, a, fmt, stream);
+    case kBf16: return gemv_launch(gemv_kernel<PRO, EPI, kBf16>, a, fmt, stream, dependent);
+    case kW8A16: return gemv_launch(gemv_kernel<PRO, EPI, kW8A16>, a, fmt, stream, dependent);
+    case kW8A8: return gemv_launch(gemv_kernel<PRO, EPI, kW8A8>, a, fmt, stream, dependent);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -80,13 +89,15 @@ MG_EXPORT int mg_in_proj_conv(const float* x, const void* w, const float* w_s, f
   return launch<kPlain, kInProj>(a, fmt, stream);
 }
 
-// out = out_proj(RMSNorm(g) * norm_w), g = y * silu(z) from the mixer kernel.
+// out = out_proj(RMSNorm(g) * norm_w), g = y * silu(z) from the mixer kernel;
+// dependent != 0 launches it as a programmatic dependent of the launch ahead
+// on the stream, which must be the mixer that writes g.
 MG_EXPORT int mg_out_proj_rms(const float* g, const float* norm_w, const void* w, const float* w_s,
-                              float* out, int R, int K, int N, float eps, int fmt, void* stream) {
+                              float* out, int R, int K, int N, float eps, int fmt, int dependent, void* stream) {
   GemvArgs a = {};
   a.x = g; a.w = w; a.w_s = w_s; a.out = out;
   a.R = R; a.K = K; a.N = N; a.pw = norm_w; a.eps = eps;
-  return launch<kRms, kStore>(a, fmt, stream);
+  return launch<kRms, kStore>(a, fmt, stream, dependent != 0);
 }
 
 // logits = lm_head(LayerNorm(x)) + bias.

@@ -11,7 +11,8 @@
 //                gemv_mma_chunk, gemv_write_sums, gemv_finish_tile) are what
 //                the resident kernel runs on weights it has copied into
 //                shared memory (gemv_load_chunk_smem);
-//   mixer_item   one (batch row, head) of the SSM state update (256 threads);
+//   mixer_load,  a quarter of one (batch row, head) of the SSM state update:
+//   mixer_step   16 of the head's 64 state rows (256 threads);
 //   tail_slice_* one warp's slice of the grammar/penalty/top-3 tail of a
 //                row (kernel B spreads a row's 64 slices over a thread-block
 //                cluster, the resident kernel over its teams).
@@ -89,6 +90,8 @@ constexpr int QGROUP = 256;         // int8 K-group
 constexpr int GMAX = 16;            // int8 K-groups a row may have (K <= 4096)
 constexpr int MIX_P = 64;           // headdim the mixer is written for
 constexpr int MIX_N = 64;           // d_state
+constexpr int MIX_Q = 4;            // mixer items a head: quarters of its state rows
+constexpr int MIX_RPW = MIX_P / MIX_Q / WARPS;  // state rows a warp of an item (2)
 constexpr float kLn101 = 0.00995033085316808f;   // ln 1.01
 constexpr float kLn102 = 0.019802627296179712f;  // ln 1.02
 
@@ -585,7 +588,10 @@ __device__ __forceinline__ void gemv_finish_tile(const GemvArgs& a, const GemvSm
 // TILE_N columns, tile = team, team + n_teams, ... A team without a tile
 // returns at once (the test is uniform over the team, so its barriers stay
 // matched). `dyn` is the team's gemv_smem_bytes of dynamic shared memory.
-template <int PRO, int EPI, int FMT>
+// DEP: the team waits (grid_dep_wait) between its first weights and the
+// prologue, so that a launch made as a programmatic dependent of the one
+// that writes x fetches weights before that one has ended.
+template <int PRO, int EPI, int FMT, bool DEP = false>
 __device__ void gemv_team(const GemvArgs& a, GemvSmem& sm, int team, int n_teams, int tid, int bar, char* dyn) {
   constexpr int KC = gemv_kchunk<FMT>(), WV = gemv_wv<FMT>(), ESZ = FMT == kBf16 ? 2 : 1;
   const int n_tiles = gemv_tiles(a.N);
@@ -603,6 +609,7 @@ __device__ void gemv_team(const GemvArgs& a, GemvSmem& sm, int team, int n_teams
     gemv_load_chunk<FMT>(wa, wb, pa, pa + (size_t)8 * a.K * ESZ, FMT != kBf16 || na < a.N,
                          FMT != kBf16 || na + 8 < a.N, q.s0, q.sstep, q.SG, q.krem);
   }
+  if (DEP) grid_dep_wait();
   gemv_prologue<PRO, FMT>(a, sm, xs, tid, bar);
 
   const char* xrow = xs + (size_t)q.gq * q.ld;  // this lane's row of x: the mma's column gq
@@ -645,16 +652,16 @@ inline int gemv_blocks(int N) {
 }
 
 // Launch a per-token GEMV kernel (one team a block) with its dynamic shared
-// memory; returns the cudaError_t of the launch.
+// memory, as a programmatic dependent of the launch ahead where `dependent`;
+// returns the cudaError_t of the launch.
 template <typename Kernel>
-int gemv_launch(Kernel kernel, const GemvArgs& a, int fmt, void* stream) {
+int gemv_launch(Kernel kernel, const GemvArgs& a, int fmt, void* stream, bool dependent = false) {
   const size_t smem = gemv_smem_bytes(a.R, a.K, a.qgroup, fmt);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<gemv_blocks(a.N), TEAM, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)mg_launch(kernel, dim3(gemv_blocks(a.N)), dim3(TEAM), smem, stream, dependent, a);
 }
 
 // The shapes a GEMV takes: R <= 8 rows, K % 8 == 0, any N. bf16: K <=
@@ -671,49 +678,77 @@ inline bool gemv_shape_ok_grouped(int R, int K, int N, int fmt, int qgroup) {
 inline bool gemv_shape_ok(int R, int K, int N, int fmt) { return gemv_shape_ok_grouped(R, K, N, fmt, QGROUP); }
 
 // ---------------------------------------------------------------------------
-// Mixer: the selective-state step of one (row b, head h), 256 threads.
+// Mixer: the selective-state step of one item (row b, head h, quarter q),
+// 256 threads:
 //   h_state = exp(dt * A) * h_state + (dt * x) B^T;  y = h_state C + D x;
 //   g = y * silu(z)
-// State layout S[h*P + p, b*N + n]; each warp owns 8 rows p, each lane the
-// state columns n and n + 32 (one coalesced 256-byte row), updated in place.
+// for the head's state rows p in [16 q, 16 q + 16). State layout S[h*P + p,
+// b*N + n]; each warp owns MIX_RPW = 2 rows p, each lane the state columns n
+// and n + 32 (one coalesced 256-byte row), updated in place. A row's
+// arithmetic, and its y as one warp_sum over the same lanes, do not depend
+// on how the head's rows are split into items, so every split computes the
+// same bits. In two parts: mixer_load, what the in_proj launch does not write
+// (the item's state rows, A and D of its head), and mixer_step, which reads
+// zx and computes; kernel B's mixer waits for in_proj between the two.
 // ---------------------------------------------------------------------------
 
-static __device__ void mixer_item(const float* zx, int nz, int di, const float* a_h, const float* d_h,
-                           float* ssm, float* g, int R, int b, int h, int tid) {
-  constexpr int ROWS_PER_WARP = MIX_P / WARPS;
-  const int lane = tid % 32, warp = tid / 32;
+struct MixerLoad {
+  float ah, dd;                             // A and D of the head
+  float st0[MIX_RPW], st1[MIX_RPW];         // the warp's state rows, columns lane and lane + 32
+};
+
+// Item `item` = (b * nheads + h) * MIX_Q + q: its batch row b, head h and
+// first state row (channel h * P + 16 q).
+__device__ __forceinline__ int mixer_b(int item, int nh) { return item / MIX_Q / nh; }
+__device__ __forceinline__ int mixer_h(int item, int nh) { return item / MIX_Q % nh; }
+__device__ __forceinline__ int mixer_ch0(int item, int nh) {
+  return mixer_h(item, nh) * MIX_P + item % MIX_Q * (MIX_P / MIX_Q);
+}
+
+__device__ __forceinline__ void mixer_load(MixerLoad& m, const float* a_h, const float* d_h, const float* ssm, int R,
+                                           int nh, int item, int tid) {
+  const int lane = tid % 32, warp = tid / 32, b = mixer_b(item, nh), h = mixer_h(item, nh);
+  m.ah = __ldg(a_h + h);
+  m.dd = __ldg(d_h + h);
+#pragma unroll
+  for (int i = 0; i < MIX_RPW; ++i) {
+    const int ch = mixer_ch0(item, nh) + warp * MIX_RPW + i;
+    const float* srow = ssm + (size_t)ch * R * MIX_N + (size_t)b * MIX_N;
+    m.st0[i] = srow[lane];
+    m.st1[i] = srow[lane + 32];
+  }
+}
+
+// Every load of zx first, so that their latencies overlap (a store to the
+// state could alias a later row's loads, so the compiler would not hoist
+// them itself); then the same arithmetic row by row.
+__device__ __forceinline__ void mixer_step(const MixerLoad& m, const float* zx, int nz, int di, int nh, float* ssm,
+                                           float* g, int R, int item, int tid) {
+  const int lane = tid % 32, warp = tid / 32, b = mixer_b(item, nh), h = mixer_h(item, nh);
   const float* row = zx + (size_t)b * nz;
   const int dc = di + 2 * MIX_N;
   const float dtv = row[di + dc + h];
-  const float decay = expf(dtv * __ldg(a_h + h));
-  const float dd = __ldg(d_h + h);
   const float b0 = row[2 * di + lane], b1 = row[2 * di + lane + 32];
   const float c0 = row[2 * di + MIX_N + lane], c1 = row[2 * di + MIX_N + lane + 32];
-
-  // Every load of the warp's rows first, so that their latencies overlap
-  // (a store to the state could alias a later row's loads, so the compiler
-  // would not hoist them itself); then the same arithmetic row by row.
-  float xv[ROWS_PER_WARP], zv[ROWS_PER_WARP], st0[ROWS_PER_WARP], st1[ROWS_PER_WARP];
+  const int ch0 = mixer_ch0(item, nh) + warp * MIX_RPW;
+  float xv[MIX_RPW], zv[MIX_RPW];
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int ch = h * MIX_P + warp * ROWS_PER_WARP + i;
-    const float* srow = ssm + (size_t)ch * R * MIX_N + (size_t)b * MIX_N;
-    xv[i] = row[di + ch];
-    zv[i] = row[ch];
-    st0[i] = srow[lane];
-    st1[i] = srow[lane + 32];
+  for (int i = 0; i < MIX_RPW; ++i) {
+    xv[i] = row[di + ch0 + i];
+    zv[i] = row[ch0 + i];
   }
+  const float decay = expf(dtv * m.ah);
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int ch = h * MIX_P + warp * ROWS_PER_WARP + i;
+  for (int i = 0; i < MIX_RPW; ++i) {
+    const int ch = ch0 + i;
     const float dtx = xv[i] * dtv;
     float* srow = ssm + (size_t)ch * R * MIX_N + (size_t)b * MIX_N;
-    const float s0 = st0[i] * decay + dtx * b0;
-    const float s1 = st1[i] * decay + dtx * b1;
+    const float s0 = m.st0[i] * decay + dtx * b0;
+    const float s1 = m.st1[i] * decay + dtx * b1;
     srow[lane] = s0;
     srow[lane + 32] = s1;
     const float yv = warp_sum(s0 * c0 + s1 * c1);
-    if (lane == 0) g[(size_t)b * di + ch] = (yv + xv[i] * dd) * (zv[i] * sigmoidf_(zv[i]));
+    if (lane == 0) g[(size_t)b * di + ch] = (yv + xv[i] * m.dd) * (zv[i] * sigmoidf_(zv[i]));
   }
 }
 

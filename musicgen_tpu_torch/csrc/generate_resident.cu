@@ -17,11 +17,10 @@
 // Every work item runs the device functions of decode_ops.cuh that the
 // per-token kernel chain (kernel B) runs: a GEMV tile's arithmetic
 // (gemv_prologue, gemv_mma_chunk, gemv_write_sums, gemv_finish_tile),
-// mixer_item and the tail's tail_slice_*. Only where a tile's weights come
-// from, which SM computes an item and how stages wait on each other differ,
-// so C and the
-// chain compute the same bits and, with the same uniforms, emit the same
-// tokens.
+// mixer_load / mixer_step and the tail's tail_slice_*. Only where a tile's
+// weights come from, which SM computes an item and how stages wait on each
+// other differ, so C and the chain compute the same bits and, with the same
+// uniforms, emit the same tokens.
 //
 // What bounds it on an H100: the weights, streamed from HBM once a token
 // (165.8 MB in bf16, 84.2 MB in int8 with its scales at full width: 49.5 /
@@ -43,7 +42,8 @@
 //     (ops/generate_kernel.resident_plan) hands each team its tiles and
 //     mixer items, interleaved across blocks, so that a stage with fewer
 //     items than teams puts one on each of that many SMs; out_proj's 64
-//     tiles and the mixer's 64 items each on 64 SMs, on different teams.
+//     tiles on 64 SMs, and the mixer's 256 items at batch 2 (a quarter of
+//     a (row, head) each: 16 state rows) one a team over all 132 SMs.
 //     Each team copies its part of the plan into shared memory.
 //  2. A ring of weights (against the weight round trips): the whole token's
 //     weight stream is known before it starts, so each team owns `slots`
@@ -384,10 +384,9 @@ __device__ void prefetch_stage(const ResidentArgs& a, const TeamPlan& tp, int ki
       const int h0 = max(n0, di + dc) - di - dc, h1 = min(n1, di + dc + nh) - di - dc;
       if (h0 < h1) prefetch_cols(a.dt_bias + (size_t)l * nh, 1, nh, h0, h1);
     } else if (kind == kMix) {
-      const int h = it % nh;
-      // The head's 64 state rows (every batch row's columns): contiguous.
-      prefetch_l2(a.ssm + ((size_t)l * di + (size_t)h * MIX_P) * a.B * a.d_state,
-                  (size_t)MIX_P * a.B * a.d_state * sizeof(float));
+      // The item's 16 state rows (every batch row's columns): contiguous.
+      prefetch_l2(a.ssm + ((size_t)l * di + (size_t)mixer_ch0(it, nh)) * a.B * a.d_state,
+                  (size_t)(MIX_P / MIX_Q) * a.B * a.d_state * sizeof(float));
     } else if (kind == kOut) {
       if (i == 0) prefetch_l2(a.norm_w + (size_t)l * di, (size_t)di * sizeof(float));
       if (FMT != kBf16) prefetch_scales(a.w_out_s + (size_t)l * (di / QGROUP) * a.d_model, di / QGROUP, a.d_model,
@@ -743,7 +742,7 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
   // n_blocks) of team (q / n_blocks) % TEAMS of block q % n_blocks, so the
   // slices go to as many SMs as there are, first team first.
   const int tail_q = (tid / 32) * TEAMS * a.n_blocks + team_in * a.n_blocks + blockIdx.x;
-  const int n_in = gemv_tiles(dip), n_out = gemv_tiles(a.d_model), n_head = gemv_tiles(a.Vp), n_mix = a.B * nh;
+  const int n_in = gemv_tiles(dip), n_out = gemv_tiles(a.d_model), n_head = gemv_tiles(a.Vp), n_mix = a.B * nh * MIX_Q;
 
   GemvSmem& sm = gsm[team_in];
   char* dyn = reinterpret_cast<char*>(dyn_smem) + (size_t)team_in * a.team_bytes;
@@ -803,13 +802,17 @@ __global__ void __launch_bounds__(NT, 1) generate_kernel(ResidentArgs a) {
       const int n_my_mix = plan_count(tp, kMix);
       if (n_my_mix > 0) {
         if (tid == 0) prefetch_next<FMT>(a, tp, kMix, l);
-        team_wait(c_in + (size_t)l * kCounterStride, n_in * (t + 1), tid, bar);
         float* ssm = a.ssm + (size_t)l * di * a.B * a.d_state;
+        const float *a_hl = a.a_h + (size_t)l * nh, *d_hl = a.d_h + (size_t)l * nh;
         const int* mix = plan_items(tp, kMix);
+        // The first item's state rows are this team's own, written by it a
+        // token ago: they load while in_proj finishes, as in kernel B.
+        MixerLoad m;
+        mixer_load(m, a_hl, d_hl, ssm, a.B, nh, mix[0], tid);
+        team_wait(c_in + (size_t)l * kCounterStride, n_in * (t + 1), tid, bar);
         for (int i = 0; i < n_my_mix; ++i) {
-          const int item = mix[i];
-          mixer_item(a.zx, dip, di, a.a_h + (size_t)l * nh, a.d_h + (size_t)l * nh, ssm, a.g, a.B, item / nh,
-                     item % nh, tid);
+          if (i > 0) mixer_load(m, a_hl, d_hl, ssm, a.B, nh, mix[i], tid);
+          mixer_step(m, a.zx, dip, di, nh, ssm, a.g, a.B, mix[i], tid);
         }
         team_signal(c_mix + (size_t)l * kCounterStride, n_my_mix, tid, bar);
       }

@@ -37,8 +37,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 SIGNATURES = {
     "mg_ssd_scan": [_P] * 7 + [_I] * 6 + [_P],
     "mg_in_proj_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    "mg_mixer_state": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    "mg_out_proj_rms": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "mg_mixer_state": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    "mg_out_proj_rms": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "mg_lm_head_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mg_sample_tail": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
     "mg_flash_relpos": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

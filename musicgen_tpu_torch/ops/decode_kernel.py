@@ -9,14 +9,20 @@ step is a sequence of launches on one stream:
 
   for each of the L layers:
     in_proj_conv   GEMV + conv step + silu + softplus       (decode_gemv.cu)
-    mixer_state    SSM state update + readout + gate        (decode_mixer.cu)
+    mixer_state    SSM state update + readout + gate, one   (decode_mixer.cu)
+                   block a quarter of a (row, head)
     out_proj_rms   gated RMSNorm + GEMV                     (decode_gemv.cu)
   lm_head_ln       LayerNorm + GEMV + bias                  (decode_gemv.cu)
   sample_tail      grammar, penalty, exact top-3: a thread-block cluster
                    a row                                    (decode_tail.cu)
 
-The whole-generation kernel (ops/generate_kernel.py) runs the same device
-code for every token of a generation in one launch.
+In the chain (decode_logits with KERNEL_OPS) the mixer is launched as a
+programmatic dependent of in_proj, and out_proj of the mixer (Hopper's
+programmatic dependent launch, csrc/common.cuh): each starts while the launch
+ahead finishes, loads what that launch does not write, and waits for it
+before it reads the rest. SERIAL_OPS are the same launches without those
+edges. The whole-generation kernel (ops/generate_kernel.py) runs the same
+device code for every token of a generation in one launch.
 
 `quant` names how a product runs, as in the TPU kernel: "none" (bf16 pack),
 "w8a8" or "w8a16" (int8 pack with K-grouped scales; see QUANT_MODES).
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -47,6 +54,7 @@ from .grammar import grammar_mask
 
 MAX_ROWS = 8  # batch rows one GEMV launch carries (csrc/decode_gemv.cu MAXR)
 KERNEL_DIM = 64  # headdim and d_state the mixer kernel is written for
+MIXER_SPLIT = 4  # mixer items a head: its state rows in quarters (csrc/decode_ops.cuh MIX_Q)
 RMS_EPS = 1e-5
 LN_EPS = 1e-6  # flax LayerNorm's default, kept by the reference port
 _LN_101 = 0.00995033085316808  # ln 1.01: pitch penalty base
@@ -308,6 +316,44 @@ def mixer_state_plain(zx, a_h, d_h, ssm_state, dims: DecodeDims):
     return (y * (z * torch.sigmoid(z))).contiguous()
 
 
+def mixer_item(item: int, dims: DecodeDims) -> Tuple[int, int, slice]:
+    """Item `item` of the mixer kernels (csrc/decode_ops.cuh mixer_load):
+    (b * nheads + h) * MIXER_SPLIT + q is batch row b, head h and the
+    head's state rows p in the q-th of MIXER_SPLIT equal parts."""
+    rows = dims.headdim // MIXER_SPLIT
+    q, bh = item % MIXER_SPLIT, item // MIXER_SPLIT
+    return bh // dims.nheads, bh % dims.nheads, slice(q * rows, (q + 1) * rows)
+
+
+def mixer_state_items(zx, a_h, d_h, ssm_state, dims: DecodeDims):
+    """mixer_state_plain run item by item over the kernels' partition: each
+    item through mixer_state_plain with only its own inputs (its row b's z
+    and x of its state rows, B, C and its head's dt; its state rows), every
+    other entry zero, keeping only its rows of g and of the state. Each entry
+    sits where it sits in the whole call, so torch computes it by the same
+    code path (its vectorised and scalar loops round transcendentals
+    differently); so this equals mixer_state_plain bit for bit exactly when
+    no item's result depends on another item's inputs. ssm_state advances in
+    place."""
+    di, p, n, nh = dims.d_inner, dims.headdim, dims.d_state, dims.nheads
+    dt0 = di + dims.conv_dim
+    s = ssm_state.view(nh, p, zx.shape[0], n)
+    g = torch.empty(zx.shape[0], di, dtype=zx.dtype, device=zx.device)
+    s_new = torch.empty_like(s)
+    for item in range(zx.shape[0] * nh * MIXER_SPLIT):
+        b, h, rows = mixer_item(item, dims)
+        ch = slice(h * p + rows.start, h * p + rows.stop)
+        zx1 = torch.zeros_like(zx)
+        for cols in (ch, slice(di + ch.start, di + ch.stop), slice(2 * di, 2 * di + 2 * n), slice(dt0 + h, dt0 + h + 1)):
+            zx1[b, cols] = zx[b, cols]
+        st = torch.zeros_like(ssm_state)
+        st.view_as(s)[h, rows, b] = s[h, rows, b]
+        g[b, ch] = mixer_state_plain(zx1, a_h, d_h, st, dims)[b, ch]
+        s_new[h, rows, b] = st.view_as(s)[h, rows, b]
+    s.copy_(s_new)
+    return g
+
+
 def out_proj_rms_plain(g, norm_w, w_out, dims: DecodeDims, w_s=None, quant: str = "none"):
     """out_proj(g * rsqrt(mean(g^2) + 1e-5) * norm_w)."""
     var = torch.mean(g * g, dim=-1, keepdim=True)
@@ -536,7 +582,11 @@ def in_proj_conv(x, w_in, conv_w, conv_b, dt_bias, conv_state, dims: DecodeDims,
     return zx
 
 
-def mixer_state(zx, a_h, d_h, ssm_state, dims: DecodeDims):
+def mixer_state(zx, a_h, d_h, ssm_state, dims: DecodeDims, dependent: bool = False):
+    """The mixer kernel: R x nheads x MIXER_SPLIT blocks (mixer_item).
+    dependent=True launches it as a programmatic dependent of the launch
+    ahead on the stream, which must be the in_proj_conv that wrote zx (the
+    chain, KERNEL_OPS): it loads its state before that launch has ended."""
     if not zx.is_cuda:
         return mixer_state_plain(zx, a_h, d_h, ssm_state, dims)
     b, dev = zx.shape[0], zx.device
@@ -550,14 +600,18 @@ def mixer_state(zx, a_h, d_h, ssm_state, dims: DecodeDims):
     lib = load_library()
     err = lib.mg_mixer_state(
         zx.data_ptr(), dims.d_in_proj, dims.d_inner, dims.nheads, dims.headdim, dims.d_state,
-        a_h.data_ptr(), d_h.data_ptr(), ssm_state.data_ptr(), g.data_ptr(), b, stream_ptr(zx),
+        a_h.data_ptr(), d_h.data_ptr(), ssm_state.data_ptr(), g.data_ptr(), b, int(dependent), stream_ptr(zx),
     )
     check(lib, err, "mixer_state")
     _count("mixer_state")
     return g
 
 
-def out_proj_rms(g, norm_w, w_out, dims: DecodeDims, w_s=None, quant: str = "none"):
+def out_proj_rms(g, norm_w, w_out, dims: DecodeDims, w_s=None, quant: str = "none", dependent: bool = False):
+    """dependent=True launches it as a programmatic dependent of the launch
+    ahead on the stream, which must be the mixer_state that wrote g (the
+    chain, KERNEL_OPS): it fetches its first weights before that launch has
+    ended."""
     if not g.is_cuda:
         return out_proj_rms_plain(g, norm_w, w_out, dims, w_s, quant)
     b, dev = g.shape[0], g.device
@@ -570,7 +624,7 @@ def out_proj_rms(g, norm_w, w_out, dims: DecodeDims, w_s=None, quant: str = "non
     lib = load_library()
     err = lib.mg_out_proj_rms(
         g.data_ptr(), norm_w.data_ptr(), w_out.data_ptr(), s_ptr, out.data_ptr(), b, dims.d_inner,
-        dims.d_model, RMS_EPS, _FMT[quant], stream_ptr(g),
+        dims.d_model, RMS_EPS, _FMT[quant], int(dependent), stream_ptr(g),
     )
     check(lib, err, "out_proj_rms")
     _count("out_proj_rms", quant)
@@ -625,8 +679,13 @@ def sample_tail(logits, gram, hist, bucket, dims: DecodeDims):
 
 StepOps = Tuple[Callable, Callable, Callable, Callable, Callable]
 # (in_proj, mixer, out_proj, head, tail): the kernels, or the chain of plain
-# versions on any device that the kernels are held to.
-KERNEL_OPS: StepOps = (in_proj_conv, mixer_state, out_proj_rms, lm_head_ln, sample_tail)
+# versions on any device that the kernels are held to. KERNEL_OPS launch the
+# mixer and out_proj as programmatic dependents of the launch ahead (the
+# chain's edges); SERIAL_OPS are the same kernels, each launched after the
+# one ahead has ended.
+KERNEL_OPS: StepOps = (in_proj_conv, functools.partial(mixer_state, dependent=True),
+                       functools.partial(out_proj_rms, dependent=True), lm_head_ln, sample_tail)
+SERIAL_OPS: StepOps = (in_proj_conv, mixer_state, out_proj_rms, lm_head_ln, sample_tail)
 PLAIN_OPS: StepOps = (in_proj_conv_plain, mixer_state_plain, out_proj_rms_plain, lm_head_ln_plain,
                       sample_tail_plain)
 

@@ -60,6 +60,7 @@ from .decode_kernel import (
     INT8_KSTEP,
     INT8_TILE,
     LAUNCHES,
+    MIXER_SPLIT,
     PLAIN_OPS,
     QUANT_GROUP,
     TAIL_SLICES,
@@ -154,7 +155,8 @@ class ResidentPlan:
     ring's chunk (kch k of 16 weight rows) and slots a team, the dynamic
     shared memory a block, and for each team (block * TEAMS + team in the
     block) its items of each kind, in KINDS order: in_proj tiles, mixer
-    items b * nheads + h, out_proj tiles, lm_head tiles."""
+    items (b * nheads + h) * MIXER_SPLIT + q (mixer_item), out_proj tiles,
+    lm_head tiles."""
     n_blocks: int
     kch: int
     slots: int
@@ -186,7 +188,7 @@ def resident_plan(dims: DecodeDims, n_blocks: int, quant: str = "none") -> Resid
     The teams are interleaved across the blocks (team i in this order is
     team i // n_blocks of block i % n_blocks), so that a stage with fewer
     items than teams puts one on each of that many SMs: in_proj and lm_head
-    tile i and mixer item i (b * nheads + h) go to team i mod their count,
+    tile i and mixer item i (mixer_item) go to team i mod their count,
     out_proj tile j to team -1 - j (with the fewest in_proj tiles and no
     mixer item). The ring: a chunk is kch k of a tile's 16 rows (1024 at
     most, whole 64-k steps in bf16 and 256-k groups in int8); each team has
@@ -213,7 +215,7 @@ def resident_plan(dims: DecodeDims, n_blocks: int, quant: str = "none") -> Resid
     tiles = lambda n: -(-n // INT8_TILE)  # noqa: E731
     for i in range(tiles(dims.d_in_proj)):
         items[order[i % len(order)]][0].append(i)
-    for i in range(dims.batch * dims.nheads):
+    for i in range(dims.batch * dims.nheads * MIXER_SPLIT):
         items[order[i % len(order)]][1].append(i)
     for j in range(tiles(dims.d_model)):
         items[order[(-1 - j) % len(order)]][2].append(j)

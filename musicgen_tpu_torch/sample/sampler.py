@@ -440,12 +440,18 @@ def generate(
     picks invert the CDF of uniforms drawn from `generator` (same
     distributions, another stream than the per-token sampler's). A
     Transformer ignores resident and runs the per-token path, as the JAX
-    package does."""
+    package does.
+
+    Any batch >= 1 is taken. Where the kernels run and the batch has more
+    than MAX_ROWS (8) rows, the most one decode launch carries, the rows are
+    generated in groups of MAX_ROWS, each whole (prefill, pack, token loop)
+    and in turn, their draws from `generator` in that order; each group
+    streams the weights once a token, so 16 rows read them twice."""
     _require_ported(kind)
     sb16 = quant.endswith("-sb16")
     if sb16 and kind != "xlstm":
         raise ValueError(f"quant '{quant}': '-sb16' (bf16 storage of the mLSTM matrix memory) is an xLSTM option")
-    from ..ops.decode_kernel import QUANT_MODES
+    from ..ops.decode_kernel import MAX_ROWS, QUANT_MODES
 
     if quant.removesuffix("-sb16") not in QUANT_MODES:
         raise ValueError(f"quant must be one of {sorted(QUANT_MODES)} (an xLSTM also takes '-sb16' after "
@@ -455,6 +461,14 @@ def generate(
     batch, prompt_len = prompt.shape
     if fused is None:
         fused = _auto_fused(kind, model.cfg, prompt.device, prompt_len, block_len)
+    if kind == "transformer":
+        kernels = fused and _transformer_fusable(model.cfg, prompt_len, block_len)
+    else:
+        kernels = fused or (resident and kind == "mamba")
+    if kernels and batch > MAX_ROWS:
+        return torch.cat([generate(model, kind, prompt[i:i + MAX_ROWS], meta[i:i + MAX_ROWS], num_tokens, block_len,
+                                   generator, greedy, mode, fused, quant, resident)
+                          for i in range(0, batch, MAX_ROWS)])
     if kind == "transformer":
         return _generate_transformer(model, prompt, meta, block_len, generator, cfg,
                                      fused and _transformer_fusable(model.cfg, prompt_len, block_len),

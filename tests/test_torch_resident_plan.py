@@ -6,7 +6,8 @@ item, the ring's chunks and slots, and the shared memory a block takes.
 Checked at the main path's dims (the reference Mamba-2, batch 2, and batch
 8, the most rows a GEMV carries) on an H100 SXM (132 SMs) and PCIe (114),
 and at a small config of 2 layers, in every weight format:
-  * every (stage, tile) and mixer item of a token is assigned exactly once;
+  * every (stage, tile) and mixer item of a token is assigned exactly once,
+    a mixer item being a quarter of a (batch row, head): its 16 state rows;
   * each GEMV team's ring stream keeps the kernel's stage order;
   * each block's ring and regions fit its shared memory, with room for a
     whole tile's chunks;
@@ -19,7 +20,7 @@ import torch
 
 from musicgen_tpu_torch.config import MambaConfig
 from musicgen_tpu_torch.ops import generate_kernel as gk
-from musicgen_tpu_torch.ops.decode_kernel import DecodeDims
+from musicgen_tpu_torch.ops.decode_kernel import MIXER_SPLIT, DecodeDims, mixer_item
 
 FULL = MambaConfig()
 SMALL = MambaConfig(d_model=128, n_layers=2)
@@ -42,12 +43,25 @@ def plan_for(cfg, batch, n_sm, quant):
 def test_every_item_is_assigned_exactly_once(cfg, batch, n_sm, quant):
     dims, plan = plan_for(cfg, batch, n_sm, quant)
     assert plan.n_blocks == n_sm and len(plan.items) == gk.TEAMS * n_sm
-    want = {"in": tiles(dims.d_in_proj), "mix": dims.batch * dims.nheads, "out": tiles(dims.d_model),
+    want = {"in": tiles(dims.d_in_proj), "mix": dims.batch * dims.nheads * MIXER_SPLIT, "out": tiles(dims.d_model),
             "head": tiles(dims.padded_vocab)}
     for k, kind in enumerate(gk.KINDS):
         got = sorted(i for team in plan.items for i in team[k])
         assert got == list(range(want[kind])), kind
     assert max(sum(len(lst) for lst in team) for team in plan.items) <= gk.MAX_TEAM_ITEMS
+
+
+@pytest.mark.parametrize("cfg,batch,n_sm", CASES, ids=IDS)
+def test_mixer_items_are_each_quarter_head_once(cfg, batch, n_sm):
+    """The mixer items the teams hold decode (decode_kernel.mixer_item, the
+    kernels' mixer_load) to every (batch row, head, quarter) exactly once."""
+    dims, plan = plan_for(cfg, batch, n_sm, "none")
+    got = []
+    for team in plan.items:
+        for item in team[1]:
+            b, h, rows = mixer_item(item, dims)
+            got.append((b, h, rows.start // (dims.headdim // MIXER_SPLIT)))
+    assert sorted(got) == [(b, h, q) for b in range(batch) for h in range(dims.nheads) for q in range(MIXER_SPLIT)]
 
 
 @pytest.mark.parametrize("cfg,batch,n_sm", CASES, ids=IDS)
@@ -116,11 +130,12 @@ def test_main_path_budget():
     assert (bf16.kch, bf16.slots, bf16.slot_bytes, bf16.region_bytes, bf16.smem) == (1024, 3, 33_792, 20_736, 223_488)
     assert (int8w.slots, int8w.slot_bytes, int8w.region_bytes, int8w.smem) == (5, 17_408, 20_608, 194_688)
     assert (int8.slots, int8.slot_bytes, int8.region_bytes, int8.smem) == (6, 17_408, 12_544, 221_440)
-    # out_proj's 64 tiles and the mixer's 64 items each on 64 blocks, one a
-    # block, on other teams; out_proj on teams with one in_proj tile.
-    for k in (1, 2):
-        assert len({t // gk.TEAMS for t, lists in enumerate(bf16.items) if lists[k]}) == 64
-    assert not any(lists[1] and lists[2] for lists in bf16.items)
+    # The mixer's 256 items (2 rows x 32 heads x 4 quarters) one a team on
+    # all 132 blocks; out_proj's 64 tiles on 64 blocks, one a block, on teams
+    # with one in_proj tile.
+    assert sorted(len(lists[1]) for lists in bf16.items) == [0] * 8 + [1] * 256
+    assert len({t // gk.TEAMS for t, lists in enumerate(bf16.items) if lists[1]}) == 132
+    assert len({t // gk.TEAMS for t, lists in enumerate(bf16.items) if lists[2]}) == 64
     assert all(len(bf16.items[t][0]) == 1 for t, lists in enumerate(bf16.items) if lists[2])
 
 
