@@ -9,8 +9,24 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   1. device: a CUDA card is required; its name and power limit are printed
      as `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` says.
   2. build: the kernels of csrc/ are compiled with nvcc for sm_90a.
-  3. kernel A (ssd_scan) against its plain version at the main-path shape.
-  4. kernel B at full width: each decode kernel against its plain version on
+  3. kernel A (ssd_scan): [3 ssd_scan] against its plain version
+     (ssd_chunked) and its decomposition in plain PyTorch
+     (ssd_kernel.scan_partitioned) at the prefill's shape, its two launches
+     (grids, shared memory, device time of each by torch.profiler), its time
+     host-paced and in a CUDA graph beside the bound's two terms (bytes;
+     operations as three TF32 passes) and the plain version (with --parent
+     DIR the parent tree's A in 5 rounds of turns); [3 ssd_scan shapes]
+     against the sequential ssd_reference at T = 38, 129, 200 and 2,054 at
+     batch 1 and 3 and with G = 2, and the refusals (P or N other than 64,
+     G not dividing H, a float64 input); [3 ssd_scan repeat] a second call
+     and three CUDA-graph replays bit for bit; [3 ssd_scan rows] each row of
+     a batch-3 call bit for bit with that row run alone.
+  4. [4 prefill] the full Mamba prefill (10 launches of A) against the same
+     prefill with the plain ssd_chunked (last logits and the ten final SSM
+     states), within the larger of TOL_A_PREFILL and twice the plain
+     prefill's response to a 1e-6 perturbation of the scan's input; its ms
+     host-paced and in a graph (with --parent DIR the prefill with the
+     parent tree's A in turns). Kernel B at full width: each decode kernel against its plain version on
      the same inputs, then 64 teacher-forced decode steps of the kernel chain
      against the plain chain from one shared prefill state; [4 sample_tail
      <case>] the tail on the cases of TAIL_CASES (one and eight rows, a
@@ -131,6 +147,10 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      against its plain chain with exact launch counts (11 / 21 / 31 / 31),
      and [10 ablate] the entry point `experiments.kernel_ablate.run` and the
      split of kernel B's device step.
+`--only ssd` runs phases 1 to 3 and every row that launches kernel A: [4
+prefill], [5 cli], the resident [6 cli] runs with [6 api resident int8] and
+[rows mamba auto|resident]; its kernels line holds ssd_scan with the
+launches of [5 cli], counted from zero.
 `python3 chip_smoke.py --only 7` runs phases 1, 2 and 7 alone, `--only 9`
 phases 1, 2 and 9, `--only 10` phases 1, 2 and 10 (bring-up of a slice; the
 full run takes no arguments).
@@ -157,9 +177,9 @@ kernel B's and C's launches.
 kernels line holds C's three forms from those CLI runs, each counted from
 zero. `--parent DIR` (with any of the above, or none) names another
 checkout of the port, such as an unpacked `git archive` of the parent
-commit: [4 sample_tail time], [6 loop], [9 slstm], [9 prefill] and [9 loop]
-build its kernels into DIR/build and time its tail, its C, its H and its G
-beside this tree's.
+commit: [3 ssd_scan], [4 prefill], [4 sample_tail time], [6 loop], [9
+slstm], [9 prefill] and [9 loop] build its kernels into DIR/build and time
+its A, its tail, its C, its H and its G beside this tree's.
 `--only tail` runs phases 1 and 2 and every row that holds the sampler tail
 (kernel B's sample_tail and C's spread tail): phase 4 with its [4 sample_tail
 ...] rows, [5 cli], [6 resident], [6 chain], [6 loop], [7 tdecode] with its
@@ -217,6 +237,7 @@ PLAIN_LOOP_TOKENS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at 700 W)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
 F32_FLOPS = 67e12  # f32 outside the tensor cores (H100 SXM data sheet)
+TF32_FLOPS = 495e12  # dense TF32 tensor-core peak (H100 SXM data sheet)
 # Tolerances, as max|kernel - plain| / max|plain|. f32 kernels differ from
 # their plain versions only in the order of f32 sums. The bf16 GEMVs take
 # their normalisation's statistics in the plain versions' formula (f64 sums
@@ -226,6 +247,13 @@ F32_FLOPS = 67e12  # f32 outside the tensor cores (H100 SXM data sheet)
 # (D, E, F's attention) round their operands at other points.
 TOL_F32 = 1e-4
 TOL_BF16 = 1e-2
+# The full Mamba prefill's last logits and final SSM states with kernel A
+# against the plain ssd_chunked: the two differ by f32 rounding in the
+# scans, carried through ten layers without residuals. Held to the larger
+# of this and twice the plain prefill's own response to a 1e-6 relative
+# perturbation of the scan's input (both printed; the response was 5e-5 of
+# the last logits on the H100, PERF.md).
+TOL_A_PREFILL = 1e-3
 # One decode step of the randomly initialised full-size stack amplifies a
 # 1e-6 perturbation of its state to about 1e-2 in the logits (ten layers
 # without residuals, each rounding its activations to bf16); phase 4 prints
@@ -570,36 +598,186 @@ def phase_build() -> float:
     return secs
 
 
-def phase_ssd(torch, report: dict) -> None:
-    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
-    from musicgen_tpu_torch.ops.ssm import ssd_chunked
+def profiled_ms(torch, fn, names, calls: int = 10) -> dict:
+    """Device ms a call of each kernel whose name holds one of `names`, from
+    torch.profiler over `calls` calls of fn(); None where the trace holds no
+    device time for it."""
+    from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    b, t_real, t, h, p = BATCH, PROMPT + 6, 2304, 32, 64
-    x = torch.randn(b, t, h, p, device=DEVICE, generator=gen)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in names:
+            if name in ev.key and us:
+                out[name] = (out[name] or 0.0) + us / 1e3 / calls
+    return out
+
+
+def ssd_inputs(torch, b: int, t: int, h: int, g: int = 1, t_real: int | None = None, seed: int = SEED):
+    """Seeded inputs of kernel A at (B, T, H, G), P = N = 64, the steps from
+    t_real on zero (as the prefill's trailing pad steps)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(b, t, h, 64, device=DEVICE, generator=gen)
     dt = 0.001 + 0.2 * torch.rand(b, t, h, device=DEVICE, generator=gen)
     A = -(1.0 + 15.0 * torch.rand(h, device=DEVICE, generator=gen))
-    Bm = torch.randn(b, t, 1, p, device=DEVICE, generator=gen)
-    Cm = torch.randn(b, t, 1, p, device=DEVICE, generator=gen)
-    for v in (x, dt, Bm, Cm):  # the prefill's trailing pad steps
-        v[:, t_real:] = 0
-    y_k, s_k = ssd_scan(x, dt, A, Bm, Cm, chunk=256)
-    y_p, s_p = ssd_chunked(x, dt, A, Bm, Cm, chunk=256)
+    Bm = torch.randn(b, t, g, 64, device=DEVICE, generator=gen)
+    Cm = torch.randn(b, t, g, 64, device=DEVICE, generator=gen)
+    if t_real is not None:
+        for v in (x, dt, Bm, Cm):
+            v[:, t_real:] = 0
+    return x, dt, A, Bm, Cm
+
+
+def phase_ssd(torch, report: dict, parent: Path | None = None) -> None:
+    """[3 ssd_scan] kernel A at the prefill's shape against ssd_chunked and
+    against its decomposition in plain PyTorch (`scan_partitioned`), its two
+    launches, times host-paced and in a CUDA graph beside the bound's two
+    terms and the plain version (with --parent DIR the parent tree's A in
+    turns); [3 ssd_scan shapes] against the sequential ssd_reference at
+    ragged T, batch 1 and 3, and G = 2; the refusals; [3 ssd_scan repeat]
+    two calls and three graph replays bit for bit; [3 ssd_scan rows] each
+    row of a batch-3 call bit for bit with that row alone."""
+    from musicgen_tpu_torch.ops import ssd_kernel as sk
+    from musicgen_tpu_torch.ops.ssm import ssd_chunked
+
+    ssd_scan = sk.ssd_scan
+    b, t_real, t, h, p = BATCH, PROMPT + 6, 2304, 32, 64
+    args = ssd_inputs(torch, b, t, h, t_real=t_real)
+    geo = sk.scan_geometry(b, t, h, 1)
+    mirror, kgeo = (sk.CHUNK, sk.THREADS, sk.CHUNK_SMEM, sk.PASS_SMEM, sk.PASS_ROWS, sk.STAGES), sk.kernel_geometry()
+    need(kgeo == mirror, f"ssd_scan: the kernel's constants {kgeo} are not ops/ssd_kernel's {mirror}")
+    y_k, s_k = ssd_scan(*args)
+    y_p, s_p = ssd_chunked(*args, chunk=256)
+    y_q, s_q = sk.scan_partitioned(*args)
     torch.cuda.synchronize()
     ey, ry = rel_err(y_k, y_p)
     es, rs = rel_err(s_k, s_p)
+    pq = max(rel_err(y_k, y_q)[1], rel_err(s_k, s_q)[1])
     need(bool(torch.isfinite(y_k).all()) and bool(torch.isfinite(s_k).all()), "ssd_scan: non-finite output")
-    ms = cuda_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=256), iters=20)
-    dev_ms = graph_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=256), calls=10)
-    plain_ms = cuda_ms(torch, lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk=256), iters=20)
-    say(f"[3 ssd_scan] (B,T,H,P,N)=({b},{t},{h},{p},{p}): y max_abs {ey:.3e} rel {ry:.3e}; "
-        f"state max_abs {es:.3e} rel {rs:.3e} (tol rel {TOL_F32}); "
-        f"kernel {ms:.4f} ms (device, CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms")
-    need(ry <= TOL_F32 and rs <= TOL_F32, "ssd_scan disagrees with ssd_chunked")
+    ms = cuda_ms(torch, lambda: ssd_scan(*args), iters=20)
+    dev_ms = graph_ms(torch, lambda: ssd_scan(*args), calls=10)
+    plain_ms = cuda_ms(torch, lambda: ssd_chunked(*args, chunk=256), iters=20)
+    split = profiled_ms(torch, lambda: ssd_scan(*args), ("ssd_chunk_kernel", "ssd_pass_kernel"))
     # Bound: x, dt, A, B, C read and y and the state written once; the
-    # recurrence's 4 * P * N f32 flops per (b, t, h) (update and readout).
-    cost = bound(nbytes(x, dt, A, Bm, Cm, y_k, s_k), 4.0 * b * t * h * p * p, F32_FLOPS)
+    # recurrence's 4 * P * N flops per (b, t, h) (update and readout), f32-
+    # accurate on the tensor cores as three TF32 passes.
+    n_bytes, flops = nbytes(*args, y_k, s_k), 4.0 * b * t * h * p * p
+    cost = bound(n_bytes, flops, TF32_FLOPS / 3)
+    parent_txt = "the parent tree's A not measured (no --parent)"
+    if parent is not None:
+        psk = parent_module(parent, "ssd_kernel", "[3 ssd_scan]")
+        y_par, s_par = psk.ssd_scan(*args)
+        turns: dict = {"parent": [], "this": []}
+        for _ in range(SSD_TURNS):
+            for who in ("parent", "this", "this", "parent"):
+                fn = psk.ssd_scan if who == "parent" else ssd_scan
+                turns[who].append((median_ms(torch, lambda: fn(*args), iters=10), graph_ms(torch, lambda: fn(*args),
+                                                                                         calls=10)))
+
+        def med(who, i):
+            vals = [r[i] for r in turns[who] if r[i] is not None]
+            return statistics.median(vals) if vals else None
+
+        parent_txt = (f"in {SSD_TURNS} rounds of turns (parent, this, this, parent): this tree median "
+                      f"{med('this', 0):.4f} ms host-paced, {fmt_ms(med('this', 1))} in a graph; the parent tree's A "
+                      f"median {med('parent', 0):.4f} ms host-paced, {fmt_ms(med('parent', 1))} in a graph (graph: "
+                      + " / ".join(fmt_ms(r[1]) for r in turns["parent"]) + f"); the parent's y rel "
+                      f"{rel_err(y_par, y_p)[1]:.3e}")
+    say(f"[3 ssd_scan] (B,T,H,G,P,N)=({b},{t},{h},1,{p},{p}), the last {t - t_real} steps zero: y max_abs {ey:.3e} "
+        f"rel {ry:.3e}; state max_abs {es:.3e} rel {rs:.3e} against ssd_chunked (tol rel {TOL_F32}); against "
+        f"scan_partitioned rel {pq:.3e}; launch 1: {geo.chunk_grid} x {geo.threads} threads, {geo.chunk_smem} B "
+        f"shared, {fmt_ms(split['ssd_chunk_kernel'])}; launch 2: {geo.pass_grid} x {geo.threads}, "
+        f"{geo.pass_smem} B, {fmt_ms(split['ssd_pass_kernel'])} "
+        f"(torch.profiler, a mean of 10 calls); scratch {geo.scratch_bytes} B; kernel "
+        f"{ms:.4f} ms host-paced (CUDA graph: {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms; bound "
+        f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}: bytes {1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms, "
+        f"3xTF32 operations {1e3 * flops / (TF32_FLOPS / 3):.4f} ms; f32 FMA would be "
+        f"{1e3 * flops / F32_FLOPS:.4f}); {parent_txt}")
+    need(ry <= TOL_F32 and rs <= TOL_F32, "ssd_scan disagrees with ssd_chunked")
     report["ssd_scan"] = {"max_abs_err": max(ey, es), "ms": ms, "plain_ms": plain_ms, "library_ms": None, **cost}
+    del y_p, s_p, y_q, s_q
+    phase_ssd_shapes(torch, sk)
+    phase_ssd_repeat(torch, sk, args, y_k, s_k)
+    phase_ssd_rows(torch, sk)
+
+
+# [3 ssd_scan shapes]: (B, T, G) at H = 32 against the sequential oracle.
+SSD_SHAPES = tuple((bb, tt, 1) for tt in (38, 129, 200, 2054) for bb in (1, 3)) + ((3, 200, 2),)
+# [3 ssd_scan] with --parent DIR: rounds of (parent, this, this, parent), 10 pairs.
+SSD_TURNS = 5
+SSD_REPLAYS = 3
+
+
+def phase_ssd_shapes(torch, sk) -> None:
+    from musicgen_tpu_torch.ops.ssm import ssd_reference
+
+    worst, cases = 0.0, []
+    for i, (bb, tt, g) in enumerate(SSD_SHAPES):
+        args = ssd_inputs(torch, bb, tt, 32, g, seed=SEED + 1 + i)
+        y_k, s_k = sk.ssd_scan(*args)
+        y_r, s_r = ssd_reference(*args)
+        r = max(rel_err(y_k, y_r)[1], rel_err(s_k, s_r)[1])
+        need(y_k.shape == y_r.shape and bool(torch.isfinite(y_k).all()), f"ssd_scan at {(bb, tt, g)}: bad output")
+        cases.append(f"({bb}, {tt}, G {g}) {r:.2e}")
+        worst = max(worst, r)
+        need(r <= TOL_F32, f"ssd_scan at (B, T, G) = {(bb, tt, g)} disagrees with ssd_reference (rel {r:.3e})")
+    x, dt, A, Bm, Cm = ssd_inputs(torch, 1, 40, 4, 2)
+    refused, before = [], sk.ssd_scan.launches
+    for what, call in (("P 32", lambda: sk.ssd_scan(x[..., :32].contiguous(), dt, A, Bm, Cm)),
+                       ("N 32", lambda: sk.ssd_scan(x, dt, A, Bm[..., :32].contiguous(), Cm[..., :32].contiguous())),
+                       ("H 4, G 3", lambda: sk.ssd_scan(x, dt, A, *ssd_inputs(torch, 1, 40, 4, 3)[3:])),
+                       ("f64 x", lambda: sk.ssd_scan(x.double(), dt, A, Bm, Cm))):
+        try:
+            call()
+        except ValueError:
+            refused.append(what)
+    say(f"[3 ssd_scan shapes] H 32 against the sequential ssd_reference, rel (B, T, G): {'; '.join(cases)} "
+        f"(worst {worst:.3e}, tol {TOL_F32}); refused: {', '.join(refused)}")
+    need(len(refused) == 4 and sk.ssd_scan.launches == before, f"ssd_scan refused only {refused}")
+
+
+def phase_ssd_repeat(torch, sk, args, y0, s0) -> None:
+    y1, s1 = sk.ssd_scan(*args)
+    torch.cuda.synchronize()
+    same = [torch.equal(y1, y0) and torch.equal(s1, s0)]
+    static: dict = {}
+
+    def capture():
+        static["y"], static["s"] = sk.ssd_scan(*args)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        capture()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        capture()
+    for _ in range(SSD_REPLAYS):
+        static["y"].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(static["y"], y0) and torch.equal(static["s"], s0))
+    say(f"[3 ssd_scan repeat] a second call and {SSD_REPLAYS} CUDA-graph replays bit for bit with the first: "
+        f"{sum(same)}/{len(same)}")
+    need(all(same), "ssd_scan gives other bits on a repeat or a graph replay")
+
+
+def phase_ssd_rows(torch, sk) -> None:
+    args = ssd_inputs(torch, 3, PROMPT + 6, 32, seed=SEED + 99)
+    y, s = sk.ssd_scan(*args)
+    equal = []
+    for j in range(3):
+        yj, sj = sk.ssd_scan(*(a[j:j + 1].contiguous() if a.dim() > 1 else a for a in args))
+        equal.append(torch.equal(yj, y[j:j + 1]) and torch.equal(sj, s[j:j + 1]))
+    say(f"[3 ssd_scan rows] (3, {PROMPT + 6}, 32): each row bit for bit with the row run alone: {sum(equal)}/3")
+    need(all(equal), "ssd_scan: a row's output depends on the other rows of the batch")
 
 
 def synth_corpus(root: Path) -> tuple[Path, Path]:
@@ -665,17 +843,95 @@ def decode_context(torch, model, corpus: Path, meta_path: Path) -> dict:
             "x": x, "g": g, "o": o, "dims": dims, "dp": dp}
 
 
-def phase_decode(torch, model, ctx: dict, report: dict) -> None:
+@contextlib.contextmanager
+def ssd_scan_as(fn):
+    """MambaLM.prefill with `fn` in kernel A's place (its plain version, or
+    the parent tree's A), on the card."""
+    from musicgen_tpu_torch.models import mamba
+
+    saved = mamba.ssd_scan
+    mamba.ssd_scan = fn
+    try:
+        yield
+    finally:
+        mamba.ssd_scan = saved
+
+
+def phase_prefill(torch, model, ctx: dict, parent: Path | None = None) -> None:
+    """[4 prefill] the full-size MambaLM's prefill with kernel A against the
+    same prefill with the plain ssd_chunked: the last logits and the ten
+    layers' final SSM states, held to the larger of TOL_A_PREFILL and twice
+    the plain prefill's own response to a 1e-6 relative perturbation of the
+    scan's input x in every layer (printed). Its ms host-paced (the median
+    of 5 calls) and in a CUDA graph, the plain forward's; with --parent DIR
+    the prefill with the parent tree's A in turns (SSD_TURNS rounds of
+    parent, this, this, parent)."""
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+    from musicgen_tpu_torch.ops.ssm import ssd_chunked
+
+    prompt, meta = ctx["prompt"], ctx["meta"]
+    ssd_scan.launches = 0
+    logits_k, states_k = model.prefill(prompt, meta)
+    torch.cuda.synchronize()
+    launches = ssd_scan.launches
+    noise = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def perturbed(x, dt, A, Bm, C, chunk):
+        return ssd_chunked(x * (1.0 + 1e-6 * torch.randn(x.shape, device=DEVICE, generator=noise)), dt, A, Bm, C,
+                           chunk=chunk)
+
+    with ssd_scan_as(ssd_chunked):
+        logits_p, states_p = model.prefill(prompt, meta)
+        plain_ms = cuda_ms(torch, lambda: model.prefill(prompt, meta), iters=3, warmup=1)
+    with ssd_scan_as(perturbed):
+        logits_n, states_n = model.prefill(prompt, meta)
+
+    def errs(logits, states):
+        e_abs, e_rel = rel_err(logits[:, -1], logits_p[:, -1])
+        return e_abs, e_rel, max(rel_err(a["ssm"], b["ssm"])[1] for a, b in zip(states, states_p))
+
+    abs_l, rel_l, rel_s = errs(logits_k, states_k)
+    _, floor_l, floor_s = errs(logits_n, states_n)
+    tol_l, tol_s = max(TOL_A_PREFILL, 2 * floor_l), max(TOL_A_PREFILL, 2 * floor_s)
+    ms = median_ms(torch, lambda: model.prefill(prompt, meta))
+    dev_ms = graph_ms(torch, lambda: model.prefill(prompt, meta), calls=1, replays=3)
+    forward_ms = cuda_ms(torch, lambda: model(prompt, meta), iters=3, warmup=1)
+    parent_txt = "the parent tree's A not measured (no --parent)"
+    if parent is not None:
+        psk = parent_module(parent, "ssd_kernel", "[4 prefill]")
+        turns: dict = {"parent": [], "this": []}
+        for _ in range(SSD_TURNS):
+            for who in ("parent", "this", "this", "parent"):
+                with ssd_scan_as(psk.ssd_scan if who == "parent" else ssd_scan):
+                    turns[who].append((median_ms(torch, lambda: model.prefill(prompt, meta)),
+                                       graph_ms(torch, lambda: model.prefill(prompt, meta), calls=1, replays=3)))
+
+        def med(who, i):
+            vals = [r[i] for r in turns[who] if r[i] is not None]
+            return statistics.median(vals) if vals else None
+
+        parent_txt = (f"in {SSD_TURNS} rounds of turns (parent, this, this, parent), medians of the host-paced "
+                      f"medians: this tree {med('this', 0):.3f} ms (graph {fmt_ms(med('this', 1))}), the parent "
+                      f"tree's A {med('parent', 0):.3f} ms (graph {fmt_ms(med('parent', 1))}); this / parent each "
+                      "turn: " + ", ".join(f"{a[0]:.3f} / {b[0]:.3f}" for a, b in zip(turns["this"], turns["parent"])))
+    say(f"[4 prefill] (B,T)=({BATCH},{PROMPT}+6): {launches} kernel A launches; against the prefill with the plain "
+        f"ssd_chunked: last logits max_abs {abs_l:.3e} rel {rel_l:.3e} (tol {tol_l:.3e}), the {len(states_k)} "
+        f"layers' final SSM states rel {rel_s:.3e} (tol {tol_s:.3e}); the plain prefill from x perturbed by 1e-6: "
+        f"logits rel {floor_l:.3e}, states rel {floor_s:.3e} (tol = max({TOL_A_PREFILL}, twice these)); prefill "
+        f"with kernel A {ms:.3f} ms (median of 5; in a CUDA graph {fmt_ms(dev_ms)}), {parent_txt}; with the plain "
+        f"ssd_chunked {plain_ms:.3f} ms, plain forward {forward_ms:.3f} ms")
+    need(bool(torch.isfinite(logits_k).all()), "mamba prefill logits are not finite")
+    need(launches == model.cfg.n_layers, f"prefill launched kernel A {launches} times")
+    need(rel_l <= tol_l and rel_s <= tol_s, "prefill with kernel A disagrees with the plain ssd_chunked")
+
+
+def phase_decode(torch, model, ctx: dict, report: dict, parent: Path | None = None) -> None:
     from musicgen_tpu_torch.ops import decode_kernel as dk
     from musicgen_tpu_torch.ops.grammar import field_bucket
     from musicgen_tpu_torch.sample.sampler import init_penalty_state, push_token
 
     prompt, meta, dims, dp, carry = ctx["prompt"], ctx["meta"], ctx["dims"], ctx["dp"], ctx["carry"]
-    with torch.no_grad():
-        prefill_ms = cuda_ms(torch, lambda: model.prefill(prompt, meta), iters=3, warmup=1)
-        forward_ms = cuda_ms(torch, lambda: model(prompt, meta), iters=3, warmup=1)
-    say(f"[4 prefill] (B,T)=({BATCH},{PROMPT}+6): prefill with ssd_scan {prefill_ms:.3f} ms, "
-        f"plain forward {forward_ms:.3f} ms")
+    phase_prefill(torch, model, ctx, parent)
     pen = init_penalty_state(prompt, max(PROMPT, 2048))
     tok = prompt[:, -1]
 
@@ -1537,7 +1793,7 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
          f"resident int8: launches {launches}, ssd_scan {ssd_scan.launches}")
     totals["generate_resident_w8a8"] = 1
     for name, n in totals.items():
-        report[name]["launches"] = n
+        report.setdefault(name, {})["launches"] = n
 
 
 # [rows]: more batch rows than one decode launch carries (MAX_ROWS = 8): the
@@ -3685,14 +3941,14 @@ def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
 
 
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident|tail|mixer] [--parent DIR]; None where absent
-    or wrong."""
+    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]; None where
+    absent or wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
         opts[rest[0]] = rest[1]
         rest = rest[2:]
     only = opts.get("--only")
-    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident", "tail", "mixer"):
+    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident", "tail", "mixer", "ssd"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -3728,6 +3984,24 @@ def phase_mixer_paths(torch, report: dict, parent: Path | None) -> None:
         phase_mixer(torch, ctx, parent)
 
 
+def phase_ssd_paths(torch, report: dict, parent: Path | None) -> None:
+    """--only ssd: every row that launches kernel A, with the checks and
+    timings of the full run: phase 3, [4 prefill] (with --parent DIR the
+    parent tree's A in turns there and in [3 ssd_scan]), [5 cli], the
+    resident [6 cli] runs with [6 api resident int8], and [rows mamba
+    auto|resident]. A's launches are those of [5 cli], counted from zero."""
+    phase_ssd(torch, report, parent)
+    model = mamba_model(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        ctx = decode_context(torch, model, corpus, meta_path)
+        phase_prefill(torch, model, ctx, parent)
+        phase_cli(torch, model, corpus, meta_path, root, report)
+        phase_cli_resident(torch, model, corpus, meta_path, root, report, resident_only=True)
+        phase_rows(torch, "mamba", model, corpus, meta_path, root)
+
+
 def phase_resident_paths(torch, report: dict, parent: Path | None) -> None:
     """--only resident: every row that launches kernel C, with the checks
     and timings of the full run: [6 resident], [6 chain], [6 loop] and the
@@ -3747,7 +4021,7 @@ def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident|tail|mixer] [--parent DIR]",
+        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]",
               file=sys.stderr)
         return 2
     only, parent = args
@@ -3796,14 +4070,17 @@ def main() -> int:
     if only == "mixer":
         phase_mixer_paths(torch, report, parent)
         return finish(torch, card, report, MIXER_KERNELS, t_start)
-    phase_ssd(torch, report)
+    if only == "ssd":
+        phase_ssd_paths(torch, report, parent)
+        return finish(torch, card, report, ["ssd_scan"], t_start)
+    phase_ssd(torch, report, parent)
 
     model = mamba_model(torch)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         corpus, meta_path = synth_corpus(root)
         ctx = decode_context(torch, model, corpus, meta_path)
-        phase_decode(torch, model, ctx, report)
+        phase_decode(torch, model, ctx, report, parent)
         phase_mixer(torch, ctx, parent)
         phase_tail(torch, ctx, parent)
         phase_gemv_ragged(torch)

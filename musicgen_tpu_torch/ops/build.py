@@ -35,7 +35,9 @@ NVCC_FLAGS = (
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # name -> argtypes; every entry point returns the cudaError_t of its launch.
 SIGNATURES = {
-    "mg_ssd_scan": [_P] * 7 + [_I] * 6 + [_P],
+    # (x, dt, A, B, C, y, state, scratch: end states, cumsums; B, T, H, G, P, N, stream)
+    "mg_ssd_scan": [_P] * 9 + [_I] * 6 + [_P],
+    "mg_ssd_scan_geometry": [_P],
     "mg_in_proj_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "mg_mixer_state": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "mg_out_proj_rms": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
