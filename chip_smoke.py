@@ -101,11 +101,14 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      version; [8 grad] the Transformer's loss and every gradient
      through D and E against the same model with their plain versions on the
      card (and, as information, the f32 attention), with exact launch counts;
-     [8 steps] five Adam steps of each family on one batch (the loss falls at
-     every step), ms/step, train tokens/s and peak memory; [8 cli]
-     `cli.train` for each family (2 epochs, batch 2, block 2048) writing a
-     checkpoint directory that `cli.generate --ckpt <dir>/model.pth` reads,
-     with exact launch counts (a Mamba model trains through no kernel).
+     [8 steps] five Adam steps of each family (Transformer, Mamba, xLSTM)
+     on one batch (the loss falls at every step), ms/step, train tokens/s
+     and peak memory; [8 cli] `cli.train` for each family (2 epochs, batch
+     2, block 2048; the xLSTM's X_TRAIN_CLI_BLOCK) writing a checkpoint
+     directory that `cli.generate --ckpt <dir>/model.pth` reads, with exact
+     launch counts (a Mamba model and an xLSTM train through no kernel; the
+     xLSTM's validation forwards launch H, and its trained checkpoint
+     generates through H and G).
   9. the xLSTM at the reference size (11 blocks, d_model 1024, sLSTM at
      (1, 4, 7, 10); seeded random weights), kernels H and G: [9 slstm] kernel
      H against its plain scan at (2, 2054, 4, 256), with the scan's own noise
@@ -119,7 +122,10 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      repeat] two launches and three CUDA-graph replays bit for bit; [9
      prefill] the full prefill's last logits with H against the plain scan,
      4 launches of H (with --parent DIR, the prefill with the parent tree's H
-     timed in turns); [9 xdecode ...] each launch of kernel G's
+     timed in turns); [9 slstm wide] the scan's route by shape: a 2-head
+     xLSTM of width 1024 (DH 512, which H refuses) prefills through the
+     plain scan with no launch, the reference shape through H; [9 xdecode
+     ...] each launch of kernel G's
      chain against its plain version in bf16, W8A16 and with the matrix
      memory stored in bf16 (sb16), then in bf16, W8A16, sb16 and
      W8A16-sb16 64 teacher-forced steps from a shared state against the
@@ -147,13 +153,28 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      against its plain chain with exact launch counts (11 / 21 / 31 / 31),
      and [10 ablate] the entry point `experiments.kernel_ablate.run` and the
      split of kernel B's device step.
+ 11. the research path: [11 classifier] the full-size composer classifier
+     (512 wide, 11 blocks, 4 heads of 128) at (2, 2048), its no-grad
+     forward through kernel H (exactly 4 launches) against the plain scan;
+     [11 classifier train] `cli.train_classifier` for one epoch, 2 steps at
+     its context length (BCE, ms a
+     step, peak memory); [11 evaluate] `cli.evaluate accuracy --batches 2`
+     for each family with exact launches (D for the Transformer, H for the
+     xLSTM, none for Mamba's plain forward), `classifier` on the trained
+     checkpoint and `timing` for each family (ms a forward, peak memory);
+     [11 preprocess] `cli.preprocess` over MIDI written from the corpus, each
+     .npy equal to codec.encode of its file. H's launches there are added to
+     its count on the main paths ([slstm_scan launches]).
+`--only 11` runs phases 1 and 2, [9 slstm] (H's numbers for the kernels
+line) and phase 11; its kernels line holds slstm_scan with the launches of
+phase 11.
 `--only ssd` runs phases 1 to 3 and every row that launches kernel A: [4
 prefill], [5 cli], the resident [6 cli] runs with [6 api resident int8] and
 [rows mamba auto|resident]; its kernels line holds ssd_scan with the
 launches of [5 cli], counted from zero.
 `python3 chip_smoke.py --only 7` runs phases 1, 2 and 7 alone, `--only 9`
 phases 1, 2 and 9, `--only 10` phases 1, 2 and 10 (bring-up of a slice; the
-full run takes no arguments).
+full run takes no arguments, and runs phase 11 after phase 9).
 `--only int8` runs phases 1 and 2 and every row that launches the int8
 GEMVs (decode_ops.cuh gemv_team in W8A16 or W8A8): [4q] and [4q steps_*], [6 resident],
 [6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
@@ -320,6 +341,13 @@ TOL_GRAD = 2e-2
 TRAIN_STEPS = 5
 TRAIN_EPOCHS = 2
 GEN_AFTER_TRAIN = 32
+# The --block-len of [8 cli xlstm]: it trains through the plain sLSTM scan
+# (kernel H has no backward), a Python loop over the block in each of 4 sLSTM
+# blocks, forward and backward, 10.6-10.7 s a step at 2,048 on the H100
+# (PERF.md). A quarter of the block keeps the run near its time; [8 steps
+# xlstm] times the full 2,048. [11 classifier train] trains at the
+# classifier's context length, 2 steps.
+X_TRAIN_CLI_BLOCK = 512
 
 # Phase 9, the xLSTM. Kernel H against its plain scan: f32 sums in another
 # order over 2,054 dependent steps; held to the 2e-4 of
@@ -1324,15 +1352,16 @@ def phase_tail(torch, ctx: dict, parent: Path | None = None) -> None:
         + ("" if pdk is not None else "; the parent tree's tail not measured (no --parent)"))
 
 
-# The tail's launches on the main paths, by family (B: the Mamba CLI runs of
-# phases 5 and 6; F: the Transformer's of phase 7; G: the xLSTM's of phase
-# 9), each CLI run counted from zero.
-TAIL_LAUNCHES: dict = {}
+# Launches of a kernel on the paths outside its own phase, by kernel and row
+# (the sampler tail's on B's, F's and G's CLI runs; H's and G's on [8 cli
+# xlstm] and phase 11), each run counted from zero: finish() adds them to the
+# count of the kernel's own phase and prints them.
+PATH_LAUNCHES: dict = {}
 
 
-def count_tail(report: dict, family: str, n: int) -> None:
-    TAIL_LAUNCHES[family] = TAIL_LAUNCHES.get(family, 0) + n
-    report.setdefault("sample_tail", {})["launches"] = sum(TAIL_LAUNCHES.values())
+def count_path(name: str, row: str, n: int) -> None:
+    rows = PATH_LAUNCHES.setdefault(name, {})
+    rows[row] = rows.get(row, 0) + n
 
 
 def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict) -> None:
@@ -1386,7 +1415,7 @@ def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: d
     for name, n in want.items():
         if name != "sample_tail":
             report.setdefault(name, {})["launches"] = n
-    count_tail(report, "B", want["sample_tail"])
+    count_path("sample_tail", "[5 cli] (B)", want["sample_tail"])
 
     # The generation loop alone, kernels vs plain step, from one prefill.
     ds_items = [np.load(p) for p in sorted((corpus / "Bach").glob("*.npy"))[:BATCH]]
@@ -1768,7 +1797,7 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
         for name, n in want.items():
             if name.startswith(("generate_resident", "in_proj_conv_", "out_proj_rms_", "lm_head_ln_")):
                 totals[name] = totals.get(name, 0) + n
-        count_tail(report, "B", want.get("sample_tail", 0))
+        count_path("sample_tail", "[6 cli] (B)", want.get("sample_tail", 0))
     if bf16_only:
         for name, n in totals.items():
             report[name]["launches"] = n
@@ -2408,7 +2437,7 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
         for name, cnt in {**want, "flash_relpos": flash}.items():
             if name in report and not name.startswith(("lm_head_ln", "sample_tail")):
                 totals[name] = totals.get(name, 0) + cnt
-        count_tail(report, "F", want["sample_tail"])
+        count_path("sample_tail", "[7 cli] (F)", want["sample_tail"])
     for name, cnt in totals.items():
         report[name]["launches"] = cnt
 
@@ -2776,25 +2805,28 @@ def phase_grad(torch, corpus: Path, meta_path: Path) -> None:
     need(launches == want, f"a training step launched {launches}, expected {want}")
 
 
-def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transformer", "mamba")) -> dict:
+def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transformer", "mamba", "xlstm")) -> dict:
     """[8 steps] TRAIN_STEPS Adam steps of each of `families` at full width
-    on one batch: the loss falls at every step. Returns ms/step by family."""
-    from musicgen_tpu_torch.config import MambaConfig, TransformerConfig
-    from musicgen_tpu_torch.models import mamba, transformer
+    on one batch: the loss falls at every step. Returns ms/step by family.
+    An xLSTM trains through its plain scans (kernel H has no backward), so
+    its steps launch nothing."""
+    from musicgen_tpu_torch.config import MambaConfig, TransformerConfig, XLSTMConfig
+    from musicgen_tpu_torch.models import mamba, transformer, xlstm
     from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
     from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
     from musicgen_tpu_torch.train import trainer as T
 
     batch = train_batch(torch, corpus, meta_path)
     out = {}
     for family, module, cfg in (("transformer", transformer, TransformerConfig(dropout=0.0)),
-                                ("mamba", mamba, MambaConfig())):
+                                ("mamba", mamba, MambaConfig()), ("xlstm", xlstm, XLSTMConfig())):
         if family not in families:
             continue
         model = module.init_weights_(module.empty_model(cfg, DEVICE), SEED)
         step = T.make_lm_train_step(model, T.make_optimizer(model))
         ak.LAUNCHES.clear()
-        ssd_scan.launches = 0
+        ssd_scan.launches = slstm_scan.launches = 0
         torch.cuda.reset_peak_memory_stats()
         losses, secs = [], []
         for _ in range(TRAIN_STEPS):
@@ -2803,7 +2835,8 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transform
             losses.append(float(step(*batch)))
             secs.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
-        launches = {**ak.LAUNCHES, **({"ssd_scan": ssd_scan.launches} if ssd_scan.launches else {})}
+        launches = {**ak.LAUNCHES, **({"ssd_scan": ssd_scan.launches} if ssd_scan.launches else {}),
+                    **({"slstm_scan": slstm_scan.launches} if slstm_scan.launches else {})}
         ms = 1e3 * statistics.median(secs[1:])
         tokens = batch[0].numel()
         plain = ""
@@ -2835,19 +2868,23 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transform
 
 
 def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: dict,
-                    families=("transformer", "mamba")) -> None:
+                    families=("transformer", "mamba", "xlstm")) -> None:
     """[8 cli] `cli.train` for each of `families` at full width (TRAIN_EPOCHS
-    epochs, batch 2, block 2048) on the synthesized corpus, each run counted
-    from zero: a checkpoint directory, exact launch counts (D with LSE and E
-    8 times a train step and D 8 times a validation step for the
-    Transformer; nothing for Mamba), then `cli.generate --ckpt
-    <dir>/model.pth` from it. Each train step is timed with a synchronise
-    around it."""
+    epochs, batch 2, block 2048; the xLSTM's block X_TRAIN_CLI_BLOCK) on the
+    synthesized corpus, each run counted from zero: a checkpoint directory,
+    exact launch counts (D with LSE and E 8 times a train step and D 8 times
+    a validation step for the Transformer; H 4 times a validation step for
+    the xLSTM, whose train steps run the plain scan; nothing for Mamba), then
+    `cli.generate --ckpt <dir>/model.pth` from it (the xLSTM's through H's 4
+    prefill launches and G's step and B's tail once a token). Each train
+    step is timed with a synchronise around it."""
     from musicgen_tpu_torch.cli import generate as gen_cli
     from musicgen_tpu_torch.cli import train as train_cli
     from musicgen_tpu_torch.ops import attention_kernel as ak
     from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
     from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
     from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
     from musicgen_tpu_torch.train import trainer as T
 
@@ -2871,21 +2908,25 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
     try:
         for family in families:
             ckpt_dir = root / f"train8_{family}"
+            block = X_TRAIN_CLI_BLOCK if family == "xlstm" else PROMPT
             argv = ["--model", family, "--data", str(corpus), "--metadata", str(meta_path), "--ckpt-dir",
                     str(ckpt_dir), "--log", str(root / f"train8_{family}.json"), "--epochs", str(TRAIN_EPOCHS),
-                    "--batch-size", str(BATCH), "--block-len", str(PROMPT), "--seed", str(SEED), "--device", DEVICE]
+                    "--batch-size", str(BATCH), "--block-len", str(block), "--seed", str(SEED), "--device", DEVICE]
             step_secs.clear()
             ak.LAUNCHES.clear()
             dk.LAUNCHES.clear()
-            ssd_scan.launches = 0
+            ssd_scan.launches = slstm_scan.launches = 0
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             state = train_cli.main(argv)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
-            launches = {**ak.LAUNCHES, **dk.LAUNCHES, **({"ssd_scan": ssd_scan.launches} if ssd_scan.launches else {})}
+            launches = {**ak.LAUNCHES, **dk.LAUNCHES, **({"ssd_scan": ssd_scan.launches} if ssd_scan.launches else {}),
+                        **({"slstm_scan": slstm_scan.launches} if slstm_scan.launches else {})}
             n_steps, L = state.step, getattr(state.model.cfg, "n_layer", 0)
+            trained_cfg = state.model.cfg
+            n_slstm = len(getattr(trained_cfg, "slstm_at", ()))
             del state
             torch.cuda.empty_cache()
             saved = sorted(ckpt_dir.iterdir())
@@ -2895,10 +2936,13 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
             if family == "transformer":
                 want = {"flash_relpos_lse": L * n_steps, **dict.fromkeys(E_LAUNCHES, L * n_steps),
                         "flash_relpos": L * TRAIN_EPOCHS}  # one validation batch an epoch, under no_grad
+            elif family == "xlstm":
+                want = {"slstm_scan": n_slstm * TRAIN_EPOCHS}  # the validation forwards, under no_grad
+                count_path("slstm_scan", "[8 cli xlstm]", want["slstm_scan"])
             ms = 1e3 * statistics.median(step_secs[1:] or step_secs)
-            say(f"[8 cli {family}] cli.train: {n_steps} steps in {TRAIN_EPOCHS} epochs in {secs:.1f} s (with "
-                f"validation and the checkpoint); {ms:.2f} ms/step (median after the first), "
-                f"{BATCH * PROMPT / (ms / 1e3):.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
+            say(f"[8 cli {family}] cli.train --block-len {block}: {n_steps} steps in {TRAIN_EPOCHS} epochs in "
+                f"{secs:.1f} s (with validation and the checkpoint); {ms:.2f} ms/step (median after the first), "
+                f"{BATCH * block / (ms / 1e3):.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
                 f"{launches}; checkpoint {saved[0].name}")
             need(n_steps == 2 * TRAIN_EPOCHS and len(step_secs) == n_steps, f"{family}: {n_steps} train steps")
             need(launches == want, f"{family} training launched {launches}, expected {want}")
@@ -2906,16 +2950,29 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
                 if family == "transformer":
                     report[name]["launches"] = want[name]
 
+            dk.LAUNCHES.clear()
+            slstm_scan.launches = 0
             streams = gen_cli.main(["--model", family, "--ckpt", str(saved[0] / "model.pth"), "--data", str(corpus),
                                     "--metadata", str(meta_path), "--composers", "Mozart", "--batch", str(BATCH),
                                     "--block-len", str(PROMPT), "--length", str(GEN_AFTER_TRAIN), "--output",
                                     str(root / f"gen8_{family}"), "--seed", str(SEED), "--device", DEVICE])
+            torch.cuda.synchronize()
             st = torch.from_numpy(streams["Mozart"])
             need(tuple(st.shape) == (BATCH, PROMPT + GEN_AFTER_TRAIN), f"{family}: stream shape {tuple(st.shape)}")
             need(bool((mask[field_bucket(st[:, PROMPT - 1:-1]), st[:, PROMPT:]] > 0).all()),
                  f"{family}: a token generated from the trained checkpoint breaks the grammar")
+            gen_txt = ""
+            if family == "xlstm":  # the trained, dense-gated checkpoint through H and G
+                gen = {**dk.LAUNCHES, "slstm_scan": slstm_scan.launches}
+                want = {**x_launches(xk.XDims.create(trained_cfg, BATCH), GEN_AFTER_TRAIN, 1, "auto"),
+                        "slstm_scan": n_slstm}
+                need(gen == want, f"xlstm generation from the trained checkpoint launched {gen}, expected {want}")
+                count_path("slstm_scan", "[8 cli xlstm generate]", n_slstm)
+                count_path("xlstm_step", "[8 cli xlstm generate]", GEN_AFTER_TRAIN)
+                count_path("sample_tail", "[8 cli xlstm generate] (G)", GEN_AFTER_TRAIN)
+                gen_txt = f"; launches {gen}"
             say(f"[8 cli {family} generate] cli.generate --ckpt {saved[0].name}/model.pth: {GEN_AFTER_TRAIN} "
-                f"grammatical tokens at batch {BATCH}")
+                f"grammatical tokens at batch {BATCH} after a {PROMPT}-token prompt{gen_txt}")
     finally:
         T.make_lm_train_step = make_step
 
@@ -3185,6 +3242,38 @@ def phase_x_prefill(torch, corpus: Path, meta_path: Path, psk=None) -> dict:
     need(rel_e <= TOL_X_PREFILL, "prefill with kernel H disagrees with the plain scan")
     return {"model": model, "prompt": prompt, "meta": meta, "teacher": teacher, "states": states,
             "prefill_ms": ms, "plain_prefill_ms": plain_ms}
+
+
+def phase_x_slstm_wide(torch, xctx: dict) -> None:
+    """[9 slstm wide] the route of the sLSTM scan by shape: a 2-head xLSTM
+    of width 1024 (DH 512, which kernel H refuses) prefills on the card
+    through the plain scan, chosen before any launch (0 launches of H,
+    finite logits); the reference model (DH 256) still launches H 4 times."""
+    from musicgen_tpu_torch.config import XLSTMConfig
+    from musicgen_tpu_torch.models.xlstm import empty_model, init_weights_, runs_kernel_h
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+
+    prompt, meta = xctx["prompt"], xctx["meta"]
+    wide = init_weights_(empty_model(XLSTMConfig(num_heads=2), DEVICE), SEED).eval()
+    routes = {}
+    for name, model in (("wide", wide), ("reference", xctx["model"])):
+        layer = model.layers.blocks[model.cfg.slstm_at[0]].xlstm
+        wx = torch.empty(BATCH, PROMPT + 6, 4, layer.num_heads, layer.dh, device=DEVICE)
+        slstm_scan.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(prompt, meta)
+        torch.cuda.synchronize()
+        route = "kernel H" if runs_kernel_h(wx) else "plain"
+        routes[name] = (route, layer.num_heads, layer.dh, slstm_scan.launches, time.perf_counter() - t0,
+                        bool(torch.isfinite(logits).all()))
+    del wide
+    torch.cuda.empty_cache()
+    say("[9 slstm wide] " + "; ".join(
+        f"{name} xLSTM ({h} heads of DH {dh}): route {route}, {n} launches of H, prefill {1e3 * sec:.1f} ms, "
+        f"logits {'finite' if fin else 'NOT finite'}" for name, (route, h, dh, n, sec, fin) in routes.items()))
+    need(routes["wide"][0] == "plain" and routes["wide"][3] == 0, "the DH 512 prefill launched kernel H")
+    need(routes["reference"][0] == "kernel H" and routes["reference"][3] == 4, "the reference prefill skipped H")
+    need(routes["wide"][5] and routes["reference"][5], "an xLSTM prefill's logits are not finite")
 
 
 def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> dict:
@@ -3535,7 +3624,7 @@ def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, re
         for name, cnt in {**want, "slstm_scan": h_launches}.items():
             if name in report and not name.startswith(("lm_head_ln", "sample_tail")):
                 totals[name] = totals.get(name, 0) + cnt
-        count_tail(report, "G", want.get("sample_tail", 0))
+        count_path("sample_tail", "[9 cli] (G)", want.get("sample_tail", 0))
     for name, cnt in totals.items():
         report[name]["launches"] = cnt
 
@@ -3637,10 +3726,213 @@ def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict, 
     psk = parent_module(parent, "slstm_kernel", "[9 slstm]") if parent is not None else None
     phase_x_slstm(torch, report, psk)
     xctx = phase_x_prefill(torch, corpus, meta_path, psk)
+    phase_x_slstm_wide(torch, xctx)
     packs = phase_x_decode(torch, xctx, report)
     phase_x_cli(torch, xctx, corpus, meta_path, root, report)
     phase_rows(torch, "xlstm", xctx["model"], corpus, meta_path, root)
     phase_x_loop(torch, xctx, packs, report, parent)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the research path (the composer classifier, cli.train_classifier,
+# cli.evaluate, cli.preprocess), kernel H on the no-grad forwards, D on the
+# Transformer's
+# ---------------------------------------------------------------------------
+
+
+def phase_classifier(torch, corpus: Path, meta_path: Path) -> None:
+    """[11 classifier] the full-size composer classifier (512 wide, 11
+    blocks, 4 heads of 128) at (2, 2048): its no-grad forward through
+    kernel H (exactly 4 launches) against the same forward with the plain
+    scan, within TOL_X_PREFILL of its logits, and the ms of each."""
+    from musicgen_tpu_torch.config import ClassifierConfig
+    from musicgen_tpu_torch.models.xlstm import empty_model, init_weights_, runs_kernel_h
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+
+    model = init_weights_(empty_model(ClassifierConfig(), DEVICE), SEED).eval()
+    src = train_batch(torch, corpus, meta_path)[0]
+    layer = model.layers.blocks[model.cfg.slstm_at[0]].xlstm
+    wx = torch.empty(*src.shape, 4, layer.num_heads, layer.dh, device=DEVICE)
+    route = "kernel H" if runs_kernel_h(wx) else "plain"
+    slstm_scan.launches = 0
+    logits_k = model(src)
+    torch.cuda.synchronize()
+    launches = slstm_scan.launches
+    count_path("slstm_scan", "[11 classifier]", launches)
+    ms = median_ms(torch, lambda: model(src))
+    dev_ms = graph_ms(torch, lambda: model(src), calls=1, replays=3)
+    with plain_slstm_scan():
+        logits_p = model(src)
+        plain_ms = median_ms(torch, lambda: model(src), iters=2)
+    err, rel_e = rel_err(logits_k, logits_p)
+    say(f"[11 classifier] XLSTMClassifier {sum(p.numel() for p in model.parameters())} parameters, (B, T) = "
+        f"({BATCH}, {PROMPT}), (H, DH) = ({layer.num_heads}, {layer.dh}): route {route}, {launches} kernel H "
+        f"launches a forward; meta logits vs the plain scan max_abs {err:.3e} rel {rel_e:.3e} (tol {TOL_X_PREFILL}); "
+        f"forward with H {ms:.3f} ms (median of 5; in a CUDA graph {fmt_ms(dev_ms)}), with the plain scan "
+        f"{plain_ms:.3f} ms")
+    need(bool(torch.isfinite(logits_k).all()), "classifier logits are not finite")
+    need(launches == len(model.cfg.slstm_at) == 4, f"the classifier's forward launched kernel H {launches} times")
+    need(rel_e <= TOL_X_PREFILL, "the classifier's forward with kernel H disagrees with the plain scan")
+
+
+def phase_classifier_train(torch, corpus: Path, meta_path: Path, root: Path) -> Path:
+    """[11 classifier train] `cli.train_classifier` at full width and depth
+    for one epoch (2 steps of batch 2 at its context length, then one
+    validation batch through H): the BCE finite, ms/step with a synchronise
+    around each step, peak memory. Returns the checkpoint directory."""
+    from musicgen_tpu_torch.cli import train_classifier as cls_cli
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.train import trainer as T
+
+    step_secs: list = []
+    make_step = T.make_classifier_train_step
+
+    def timed_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(*args)
+            torch.cuda.synchronize()
+            step_secs.append((time.perf_counter() - t0, float(loss)))
+            return loss
+        return run
+
+    ckpt_dir = root / "train11_classifier"
+    log = root / "train11_classifier.json"
+    slstm_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    T.make_classifier_train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        state = cls_cli.main(["--data", str(corpus), "--metadata", str(meta_path), "--ckpt-dir", str(ckpt_dir),
+                              "--log", str(log), "--epochs", "1", "--batch-size", str(BATCH), "--seed", str(SEED),
+                              "--device", DEVICE])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        T.make_classifier_train_step = make_step
+    peak, launches, n_steps = torch.cuda.max_memory_allocated(), slstm_scan.launches, state.step
+    block = state.model.cfg.context_length
+    del state
+    torch.cuda.empty_cache()
+    count_path("slstm_scan", "[11 classifier train]", launches)
+    val = [e["message"] for e in json.loads(log.read_text()) if "Validation" in e.get("message", "")]
+    (saved,) = sorted(ckpt_dir.iterdir())
+    bces = [round(loss, 5) for _, loss in step_secs]
+    ms = 1e3 * statistics.median(sec for sec, _ in (step_secs[1:] or step_secs))
+    say(f"[11 classifier train] cli.train_classifier at ({BATCH}, {block}): {n_steps} steps in {secs:.1f} s "
+        f"(with validation and the checkpoint); BCE {bces}; {val[-1] if val else 'no validation'}; {ms:.2f} ms/step "
+        f"(median after the first); peak memory {peak / 2**30:.2f} GiB; kernel H {launches} launches (the "
+        f"validation forward); checkpoint {saved.name}")
+    need(n_steps == 2 and all(math.isfinite(b) for b in bces), f"classifier training: {n_steps} steps, BCE {bces}")
+    need(launches == 4, f"the classifier's validation launched kernel H {launches} times")
+    return saved
+
+
+def phase_evaluate(torch, corpus: Path, meta_path: Path, root: Path, classifier: Path) -> None:
+    """[11 evaluate] `cli.evaluate` on the card: `accuracy --batches 2` for
+    each family at the reference size (seeded random weights saved as a
+    .pth), with exact launches (D 8 times a Transformer forward, H 4 times an
+    xLSTM's, nothing for Mamba's plain forward); `classifier --batches 2` on
+    [11 classifier train]'s checkpoint; `timing` for each family (ms a
+    forward of (2, 2048) and the peak memory)."""
+    from musicgen_tpu_torch.cli import evaluate as eval_cli
+    from musicgen_tpu_torch.config import MambaConfig, TransformerConfig, XLSTMConfig
+    from musicgen_tpu_torch.data.metadata import load_band_vectors
+    from musicgen_tpu_torch.models import mamba, transformer, xlstm
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+
+    data = ["--data", str(corpus), "--metadata", str(meta_path), "--device", DEVICE]
+
+    def launched(run):
+        ak.LAUNCHES.clear()
+        ssd_scan.launches = slstm_scan.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {**{k: v for k, v in ak.LAUNCHES.items() if v}, **(
+            {"ssd_scan": ssd_scan.launches} if ssd_scan.launches else {}), **(
+            {"slstm_scan": slstm_scan.launches} if slstm_scan.launches else {})}
+
+    for family, module, cfg in (("mamba", mamba, MambaConfig()), ("transformer", transformer, TransformerConfig()),
+                                ("xlstm", xlstm, XLSTMConfig())):
+        ckpt = root / f"eval11_{family}.pth"
+        model = module.init_weights_(module.empty_model(cfg, DEVICE), SEED)
+        torch.save(model.state_dict(), ckpt)
+        del model
+        per_forward = {"mamba": {}, "transformer": {"flash_relpos": getattr(cfg, "n_layer", 0)},
+                       "xlstm": {"slstm_scan": len(getattr(cfg, "slstm_at", ()))}}[family]
+        acc, launches = launched(lambda: eval_cli.main(["accuracy", "--model", family, "--ckpt", str(ckpt),
+                                                        "--batches", "2", "--block-len", str(PROMPT), *data]))
+        want = {k: 2 * v for k, v in per_forward.items()}
+        count_path("slstm_scan", "[11 evaluate accuracy xlstm]", launches.get("slstm_scan", 0))
+        say(f"[11 evaluate accuracy {family}] --batches 2 at ({BATCH}, {PROMPT}): {json.dumps(acc)}; launches "
+            f"{launches}")
+        need(launches == want, f"evaluate accuracy --model {family} launched {launches}, expected {want}")
+        iters = 10
+        torch.cuda.empty_cache()
+        t, launches = launched(lambda: eval_cli.main(["timing", "--model", family, "--ckpt", str(ckpt), "--iters",
+                                                      str(iters), "--device", DEVICE]))
+        count_path("slstm_scan", "[11 evaluate timing xlstm]", launches.get("slstm_scan", 0))
+        mem = t["memory"] or {}
+        peak = f"{mem['peak_bytes_in_use'] / 2**30:.2f} GiB" if mem else "not measured"
+        say(f"[11 evaluate timing {family}] {t['ms_per_forward']:.3f} ms a forward of {eval_cli.TIMING_SHAPE} (CUDA "
+            f"events over {iters} forwards), {t['tokens_per_sec']:.0f} tokens/s, peak memory {peak} on "
+            f"{t['device']}; launches {launches}")
+        need(t["device"] == torch.cuda.get_device_name(0) and t["ms_per_forward"] > 0, f"timing {family}")
+        need(launches == {k: v * (iters + 1) for k, v in per_forward.items()},
+             f"evaluate timing --model {family} launched {launches}")
+        ckpt.unlink()
+        torch.cuda.empty_cache()
+    _, bands = load_band_vectors(meta_path)
+    band_start = min(int(v[0]) for v in bands.values())
+    rates, launches = launched(lambda: eval_cli.main(["classifier", "--ckpt", str(classifier), "--band-start",
+                                                      str(band_start), "--batches", "2", *data]))
+    count_path("slstm_scan", "[11 evaluate classifier]", launches.get("slstm_scan", 0))
+    say(f"[11 evaluate classifier] --batches 2 at ({BATCH}, {PROMPT}) on {classifier.name}: {json.dumps(rates)}; "
+        f"launches {launches}")
+    need(launches == {"slstm_scan": 8}, f"evaluate classifier launched {launches}")
+    need(all(0.0 <= r <= 1.0 for r in rates["per_band"].values()), "a success rate outside [0, 1]")
+
+
+def phase_preprocess(torch, corpus: Path, root: Path) -> None:
+    """[11 preprocess] `cli.preprocess` over MIDI files written from the
+    synthesized corpus (codec.decode, note_to_midi): one .npy a file in
+    <out>/midi/<band>/, each equal to codec.encode of its file's notes."""
+    import numpy as np
+
+    from musicgen_tpu_torch.cli import preprocess as pre_cli
+    from musicgen_tpu_torch.midi import decode, encode, extract_midi, note_to_midi
+
+    midi = root / "midi"
+    sources = sorted(corpus.rglob("*.npy"))
+    for path in sources:
+        (midi / path.parent.name).mkdir(parents=True, exist_ok=True)
+        note_to_midi(decode(np.load(path).tolist()), str(midi / path.parent.name / f"{path.stem}.mid"))
+    t0 = time.perf_counter()
+    n = pre_cli.main(["--midi", str(midi), "--out", str(root / "np11")])
+    secs = time.perf_counter() - t0
+    outs = sorted((root / "np11" / "midi").rglob("*.npy"))
+    same = sum(np.array_equal(np.load(out), np.asarray(encode(extract_midi(str(midi / out.parent.name /
+                                                                              f"{out.stem}.mid"))), np.int64))
+               for out in outs)
+    tokens = sum(len(np.load(out)) for out in outs)
+    say(f"[11 preprocess] cli.preprocess: {n} of {len(sources)} MIDI files tokenized in {secs:.2f} s on the host "
+        f"({tokens} tokens); {same} of {len(outs)} .npy files equal codec.encode of their file")
+    need(n == len(sources) == len(outs) == same, "cli.preprocess missed or changed a file")
+
+
+def phase_research(torch, corpus: Path, meta_path: Path, root: Path) -> None:
+    """Phase 11: [11 classifier], [11 classifier train], [11 evaluate] and
+    [11 preprocess]. Kernel H's launches on these paths go to PATH_LAUNCHES."""
+    phase_classifier(torch, corpus, meta_path)
+    torch.cuda.empty_cache()
+    ckpt = phase_classifier_train(torch, corpus, meta_path, root)
+    phase_evaluate(torch, corpus, meta_path, root, ckpt)
+    phase_preprocess(torch, corpus, root)
 
 
 # ---------------------------------------------------------------------------
@@ -3941,14 +4233,14 @@ def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
 
 
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|9|10|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]; None where
+    """(only, parent) from [--only 7|9|10|11|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]; None where
     absent or wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
         opts[rest[0]] = rest[1]
         rest = rest[2:]
     only = opts.get("--only")
-    if rest or only not in (None, "7", "9", "10", "int8", "bf16", "flash", "resident", "tail", "mixer", "ssd"):
+    if rest or only not in (None, "7", "9", "10", "11", "int8", "bf16", "flash", "resident", "tail", "mixer", "ssd"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -4021,7 +4313,7 @@ def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|9|10|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]",
+        print("usage: python3 chip_smoke.py [--only 7|9|10|11|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]",
               file=sys.stderr)
         return 2
     only, parent = args
@@ -4052,6 +4344,12 @@ def main() -> int:
     if only == "10":
         phase_probes(torch, report)
         return finish(torch, card, report, PROBE_KERNELS, t_start)
+    if only == "11":
+        phase_x_slstm(torch, report)
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            phase_research(torch, *synth_corpus(root), root)
+        return finish(torch, card, report, ["slstm_scan"], t_start)
     if only == "int8":
         phase_int8_paths(torch, report)
         return finish(torch, card, report, INT8_KERNELS, t_start)
@@ -4105,6 +4403,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         phase_xlstm(torch, corpus, meta_path, root, report, parent)
+        torch.cuda.empty_cache()
+        phase_research(torch, corpus, meta_path, root)
     torch.cuda.empty_cache()
     phase_probes(torch, report)
     return finish(torch, card, report, list(KERNEL_INFO), t_start)
@@ -4115,6 +4415,12 @@ def finish(torch, card: str, report: dict, names: list, t_start: float) -> int:
     of `names` has its numbers and was launched on its path."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
+    for name, rows in PATH_LAUNCHES.items():
+        if name in names:
+            own = report.setdefault(name, {}).get("launches", 0)
+            report[name]["launches"] = own + sum(rows.values())
+            say(f"[{name} launches] on the main paths: {report[name]['launches']} = {own} (its own phase) + "
+                + " + ".join(f"{n} {row}" for row, n in rows.items()))
     for name in names:
         source, replaces = KERNEL_INFO[name]
         r = report[name]
@@ -4122,10 +4428,6 @@ def finish(torch, card: str, report: dict, names: list, t_start: float) -> int:
         need(r["launches"] > 0, f"{name} was not launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         **{k: r[k] for k in keys}})
-    if "sample_tail" in names:
-        say(f"[tail launches] sample_tail on the main paths: {sum(TAIL_LAUNCHES.values())} = "
-            + " + ".join(f"{n} ({fam})" for fam, n in TAIL_LAUNCHES.items())
-            + " (B: the Mamba CLI runs, F: the Transformer's, G: the xLSTM's)")
     say(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

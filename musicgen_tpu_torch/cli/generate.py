@@ -7,8 +7,9 @@ scripts/generate_midi_combined.py; port of musicgen_tpu/cli/generate.py).
 
 --ckpt is a `.pth` state dict in the reference's layout (mamba_ssm's for
 --model mamba, the reference Transformer's for --model transformer, NX-AI
-xLSTMBlockStack's for --model xlstm); the model's width and depth are read
-off its shapes. Per composer directory: seed
+xLSTMBlockStack's for --model xlstm, or the port's own), or a checkpoint
+directory of `cli.train` (its `model.pth`); the model's width and depth are
+read off its shapes. Per composer directory: seed
 the sampler with dataset crops and the composer's 6 metadata tokens, generate
 --length tokens with the grammar + penalty sampler, decode the last
 length+300 tokens and write generated_{band}_{model}_{i}.mid.
@@ -63,7 +64,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Composer-conditioned generation (PyTorch/CUDA)")
     p.add_argument("--length", type=int, default=1000)
     p.add_argument("--model", choices=_MODELS, required=True)
-    p.add_argument("--ckpt", required=True, help=".pth state dict in reference layout")
+    p.add_argument("--ckpt", required=True, help=".pth state dict, or a checkpoint directory")
     p.add_argument("--data", required=True, help="corpus root of band dirs")
     p.add_argument("--metadata", required=True)
     p.add_argument("--output", default="output")

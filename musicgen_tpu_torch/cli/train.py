@@ -14,7 +14,8 @@ the weights only: Adam starts fresh at step 0, as the JAX CLI does
 Training runs on the GPU (--device cuda, the default; it raises without one):
 a Transformer's attention through kernels D (with its LSE output) and E with
 --attention auto or flash, the plain f32 attention with xla; a Mamba model
-through the plain scan. --device cpu runs the plain versions. Dropout and
+and an xLSTM through their plain scans (an xLSTM's validation forward, under
+no_grad, through kernel H). --device cpu runs the plain versions. Dropout and
 augmentation are seeded from --seed. Each run ends with a checkpoint
 directory in --ckpt-dir that `cli.generate --ckpt <dir>/model.pth` reads.
 """
@@ -27,10 +28,10 @@ from typing import List, Optional
 
 import torch
 
-from ..config import MambaConfig, TrainValues, TransformerConfig
+from ..config import MambaConfig, TrainValues, TransformerConfig, XLSTMConfig
 from ..data.dataset import TokenDataset, make_loaders
-from ..interop import config_from_state_dict, family, load_checkpoint
-from ..models import mamba, transformer
+from ..interop import config_from_state_dict, family, load_checkpoint, xlstm_state_dict
+from ..models import mamba, transformer, xlstm
 from ..train import trainer as T
 
 # The JAX CLI's options that the port does not have yet, and what they wait for.
@@ -76,12 +77,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _device(name: str) -> torch.device:
+def cli_device(name: str) -> torch.device:
+    """--device of the training and evaluation CLIs: `cuda` raises without a
+    card (nothing falls back to the CPU), `cpu` runs the plain versions."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port trains on the GPU; pass --device cpu to run "
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass --device cpu to run "
                            "the plain PyTorch versions on the CPU")
     return device
+
+
+DEFAULT_CONFIGS = {"mamba": MambaConfig, "transformer": TransformerConfig, "xlstm": XLSTMConfig}
+MODULES = {"mamba": mamba, "transformer": transformer, "xlstm": xlstm}
 
 
 def build_model(args: argparse.Namespace, device: torch.device):
@@ -91,18 +98,19 @@ def build_model(args: argparse.Namespace, device: torch.device):
     --remat apply to either."""
     sd = None
     if args.resume:
-        is_dir = os.path.isdir(args.resume)
-        sd = load_checkpoint(os.path.join(args.resume, T.MODEL_FILE) if is_dir else args.resume)
+        sd = load_checkpoint(args.resume)
         cfg = config_from_state_dict(sd)
         held = family(cfg)
         if held != args.model:
             raise ValueError(f"--resume holds a {held} model, not a --model {args.model}")
+        if isinstance(cfg, XLSTMConfig):
+            sd = xlstm_state_dict(sd, cfg)  # NX-AI's head-wise sLSTM gates as the full ones the model trains
     else:
-        cfg = TransformerConfig() if args.model == "transformer" else MambaConfig()
+        cfg = DEFAULT_CONFIGS[args.model]()
     if isinstance(cfg, TransformerConfig):
         cfg = dataclasses.replace(cfg, attention_impl=args.attention)
     cfg = dataclasses.replace(cfg, remat=args.remat)
-    module = transformer if isinstance(cfg, TransformerConfig) else mamba
+    module = MODULES[args.model]
     model = module.empty_model(cfg, device)
     if sd is None:
         module.init_weights_(model, args.seed)
@@ -114,12 +122,10 @@ def build_model(args: argparse.Namespace, device: torch.device):
 def main(argv: Optional[List[str]] = None) -> T.TrainState:
     """Runs the CLI; returns the final TrainState."""
     args = parse_args(argv)
-    if args.model == "xlstm":
-        raise NotImplementedError("--model xlstm is not yet ported to musicgen_tpu_torch")
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             raise NotImplementedError(f"--{name.replace('_', '-')} is not yet ported to musicgen_tpu_torch ({what})")
-    device = _device(args.device)
+    device = cli_device(args.device)
     torch.manual_seed(args.seed)  # nn.Dropout's draws, on every device
     model = build_model(args, device)
 

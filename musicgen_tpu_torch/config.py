@@ -201,8 +201,9 @@ class XLSTMConfig:
     k = 4, qkv blocksize 4, FFN 1.3x.
 
     slstm_impl is kept for field parity with the JAX package and picks
-    nothing here: the sLSTM prefill runs kernel H on CUDA tensors and the
-    plain scan otherwise (ops/slstm_kernel)."""
+    nothing here: the sLSTM scan runs kernel H on CUDA tensors outside grad
+    mode at a shape the kernel takes, and the plain scan otherwise
+    (models/xlstm.runs_kernel_h)."""
 
     embedding_dim: int = 1024
     num_blocks: int = 11
@@ -233,8 +234,47 @@ class XLSTMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ClassifierConfig:
+    """Composer classifier = xLSTM stack at dim 512, no metadata prefix
+    (reference models/classifier/model.py; musicgen_tpu/config.py
+    ClassifierConfig): the generator's block layout at half its width, read
+    on `context_length` tokens, its last hidden state mapped to
+    `metadata_vocab_size` meta logits."""
+
+    embedding_dim: int = 512
+    num_blocks: int = 11
+    slstm_at: Tuple[int, ...] = (1, 4, 7, 10)
+    num_heads: int = 4
+    conv1d_kernel_size: int = 4
+    qkv_proj_blocksize: int = 4
+    mlstm_proj_factor: float = 2.0
+    slstm_ff_proj_factor: float = 1.3
+    context_length: int = 2048
+    vocab_size: int = VOCAB_SIZE
+    metadata_vocab_size: int = DEFAULT_METADATA_VOCAB_SIZE
+    vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE
+
+    @property
+    def padded_vocab(self) -> int:
+        return padded_vocab(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def stack(self) -> XLSTMConfig:
+        """The XLSTMConfig of the classifier's block stack (models/xlstm.XLSTMStack)."""
+        return XLSTMConfig(
+            embedding_dim=self.embedding_dim, num_blocks=self.num_blocks, slstm_at=self.slstm_at,
+            num_heads=self.num_heads, conv1d_kernel_size=self.conv1d_kernel_size,
+            qkv_proj_blocksize=self.qkv_proj_blocksize, mlstm_proj_factor=self.mlstm_proj_factor,
+            slstm_ff_proj_factor=self.slstm_ff_proj_factor, context_length=self.context_length,
+            vocab_size=self.vocab_size, metadata_vocab_size=self.metadata_vocab_size,
+            vocab_pad_multiple=self.vocab_pad_multiple,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     values: TrainValues = TrainValues()
+    classifier: ClassifierConfig = ClassifierConfig()
 
 
 DEFAULT_CONFIG = Config()

@@ -26,17 +26,27 @@ have none, which loads as zeros, as do absent FFN biases). So:
     files, or one saved from the port);
   * `config_from_state_dict` reads the model's family and shape off the
     weights, so a checkpoint of any width loads without a config file.
+
+The composer classifier's `.pth` (reference models/classifier/model.py;
+musicgen_tpu/interop/torch_import.py import_classifier / export_classifier)
+holds `token_embedding`, the stack under `layers.`, `fc` and no
+`metadata_embedding`, plus the reference's dead `output_layer` Linear,
+which the loader discards (zeros in its place) and the port writes as
+zeros, so that a reference Classifier loads the port's file strict=True.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import os
+
 import numpy as np
 import torch
 
-from .config import NUM_META, MambaConfig, TransformerConfig, XLSTMConfig
+from .config import NUM_META, ClassifierConfig, MambaConfig, TransformerConfig, XLSTMConfig
 
 StateDict = Dict[str, torch.Tensor]
+MODEL_FILE = "model.pth"  # a checkpoint directory's weights (train/trainer.save_checkpoint)
 
 
 def _mamba_state_dict(p: Dict[str, Any], cfg: MambaConfig) -> Dict[str, np.ndarray]:
@@ -102,19 +112,11 @@ def _ln(tb: str, lnp: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return {tb + "weight": np.asarray(lnp["scale"]), tb + "bias": np.asarray(lnp["bias"])}
 
 
-def _xlstm_state_dict(p: Dict[str, Any], cfg: XLSTMConfig) -> Dict[str, np.ndarray]:
-    """flax XLSTMLM params -> the port's xLSTM layout (the module docstring):
-    torch (out, in) matrices, conv taps (C, 1, K), blockwise kernels
-    (nb, out, in), full (d, d) sLSTM input gates, vocab padding dropped."""
-    v = cfg.vocab_size
-    stack = p["stack"]
-    sd = {
-        "token_embedding.weight": np.asarray(p["token_embedding"]["embedding"])[:v],
-        "metadata_embedding.weight": np.asarray(p["metadata_embedding"]["embedding"]),
-        "output_layer.weight": np.asarray(p["lm_head"]["kernel"]).T[:v],
-        "output_layer.bias": np.asarray(p["lm_head"]["bias"])[:v],
-        **_ln("layers.post_blocks_norm.", stack["post_norm"]),
-    }
+def _stack_state_dict(stack: Dict[str, Any], cfg: XLSTMConfig) -> Dict[str, np.ndarray]:
+    """flax XLSTMStack params -> the port's `layers.` keys (the module
+    docstring): torch (out, in) matrices, conv taps (C, 1, K), blockwise
+    kernels (nb, out, in), full (d, d) sLSTM input gates."""
+    sd = _ln("layers.post_blocks_norm.", stack["post_norm"])
     for i in range(cfg.num_blocks):
         blk, tb = stack[f"block_{i}"], f"layers.blocks.{i}."
         x = tb + "xlstm."
@@ -145,26 +147,62 @@ def _xlstm_state_dict(p: Dict[str, Any], cfg: XLSTMConfig) -> Dict[str, np.ndarr
     return sd
 
 
-def from_jax_params(variables: Any, cfg: MambaConfig | TransformerConfig | XLSTMConfig) -> StateDict:
+def _xlstm_state_dict(p: Dict[str, Any], cfg: XLSTMConfig) -> Dict[str, np.ndarray]:
+    """flax XLSTMLM params -> the port's xLSTM layout, vocab padding dropped."""
+    v = cfg.vocab_size
+    return {
+        "token_embedding.weight": np.asarray(p["token_embedding"]["embedding"])[:v],
+        "metadata_embedding.weight": np.asarray(p["metadata_embedding"]["embedding"]),
+        "output_layer.weight": np.asarray(p["lm_head"]["kernel"]).T[:v],
+        "output_layer.bias": np.asarray(p["lm_head"]["bias"])[:v],
+        **_stack_state_dict(p["stack"], cfg),
+    }
+
+
+def _classifier_state_dict(p: Dict[str, Any], cfg: ClassifierConfig) -> Dict[str, np.ndarray]:
+    """flax XLSTMClassifier params -> the port's classifier layout: the
+    stack as the LM's, `fc`, vocab padding dropped, and a zero
+    `output_layer` (torch_import.export_classifier's, with the port's full
+    sLSTM gates and LayerNorm biases)."""
+    v, d = cfg.vocab_size, cfg.embedding_dim
+    return {
+        "token_embedding.weight": np.asarray(p["token_embedding"]["embedding"])[:v],
+        "fc.weight": np.asarray(p["fc"]["kernel"]).T,
+        "fc.bias": np.asarray(p["fc"]["bias"]),
+        "output_layer.weight": np.zeros((v, d), np.float32),
+        "output_layer.bias": np.zeros((v,), np.float32),
+        **_stack_state_dict(p["stack"], cfg.stack),
+    }
+
+
+AnyConfig = MambaConfig | TransformerConfig | XLSTMConfig | ClassifierConfig
+
+
+def from_jax_params(variables: Any, cfg: AnyConfig) -> StateDict:
     """JAX model variables ({'params': ...}, numpy leaves) -> port state dict,
-    by the family of `cfg` (the port's MambaConfig, TransformerConfig or
-    XLSTMConfig)."""
+    by the family of `cfg` (the port's MambaConfig, TransformerConfig,
+    XLSTMConfig or ClassifierConfig)."""
     if isinstance(cfg, MambaConfig):
         sd = _mamba_state_dict(variables["params"], cfg)
     elif isinstance(cfg, TransformerConfig):
         sd = _transformer_state_dict(variables["params"], cfg)
     elif isinstance(cfg, XLSTMConfig):
         sd = _xlstm_state_dict(variables["params"], cfg)
+    elif isinstance(cfg, ClassifierConfig):
+        sd = _classifier_state_dict(variables["params"], cfg)
     else:
-        raise TypeError(f"from_jax_params takes the port's MambaConfig, TransformerConfig or XLSTMConfig, "
-                        f"got {type(cfg)}")
+        raise TypeError(f"from_jax_params takes the port's MambaConfig, TransformerConfig, XLSTMConfig or "
+                        f"ClassifierConfig, got {type(cfg)}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def load_checkpoint(path: str) -> StateDict:
-    """A `.pth` state dict in reference layout (DDP's 'module.' prefix
-    dropped, and the reference Transformer's `.tril` mask buffers, which are
-    derived data, as musicgen_tpu/interop/torch_import.py:139 drops them)."""
+    """A `.pth` state dict in reference layout, or a checkpoint directory's
+    `model.pth` (DDP's 'module.' prefix dropped, and the reference
+    Transformer's `.tril` mask buffers, which are derived data, as
+    musicgen_tpu/interop/torch_import.py:139 drops them)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, MODEL_FILE)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k.removeprefix("module."): v for k, v in sd.items() if not k.endswith(".tril")}
 
@@ -177,9 +215,14 @@ def _is_xlstm(sd: StateDict) -> bool:
     return "layers.post_blocks_norm.weight" in sd or any(k.startswith("layers.blocks.") for k in sd)
 
 
-def _xlstm_config(sd: StateDict) -> XLSTMConfig:
-    """XLSTMConfig from NX-AI-layout shapes: slstm_at from the blocks that
-    hold an `slstm_cell`, num_heads from `_recurrent_kernel_` (or
+def _is_classifier(sd: StateDict) -> bool:
+    return "fc.weight" in sd and "metadata_embedding.weight" not in sd
+
+
+def _xlstm_config(sd: StateDict) -> XLSTMConfig | ClassifierConfig:
+    """XLSTMConfig (ClassifierConfig for a classifier's `fc`) from
+    NX-AI-layout shapes: slstm_at from the blocks that hold an
+    `slstm_cell`, num_heads from `_recurrent_kernel_` (or
     `mlstm_cell.igate.weight`), the qkv blocksize from `q_proj.weight`."""
     vocab, d = sd["token_embedding.weight"].shape
     n_blocks = _indices(sd, "layers.blocks.", 2)
@@ -198,24 +241,30 @@ def _xlstm_config(sd: StateDict) -> XLSTMConfig:
         kw.setdefault("num_heads", sd[x + "mlstm_cell.igate.weight"].shape[0])
         kw["qkv_proj_blocksize"] = sd[x + "q_proj.weight"].shape[1]
         kw["mlstm_proj_factor"] = sd[x + "proj_up.weight"].shape[0] / 2 / d
-    return XLSTMConfig(
+    classifier = _is_classifier(sd)
+    return (ClassifierConfig if classifier else XLSTMConfig)(
         embedding_dim=d,
         num_blocks=n_blocks,
         slstm_at=slstm_at,
         conv1d_kernel_size=sd["layers.blocks.0.xlstm.conv1d.conv.weight"].shape[2],
         vocab_size=vocab,
-        metadata_vocab_size=sd["metadata_embedding.weight"].shape[0],
+        metadata_vocab_size=sd["fc.weight" if classifier else "metadata_embedding.weight"].shape[0],
         **kw,
     )
 
 
-def xlstm_state_dict(sd: StateDict, cfg: XLSTMConfig) -> StateDict:
-    """An xLSTM state dict in the port's form: NX-AI head-wise (H, dh, dh)
-    sLSTM input gates expanded block-diagonally to (d, d) (the head-wise map
-    is x.reshape(H, dh) @ W_h^T per head), and absent LayerNorm and FFN
-    biases filled with zeros."""
+def xlstm_state_dict(sd: StateDict, cfg: XLSTMConfig | ClassifierConfig) -> StateDict:
+    """An xLSTM (or classifier) state dict in the port's form: NX-AI
+    head-wise (H, dh, dh) sLSTM input gates expanded block-diagonally to
+    (d, d) (the head-wise map is x.reshape(H, dh) @ W_h^T per head), absent
+    LayerNorm and FFN biases filled with zeros, and a classifier's dead
+    `output_layer` discarded (zeros in its place)."""
     out = dict(sd)
     d, nh = cfg.embedding_dim, cfg.num_heads
+    if isinstance(cfg, ClassifierConfig):
+        out["output_layer.weight"] = torch.zeros(cfg.vocab_size, d)
+        out["output_layer.bias"] = torch.zeros(cfg.vocab_size)
+        cfg = cfg.stack
 
     def zeros_if_absent(key: str, n: int) -> None:
         if key not in out:
@@ -238,11 +287,12 @@ def xlstm_state_dict(sd: StateDict, cfg: XLSTMConfig) -> StateDict:
     return out
 
 
-def config_from_state_dict(sd: StateDict) -> MambaConfig | TransformerConfig | XLSTMConfig:
+def config_from_state_dict(sd: StateDict) -> AnyConfig:
     """The config whose shapes the weights have: a TransformerConfig for the
     reference Transformer's layout (n_layer from `blocks.*`, n_heads from
     `sa.heads.*`, block_len = rel_pos_emb rows - 6), an XLSTMConfig for the
-    NX-AI layout (`layers.blocks.*`), else a MambaConfig (ngroups = 1). An
+    NX-AI layout (`layers.blocks.*`) or a ClassifierConfig where it has
+    `fc` and no `metadata_embedding`, else a MambaConfig (ngroups = 1). An
     xLSTM `.pth` shares `token_embedding.weight` with Mamba, so it is told
     apart before the Mamba fallback."""
     if "token_embedding_table.weight" in sd:
@@ -275,19 +325,21 @@ def config_from_state_dict(sd: StateDict) -> MambaConfig | TransformerConfig | X
 
 
 def family(cfg) -> str:
-    """'mamba', 'transformer' or 'xlstm', by the config's type."""
+    """'mamba', 'transformer', 'xlstm' or 'classifier', by the config's type."""
     if isinstance(cfg, TransformerConfig):
         return "transformer"
+    if isinstance(cfg, ClassifierConfig):
+        return "classifier"
     return "xlstm" if isinstance(cfg, XLSTMConfig) else "mamba"
 
 
 def load_model(sd: StateDict, device: torch.device | str):
-    """The MambaLM, TransformerLM or XLSTMLM on `device` holding `sd` (every
-    key and shape checked)."""
+    """The MambaLM, TransformerLM, XLSTMLM or XLSTMClassifier on `device`
+    holding `sd` (every key and shape checked)."""
     cfg = config_from_state_dict(sd)
     if isinstance(cfg, TransformerConfig):
         from .models.transformer import empty_model
-    elif isinstance(cfg, XLSTMConfig):
+    elif isinstance(cfg, (XLSTMConfig, ClassifierConfig)):
         from .models.xlstm import empty_model
 
         sd = xlstm_state_dict(sd, cfg)

@@ -21,11 +21,17 @@ torch_import.py maps it, except that the four sLSTM input gates are full
 (d, d) Linears, as the JAX model has them (interop.py expands the NX-AI
 head-wise form at load).
 
-`prefill` runs the sLSTM recurrence through kernel H (ops/slstm_kernel) on
-CUDA tensors (under torch.no_grad: kernel H has no backward); `forward` and
-`step` are plain PyTorch, and the one-token decode step of the whole stack
+`forward` and `prefill` run the sLSTM recurrence through kernel H
+(ops/slstm_kernel) where `runs_kernel_h` picks it: a CUDA tensor outside grad
+mode (kernel H has no backward) at a shape the kernel takes; training, the
+CPU and head widths over 256 run the plain scan, as the JAX package does.
+`step` is plain PyTorch, and the one-token decode step of the whole stack
 has its kernel G in ops/xdecode_kernel. The projections stay `torch`
 matmuls, as the JAX package left them to XLA.
+
+`XLSTMClassifier` is the composer classifier (musicgen_tpu/models/xlstm.py
+XLSTMClassifier): the same stack at width 512 on the tokens alone, its last
+hidden state mapped by `fc` to meta logits.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..config import XLSTMConfig
+from ..config import ClassifierConfig, XLSTMConfig
+from ..ops import slstm_kernel
 from ..ops.mlstm import mlstm_chunkwise, mlstm_parallel, mlstm_step
 from ..ops.slstm import powerlaw_blockdependent_bias, slstm_sequential, slstm_step
 from ..ops.slstm_kernel import slstm_scan
@@ -179,6 +186,22 @@ class MLSTMLayer(nn.Module):
         return self._out(h, x_c, z), {"conv": conv_state, "mlstm": mstate}
 
 
+def runs_kernel_h(wx: torch.Tensor) -> bool:
+    """Whether the sLSTM scan on `wx` (B, T, 4, H, DH) runs kernel H,
+    decided before any launch: on a CUDA tensor outside grad mode at a shape
+    the kernel takes (slstm_kernel.refusal). Under grad (it has no
+    backward), on the CPU and at a shape it refuses (DH > 256, say) the plain
+    scan runs, as the JAX package's default does."""
+    bsz, t, _, heads, dh = wx.shape
+    return wx.is_cuda and not torch.is_grad_enabled() and slstm_kernel.refusal(bsz, t, heads, dh) is None
+
+
+def scan(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor):
+    """The sLSTM over the sequence from the zero state: the module-level
+    `slstm_scan` (kernel H) where `runs_kernel_h`, else `slstm_sequential`."""
+    return (slstm_scan if runs_kernel_h(wx) else slstm_sequential)(wx, r, b)
+
+
 class SLSTMCell(nn.Module):
     """Holds NX-AI's `_recurrent_kernel_` (H, dh_in, 4, dh_out), gate order
     i, f, z, o, and `_bias_` (H, 4, dh)."""
@@ -221,12 +244,12 @@ class SLSTMLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x_c = F.silu(self.conv1d(x))
-        h, _ = slstm_sequential(self._wx(x, x_c), self.slstm_cell.r(), self.slstm_cell.b())
+        h, _ = scan(self._wx(x, x_c), self.slstm_cell.r(), self.slstm_cell.b())
         return _headnorm(h, self.group_norm.weight)
 
     def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, BlockState]:
         x_c = F.silu(self.conv1d(x))
-        h, sstate = slstm_scan(self._wx(x, x_c), self.slstm_cell.r(), self.slstm_cell.b())
+        h, sstate = scan(self._wx(x, x_c), self.slstm_cell.r(), self.slstm_cell.b())
         return _headnorm(h, self.group_norm.weight), {"conv": conv_tail(x, self.k), "slstm": sstate}
 
     def step(self, x: torch.Tensor, state: BlockState) -> Tuple[torch.Tensor, BlockState]:
@@ -336,23 +359,56 @@ class XLSTMLM(nn.Module):
         return self.output_layer(x), states
 
 
-def empty_model(cfg: XLSTMConfig, device: torch.device | str) -> XLSTMLM:
-    """An uninitialised XLSTMLM on `device` (built on the meta device)."""
+class DeadHead(nn.Module):
+    """The reference Classifier's `output_layer` Linear, which it never
+    calls (models/classifier/model.py:50, 53-58): zero buffers, so that the
+    port's `.pth` holds its keys and a reference Classifier loads it with
+    strict=True. Never read, never trained."""
+
+    def __init__(self, d: int, vocab_size: int):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(vocab_size, d))
+        self.register_buffer("bias", torch.zeros(vocab_size))
+
+
+class XLSTMClassifier(nn.Module):
+    """Composer classifier: tokens (B, T) -> meta logits (B, meta vocab)
+    from the last position's post-norm hidden state."""
+
+    def __init__(self, cfg: ClassifierConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.embedding_dim
+        self.token_embedding = nn.Embedding(cfg.vocab_size, d)
+        self.layers = XLSTMStack(cfg.stack)
+        self.fc = nn.Linear(d, cfg.metadata_vocab_size)
+        self.output_layer = DeadHead(d, cfg.vocab_size)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.layers(self.token_embedding(tokens))
+        return self.fc(x[:, -1, :])
+
+
+def empty_model(cfg: XLSTMConfig | ClassifierConfig, device: torch.device | str) -> XLSTMLM | XLSTMClassifier:
+    """An uninitialised XLSTMLM (or XLSTMClassifier, for a ClassifierConfig)
+    on `device` (built on the meta device)."""
     with torch.device("meta"):
-        model = XLSTMLM(cfg)
+        model = XLSTMClassifier(cfg) if isinstance(cfg, ClassifierConfig) else XLSTMLM(cfg)
     return model.to_empty(device=device)
 
 
 @torch.no_grad()
-def init_weights_(model: XLSTMLM, seed: int) -> XLSTMLM:
+def init_weights_(model: XLSTMLM | XLSTMClassifier, seed: int) -> XLSTMLM | XLSTMClassifier:
     """Random weights from `seed`, drawn on the CPU, at the scales of the JAX
     initializers: lecun-normal matrices, conv taps and blockwise kernels
-    (std 1/sqrt(fan_in)), sLSTM recurrent kernels N(0, 1/dh), embeddings
-    N(0, 1), mLSTM forget-gate bias 3, the powerlaw sLSTM forget bias, ones
-    for the norms, outnorm and learnable_skip, zeros elsewhere. The exp gates
-    of a random full-size model then run where a trained model's do."""
+    (std 1/sqrt(fan_in)), sLSTM recurrent kernels N(0, 1/dh), mLSTM
+    forget-gate bias 3, the powerlaw sLSTM forget bias, ones for the norms,
+    outnorm and learnable_skip, zeros elsewhere. The LM's embeddings are
+    N(0, 1); the classifier's token embedding is flax nn.Embed's default,
+    N(0, 1/d), and its dead `output_layer` zeros. The exp gates of a random
+    full-size model then run where a trained model's do."""
     gen = torch.Generator().manual_seed(seed)
-    c = model.cfg
+    c = model.layers.cfg
 
     def normal_(p: torch.Tensor, std: float) -> None:
         p.copy_(torch.randn(p.shape, generator=gen) * std)
@@ -360,8 +416,10 @@ def init_weights_(model: XLSTMLM, seed: int) -> XLSTMLM:
     def lecun_(p: torch.Tensor, fan_in: int) -> None:
         normal_(p, 1.0 / math.sqrt(fan_in))
 
-    normal_(model.token_embedding.weight, 1.0)
-    normal_(model.metadata_embedding.weight, 1.0)
+    classifier = isinstance(model, XLSTMClassifier)
+    normal_(model.token_embedding.weight, 1.0 / math.sqrt(c.embedding_dim) if classifier else 1.0)
+    if not classifier:
+        normal_(model.metadata_embedding.weight, 1.0)
     for i, block in enumerate(model.layers.blocks):
         block.xlstm_norm.weight.fill_(1.0)
         block.xlstm_norm.bias.zero_()
@@ -396,6 +454,10 @@ def init_weights_(model: XLSTMLM, seed: int) -> XLSTMLM:
             lecun_(lyr.proj_down.weight, di)
     model.layers.post_blocks_norm.weight.fill_(1.0)
     model.layers.post_blocks_norm.bias.zero_()
-    lecun_(model.output_layer.weight, c.embedding_dim)
-    model.output_layer.bias.zero_()
+    head = model.fc if classifier else model.output_layer
+    lecun_(head.weight, c.embedding_dim)
+    head.bias.zero_()
+    if classifier:
+        model.output_layer.weight.zero_()
+        model.output_layer.bias.zero_()
     return model

@@ -59,25 +59,38 @@ def smem_bytes(dh: int, cs: int, rows: int) -> int:
     return 4 * (dh * 4 * u + 2 * 4 * rows * dh + 2 * rows * dh)
 
 
-def scan_geometry(bsz: int, t: int, heads: int, dh: int, cs: Optional[int] = None) -> Geometry:
-    """The launch for (B, T, H, DH), with clusters of `cs` ranks (8 or 16;
-    by default 16 where it divides DH, else 8). Raises ValueError for a shape
-    the kernel does not take: DH > 256, 4 DH not a multiple of 32, DH not a
-    multiple of CS, an empty dimension."""
+def refusal(bsz: int, t: int, heads: int, dh: int, cs: Optional[int] = None) -> Optional[str]:
+    """Why the kernel does not take (B, T, H, DH) with clusters of `cs`
+    ranks (scan_geometry's default where None), or None where it does: an
+    empty dimension, DH > 256, 4 DH not a multiple of 32, a cluster that
+    does not split DH, or a block's shared memory over the limit."""
     if min(bsz, t, heads, dh) < 1:
-        raise ValueError(f"slstm_scan: empty shape (B, T, H, DH) = ({bsz}, {t}, {heads}, {dh})")
+        return f"slstm_scan: empty shape (B, T, H, DH) = ({bsz}, {t}, {heads}, {dh})"
     if dh > MAX_DH or (4 * dh) % 32:
-        raise ValueError(f"slstm_scan kernel needs DH <= {MAX_DH} and 4 DH a multiple of 32, got DH = {dh}")
+        return f"slstm_scan kernel needs DH <= {MAX_DH} and 4 DH a multiple of 32, got DH = {dh}"
     if cs is None:
         cs = CLUSTER if dh % CLUSTER == 0 else PORTABLE_CLUSTER
     if cs not in (PORTABLE_CLUSTER, CLUSTER) or dh % cs:
-        raise ValueError(f"slstm_scan kernel: a cluster of {cs} ranks does not split DH = {dh}")
-    rows = min(bsz, ROWS)
-    smem = smem_bytes(dh, cs, rows)
+        return f"slstm_scan kernel: a cluster of {cs} ranks does not split DH = {dh}"
+    smem = smem_bytes(dh, cs, min(bsz, ROWS))
     if smem + 16 * cs > SMEM_LIMIT:
-        raise ValueError(f"slstm_scan kernel: {smem} B of shared memory a block is over {SMEM_LIMIT}")
+        return f"slstm_scan kernel: {smem} B of shared memory a block is over {SMEM_LIMIT}"
+    return None
+
+
+def scan_geometry(bsz: int, t: int, heads: int, dh: int, cs: Optional[int] = None) -> Geometry:
+    """The launch for (B, T, H, DH), with clusters of `cs` ranks (8 or 16;
+    by default 16 where it divides DH, else 8). Raises ValueError with
+    `refusal`'s reason for a shape the kernel does not take."""
+    reason = refusal(bsz, t, heads, dh, cs)
+    if reason is not None:
+        raise ValueError(reason)
+    if cs is None:
+        cs = CLUSTER if dh % CLUSTER == 0 else PORTABLE_CLUSTER
+    rows = min(bsz, ROWS)
     groups = -(-bsz // rows)
-    return Geometry(cs, rows, groups, (cs, heads, groups), THREADS, smem, 4 * dh * 4 * (dh // cs))
+    return Geometry(cs, rows, groups, (cs, heads, groups), THREADS, smem_bytes(dh, cs, rows),
+                    4 * dh * 4 * (dh // cs))
 
 
 def launch_geometry(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, cs: Optional[int] = None) -> Geometry:

@@ -10,7 +10,10 @@ logits,
 `chunked_filtered_cross_entropy` computes the same loss from the final
 hidden states one time chunk at a time, each chunk under
 torch.utils.checkpoint, so the (B, T, V) logits and their backward buffers
-never exist whole. The classifier's BCE waits for the xLSTM slice.
+never exist whole. `classifier_bce` is the composer classifier's
+multi-label objective (reference train_classifier.py:16-26): BCE-with-logits
+against the multi-hot set of the sample's 6 meta tokens, the mean over every
+element.
 """
 from __future__ import annotations
 
@@ -61,3 +64,20 @@ def chunked_filtered_cross_entropy(
         total = total + checkpoint(_chunk_nll, h[:, lo:hi], prev_tokens[:, lo:hi], targets[:, lo:hi],
                                    head_weight, head_bias, layout, use_reentrant=False)
     return total / (b * t)
+
+
+def make_meta_multihot(meta: torch.Tensor, metadata_vocab_size: int) -> torch.Tensor:
+    """(B, 6) meta tokens -> (B, meta_vocab) multi-hot f32 targets. An id
+    outside [0, metadata_vocab_size) sets nothing, as jax.nn.one_hot drops
+    it; a padded genre slot (its null id) counts as a target, as in the JAX
+    package."""
+    ids = torch.arange(metadata_vocab_size, device=meta.device)
+    return (meta[..., None] == ids).any(dim=-2).to(torch.float32)
+
+
+def classifier_bce(logits: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """BCE-with-logits of (B, meta_vocab) logits against
+    make_meta_multihot(meta), the mean over all elements (torch's default
+    reduction, as the JAX package's)."""
+    targets = make_meta_multihot(meta, logits.shape[-1])
+    return torch.nn.functional.binary_cross_entropy_with_logits(logits.to(torch.float32), targets)

@@ -5,7 +5,10 @@ Port of musicgen_tpu/train/trainer.py (reference train.py:140-217), single
 device. The step is eager PyTorch: augmentation on the device, forward,
 loss, backward, Adam. On the GPU a Transformer's attention runs kernel D with
 its LSE output forward and kernel E backward (models/transformer.py); a
-Mamba model trains through the plain scan, as the JAX package does.
+Mamba model and an xLSTM train through their plain scans, as the JAX package
+does, and an xLSTM's validation forward, outside grad mode, runs kernel H.
+The composer classifier trains with the same loop on its BCE
+(`train_classifier`, reference train_classifier.py).
 
 Checkpoints are directories named `loss_{val:.2f}_time_{ts}` (NaN written as
 inf) holding `model.pth`, a state dict in the reference layout that
@@ -30,9 +33,10 @@ from torch import nn
 
 from ..config import TrainValues
 from ..data.augment import augment
-from .loss import chunked_filtered_cross_entropy, filtered_cross_entropy
+from ..interop import MODEL_FILE
+from .loss import chunked_filtered_cross_entropy, classifier_bce, filtered_cross_entropy
 
-MODEL_FILE, OPTIMIZER_FILE = "model.pth", "optimizer.pth"
+OPTIMIZER_FILE = "optimizer.pth"
 
 
 @dataclasses.dataclass
@@ -72,8 +76,8 @@ def make_optimizer(model: nn.Module, values: TrainValues = TrainValues()) -> tor
 
 
 def lm_head(model: nn.Module) -> nn.Linear:
-    """The vocabulary projection: a TransformerLM's lm_head, a MambaLM's
-    output_layer."""
+    """The vocabulary projection: a TransformerLM's lm_head, a MambaLM's or
+    an XLSTMLM's output_layer."""
     return model.lm_head if hasattr(model, "lm_head") else model.output_layer
 
 
@@ -123,6 +127,39 @@ def make_lm_eval_step(model: nn.Module) -> Callable:
         was_training = model.training
         model.eval()
         loss = filtered_cross_entropy(src, model(src, meta), trg)
+        model.train(was_training)
+        return loss
+
+    return step
+
+
+def make_classifier_train_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable:
+    """Returns step(src, meta) -> loss: one Adam step on classifier_bce of
+    model(src) against meta's multi-hot targets (musicgen_tpu/train/
+    trainer.py make_classifier_train_step), under grad mode whatever the
+    caller's, so the sLSTM runs its plain, differentiable scan."""
+
+    @torch.enable_grad()
+    def step(src, meta):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = classifier_bce(model(src), meta)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_classifier_eval_step(model: nn.Module) -> Callable:
+    """Returns step(src, meta) -> classifier_bce, in eval() mode under
+    no_grad (kernel H on the card)."""
+
+    @torch.no_grad()
+    def step(src, meta):
+        was_training = model.training
+        model.eval()
+        loss = classifier_bce(model(src), meta)
         model.train(was_training)
         return loss
 
@@ -223,15 +260,51 @@ def train_lm(
     generator: Optional[torch.Generator] = None,
     loss_chunk: int = 0,
 ) -> TrainState:
-    """Single-device training loop (reference train.py:140-217): epoch
-    loop, validation on the test split each epoch, a checkpoint and a log
-    flush every save_interval epochs, and a final save on interrupt or error.
+    """Single-device training of a generator (reference train.py:140-217)
+    on the grammar-filtered CE: `run_epochs` with the LM steps."""
+    train_step = make_lm_train_step(state.model, state.optimizer, values.augmentation, loss_chunk, generator)
+    return run_epochs(state, train_step, make_lm_eval_step(state.model), train_iter, test_iter, values, ckpt_dir,
+                      log_path, num_epochs)
+
+
+def train_classifier(
+    state: TrainState,
+    train_iter: Iterable,
+    test_iter: Iterable,
+    values: TrainValues = TrainValues(),
+    ckpt_dir: str = "checkpoints/classifier",
+    log_path: Optional[str] = None,
+    num_epochs: Optional[int] = None,
+) -> TrainState:
+    """Single-device training of the composer classifier on classifier_bce
+    (musicgen_tpu/cli/train_classifier.py's loop): `run_epochs` with the
+    classifier steps, which read src and meta of each (src, trg, meta)."""
+    train_step = make_classifier_train_step(state.model, state.optimizer)
+    eval_step = make_classifier_eval_step(state.model)
+    return run_epochs(state, lambda src, trg, meta: train_step(src, meta),
+                      lambda src, trg, meta: eval_step(src, meta), train_iter, test_iter, values, ckpt_dir,
+                      log_path, num_epochs)
+
+
+def run_epochs(
+    state: TrainState,
+    train_step: Callable,
+    eval_step: Callable,
+    train_iter: Iterable,
+    test_iter: Iterable,
+    values: TrainValues,
+    ckpt_dir: str,
+    log_path: Optional[str],
+    num_epochs: Optional[int] = None,
+) -> TrainState:
+    """The epoch loop: train_step(src, trg, meta) -> loss over train_iter,
+    validation with eval_step over test_iter each epoch, a checkpoint and a
+    log flush every save_interval epochs, and a final save on interrupt or
+    error.
 
     Losses stay on the device until the epoch summary; only the
     eval_interval log line reads one back."""
     device = next(state.model.parameters()).device
-    train_step = make_lm_train_step(state.model, state.optimizer, values.augmentation, loss_chunk, generator)
-    eval_step = make_lm_eval_step(state.model)
     logger = JsonLogger(log_path)
     epochs = num_epochs if num_epochs is not None else values.epochs
     logger.message("Training started!")

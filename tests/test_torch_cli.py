@@ -152,12 +152,14 @@ def train_corpus(workdir, tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("model", ["mamba", "transformer"])
+@pytest.mark.parametrize("model", ["mamba", "transformer", "xlstm"])
 def test_cli_train_then_generate(workdir, train_corpus, tmp_path, model):
     """--resume a reference-layout .pth, train 2 epochs, then generate from
     the checkpoint directory's model.pth; resuming from the directory
-    restores the weights only (Adam restarts at step 0, as in the JAX CLI)."""
-    ckpt = "model.pth" if model == "mamba" else "transformer.pth"
+    restores the weights only (Adam restarts at step 0, as in the JAX CLI).
+    An xLSTM's sLSTM input gates train dense, so its model.pth is the port's
+    layout, which cli.generate reads back."""
+    ckpt = "model.pth" if model == "mamba" else f"{model}.pth"
     argv = ["--model", model, "--data", str(train_corpus), "--metadata", str(workdir / "metadata.json"),
             "--block-len", str(BLOCK), "--device", "cpu", "--ckpt-dir", str(tmp_path / "ckpt"),
             "--log", str(tmp_path / "log.json")]
@@ -208,7 +210,7 @@ def test_cli_train_resume_restores_weights_only(workdir, train_corpus, tmp_path,
     assert steps == [1, 2] and again.step == 2
 
 
-@pytest.mark.parametrize("extra", [["--model", "xlstm"], ["--bf16"], ["--parallel"], ["--tp", "2"], ["--sp", "2"],
+@pytest.mark.parametrize("extra", [["--model", "xlstm", "--bf16"], ["--bf16"], ["--parallel"], ["--tp", "2"], ["--sp", "2"],
                                    ["--pp", "2"], ["--pp-microbatches", "4"], ["--multihost"]])
 def test_cli_train_unported_options_raise(workdir, train_corpus, extra):
     argv = ["--data", str(train_corpus), "--metadata", str(workdir / "metadata.json"), "--device", "cpu"]
@@ -234,6 +236,8 @@ def test_package_never_imports_jax():
     assert "musicgen_tpu_torch.train.trainer" in modules and "musicgen_tpu_torch.cli.train" in modules
     assert "musicgen_tpu_torch.ops.xdecode_kernel" in modules and "musicgen_tpu_torch.ops.slstm_kernel" in modules
     assert "musicgen_tpu_torch.experiments.hw_characterize" in modules and "musicgen_tpu_torch.ops.probe_kernel" in modules
+    assert "musicgen_tpu_torch.cli.evaluate" in modules and "musicgen_tpu_torch.cli.train_classifier" in modules
+    assert "musicgen_tpu_torch.cli.preprocess" in modules and "musicgen_tpu_torch.eval.timing" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -254,6 +258,8 @@ def test_package_never_imports_the_jax_package():
     assert "musicgen_tpu_torch.data.augment" in modules and "musicgen_tpu_torch.train.loss" in modules
     assert "musicgen_tpu_torch.models.xlstm" in modules and "musicgen_tpu_torch.ops.mlstm" in modules
     assert "musicgen_tpu_torch.experiments.kernel_ablate" in modules and "musicgen_tpu_torch.ops.ablate_kernel" in modules
+    assert "musicgen_tpu_torch.eval.accuracy" in modules and "musicgen_tpu_torch.eval.classifier_eval" in modules
+    assert "musicgen_tpu_torch.data.preprocess" in modules
     code = (
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

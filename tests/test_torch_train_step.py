@@ -1,4 +1,4 @@
-"""One and two Adam steps of each family through the port's
+"""One and two Adam steps of each family (Mamba, Transformer, xLSTM) through the port's
 make_lm_train_step against JAX's make_lm_train_step, from the same
 JAX-initialised weights (moved across by interop.from_jax_params; JAX's
 gradient tree maps through the same function, which is linear), on the same
@@ -19,10 +19,12 @@ import torch
 from musicgen_tpu.config import MambaConfig as JaxMambaConfig
 from musicgen_tpu.config import TrainValues as JaxTrainValues
 from musicgen_tpu.config import TransformerConfig as JaxTransformerConfig
+from musicgen_tpu.config import XLSTMConfig as JaxXLSTMConfig
 from musicgen_tpu.models.mamba import MambaLM as JaxMambaLM
 from musicgen_tpu.models.transformer import TransformerLM as JaxTransformerLM
+from musicgen_tpu.models.xlstm import XLSTMLM as JaxXLSTMLM
 from musicgen_tpu.train import trainer as jtrainer
-from musicgen_tpu_torch.config import VOCAB, MambaConfig, TrainValues, TransformerConfig
+from musicgen_tpu_torch.config import VOCAB, MambaConfig, TrainValues, TransformerConfig, XLSTMConfig
 from musicgen_tpu_torch.interop import from_jax_params
 from musicgen_tpu_torch.train import trainer as T
 
@@ -39,11 +41,14 @@ def _jax_pair(kind):
     if kind == "mamba":
         kw = dict(d_model=32, n_layers=2, d_state=8, headdim=8, chunk_size=8, metadata_vocab_size=9)
         return JaxMambaLM(JaxMambaConfig(**kw)), MambaConfig(**kw)
+    if kind == "xlstm":  # an mLSTM block and an sLSTM block (the plain scans in both frameworks)
+        kw = dict(embedding_dim=32, num_blocks=2, slstm_at=(1,), num_heads=2, metadata_vocab_size=9)
+        return JaxXLSTMLM(JaxXLSTMConfig(**kw)), XLSTMConfig(**kw)
     kw = dict(n_embd=32, n_heads=4, n_layer=2, block_len=L, dropout=0.0, metadata_vocab_size=9, attention_impl="xla")
     return JaxTransformerLM(JaxTransformerConfig(**kw)), TransformerConfig(**kw)
 
 
-@pytest.mark.parametrize("kind", ["mamba", "transformer"])
+@pytest.mark.parametrize("kind", ["mamba", "transformer", "xlstm"])
 def test_train_steps_match_jax(kind):
     """JAX's make_lm_train_step against the port's, from the same weights.
     JAX's gradients are read off its Adam state (mu_t = b1 mu_{t-1} +

@@ -2,7 +2,8 @@
 same weights, moved across by interop.from_jax_params with the JAX model's
 full-Dense sLSTM input gates; the NX-AI layout (head-wise gates, no
 LayerNorm biases) through the port's loader; the family detection of
-config_from_state_dict; and kernel H's grad refusal in the sLSTM prefill.
+config_from_state_dict; and the sLSTM scan's route: kernel H's grad refusal,
+the shapes it takes.
 
 Logits agree to 1e-4 relative (max |diff| / max |logit|) in f32: the two
 frameworks sum in different orders, nothing more."""
@@ -20,7 +21,9 @@ from musicgen_tpu.models.xlstm import XLSTMLM as JaxXLSTMLM
 from musicgen_tpu_torch import config as pconfig
 from musicgen_tpu_torch.interop import config_from_state_dict, from_jax_params, load_checkpoint, load_model
 from musicgen_tpu_torch.models import mamba, transformer
-from musicgen_tpu_torch.models.xlstm import SLSTMLayer, XLSTMLM, empty_model, init_weights_
+from musicgen_tpu_torch.models.xlstm import SLSTMLayer, XLSTMLM, empty_model, init_weights_, runs_kernel_h
+from musicgen_tpu_torch.ops import slstm_kernel
+from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
 
 REL = 1e-4
 B, P = 2, 40
@@ -150,18 +153,49 @@ class _OnCard(torch.Tensor):
 
 
 def test_slstm_prefill_refuses_grad_on_the_kernel_path():
-    """SLSTMLayer.prefill reaches kernel H (ops/slstm_kernel.slstm_scan) on a
-    CUDA tensor; under grad mode, with weights that require grad, the wrapper
-    raises rather than cut the graph. On the CPU the plain scan runs and is
-    differentiable."""
+    """Kernel H (ops/slstm_kernel.slstm_scan) has no backward: on a CUDA
+    tensor under grad mode, with weights that require grad, the wrapper
+    raises rather than cut the graph. So SLSTMLayer picks its scan by grad
+    mode before any launch (models/xlstm.runs_kernel_h): under grad a CUDA
+    tensor takes the plain scan and stays differentiable, outside grad
+    kernel H. On the CPU the plain scan runs and is differentiable."""
     cfg = pconfig.XLSTMConfig(embedding_dim=32, num_blocks=2, slstm_at=(1,), num_heads=2, metadata_vocab_size=9)
     model = init_weights_(empty_model(cfg, "cpu"), 0)
     layer = model.layers.blocks[1].xlstm
     assert isinstance(layer, SLSTMLayer)
-    x = torch.randn(2, 8, 32)
+    cell = layer.slstm_cell
+    wx = torch.randn(2, 8, 4, 2, 16).as_subclass(_OnCard)
     with pytest.raises(RuntimeError, match="has no backward"):
-        layer.prefill(x.as_subclass(_OnCard))
+        slstm_scan(wx, cell.r(), cell.b())
+    assert not runs_kernel_h(wx)
+    with torch.no_grad():
+        assert runs_kernel_h(wx)
+    x = torch.randn(2, 8, 32)
+    y, _ = layer.prefill(x.as_subclass(_OnCard))
+    assert y.grad_fn is not None
     y, _ = layer.prefill(x)
     assert y.grad_fn is not None
     y.sum().backward()
     assert layer.slstm_cell._recurrent_kernel_.grad is not None
+
+
+@pytest.mark.parametrize("heads, dh, kernel", [(4, 256, True), (4, 128, True), (2, 512, False), (4, 264, False),
+                                               (4, 12, False)])
+def test_slstm_route_by_head_width(heads, dh, kernel):
+    """Outside grad mode a CUDA tensor runs kernel H exactly at the shapes
+    slstm_kernel.refusal lets through (DH <= 256, 4 DH a multiple of 32);
+    a wider head takes the plain scan, decided before any launch. A CPU
+    tensor always takes the plain scan."""
+    wx = torch.zeros(2, 8, 4, heads, dh)
+    with torch.no_grad():
+        assert runs_kernel_h(wx.as_subclass(_OnCard)) is kernel
+        assert (slstm_kernel.refusal(2, 8, heads, dh) is None) is kernel
+        assert not runs_kernel_h(wx)
+    if not kernel:
+        cfg = pconfig.XLSTMConfig(embedding_dim=heads * dh, num_blocks=1, slstm_at=(0,), num_heads=heads,
+                                  metadata_vocab_size=9)
+        layer = init_weights_(empty_model(cfg, "cpu"), 0).layers.blocks[0].xlstm
+        x = torch.randn(1, 4, heads * dh)
+        with torch.no_grad():
+            y, _ = layer.prefill(x.as_subclass(_OnCard))
+            assert torch.equal(y, layer.prefill(x)[0])
