@@ -101,8 +101,8 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      version; [8 grad] the Transformer's loss and every gradient
      through D and E against the same model with their plain versions on the
      card (and, as information, the f32 attention), with exact launch counts;
-     [8 steps] five Adam steps of each family (Transformer, Mamba, xLSTM)
-     on one batch (the loss falls at every step), ms/step, train tokens/s
+     [8 steps] five Adam steps of the Transformer and of Mamba and three of
+     the xLSTM on one batch (the loss falls at every step), ms/step, train tokens/s
      and peak memory; [8 cli] `cli.train` for each family (2 epochs, batch
      2, block 2048; the xLSTM's X_TRAIN_CLI_BLOCK) writing a checkpoint
      directory that `cli.generate --ckpt <dir>/model.pth` reads, with exact
@@ -165,6 +165,25 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      [11 preprocess] `cli.preprocess` over MIDI written from the corpus, each
      .npy equal to codec.encode of its file. H's launches there are added to
      its count on the main paths ([slstm_scan launches]).
+ 12. the generation CLI's other options and serving, on the reference models
+     of phases 5, 7 and 9: [12 sampler <family> many|top5] `cli.generate
+     --sampler many|top5` (the family's logits step, B, F or G, and no
+     sampler tail; 'many' against the plain f32 path up to the first
+     near-tie; tok/s/seq), [12 sampler mamba many resident] (the per-token
+     kernels, no launch of C), [12 prompt-len] (--prompt-len 1024: Mamba
+     through its kernels, a Transformer through D's prefill and its plain
+     step), [12 windowed <family>] (--reference-windowing after a 2,016-token
+     prompt: D 8 launches a token, H 4, none for Mamba; the stream against
+     the cached kernel path, the Transformer's against its plain-attention
+     twin, up to the first near-tie; ms a token), and [12 serve <family>
+     <quant>] (`cli.serve --slots 8 --chunk 32`, 12 stochastic requests of
+     64-416 tokens: exact launches against the schedule's group-chunks,
+     grammar, MIDI, every request's stream bit for bit through
+     serve.BatchScheduler at 4 slots in reverse order and at 16; aggregate
+     tok/s, time to first chunk, per-request tok/s, the card). Their
+     launches go to the kernels line through PATH_LAUNCHES.
+`--only 12` runs phases 1, 2 and 12 (its kernels line is empty; the new
+paths' launches print as [<kernel> launches]).
 `--only 11` runs phases 1 and 2, [9 slstm] (H's numbers for the kernels
 line) and phase 11; its kernels line holds slstm_scan with the launches of
 phase 11.
@@ -174,7 +193,7 @@ prefill], [5 cli], the resident [6 cli] runs with [6 api resident int8] and
 launches of [5 cli], counted from zero.
 `python3 chip_smoke.py --only 7` runs phases 1, 2 and 7 alone, `--only 9`
 phases 1, 2 and 9, `--only 10` phases 1, 2 and 10 (bring-up of a slice; the
-full run takes no arguments, and runs phase 11 after phase 9).
+full run takes no arguments, and runs phases 11 and 12 after phase 9).
 `--only int8` runs phases 1 and 2 and every row that launches the int8
 GEMVs (decode_ops.cuh gemv_team in W8A16 or W8A8): [4q] and [4q steps_*], [6 resident],
 [6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
@@ -868,7 +887,7 @@ def decode_context(torch, model, corpus: Path, meta_path: Path) -> dict:
     o = dk.out_proj_rms_plain(g, dp["norm_w"][0], dp["w_out"][0], dims)
     teacher = torch.from_numpy(np.stack([ds[i][0][:TEACHER_STEPS] for i in range(BATCH)]).astype(np.int64)).to(DEVICE)
     return {"prompt": prompt, "meta": meta, "teacher": teacher, "logits": logits0[:, -1, :], "carry": carry,
-            "x": x, "g": g, "o": o, "dims": dims, "dp": dp}
+            "x": x, "g": g, "o": o, "dims": dims, "dp": dp, "model": model}
 
 
 @contextlib.contextmanager
@@ -1423,14 +1442,14 @@ def phase_cli(torch, model, corpus: Path, meta_path: Path, root: Path, report: d
     meta = torch.zeros(BATCH, 6, dtype=torch.int64, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cfg = sampler.SamplerConfig(num_tokens=LENGTH, ring_size=max(PROMPT, 2048))
-    dims = dk.DecodeDims.create(model.cfg, BATCH)
     dp = dk.build_decode_params(model, BATCH)
     with torch.no_grad():
         prefill, _ = sampler.make_sampler(model, "mamba", dp)
         logits, carry = prefill(prompt, meta)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sampler.sample_tokens_fused_tail(dp, logits, carry, prompt, cfg, gen, dims)
+        sampler.sample_tokens_fused_tail(dp, logits, carry, prompt, cfg, gen,
+                                         sampler.fused_tail_step(model, "mamba", BATCH, "bf16"))
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
         prefill, step = sampler.make_sampler(model, "mamba")
@@ -1708,7 +1727,8 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None 
         carry = clone(ctx["carry"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sampler.sample_tokens_fused_tail(dp, ctx["logits"], carry, ctx["prompt"], cfg, gen, dims, quant=quant)
+        sampler.sample_tokens_fused_tail(dp, ctx["logits"], carry, ctx["prompt"], cfg, gen,
+                                         sampler.fused_tail_step(ctx["model"], "mamba", BATCH, quant))
         torch.cuda.synchronize()
         chain_s = time.perf_counter() - t0
         share = weight_bytes / HBM_BYTES_PER_S / (ms / 1e3)
@@ -2468,7 +2488,7 @@ def phase_t_loop(torch, tctx: dict, packs: dict) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        sampler.sample_tokens_fused_tail(tp, logits, carry, prompt, cfg, gen, dims, fused_step=step)
+        sampler.sample_tokens_fused_tail(tp, logits, carry, prompt, cfg, gen, step)
         end.record()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -3674,7 +3694,7 @@ def phase_x_loop(torch, xctx: dict, packs: dict, report: dict, parent: Path | No
             dk.LAUNCHES.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            toks = sampler.sample_tokens_fused_tail(wp, logits0, carry, prompt, cfg, gen, dims, fused_step=steps[path])
+            toks = sampler.sample_tokens_fused_tail(wp, logits0, carry, prompt, cfg, gen, steps[path])
             torch.cuda.synchronize()
             secs.setdefault(path, []).append(time.perf_counter() - t0)
             if path == "parent":
@@ -3933,6 +3953,608 @@ def phase_research(torch, corpus: Path, meta_path: Path, root: Path) -> None:
     ckpt = phase_classifier_train(torch, corpus, meta_path, root)
     phase_evaluate(torch, corpus, meta_path, root, ckpt)
     phase_preprocess(torch, corpus, root)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the generation CLI's other sampler modes and options, and
+# continuous-batching serving (serve.BatchScheduler, cli.serve), on the
+# families' logits steps (B, B', F, G) and prefills (A, D, H)
+# ---------------------------------------------------------------------------
+
+P12_LENGTH = 256  # tokens of a [12 sampler ...] run
+P12_CHECK = 64  # leading 'many' tokens held to the plain f32 path
+P12_PROMPT_LEN = 1024  # [12 prompt-len]: prompts of half the window
+P12_PROMPT_TOKENS = 64
+WIN_PROMPT = 2016  # [12 windowed ...]: 32 tokens fill the 2,048 window, nothing slides
+WIN_TOKENS = 32
+SERVE_SLOTS = 8
+SERVE_CHUNK = 32
+SERVE_LENGTHS = tuple(range(64, 417, 32))  # 12 requests, 2,880 tokens
+SERVE_GREEDY_LENGTHS = (40, 104, 72)  # greedy requests held to sampler.generate at batch 1
+# Two routes' greedy picks are compared position by position, each position
+# from the same prefix and state, so that no drift carries over (the random
+# Mamba stack turns a 1e-6 state perturbation into 2.4e-2 of the logits in
+# one step, [4 steps]). Their picks may differ only at a near-tie: where the
+# two best sampling weights lie within what the logit error measured at that
+# position can close. A weight is m (lse - x) / d (m the grammar weight, d
+# the penalty divisor), which a largest logit error of e moves by up to
+# 2 e m / d. The measured error must itself stay within the stated
+# tolerance, a share of the row's largest logit: TOL_STEPS for B, TOL_T_F32
+# and TOL_X_F32 for F and G, TOL_PREFILL for D's forward.
+STEP_TOL = {"mamba": TOL_STEPS, "transformer": TOL_T_F32["bf16"], "xlstm": TOL_X_F32["bf16"]}
+
+
+def tie_ratio(torch, last, logits, div, err):
+    """Per row (B,): the gap of the two best weights of filtered_logits(last,
+    logits) / div over 2 err (m1 / d1 + m2 / d2), the most a largest logit
+    error of err (B,) can close. A near-tie is <= 1."""
+    from musicgen_tpu_torch.ops.grammar import filtered_logits, pick_weights_by_prev_token
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    v, i = sm._iter_top_k(filtered_logits(last, logits) / div, 2)
+    m = torch.gather(pick_weights_by_prev_token(last) / div, 1, i).sum(1)
+    return (v[:, 0] - v[:, 1]) / (2 * err * m)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def p12_models(torch, root: Path) -> dict:
+    """The reference models of phases 5, 7 and 9 (the same seeded weights),
+    each saved as a .pth beside the corpus for the CLIs."""
+    from musicgen_tpu_torch.config import TransformerConfig, XLSTMConfig
+    from musicgen_tpu_torch.models import transformer, xlstm
+
+    models = {"mamba": mamba_model(torch),
+              "transformer": transformer.init_weights_(transformer.empty_model(TransformerConfig(), DEVICE), SEED),
+              "xlstm": xlstm.init_weights_(xlstm.empty_model(XLSTMConfig(), DEVICE), SEED)}
+    for kind, model in models.items():
+        model.eval()
+        ckpt = root / f"{kind}_random.pth"
+        if not ckpt.exists():
+            torch.save(model.state_dict(), ckpt)
+    return models
+
+
+def reset_launches() -> None:
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+
+    ssd_scan.launches = slstm_scan.launches = 0
+    ak.LAUNCHES.clear()
+    dk.LAUNCHES.clear()
+
+
+def read_launches() -> tuple[dict, dict]:
+    """(the prefill and forward kernels' launches: A, D, H; the decode
+    kernels'), each without zeros, since reset_launches."""
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+
+    pre = {"ssd_scan": ssd_scan.launches, "slstm_scan": slstm_scan.launches, **ak.LAUNCHES}
+    return {k: v for k, v in pre.items() if v}, {k: v for k, v in dk.LAUNCHES.items() if v}
+
+
+def logits_step_launches(model, kind: str, tokens: int, quant: str = "bf16") -> dict:
+    """The launches of `tokens` steps of the family's logits step (no
+    sampler tail)."""
+    if kind == "mamba":
+        L, sfx = model.cfg.n_layers, {"bf16": "", "int8w": "_w8a16", "int8": "_w8a8"}[quant]
+        return {f"in_proj_conv{sfx}": L * tokens, "mixer_state": L * tokens, f"out_proj_rms{sfx}": L * tokens,
+                f"lm_head_ln{sfx}": tokens}
+    if kind == "transformer":
+        L = model.cfg.n_layer
+        return {"t_qkv_ln": L * tokens, "tdecode_attn": L * tokens, "t_res": 2 * L * tokens,
+                "t_fc_relu": L * tokens, "lm_head_ln": tokens}
+    return {"xlstm_step" + ("_w8a16" if quant.startswith("int8") else ""): tokens}
+
+
+def prefill_launches(model, kind: str, n: int) -> dict:
+    """The launches of n prefills (or no-grad forwards): A, D or H a layer."""
+    if kind == "mamba":
+        return {"ssd_scan": model.cfg.n_layers * n}
+    if kind == "transformer":
+        return {"flash_relpos": model.cfg.n_layer * n}
+    return {"slstm_scan": len(model.cfg.slstm_at) * n}
+
+
+def count_row(row: str, *launches: dict) -> None:
+    """Add a phase-12 run's launches to the kernels line (PATH_LAUNCHES)."""
+    for counts in launches:
+        for name, n in counts.items():
+            if name in KERNEL_INFO:
+                count_path(name, row, n)
+
+
+def grammatical(torch, streams, prompt_len: int) -> bool:
+    from musicgen_tpu_torch.ops.grammar import field_bucket, grammar_mask
+
+    s = torch.as_tensor(streams).long().cpu()
+    return bool((grammar_mask()[field_bucket(s[:, prompt_len - 1:-1]), s[:, prompt_len:]] > 0).all())
+
+
+def check_mids(out: Path, pattern: str, n: int) -> None:
+    from musicgen_tpu_torch.midi import extract_midi
+
+    mids = sorted(out.rglob(pattern))
+    need(len(mids) == n, f"expected {n} .mid files in {out}, found {len(mids)}")
+    for mid in mids:
+        need(len(extract_midi(str(mid))) > 0, f"{mid.name} re-extracts with no notes")
+
+
+def cli_prompts(torch, corpus: Path, meta_path: Path, prompt_len: int):
+    """The (prompt, meta) batch cli.generate draws for band Mozart."""
+    import numpy as np
+
+    from musicgen_tpu_torch.data.dataset import TokenDataset
+
+    ds = TokenDataset.from_directory(corpus / "Mozart", meta_path, block_len=prompt_len, seed=SEED)
+    items = [ds[i % len(ds)] for i in range(BATCH)]
+    src = torch.from_numpy(np.stack([x for x, _, _ in items]).astype(np.int64)).to(DEVICE)
+    meta = torch.from_numpy(np.stack([m for _, _, m in items]).astype(np.int64)).to(DEVICE)
+    return src, meta
+
+
+def run_generate_cli(torch, kind: str, root: Path, corpus: Path, meta_path: Path, tag: str, *extra) -> tuple:
+    """cli.generate --model kind on band Mozart at batch BATCH, counted from
+    zero: (streams, seconds, prefill launches, decode launches)."""
+    from musicgen_tpu_torch.cli import generate as cli
+
+    out = root / f"gen12_{tag.replace(' ', '_')}"
+    argv = ["--model", kind, "--ckpt", str(root / f"{kind}_random.pth"), "--data", str(corpus), "--metadata",
+            str(meta_path), "--composers", "Mozart", "--batch", str(BATCH), "--output", str(out), "--seed",
+            str(SEED), *extra]
+    reset_launches()
+    t0 = time.perf_counter()
+    streams = cli.main(argv)["Mozart"]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pre, dec = read_launches()
+    check_mids(out, f"generated_Mozart_{kind}_*.mid", BATCH)
+    return streams, secs, pre, dec
+
+
+
+def kernel_route(model, kind: str, batch: int, quant: str = "bf16"):
+    """(prefill, step) of the family's kernel logits step: B (B' for an
+    int8 quant), F or G."""
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    return sm.make_sampler(model, kind, sm.build_pack(model, kind, batch, quant), quant, PROMPT)
+
+
+def position_check(torch, last, pen, cfg, got, ref) -> tuple:
+    """One position of two routes from the same prefix: (the greedy pick of
+    cfg.mode from `got`'s logits, the one from `ref`'s, tie_ratio of ref's
+    weights at the measured largest error |got - ref|, that error as a share
+    of ref's row's largest logit), each (B,)."""
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    div = sm.count_penalty_divisor(pen.hist) if cfg.mode == "many" else sm.penalty_divisor(pen.hist)
+    err = (got - ref).abs().amax(dim=1)
+    return (sm.pick_token(got, last, pen, cfg, None)[0], sm.pick_token(ref, last, pen, cfg, None)[0],
+            tie_ratio(torch, last, ref, div, err), err / ref.abs().amax(dim=1))
+
+
+def many_along(torch, model, kind: str, src, meta, stream, n: int, route=None) -> list:
+    """Along the first n new tokens of a greedy 'many' `stream`, at each
+    position: the kernel route's logits (kernel_route, or `route`'s
+    (prefill, step)), teacher-forced along the stream, against the plain f32
+    step's from the same state (a recurrent model's: the kernel route's
+    state, so no drift carries from one position to the next; a
+    Transformer's: its plain caches over the same tokens). [kernel picks,
+    plain picks, ratios, error shares], each (B, n) (position_check)."""
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    b, p = src.shape
+    kprefill, kstep = route or kernel_route(model, kind, b)
+    cfg = sm.SamplerConfig(num_tokens=n, ring_size=max(PROMPT, 2048), greedy=True, mode="many")
+    cols = []
+    with torch.no_grad():
+        klogits, carry = kprefill(src, meta)
+        if kind == "transformer":
+            pprefill, pstep = sm.make_sampler(model, kind, None, "bf16", PROMPT)
+            plogits, pstate = pprefill(src, meta)
+        else:
+            plogits, unstack = klogits, sm.kernel_carry(model, kind, "bf16", b)[1]  # the same prefill
+        pen, last = sm.init_window(src, cfg), src[:, -1]
+        for i in range(n):
+            cols.append(position_check(torch, last, pen, cfg, klogits.float(), plogits.float()))
+            tok = stream[:, p + i]
+            pen = sm.push_count_window(pen, tok)
+            if kind == "transformer":
+                plogits, pstate = pstep(tok, pstate, p + i)
+            else:
+                plogits, _ = model.step(tok, unstack(tuple(c.clone() for c in carry)))
+            klogits, carry = kstep(tok, carry, p + i)
+            last = tok
+    return [torch.stack(c, 1) for c in zip(*cols)]
+
+
+def windowed_logits_at(torch, model, src, meta, stream, d: int):
+    """The windowed forward's logits predicting new token d of `stream`
+    (greedy, no slide yet): what the reference-windowed sampler weighed."""
+    p = src.shape[1]
+    buf = torch.nn.functional.pad(stream[:, :p + d], (0, PROMPT - p - d))
+    with torch.no_grad():
+        return model(buf, meta)[:, p + d - 1].float()
+
+
+def windowed_along(torch, model, kind: str, src, meta, stream, n: int) -> list:
+    """Along the first n new tokens of a greedy windowed 'combined' `stream`
+    (no slide), at each position: the windowed forward's logits against the
+    cached route's from the same prefix (a recurrent model's kernel step
+    after the prefill of the prefix: A or H, then B or G in bf16; a
+    Transformer's same forward with the f32 plain attention). [windowed
+    picks, the other route's picks, ratios, error shares], each (B, n)
+    (position_check)."""
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    b, p = src.shape
+    cfg = sm.SamplerConfig(num_tokens=n, ring_size=max(PROMPT, 2048), greedy=True)
+    kprefill, kstep = kernel_route(model, kind, b) if kind != "transformer" else (None, None)
+    pen, last, cols = sm.init_penalty_state(src, cfg.ring_size), src[:, -1], []
+    with torch.no_grad():
+        for i in range(n):
+            got = windowed_logits_at(torch, model, src, meta, stream, i)
+            if kind == "transformer":
+                set_attention(model, "xla")
+                try:
+                    ref = windowed_logits_at(torch, model, src, meta, stream, i)
+                finally:
+                    set_attention(model, "auto")
+            elif i == 0:
+                ref = kprefill(src, meta)[0].float()
+            else:
+                _, carry = kprefill(stream[:, :p + i - 1], meta)
+                ref = kstep(stream[:, p + i - 1], carry, p + i - 1)[0].float()
+            cols.append(position_check(torch, last, pen, cfg, got, ref))
+            last = stream[:, p + i]
+            pen = sm.push_token(pen, last)
+    return [torch.stack(c, 1) for c in zip(*cols)]
+
+
+def agreement(torch, tag: str, stream, p: int, along: list, tol: float) -> str:
+    """Hold a stream to a per-position comparison (many_along,
+    windowed_along): the stream's tokens are the first route's picks bit for
+    bit; its logit error against the second route stays within `tol` of the
+    row's largest logit; where the two routes' picks differ, the second's
+    two best weights lie within what that error can close (a near-tie,
+    tie_ratio <= 1). Returns the text."""
+    picks, other, ratios, shares = along
+    n = picks.shape[1]
+    toks = stream[:, p:p + n].to(picks.device)
+    differ = (picks != other).nonzero().tolist()
+    near = [round(float(ratios[r, i]), 4) for r, i in differ]
+    worst = float(shares.max())
+    need(torch.equal(toks, picks), f"{tag} the stream is not its route's picks: first differences at "
+         f"{first_diffs(torch, toks, picks, 0)}")
+    need(worst <= tol, f"{tag} the logit error {worst:.3e} of the row's largest logit is over {tol}")
+    need(all(x <= 1.0 for x in near), f"{tag} the routes' picks differ where the top-1 leads: (row, token) "
+         f"{differ}, gaps {near}")
+    return (f"the stream is its route's picks at {n} tokens; the picks differ at (row, token) {differ}, the gap "
+            f"there {near} of what the measured logit error can close (a near-tie at <= 1); that error at most "
+            f"{worst:.3e} of the row's largest logit (tolerance {tol}); {float((ratios <= 1.0).float().mean()):.4f} "
+            f"of the {ratios.numel()} positions near-ties at it")
+
+
+def first_diffs(torch, got, want, p: int) -> list:
+    """Per row, the first new-token index where two streams differ, or None."""
+    differ = (got[:, p:].cpu() != want[:, p:].cpu())
+    return [int(r.nonzero()[0]) if bool(r.any()) else None for r in differ]
+
+
+def tie_controls(torch, model, src, meta, stream) -> str:
+    """The 'many' comparison (many_along, agreement) on two wrong routes in
+    place of Mamba's bf16 kernel step: the kernel step fed the previous
+    token (a stale-token fault), which must fail it, and the W8A8 pack
+    (printed). Returns the text."""
+    parts = {}
+    for fault, quant in (("stale token", "bf16"), ("W8A8 pack", "int8")):
+        prefill, step = kernel_route(model, "mamba", src.shape[0], quant)
+        if fault == "stale token":
+            prev = [src[:, -1]]
+
+            def step(tok, carry, i, inner=step):
+                out = inner(prev[0], carry, i)
+                prev[0] = tok
+                return out
+
+        picks, other, ratios, shares = many_along(torch, model, "mamba", src, meta, stream, P12_CHECK,
+                                                  (prefill, step))
+        differ = (picks != other).nonzero().tolist()
+        near = [round(float(ratios[r, i]), 4) for r, i in differ]
+        worst = float(shares.max())
+        fails = worst > STEP_TOL["mamba"] or any(x > 1.0 for x in near)
+        parts[fault] = (f"{fault}: the picks differ at {len(differ)} of {picks.numel()} (row, token), the gap there "
+                        f"at most {max(near, default=None)}; the logit error at most {worst:.3e}; fails {fails}")
+        if fault == "stale token":
+            need(fails, f"[12 sampler mamba many] the comparison let a stale-token step pass: {parts[fault]}")
+    return "; controls: " + "; ".join(parts.values())
+
+
+def phase_p12_sampler(torch, models: dict, root: Path, corpus: Path, meta_path: Path) -> None:
+    """[12 sampler <family> many|top5] cli.generate --sampler many|top5 at
+    the reference width, batch 2, a 2,048-token prompt (the Transformer's
+    fills its window, so F runs), P12_LENGTH tokens: the family's logits
+    step and no sampler tail, each run counted from zero; every new token
+    grammatical and the .mid files re-extract; the first P12_CHECK tokens of
+    'many' equal the plain f32 path's (generate(fused=False) on the card)
+    up to the first near-tie; tok/s/seq of sampler.generate host-paced
+    (prefill included). Then --fused-decode resident --sampler many for
+    Mamba: the per-token kernels, no launch of C, the auto run's stream
+    bit for bit."""
+    from musicgen_tpu_torch.sample.sampler import generate
+
+    many_mamba = None
+    for kind, model in models.items():
+        src, meta = cli_prompts(torch, corpus, meta_path, PROMPT)
+        for mode in ("many", "top5"):
+            tag = f"{kind} {mode}"
+            streams, secs, pre, dec = run_generate_cli(torch, kind, root, corpus, meta_path, tag, "--block-len",
+                                                       str(PROMPT), "--length", str(P12_LENGTH), "--sampler", mode)
+            want = logits_step_launches(model, kind, P12_LENGTH)
+            want_pre = prefill_launches(model, kind, 1)
+            streams = torch.from_numpy(streams)
+            need(torch.equal(streams[:, :PROMPT], src.cpu()), f"[12 sampler {tag}] the streams do not start with "
+                 "the prompts")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(model, kind, src, meta, P12_LENGTH, PROMPT, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     mode=mode)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            line = (f"[12 sampler {tag}] cli.generate --sampler {mode}: {P12_LENGTH} tokens at batch {BATCH} after a "
+                    f"{PROMPT}-token prompt in {secs:.1f} s; grammatical; .mid files re-extract; launches {dec}, "
+                    f"prefill {pre}; sampler.generate {gen_s:.3f} s = {P12_LENGTH / gen_s:.1f} tok/s/seq (prefill "
+                    f"included)")
+            if mode == "many":
+                stream = streams.to(DEVICE)
+                along = many_along(torch, model, kind, src, meta, stream, P12_CHECK)
+                line += (f"; the first {P12_CHECK} tokens against the plain f32 step from the same state: "
+                         + agreement(torch, f"[12 sampler {tag}]", stream, PROMPT, along, STEP_TOL[kind]))
+                if kind == "mamba":
+                    many_mamba = streams
+                    line += tie_controls(torch, model, src, meta, stream)
+            say(line)
+            need(grammatical(torch, streams, PROMPT), f"[12 sampler {tag}] a generated token breaks the grammar")
+            need(dec == want and pre == want_pre, f"[12 sampler {tag}] launches {dec}, prefill {pre}; expected "
+                 f"{want}, {want_pre}")
+            count_row(f"[12 sampler {tag}]", dec, pre)
+    model = models["mamba"]
+    streams, secs, pre, dec = run_generate_cli(torch, "mamba", root, corpus, meta_path, "resident many",
+                                               "--block-len", str(PROMPT), "--length", str(P12_LENGTH),
+                                               "--sampler", "many", "--fused-decode", "resident")
+    want = logits_step_launches(model, "mamba", P12_LENGTH)
+    same = torch.equal(torch.from_numpy(streams), many_mamba)
+    say(f"[12 sampler mamba many resident] --fused-decode resident --sampler many: {P12_LENGTH} tokens in "
+        f"{secs:.1f} s; launches {dec} (no launch of C), prefill {pre}; the stream bit for bit with the auto "
+        f"run's: {same}")
+    need(dec == want and pre == prefill_launches(model, "mamba", 1), f"[12 sampler mamba many resident] launches "
+         f"{dec}, prefill {pre}")
+    need(same, "[12 sampler mamba many resident] differs from --fused-decode auto --sampler many")
+    count_row("[12 sampler mamba many resident]", dec, pre)
+
+
+def phase_p12_prompt_len(torch, models: dict, root: Path, corpus: Path, meta_path: Path) -> None:
+    """[12 prompt-len] --prompt-len 1024 in a 2,048 window: Mamba through
+    its kernels (A's prefill, B's steps and tail); a Transformer, whose
+    prompt does not fill its window, through D's prefill and its plain step
+    (no launch of F nor of the tail)."""
+    parts = []
+    for kind in ("mamba", "transformer"):
+        model = models[kind]
+        streams, secs, pre, dec = run_generate_cli(torch, kind, root, corpus, meta_path, f"prompt-len {kind}",
+                                                   "--prompt-len", str(P12_PROMPT_LEN), "--block-len", str(PROMPT),
+                                                   "--length", str(P12_PROMPT_TOKENS))
+        want = {}
+        if kind == "mamba":
+            want = {**logits_step_launches(model, kind, P12_PROMPT_TOKENS), "sample_tail": P12_PROMPT_TOKENS}
+        need(streams.shape == (BATCH, P12_PROMPT_LEN + P12_PROMPT_TOKENS), f"[12 prompt-len] {kind}: stream shape "
+             f"{streams.shape}")
+        need(grammatical(torch, streams, P12_PROMPT_LEN), f"[12 prompt-len] {kind}: a token breaks the grammar")
+        need(dec == want and pre == prefill_launches(model, kind, 1), f"[12 prompt-len] {kind}: launches {dec}, "
+             f"prefill {pre}; expected {want}, {prefill_launches(model, kind, 1)}")
+        parts.append(f"{kind} {secs:.1f} s, launches {dec or 'none (plain step)'}, prefill {pre}")
+        count_row("[12 prompt-len]", dec, pre)
+    say(f"[12 prompt-len] --prompt-len {P12_PROMPT_LEN} --block-len {PROMPT}, {P12_PROMPT_TOKENS} tokens at batch "
+        f"{BATCH}: " + "; ".join(parts) + "; grammatical; .mid files re-extract")
+
+
+def phase_p12_windowed(torch, models: dict, root: Path, corpus: Path, meta_path: Path) -> None:
+    """[12 windowed <family>] cli.generate --reference-windowing --greedy,
+    WIN_TOKENS tokens after a WIN_PROMPT-token prompt in the 2,048 window
+    (nothing slides): one forward of the (2, 2048) buffer a token, D 8
+    launches a token, H 4, none for Mamba (its forward is plain). At each
+    position the stream is the windowed forward's pick, held to the cached
+    route's from the same prefix (windowed_along, agreement): a recurrent
+    model's kernel step after the prefill of the prefix; for a Transformer,
+    whose windowed forward places the query at the full window's rel-pos
+    geometry where a prefill of a shorter prompt does not (PERF.md §7), the
+    same forward with the f32 plain attention. Where the stream first
+    leaves the cached kernel path's (sampler.generate) is printed. ms a
+    token."""
+    from musicgen_tpu_torch.sample.sampler import generate, reference_windowed_generate
+
+    for kind, model in models.items():
+        src, meta = cli_prompts(torch, corpus, meta_path, WIN_PROMPT)
+        streams, secs, pre, dec = run_generate_cli(torch, kind, root, corpus, meta_path, f"windowed {kind}",
+                                                   "--reference-windowing", "--greedy", "--prompt-len",
+                                                   str(WIN_PROMPT), "--block-len", str(PROMPT), "--length",
+                                                   str(WIN_TOKENS))
+        streams = torch.from_numpy(streams).to(DEVICE)
+        want_pre = {} if kind == "mamba" else prefill_launches(model, kind, WIN_TOKENS)
+        need(torch.equal(streams[:, :WIN_PROMPT], src), f"[12 windowed {kind}] the streams do not start with the "
+             "prompts")
+        need(grammatical(torch, streams, WIN_PROMPT), f"[12 windowed {kind}] a token breaks the grammar")
+        need(dec == {} and pre == want_pre, f"[12 windowed {kind}] launches {dec}, forward {pre}; expected none, "
+             f"{want_pre}")
+        count_row(f"[12 windowed {kind}]", pre)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        cached = generate(model, kind, src, meta, WIN_TOKENS, PROMPT, gen, greedy=True)
+        shared = first_diffs(torch, streams, cached, WIN_PROMPT)
+        tol, against = ((TOL_PREFILL, "the same forward with the f32 plain attention") if kind == "transformer" else
+                        (STEP_TOL[kind], "the cached route (the kernel step after the prefill of the prefix)"))
+        along = windowed_along(torch, model, kind, src, meta, streams, WIN_TOKENS)
+        text = agreement(torch, f"[12 windowed {kind}]", streams, WIN_PROMPT, along, tol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reference_windowed_generate(model, src, meta, 4, PROMPT, gen, greedy=True)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 4
+        say(f"[12 windowed {kind}] --reference-windowing --greedy: {WIN_TOKENS} tokens after a {WIN_PROMPT}-token "
+            f"prompt in the {PROMPT} window at batch {BATCH} in {secs:.1f} s; forward launches {pre or 'none'} "
+            f"({sum(pre.values()) // WIN_TOKENS} a token), decode launches {dec or 'none'}; against {against} at "
+            f"each position: {text}; first differences from the cached kernel path's stream at {shared}; "
+            f"{ms:.2f} ms a token (4 tokens, host-paced)")
+
+
+def serve_group_chunks(lengths, slots: int, chunk: int) -> int:
+    """The group-chunks serve.BatchScheduler runs for requests of `lengths`
+    submitted in this order: first-in first-out into the lowest free slot,
+    every group of 8 slots holding a request advancing `chunk` tokens a
+    chunk, retirement between chunks."""
+    queue, active, n = list(lengths), {}, 0
+
+    def admit():
+        for s in range(slots):
+            if queue and s not in active:
+                active[s] = queue.pop(0)
+
+    admit()
+    while active:
+        n += len({s // 8 for s in active})
+        for s in list(active):
+            active[s] -= chunk
+            if active[s] <= 0:
+                del active[s]
+        admit()
+    return n
+
+
+def phase_p12_serve(torch, models: dict, root: Path, corpus: Path, meta_path: Path, card: str) -> None:
+    """[12 serve <family> <quant>] cli.serve --slots 8 --chunk 32, 12
+    stochastic requests of SERVE_LENGTHS tokens on the corpus's two bands:
+    Mamba in bf16 (kernel B's logits step) and --quant int8w (B'), the xLSTM
+    in bf16 (G's one-launch step), the Transformer (its plain step with
+    per-slot offsets). Each request prefilled at batch 1 (A, D or H): exact
+    launches, against the group-chunks the schedule predicts; every
+    request's tokens grammatical; the same requests through
+    serve.BatchScheduler at --slots 4 submitted in reverse order, and at 16
+    slots (two groups of 8), give every request the same stream bit for bit.
+    Greedy requests of SERVE_GREEDY_LENGTHS tokens on three of the prompts,
+    served at 8 slots, equal sampler.generate at batch 1 on the same route
+    (the kernels with the fused tail; the Transformer's plain step) bit for
+    bit. Aggregate tok/s, the median and largest time to first chunk,
+    per-request tok/s, the card's name and power limit."""
+    import numpy as np
+
+    from musicgen_tpu_torch.cli import serve as cli_serve
+    from musicgen_tpu_torch.sample.sampler import generate
+    from musicgen_tpu_torch.serve import BatchScheduler
+
+    bands = ["Mozart", "Bach"]
+    reqs = [{"composer": bands[i % 2], "length": n} for i, n in enumerate(SERVE_LENGTHS)]
+    total = sum(SERVE_LENGTHS)
+    for kind, quant in (("mamba", "bf16"), ("mamba", "int8w"), ("xlstm", "bf16"), ("transformer", "bf16")):
+        model, tag = models[kind], f"{kind} {quant}"
+        out = root / f"serve12_{kind}_{quant}"
+        argv = ["--model", kind, "--ckpt", str(root / f"{kind}_random.pth"), "--data", str(corpus), "--metadata",
+                str(meta_path), "--requests", json.dumps(reqs), "--output", str(out), "--stats",
+                str(root / f"serve12_{kind}_{quant}.json"), "--slots", str(SERVE_SLOTS), "--chunk",
+                str(SERVE_CHUNK), "--block-len", str(PROMPT), "--quant", quant, "--seed", str(SEED)]
+        reset_launches()
+        res = cli_serve.main(argv)
+        torch.cuda.synchronize()
+        pre, dec = read_launches()
+        sched = res["scheduler"]
+        chunks = serve_group_chunks(SERVE_LENGTHS, SERVE_SLOTS, SERVE_CHUNK)
+        want = {} if kind == "transformer" else logits_step_launches(model, kind, chunks * SERVE_CHUNK, quant)
+        want_pre = prefill_launches(model, kind, len(reqs))
+        need(dec == want and pre == want_pre and sched.group_chunks == chunks,
+             f"[12 serve {tag}] launches {dec}, prefill {pre}, {sched.group_chunks} group-chunks; expected {want}, "
+             f"{want_pre}, {chunks}")
+        count_row(f"[12 serve {tag}]", dec, pre)
+        check_mids(out, f"served_*_{kind}_*.mid", len(reqs))
+        stats = json.loads((root / f"serve12_{kind}_{quant}.json").read_text())
+        need(sorted(stats) == ["aggregate_tok_per_s", "per_request", "requests", "total_tokens", "wall_s"]
+             and stats["total_tokens"] == total, f"[12 serve {tag}] --stats {sorted(stats)}")
+        requests = {rid: sched.requests[rid] for rid in res["tokens"]}
+        for rid, r in requests.items():
+            toks = torch.from_numpy(res["tokens"][rid])
+            need(len(toks) == r.num_tokens, f"[12 serve {tag}] request {rid}: {len(toks)} tokens")
+            need(grammatical(torch, torch.cat([torch.from_numpy(r.prompt[-1:]), toks])[None], 1),
+                 f"[12 serve {tag}] request {rid}: a token breaks the grammar")
+        same = {}
+        for slots, order in ((4, sorted(requests, reverse=True)), (16, sorted(requests))):
+            again = BatchScheduler(sched.model, kind, prompt_len=sched.prompt_len, slots=slots, chunk=SERVE_CHUNK,
+                                   block_len=PROMPT, quant=quant)
+            reset_launches()
+            rids = {rid: again.submit(requests[rid].prompt, requests[rid].meta, requests[rid].num_tokens,
+                                      requests[rid].seed) for rid in order}
+            got = again.run()
+            torch.cuda.synchronize()
+            pre2, dec2 = read_launches()
+            chunks2 = serve_group_chunks([requests[rid].num_tokens for rid in order], slots, SERVE_CHUNK)
+            want2 = {} if kind == "transformer" else logits_step_launches(model, kind, chunks2 * SERVE_CHUNK, quant)
+            need(dec2 == want2 and pre2 == want_pre and again.group_chunks == chunks2,
+                 f"[12 serve {tag}] at {slots} slots: launches {dec2}, prefill {pre2}; expected {want2}, {want_pre}")
+            count_row(f"[12 serve {tag}] ({slots} slots)", dec2, pre2)
+            same[slots] = sum(bool((got[rids[rid]] == res["tokens"][rid]).all()) for rid in requests)
+            del again
+        greedy = BatchScheduler(sched.model, kind, prompt_len=sched.prompt_len, slots=SERVE_SLOTS, chunk=SERVE_CHUNK,
+                                block_len=PROMPT, greedy=True, quant=quant)
+        picks = [requests[rid] for rid in sorted(requests)[:len(SERVE_GREEDY_LENGTHS)]]
+        gids = [greedy.submit(r.prompt, r.meta, n, r.seed) for r, n in zip(picks, SERVE_GREEDY_LENGTHS)]
+        served = greedy.run()
+        one_shot = []
+        for r, gid, n in zip(picks, gids, SERVE_GREEDY_LENGTHS):
+            ref = generate(sched.model, kind, torch.from_numpy(r.prompt)[None].to(DEVICE),
+                           torch.from_numpy(r.meta)[None].to(DEVICE), n, PROMPT,
+                           torch.Generator(device=DEVICE).manual_seed(r.seed), greedy=True, fused=greedy.fused,
+                           quant=quant)
+            got = torch.from_numpy(np.concatenate([r.prompt, served[gid]]))[None]
+            one_shot.append(first_diffs(torch, got, ref, sched.prompt_len)[0])
+        del greedy
+        per = stats["per_request"].values()
+        ttfc = sorted(p["ttfc_s"] for p in per)
+        rate = sorted(p["tok_per_s"] for p in per)
+        say(f"[12 serve {tag}] cli.serve --slots {SERVE_SLOTS} --chunk {SERVE_CHUNK}: {len(reqs)} stochastic "
+            f"requests, {total} tokens, after {sched.prompt_len}-token prompts, in {stats['wall_s']:.2f} s = "
+            f"{stats['aggregate_tok_per_s']:.1f} tok/s aggregate; time to first chunk median "
+            f"{statistics.median(ttfc):.3f} s, largest {ttfc[-1]:.3f} s; per-request tok/s median "
+            f"{statistics.median(rate):.1f} (min {rate[0]:.1f}, max {rate[-1]:.1f}); {chunks} group-chunks, "
+            f"launches {dec or 'none (plain step)'}, prefill {pre}; grammatical; .mid files re-extract; streams bit "
+            f"for bit with --slots 4 in reverse order {same[4]}/{len(reqs)}, with 16 slots (groups of 8) "
+            f"{same[16]}/{len(reqs)}; greedy requests of {SERVE_GREEDY_LENGTHS} tokens against sampler.generate "
+            f"at batch 1 (fused={sched.fused}): first differences {one_shot} (None: bit for bit); {card}")
+        need(same[4] == same[16] == len(reqs), f"[12 serve {tag}] a request's stream depends on its pool")
+        need(one_shot == [None] * len(one_shot), f"[12 serve {tag}] a greedy served stream differs from "
+             f"sampler.generate at batch 1: {one_shot}")
+        del res, sched
+        torch.cuda.empty_cache()
+
+
+def phase_serving(torch, root: Path, corpus: Path, meta_path: Path) -> None:
+    """Phase 12: [12 sampler ...], [12 prompt-len], [12 windowed ...] and
+    [12 serve ...] on the reference models of phases 5, 7 and 9. Their
+    kernels' launches go to PATH_LAUNCHES."""
+    t0 = time.perf_counter()
+    card = card_line()
+    models = p12_models(torch, root)
+    phase_p12_sampler(torch, models, root, corpus, meta_path)
+    phase_p12_prompt_len(torch, models, root, corpus, meta_path)
+    phase_p12_windowed(torch, models, root, corpus, meta_path)
+    phase_p12_serve(torch, models, root, corpus, meta_path, card)
+    say(f"[12 done] phase 12 in {time.perf_counter() - t0:.1f} s on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -4233,14 +4855,15 @@ def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
 
 
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|9|10|11|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]; None where
+    """(only, parent) from [--only 7|9|10|11|12|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]; None where
     absent or wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
         opts[rest[0]] = rest[1]
         rest = rest[2:]
     only = opts.get("--only")
-    if rest or only not in (None, "7", "9", "10", "11", "int8", "bf16", "flash", "resident", "tail", "mixer", "ssd"):
+    if rest or only not in (None, "7", "9", "10", "11", "12", "int8", "bf16", "flash", "resident", "tail", "mixer",
+                            "ssd"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -4313,7 +4936,8 @@ def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|9|10|11|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]",
+        print("usage: python3 chip_smoke.py [--only 7|9|10|11|12|int8|bf16|flash|resident|tail|mixer|ssd] "
+              "[--parent DIR]",
               file=sys.stderr)
         return 2
     only, parent = args
@@ -4350,6 +4974,13 @@ def main() -> int:
             root = Path(tmp)
             phase_research(torch, *synth_corpus(root), root)
         return finish(torch, card, report, ["slstm_scan"], t_start)
+    if only == "12":
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            phase_serving(torch, root, *synth_corpus(root))
+        for name, rows in PATH_LAUNCHES.items():
+            say(f"[{name} launches] on phase 12's paths: " + " + ".join(f"{n} {row}" for row, n in rows.items()))
+        return finish(torch, card, report, [], t_start)
     if only == "int8":
         phase_int8_paths(torch, report)
         return finish(torch, card, report, INT8_KERNELS, t_start)
@@ -4405,6 +5036,8 @@ def main() -> int:
         phase_xlstm(torch, corpus, meta_path, root, report, parent)
         torch.cuda.empty_cache()
         phase_research(torch, corpus, meta_path, root)
+        torch.cuda.empty_cache()
+        phase_serving(torch, root, corpus, meta_path)
     torch.cuda.empty_cache()
     phase_probes(torch, report)
     return finish(torch, card, report, list(KERNEL_INFO), t_start)

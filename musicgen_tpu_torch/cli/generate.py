@@ -14,7 +14,12 @@ the sampler with dataset crops and the composer's 6 metadata tokens, generate
 --length tokens with the grammar + penalty sampler, decode the last
 length+300 tokens and write generated_{band}_{model}_{i}.mid.
 --no-metadata zeroes the conditioning; --retain decodes the whole stream;
---decode-skip N decodes stream[N:]; --greedy is deterministic.
+--decode-skip N decodes stream[N:]; --greedy is deterministic. --sampler
+combined|many|top5 picks the sampler mode (sample/sampler.py).
+--prompt-len crops the prompts (default: --block-len), and --block-len is
+the sampling window (default: the training block, 2048).
+--reference-windowing re-forwards the slid window for every token
+(sample/sampler.reference_windowed_generate; validation only).
 
 Runs on the GPU (--device cuda, the default; it raises without one) through
 the kernels unless --fused-decode off; --device cpu runs the plain versions.
@@ -25,6 +30,12 @@ kernel G. --fused-decode int8 / int8w run the decode kernels on an int8 pack
 resident-int8w run a Mamba model's whole token loop in one kernel launch
 (bf16 / W8A16) and the other families' per-token path; sb16 / int8w-sb16
 (xLSTM only) store the mLSTM matrix memory in bf16 (bf16 / W8A16 weights).
+--sampler many|top5 runs the same kernels' logits step without the sampler
+tail, and resident runs the per-token kernels there. A Transformer whose
+prompt does not fill its window (--prompt-len below --block-len, or a
+--block-len other than its own) runs the plain step after kernel D's
+prefill. --reference-windowing runs the model's forward for every token: D
+for a Transformer, H for an xLSTM, plain PyTorch for Mamba.
 """
 from __future__ import annotations
 
@@ -39,7 +50,7 @@ from ..config import DEFAULT_CONFIG
 from ..data.dataset import TokenDataset
 from ..interop import family, load_checkpoint, load_model
 from ..midi import decode, note_to_midi
-from ..sample.sampler import generate
+from ..sample.sampler import generate, reference_windowed_generate
 
 _MODELS = ["mamba", "xlstm", "transformer"]
 # --fused-decode value -> (fused, quant, resident), as musicgen_tpu/cli/generate.py maps them.
@@ -73,8 +84,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--no-metadata", action="store_true")
     p.add_argument("--retain", action="store_true")
     p.add_argument("--greedy", action="store_true")
+    p.add_argument("--sampler", choices=["combined", "many", "top5"], default="combined",
+                   help="combined: tick-window penalty + per-field top-k (scripts/generate.py); many: "
+                        "100-token count-penalty argmax (generate_midi_many.py); top5: plain top-5 "
+                        "multinomial (generate_midi.py)")
     p.add_argument("--block-len", type=int, default=None,
-                   help="prompt crop length (default: the training block, 2048)")
+                   help="the sampling window (default: the training block, 2048)")
+    p.add_argument("--prompt-len", type=int, default=None, help="prompt crop length (default: --block-len)")
     p.add_argument("--decode-skip", type=int, default=None,
                    help="decode stream[skip:] instead of the last length+300 tokens")
     p.add_argument("--fused-decode", choices=list(_FUSED) + list(_FUSED_NOT_PORTED), default="auto",
@@ -86,6 +102,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "resident-int8w run a Mamba model's whole loop in one kernel; sb16 "
                         "and int8w-sb16 (xLSTM only) store the mLSTM matrix memory in bf16; "
                         "int8w-gptq is not yet ported")
+    p.add_argument("--reference-windowing", action="store_true",
+                   help="the reference's semantics: re-forward the slid window for every token "
+                        "(O(window) a token; validation only)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or cpu (the plain versions)")
@@ -122,6 +141,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
     else:
         bands = sorted(d for d in os.listdir(args.data) if os.path.isdir(os.path.join(args.data, d)))
     block_len = args.block_len or DEFAULT_CONFIG.values.block_len
+    prompt_len = args.prompt_len or block_len
 
     suffix = "_no_meta" if args.no_metadata else ""
     results: Dict[str, np.ndarray] = {}
@@ -130,7 +150,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
         if not os.path.isdir(band_dir):
             print(f"skipping {band}: no such directory")
             continue
-        ds = TokenDataset.from_directory(band_dir, args.metadata, block_len=block_len, seed=args.seed)
+        ds = TokenDataset.from_directory(band_dir, args.metadata, block_len=prompt_len, seed=args.seed)
         if len(ds) < 2:
             print(f"Skipping {band} (not enough files: {len(ds)})")
             continue
@@ -142,15 +162,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
         meta = torch.from_numpy(np.stack([m for _, _, m in items]).astype(np.int64)).to(device)
         if args.no_metadata:
             meta = torch.zeros_like(meta)
-        if args.model == "transformer" and src.shape[1] > block_len:
-            src = src[:, -block_len:]  # the ring holds block_len positions
-
         print(f"Processing band: {band}")
         generator = torch.Generator(device=device).manual_seed(args.seed)
-        streams = generate(
-            model, args.model, src, meta, args.length, block_len, generator,
-            greedy=args.greedy, fused=fused, quant=quant, resident=resident,
-        ).cpu().numpy()
+        if args.reference_windowing:
+            streams = reference_windowed_generate(model, src, meta, args.length, block_len, generator,
+                                                  greedy=args.greedy, mode=args.sampler)
+        else:
+            if args.model == "transformer" and src.shape[1] > block_len:
+                src = src[:, -block_len:]  # the ring holds block_len positions
+            streams = generate(model, args.model, src, meta, args.length, block_len, generator, greedy=args.greedy,
+                               mode=args.sampler, fused=fused, quant=quant, resident=resident)
+        streams = streams.cpu().numpy()
         results[band] = streams
         for i in range(streams.shape[0]):
             if args.decode_skip is not None:

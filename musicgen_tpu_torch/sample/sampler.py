@@ -1,7 +1,8 @@
-"""Grammar-constrained, repetition-penalised autoregressive sampler ('combined').
+"""Grammar-constrained, repetition-penalised autoregressive sampler.
 
-Port of musicgen_tpu/sample/sampler.py, 'combined' mode (reference
-scripts/generate.py:14-95). Per generated token:
+Port of musicgen_tpu/sample/sampler.py. Three modes (SamplerConfig.mode):
+
+'combined' (reference scripts/generate.py:14-95), per generated token:
   1. w = filtered_logits(prev, logits): the grammar weighting;
   2. w /= min(base^count, 1.2) over the tick window (the token suffix after
      the last position where time-delta ticks reach 64*16 = 1024), base 1.01
@@ -9,16 +10,24 @@ scripts/generate.py:14-95). Per generated token:
   3. a random k per field of the previous token: tempo -> {1,1,1,2,2},
      dyn -> {1,3}, pitch -> {1,2}, length/time -> 1;
   4. pick among the top-k of w in proportion to w; greedy takes the top 1.
+'many' (scripts/generate_midi_many.py:13-56): w divided by a count penalty
+  over the last 100 stream tokens (count_penalty_divisor), then the argmax,
+  whatever `greedy` says.
+'top5' (scripts/generate_midi.py:34-62): a draw among the top 5 of w in
+  proportion to w, with no penalty; greedy takes the top 1.
 
 The token loop is a Python loop over eager PyTorch (the JAX package's
-lax.scan). On CUDA it runs the decode kernels and fuses step 1-2 and the
-top-3 into the step (ops/decode_kernel.fused_sample_step for Mamba,
-ops/tdecode_kernel.fused_transformer_sample_step for the Transformer,
-ops/xdecode_kernel.fused_xlstm_sample_step for the xLSTM); on CPU it runs
-the plain versions. `generate(resident=True)` runs a Mamba
-model's whole loop in one kernel launch instead (ops/generate_kernel). Every
-random draw comes from the caller's torch.Generator, which lives on the
-device of the tensors.
+lax.scan). On CUDA it runs the decode kernels. In 'combined' mode the step
+fuses steps 1-2 and the top-3 (ops/decode_kernel.fused_sample_step for
+Mamba, ops/tdecode_kernel.fused_transformer_sample_step for the Transformer,
+ops/xdecode_kernel.fused_xlstm_sample_step for the xLSTM); the other modes
+run the family's logits step (fused_logits_step, fused_transformer_logits_
+step, fused_xlstm_logits_step) under `sample_tokens`, as the JAX package
+does. On CPU the kernels' plain versions run. `generate(resident=True)` runs
+a Mamba model's whole 'combined' loop in one kernel launch instead
+(ops/generate_kernel). `reference_windowed_generate` re-forwards the slid
+window for every token (validation only). Every random draw comes from the
+caller's torch.Generator, which lives on the device of the tensors.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ from ..config import VOCAB, VocabLayout
 from ..ops.grammar import field_bucket, filtered_logits
 
 WINDOW_TICKS = 64 * 16  # reference generate.py:42
+COUNT_WINDOW = 100  # generate_midi_many.py:26 (`generated[-100:]`)
+MODES = ("combined", "many", "top5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +51,56 @@ class SamplerConfig:
     greedy: bool = False
     max_topk: int = 3
     mode: str = "combined"
+
+
+class CountWindowState(NamedTuple):
+    """The 'many' mode's fixed 100-token repetition window."""
+
+    hist: torch.Tensor  # (B, V) int32 counts over the last <= 100 stream tokens
+    ring: torch.Tensor  # (B, 100) stream tokens by stream_idx % 100
+    head: int  # stream length so far (shared across the batch)
+
+
+def init_count_window(prompt: torch.Tensor, layout: VocabLayout = VOCAB) -> CountWindowState:
+    """Counts over the last <= 100 prompt tokens (the reference seeds its
+    history with the whole prompt, so the first window is the prompt's tail)."""
+    b, p = prompt.shape
+    n_keep = min(p, COUNT_WINDOW)
+    tail = prompt[:, -n_keep:]
+    hist = torch.zeros(b, layout.vocab_size, dtype=torch.int32, device=prompt.device)
+    hist.scatter_add_(1, tail, torch.ones_like(tail, dtype=torch.int32))
+    ring = torch.zeros(b, COUNT_WINDOW, dtype=prompt.dtype, device=prompt.device)
+    ring[:, torch.arange(p - n_keep, p, device=prompt.device) % COUNT_WINDOW] = tail
+    return CountWindowState(hist, ring, p)
+
+
+def push_count_window(state: CountWindowState, token: torch.Tensor) -> CountWindowState:
+    """Append `token` (B,); evict the token that falls out of the window."""
+    rows = torch.arange(token.shape[0], device=token.device)
+    slot = state.head % COUNT_WINDOW
+    hist = state.hist.clone()
+    if state.head >= COUNT_WINDOW:
+        hist[rows, state.ring[:, slot]] -= 1
+    hist[rows, token] += 1
+    ring = state.ring.clone()
+    ring[:, slot] = token
+    return CountWindowState(hist, ring, state.head + 1)
+
+
+def count_penalty_divisor(hist: torch.Tensor, layout: VocabLayout = VOCAB) -> torch.Tensor:
+    """(B, V) divisors from 100-window counts c (generate_midi_many.py:28-48):
+    pitch min(1.04^c, 1.25), length min(1.015^c, 1.08), time 1.1 c where
+    c >= 10, dynamics and tempo 1."""
+    ids = torch.arange(layout.vocab_size, device=hist.device)
+    c = hist.to(torch.float32)
+    pitch = torch.clamp(torch.pow(torch.tensor(1.04, dtype=torch.float32), c), max=1.25)
+    length = torch.clamp(torch.pow(torch.tensor(1.015, dtype=torch.float32), c), max=1.08)
+    time = torch.where(c >= 10, 1.1 * c, 1.0)
+    is_length = (ids >= layout.length_start) & (ids < layout.time_start)
+    is_time = (ids >= layout.time_start) & (ids < layout.tempo_start)
+    div = torch.where((ids < layout.dyn_start)[None, :], pitch, 1.0)
+    div = torch.where(is_length[None, :], length, div)
+    return torch.where(is_time[None, :], time, div)
 
 
 class PenaltyState(NamedTuple):
@@ -179,12 +240,48 @@ StepFn = Callable[[torch.Tensor, Any, int], Tuple[torch.Tensor, Any]]
 # step_fn(token (B,), model_state, stream_idx) -> (logits (B, V), model_state)
 
 
+def _require_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"sampler mode must be one of {MODES}, got {mode!r}")
+
+
 def _require_combined(cfg: SamplerConfig) -> None:
     if cfg.mode != "combined":
-        raise NotImplementedError(
-            f"sampler mode '{cfg.mode}' is not yet ported to musicgen_tpu_torch "
-            "(only 'combined')"
-        )
+        raise ValueError(f"the fused sampler tail computes the 'combined' pick only, got mode {cfg.mode!r}")
+
+
+def init_window(prompt: torch.Tensor, cfg: SamplerConfig, layout: VocabLayout = VOCAB):
+    """The mode's penalty window over the prompt: the count window for
+    'many', the tick window otherwise ('top5' carries it unused)."""
+    if cfg.mode == "many":
+        return init_count_window(prompt, layout)
+    return init_penalty_state(prompt, cfg.ring_size, layout)
+
+
+def pick_token(logits: torch.Tensor, last: torch.Tensor, pen, cfg: SamplerConfig, generator: torch.Generator,
+               layout: VocabLayout = VOCAB, uniforms: torch.Tensor | None = None):
+    """One token (B,) of the mode from the step's logits and the previous
+    token, and the window after it (JAX sample_tokens' body, :345-360).
+    uniforms (B, 2), 'combined' mode only: a stochastic pick inverts their
+    CDF among the top 3 as kernel C does (ops/generate_kernel.pick_plain)
+    instead of drawing from `generator`."""
+    w = filtered_logits(last, logits, layout)
+    if cfg.mode == "many":
+        tok = torch.argmax(w / count_penalty_divisor(pen.hist, layout), dim=-1)
+        return tok, push_count_window(pen, tok)
+    if cfg.mode == "top5":
+        k = torch.full_like(last, 5)
+        return _pick_next(w, k, generator, 5, cfg.greedy), pen
+    w = w / penalty_divisor(pen.hist, layout)
+    if uniforms is not None and not cfg.greedy:
+        from ..ops.generate_kernel import pick_plain
+
+        vals, idxs = _iter_top_k(w, 3)
+        tok = pick_plain(vals, idxs, last, uniforms, False)
+    else:
+        k = None if cfg.greedy else _sample_k(last, generator, layout)
+        tok = _pick_next(w, k, generator, cfg.max_topk, cfg.greedy)
+    return tok, push_token(pen, tok, layout)
 
 
 @torch.no_grad()
@@ -197,18 +294,16 @@ def sample_tokens(
     generator: torch.Generator,
     layout: VocabLayout = VOCAB,
 ) -> torch.Tensor:
-    """Generate cfg.num_tokens tokens with the plain sampler. (B, num_tokens)."""
-    _require_combined(cfg)
+    """Generate cfg.num_tokens tokens of cfg.mode with the plain sampler
+    around `step_fn`. (B, num_tokens)."""
+    _require_mode(cfg.mode)
     p = prompt.shape[1]
     last = prompt[:, -1]
-    pen = init_penalty_state(prompt, cfg.ring_size, layout)
+    pen = init_window(prompt, cfg, layout)
     logits, state = init_logits, init_model_state
     out = []
     for i in range(cfg.num_tokens):
-        k = None if cfg.greedy else _sample_k(last, generator, layout)
-        w = filtered_logits(last, logits, layout) / penalty_divisor(pen.hist, layout)
-        tok = _pick_next(w, k, generator, cfg.max_topk, cfg.greedy)
-        pen = push_token(pen, tok, layout)
+        tok, pen = pick_token(logits, last, pen, cfg, generator, layout)
         logits, state = step_fn(tok, state, p + i)
         last = tok
         out.append(tok)
@@ -217,29 +312,20 @@ def sample_tokens(
 
 @torch.no_grad()
 def sample_tokens_fused_tail(
-    dp: dict,  # pack from ops.decode_kernel.build_decode_params (or fused_step's)
+    dp: dict,  # the family's decode-kernel pack (build_pack)
     init_logits: torch.Tensor,  # (B, V) logits at the last prompt position
     init_model_state,  # the step's carry, advanced in place
     prompt: torch.Tensor,  # (B, P) int64
     cfg: SamplerConfig,
     generator: torch.Generator,
-    dims,
+    fused_step: Callable,
     layout: VocabLayout = VOCAB,
-    quant: str = "bf16",
-    fused_step=None,
 ) -> torch.Tensor:
     """'combined' sampling with the grammar/penalty/top-3 tail inside the
     decode step: only the (B, 3) candidates leave it. Same semantics as
-    `sample_tokens`. The step is ops/decode_kernel.fused_sample_step on the
-    Mamba pack `dp` (`quant` the pack's: "bf16", "int8" runs W8A8, "int8w"
-    W8A16), or `fused_step(pack, token, state, hist, bucket, stream_idx) ->
-    (vals, idxs, state)` for another model family (ops/tdecode_kernel)."""
-    if fused_step is None:
-        from ..ops.decode_kernel import QUANT_MODES, fused_sample_step
-
-        def fused_step(pack, token, state, hist, bucket, stream_idx):
-            return fused_sample_step(pack, token, state, hist, bucket, dims, QUANT_MODES[quant])
-
+    `sample_tokens`. The step is `fused_step(pack, token, state, hist,
+    bucket, stream_idx) -> (vals, idxs, state)`, the family's kernel step
+    with the tail (fused_tail_step)."""
     _require_combined(cfg)
     # The tail computes exactly 3 candidates.
     if cfg.max_topk > 3:
@@ -303,11 +389,11 @@ def make_sampler(model, kind: str, dp: dict | None = None, quant: str = "bf16", 
     if kind == "xlstm":
         return _xlstm_sampler(model, dp, quant)
 
-    from ..ops.decode_kernel import QUANT_MODES, DecodeDims, fused_logits_step, stack_states
+    from ..ops.decode_kernel import QUANT_MODES, DecodeDims, fused_logits_step
 
     def prefill(tokens, meta):
         logits, states = model.prefill(tokens, meta)
-        return logits[:, -1, :], stack_states(states)
+        return logits[:, -1, :], kernel_carry(model, kind, quant, tokens.shape[0])[0](states)
 
     def step(token, carry, stream_idx):
         return fused_logits_step(dp, token, carry, DecodeDims.create(model.cfg, token.shape[0]),
@@ -359,19 +445,35 @@ def _plain_sampler(model):
 
 
 def _xlstm_sampler(model, wp: dict, quant: str):
-    from ..ops.xdecode_kernel import QUANT_MODES, XDims, fused_xlstm_logits_step, stack_xlstm_states
+    from ..ops.xdecode_kernel import QUANT_MODES, XDims, fused_xlstm_logits_step
 
-    state_dtype = torch.bfloat16 if quant.endswith("-sb16") else torch.float32
     q = QUANT_MODES[quant.removesuffix("-sb16")]
 
     def prefill(tokens, meta):
         logits, states = model.prefill(tokens, meta)
-        return logits[:, -1, :], stack_xlstm_states(states, XDims.create(model.cfg, tokens.shape[0]), state_dtype)
+        return logits[:, -1, :], kernel_carry(model, "xlstm", quant, tokens.shape[0])[0](states)
 
     def step(token, carry, stream_idx):
         return fused_xlstm_logits_step(wp, token, carry, XDims.create(model.cfg, token.shape[0]), q)
 
     return prefill, step
+
+
+def kernel_carry(model, kind: str, quant: str, batch: int):
+    """(stack, unstack) between a recurrent model's per-layer states at
+    `batch` rows and the carry of its kernel step (Mamba: kernel B's; xLSTM:
+    kernel G's, the mLSTM matrix memory stored in bf16 when `quant` ends in
+    "-sb16")."""
+    if kind == "mamba":
+        from ..ops.decode_kernel import DecodeDims, stack_states, unstack_states
+
+        return stack_states, lambda carry: unstack_states(*carry, DecodeDims.create(model.cfg, batch))
+    from ..ops.xdecode_kernel import XDims, stack_xlstm_states, unstack_xlstm_states
+
+    dims = XDims.create(model.cfg, batch)
+    state_dtype = torch.bfloat16 if quant.endswith("-sb16") else torch.float32
+    return (lambda states: stack_xlstm_states(states, dims, state_dtype),
+            lambda carry: unstack_xlstm_states(carry, dims))
 
 
 def _transformer_fusable(cfg, prompt_len: int, block_len: int) -> bool:
@@ -423,24 +525,26 @@ def generate(
 ) -> torch.Tensor:
     """Conditioned generation (reference scripts/generate.py `generate`).
     Returns (B, P + num_tokens) streams. kind: "mamba", "transformer" or
-    "xlstm".
+    "xlstm"; mode: "combined", "many" or "top5" (module docstring).
 
     fused=None takes the decode kernels on CUDA for a Mamba model without
     residuals, for a Transformer whose prompt fills its window and for an
     xLSTM (_auto_fused); fused=True takes them on any device (their wrappers
     run the plain versions on CPU tensors); fused=False takes the model's
     plain step. A Transformer runs kernel F only when prompt_len == block_len
-    == its block_len, whatever `fused` says (JAX sampler.py:684-692). quant
-    applies to the decode kernels: "bf16", "int8" (W8A8; a Transformer and an
-    xLSTM run "int8w" for it, the one int8 format of their kernels) or
-    "int8w" (W8A16); for an xLSTM also "bf16-sb16" and "int8w-sb16", the
-    mLSTM matrix memory stored in bf16 (f32 math), which no other kind takes.
-    resident=True (Mamba, 'combined' mode) runs the whole token loop in one
-    kernel launch (ops/generate_kernel) and implies fused; its stochastic
-    picks invert the CDF of uniforms drawn from `generator` (same
-    distributions, another stream than the per-token sampler's). A
-    Transformer ignores resident and runs the per-token path, as the JAX
-    package does.
+    == its block_len, whatever `fused` says (JAX sampler.py:684-692). In
+    'combined' mode the kernels' step carries the sampler tail; in the other
+    modes it is the family's logits step under `sample_tokens` (JAX
+    sampler.py:783). quant applies to the decode kernels: "bf16", "int8"
+    (W8A8; a Transformer and an xLSTM run "int8w" for it, the one int8 format
+    of their kernels) or "int8w" (W8A16); for an xLSTM also "bf16-sb16" and
+    "int8w-sb16", the mLSTM matrix memory stored in bf16 (f32 math), which no
+    other kind takes. resident=True (Mamba, 'combined' mode) runs the whole
+    token loop in one kernel launch (ops/generate_kernel) and implies fused;
+    its stochastic picks invert the CDF of uniforms drawn from `generator`
+    (same distributions, another stream than the per-token sampler's). In
+    another mode, and for another family, resident is ignored and the
+    per-token path runs, as in the JAX package (sampler.py:720).
 
     Any batch >= 1 is taken. Where the kernels run and the batch has more
     than MAX_ROWS (8) rows, the most one decode launch carries, the rows are
@@ -448,6 +552,7 @@ def generate(
     and in turn, their draws from `generator` in that order; each group
     streams the weights once a token, so 16 rows read them twice."""
     _require_ported(kind)
+    _require_mode(mode)
     sb16 = quant.endswith("-sb16")
     if sb16 and kind != "xlstm":
         raise ValueError(f"quant '{quant}': '-sb16' (bf16 storage of the mLSTM matrix memory) is an xLSTM option")
@@ -457,94 +562,128 @@ def generate(
         raise ValueError(f"quant must be one of {sorted(QUANT_MODES)} (an xLSTM also takes '-sb16' after "
                          f"'bf16', 'int8' or 'int8w'), got {quant!r}")
     cfg = SamplerConfig(num_tokens=num_tokens, ring_size=max(block_len, 2048), greedy=greedy, mode=mode)
-    _require_combined(cfg)
+    resident = resident and kind == "mamba" and mode == "combined"
     batch, prompt_len = prompt.shape
     if fused is None:
         fused = _auto_fused(kind, model.cfg, prompt.device, prompt_len, block_len)
     if kind == "transformer":
-        kernels = fused and _transformer_fusable(model.cfg, prompt_len, block_len)
-    else:
-        kernels = fused or (resident and kind == "mamba")
-    if kernels and batch > MAX_ROWS:
+        fused = fused and _transformer_fusable(model.cfg, prompt_len, block_len)
+    fused = fused or resident
+    if fused and batch > MAX_ROWS:
         return torch.cat([generate(model, kind, prompt[i:i + MAX_ROWS], meta[i:i + MAX_ROWS], num_tokens, block_len,
                                    generator, greedy, mode, fused, quant, resident)
                           for i in range(0, batch, MAX_ROWS)])
-    if kind == "transformer":
-        return _generate_transformer(model, prompt, meta, block_len, generator, cfg,
-                                     fused and _transformer_fusable(model.cfg, prompt_len, block_len),
-                                     "int8w" if quant == "int8" else quant)
-    if kind == "xlstm":
-        base = quant.removesuffix("-sb16")
-        xquant = ("int8w" if base == "int8" else base) + ("-sb16" if sb16 else "")
-        return _generate_xlstm(model, prompt, meta, generator, cfg, fused, xquant)
-    if resident:
-        fused = True
-    dp = None
+    pack, quant = None, kernel_quant(kind, quant)
     if fused:
-        from ..ops.decode_kernel import DecodeDims, build_decode_params
-
-        dims = DecodeDims.create(model.cfg, batch)
-        dp = build_decode_params(model, batch, quant)
-    prefill, step = make_sampler(model, kind, dp, quant)
+        pack = build_pack(model, kind, batch, quant)
+    prefill, step = make_sampler(model, kind, pack, quant, block_len)
     init_logits, state = prefill(prompt, meta)
     if resident:
+        from ..ops.decode_kernel import DecodeDims
         from ..ops.generate_kernel import generate_resident
 
-        return generate_resident(dp, init_logits, state, prompt, num_tokens, dims, generator, greedy,
-                                 QUANT_MODES[quant], cfg.ring_size)
-    if fused:
-        toks = sample_tokens_fused_tail(dp, init_logits, state, prompt, cfg, generator, dims, quant=quant)
+        return generate_resident(pack, init_logits, state, prompt, num_tokens, DecodeDims.create(model.cfg, batch),
+                                 generator, greedy, QUANT_MODES[quant], cfg.ring_size)
+    if fused and mode == "combined":
+        toks = sample_tokens_fused_tail(pack, init_logits, state, prompt, cfg, generator,
+                                        fused_tail_step(model, kind, batch, quant))
     else:
         toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
     return torch.cat([prompt, toks], dim=1)
 
 
-def _generate_transformer(model, prompt, meta, block_len: int, generator: torch.Generator, cfg: SamplerConfig,
-                          fused: bool, quant: str) -> torch.Tensor:
-    """The Transformer's token loop: kernel F's step with the sampler tail
-    (fused), or TransformerLM.step's ring-KV loop."""
-    tp = None
-    if fused:
-        from ..ops.tdecode_kernel import QUANT_MODES, TDims, build_transformer_decode_params, \
-            fused_transformer_sample_step
+def kernel_quant(kind: str, quant: str) -> str:
+    """The pack format of `quant` for the family's kernels: a Transformer's
+    and an xLSTM's int8 is W8A16 ("int8w"), the one int8 format of F and G."""
+    base = quant.removesuffix("-sb16")
+    if kind != "mamba" and base == "int8":
+        return "int8w" + quant[len(base):]
+    return quant
 
-        tp = build_transformer_decode_params(model, prompt.shape[0], quant)
-        dims = TDims.create(model.cfg, prompt.shape[0])
 
-        def fused_step(pack, token, carry, hist, bucket, stream_idx):
-            return fused_transformer_sample_step(pack, token, carry, hist, bucket, dims, stream_idx,
-                                                 QUANT_MODES[quant])
+def build_pack(model, kind: str, batch: int, quant: str) -> dict:
+    """The family's decode-kernel pack for `batch` rows (<= MAX_ROWS), in
+    the format of kernel_quant(kind, quant)."""
+    if kind == "mamba":
+        from ..ops.decode_kernel import build_decode_params
 
-    prefill, step = make_sampler(model, "transformer", tp, quant, block_len)
-    init_logits, state = prefill(prompt, meta)
-    if fused:
-        toks = sample_tokens_fused_tail(tp, init_logits, state, prompt, cfg, generator, dims,
-                                        fused_step=fused_step)
+        return build_decode_params(model, batch, quant)
+    if kind == "transformer":
+        from ..ops.tdecode_kernel import build_transformer_decode_params
+
+        return build_transformer_decode_params(model, batch, quant)
+    from ..ops.xdecode_kernel import build_xlstm_decode_params
+
+    return build_xlstm_decode_params(model, batch, quant.removesuffix("-sb16"))
+
+
+def fused_tail_step(model, kind: str, batch: int, quant: str):
+    """The family's kernel step with the sampler tail at `batch` rows, on a
+    pack of build_pack(model, kind, batch, quant), as
+    sample_tokens_fused_tail takes it: (pack, token, carry, hist, bucket,
+    stream_idx) -> (vals, idxs, carry)."""
+    if kind == "mamba":
+        from ..ops.decode_kernel import QUANT_MODES, DecodeDims, fused_sample_step
+
+        dims = DecodeDims.create(model.cfg, batch)
+        return lambda pack, token, carry, hist, bucket, stream_idx: fused_sample_step(
+            pack, token, carry, hist, bucket, dims, QUANT_MODES[quant])
+    if kind == "transformer":
+        from ..ops.tdecode_kernel import QUANT_MODES, TDims, fused_transformer_sample_step
+
+        dims = TDims.create(model.cfg, batch)
+        return lambda pack, token, carry, hist, bucket, stream_idx: fused_transformer_sample_step(
+            pack, token, carry, hist, bucket, dims, stream_idx, QUANT_MODES[quant])
+    from ..ops.xdecode_kernel import QUANT_MODES, XDims, fused_xlstm_sample_step
+
+    dims, q = XDims.create(model.cfg, batch), QUANT_MODES[quant.removesuffix("-sb16")]
+    return lambda pack, token, carry, hist, bucket, stream_idx: fused_xlstm_sample_step(
+        pack, token, carry, hist, bucket, dims, q)
+
+
+@torch.no_grad()
+def reference_windowed_generate(
+    model,
+    prompt: torch.Tensor,  # (B, P) int64 on the model's device
+    meta: torch.Tensor,  # (B, 6) int64
+    num_tokens: int,
+    block_len: int,
+    generator: torch.Generator,
+    greedy: bool = True,
+    layout: VocabLayout = VOCAB,
+    mode: str = "combined",
+) -> torch.Tensor:
+    """Validation sampler (JAX sampler.py:873-943): a full forward of the
+    slid window for every token, the reference's semantics token for token
+    (scripts/generate.py:26-89; 'many' generate_midi_many.py:13-56, 'top5'
+    generate_midi.py:34-62), window truncation included. O(window) a token:
+    for parity checks, not production. Returns (B, P + num_tokens).
+
+    The window lives in one fixed (B, block_len) right-padded buffer, so
+    every forward has one shape: a causal model cannot see positions >= n,
+    so its logits at column n - 1 are the short window's. A token is written
+    at column n while the window fills; once full, the window slides left by
+    one and the token takes the last column. The forward is the model's own:
+    on the card a Transformer's runs kernel D and an xLSTM's kernel H
+    (models/xlstm.runs_kernel_h); a Mamba model's stays plain, as JAX's
+    MambaLM.__call__ does."""
+    _require_mode(mode)
+    b, p = prompt.shape
+    cfg = SamplerConfig(num_tokens=num_tokens, ring_size=max(block_len, 2048), greedy=greedy, mode=mode)
+    pen = init_window(prompt, cfg, layout)
+    if p >= block_len:
+        buf, n = prompt[:, -block_len:].clone(), block_len
     else:
-        toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
-    return torch.cat([prompt, toks], dim=1)
-
-
-def _generate_xlstm(model, prompt, meta, generator: torch.Generator, cfg: SamplerConfig, fused: bool,
-                    quant: str) -> torch.Tensor:
-    """The xLSTM's token loop: kernel G's step with the sampler tail (fused;
-    `quant` "bf16" or "int8w", with "-sb16" for the bf16-stored matrix
-    memory), or XLSTMLM.step's loop."""
-    wp = None
-    if fused:
-        from ..ops.xdecode_kernel import QUANT_MODES, XDims, build_xlstm_decode_params, fused_xlstm_sample_step
-
-        wp = build_xlstm_decode_params(model, prompt.shape[0], quant.removesuffix("-sb16"))
-        dims = XDims.create(model.cfg, prompt.shape[0])
-        q = QUANT_MODES[quant.removesuffix("-sb16")]
-
-        def fused_step(pack, token, carry, hist, bucket, stream_idx):
-            return fused_xlstm_sample_step(pack, token, carry, hist, bucket, dims, q)
-
-    prefill, step = make_sampler(model, "xlstm", wp, quant)
-    init_logits, state = prefill(prompt, meta)
-    if fused:
-        toks = sample_tokens_fused_tail(wp, init_logits, state, prompt, cfg, generator, dims, fused_step=fused_step)
-    else:
-        toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
-    return torch.cat([prompt, toks], dim=1)
+        buf, n = torch.nn.functional.pad(prompt, (0, block_len - p)), p
+    last, out = prompt[:, -1], []
+    for _ in range(num_tokens):
+        logits = model(buf, meta)[:, n - 1, :]
+        tok, pen = pick_token(logits, last, pen, cfg, generator, layout)
+        if n >= block_len:
+            buf = torch.cat([buf[:, 1:], tok[:, None]], dim=1)
+        else:
+            buf[:, n] = tok
+            n += 1
+        last = tok
+        out.append(tok)
+    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)

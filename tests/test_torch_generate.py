@@ -123,7 +123,7 @@ def test_resident_plain_greedy_matches_fused_tail(setup):
         logits, carry = prefill(prompt, meta)
         cfg = ts.SamplerConfig(num_tokens=16, greedy=True, ring_size=2048)
         ref = ts.sample_tokens_fused_tail(dp, logits, (carry[0].clone(), carry[1].clone()), prompt, cfg,
-                                          torch.Generator(), dims)
+                                          torch.Generator(), ts.fused_tail_step(port, "mamba", B, "bf16"))
         out = gk.generate_resident(dp, logits, carry, prompt, 16, dims, torch.Generator(), greedy=True)
     assert torch.equal(out[:, :P], prompt)
     assert torch.equal(out[:, P:], ref)

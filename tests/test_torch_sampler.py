@@ -134,10 +134,6 @@ def test_unported_options_raise(models):
     jm, params, port, prompt, meta = models
     args = (torch.from_numpy(prompt), torch.from_numpy(meta), 4, 48, torch.Generator())
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ts.generate(port, "mamba", *args, mode="many")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ts.generate(port, "xlstm", *args, mode="top5")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.generate(port, "classifier", *args)
     # bf16 storage of the mLSTM matrix memory is ported, for an xLSTM only.
     with pytest.raises(ValueError, match="xLSTM option"):
