@@ -101,10 +101,11 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      version; [8 grad] the Transformer's loss and every gradient
      through D and E against the same model with their plain versions on the
      card (and, as information, the f32 attention), with exact launch counts;
-     [8 steps] five Adam steps of the Transformer and of Mamba and three of
-     the xLSTM on one batch (the loss falls at every step), ms/step, train tokens/s
+     [8 steps] five Adam steps of the Transformer, of Mamba and of the
+     xLSTM (cut to X_TRAIN_DEPTH: 3 blocks, sLSTM at 1) on one batch (the
+     loss falls at every step), ms/step, train tokens/s
      and peak memory; [8 cli] `cli.train` for each family (2 epochs, batch
-     2, block 2048; the xLSTM's X_TRAIN_CLI_BLOCK) writing a checkpoint
+     2, block 2048; the xLSTM's X_TRAIN_CLI_BLOCK at X_TRAIN_DEPTH) writing a checkpoint
      directory that `cli.generate --ckpt <dir>/model.pth` reads, with exact
      launch counts (a Mamba model and an xLSTM train through no kernel; the
      xLSTM's validation forwards launch H, and its trained checkpoint
@@ -117,14 +118,25 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      spills), its ms host-paced and in a CUDA graph and us a step, the
      cluster of 16 beside the cluster of 8 in turns, and timer stamps of a
      step's product, cell and barrier (with --parent DIR, the parent tree's
-     H in turns too); [9 slstm shapes] H against the plain scan at four
-     other shapes, one of them two row groups, and its refusals; [9 slstm
+     H in turns too, and H's outputs there and in [9 slstm shapes] bit for
+     bit with the parent's); [9 slstm shapes] H against the plain scan at
+     four other shapes, one of them two row groups, and its refusals (DH
+     past 1,024, a cluster that does not split DH); [9 slstm
      repeat] two launches and three CUDA-graph replays bit for bit; [9
      prefill] the full prefill's last logits with H against the plain scan,
      4 launches of H (with --parent DIR, the prefill with the parent tree's H
-     timed in turns); [9 slstm wide] the scan's route by shape: a 2-head
-     xLSTM of width 1024 (DH 512, which H refuses) prefills through the
-     plain scan with no launch, the reference shape through H; [9 xdecode
+     timed in turns); [9 slstm wide] H's wide path (DH 512 and 1,024, part
+     of R read from L2 every step) and a padded head (DH 300) against the
+     plain scan at the prefill's length, host-paced and in a CUDA graph
+     beside the bound; [9 slstm wide prefill] the 2-head and 1-head xLSTMs
+     of width 1024, 4 launches of H each, against the plain scan, both
+     timed; [9 slstm wide step] kernel G at those heads (DK 1,024 and
+     2,048, DH 512 and 1,024): the chain's xm_gates, xm_memory, xm_out and
+     xs_cell against their plain versions, then 16 teacher-forced steps in
+     bf16 and W8A16, the one-launch step bit for bit with the chain and the
+     chain against the plain chain; [9 slstm wide generate] 32 greedy tokens
+     of each, grammatical, through G's step (one launch of the step and of
+     the tail a token); [9 xdecode
      ...] each launch of kernel G's
      chain against its plain version in bf16, W8A16 and with the matrix
      memory stored in bf16 (sb16), then in bf16, W8A16, sb16 and
@@ -166,7 +178,9 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      .npy equal to codec.encode of its file. H's launches there are added to
      its count on the main paths ([slstm_scan launches]).
  12. the generation CLI's other options and serving, on the reference models
-     of phases 5, 7 and 9: [12 sampler <family> many|top5] `cli.generate
+     of phases 5, 7 and 9 at the depth of P12_DEPTH (Mamba 4 layers, the
+     Transformer 4 blocks, the xLSTM 5 blocks with sLSTM at 1 and 4):
+     [12 sampler <family> many|top5] `cli.generate
      --sampler many|top5` (the family's logits step, B, F or G, and no
      sampler tail; 'many' against the plain f32 path up to the first
      near-tie; tok/s/seq), [12 sampler mamba many resident] (the per-token
@@ -182,8 +196,20 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      serve.BatchScheduler at 4 slots in reverse order and at 16; aggregate
      tok/s, time to first chunk, per-request tok/s, the card). Their
      launches go to the kernels line through PATH_LAUNCHES.
+ 13. GPTQ: [13 gptq mamba] and [13 gptq xlstm] `cli.generate --fused-decode
+     int8w-gptq` on the reference widths at GPTQ_DEPTH (Mamba 2 layers, the
+     xLSTM 3 blocks with sLSTM at 1), 256 greedy tokens: the
+     calibration forwards, the solve and the generation timed (tok/s/seq),
+     the grammar, exact launches (B' W8A16 with B's mixer and tail; G's
+     W8A16 step and the tail; A or H in the 4 calibration forwards);
+     GPTQ's functional error over RTN's at every site (below 1, the median
+     at most 0.95, no int8 matrix RTN's); the
+     W8A16 kernels on the GPTQ pack against their plain chain over 16
+     teacher-forced steps. Their launches go to the kernels line.
+Each phase's seconds print as [seconds <phase>].
 `--only 12` runs phases 1, 2 and 12 (its kernels line is empty; the new
-paths' launches print as [<kernel> launches]).
+paths' launches print as [<kernel> launches]); `--only gptq` phases 1, 2
+and 13, the same way.
 `--only 11` runs phases 1 and 2, [9 slstm] (H's numbers for the kernels
 line) and phase 11; its kernels line holds slstm_scan with the launches of
 phase 11.
@@ -193,7 +219,8 @@ prefill], [5 cli], the resident [6 cli] runs with [6 api resident int8] and
 launches of [5 cli], counted from zero.
 `python3 chip_smoke.py --only 7` runs phases 1, 2 and 7 alone, `--only 9`
 phases 1, 2 and 9, `--only 10` phases 1, 2 and 10 (bring-up of a slice; the
-full run takes no arguments, and runs phases 11 and 12 after phase 9).
+full run takes no arguments, and runs phases 11, 12 and 13 after phase 9,
+then 10).
 `--only int8` runs phases 1 and 2 and every row that launches the int8
 GEMVs (decode_ops.cuh gemv_team in W8A16 or W8A8): [4q] and [4q steps_*], [6 resident],
 [6 chain], [6 loop] and the [6 cli] runs in W8A16 and W8A8, [7 prefill],
@@ -367,6 +394,10 @@ GEN_AFTER_TRAIN = 32
 # xlstm] times the full 2,048. [11 classifier train] trains at the
 # classifier's context length, 2 steps.
 X_TRAIN_CLI_BLOCK = 512
+# The xLSTM of [8 steps xlstm] and [8 cli xlstm]: the reference width at a cut
+# depth, one sLSTM block between two mLSTM blocks (the plain sLSTM scan, a
+# Python loop over the block forward and backward, is most of a step).
+X_TRAIN_DEPTH = {"num_blocks": 3, "slstm_at": (1,)}
 
 # Phase 9, the xLSTM. Kernel H against its plain scan: f32 sums in another
 # order over 2,054 dependent steps; held to the 2e-4 of
@@ -2840,7 +2871,7 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transform
     batch = train_batch(torch, corpus, meta_path)
     out = {}
     for family, module, cfg in (("transformer", transformer, TransformerConfig(dropout=0.0)),
-                                ("mamba", mamba, MambaConfig()), ("xlstm", xlstm, XLSTMConfig())):
+                                ("mamba", mamba, MambaConfig()), ("xlstm", xlstm, XLSTMConfig(**X_TRAIN_DEPTH))):
         if family not in families:
             continue
         model = module.init_weights_(module.empty_model(cfg, DEVICE), SEED)
@@ -2925,6 +2956,8 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
 
     mask = grammar_mask()
     T.make_lm_train_step = timed_step
+    full_xlstm = train_cli.DEFAULT_CONFIGS["xlstm"]
+    train_cli.DEFAULT_CONFIGS["xlstm"] = lambda: full_xlstm(**X_TRAIN_DEPTH)
     try:
         for family in families:
             ckpt_dir = root / f"train8_{family}"
@@ -2995,6 +3028,7 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
                 f"grammatical tokens at batch {BATCH} after a {PROMPT}-token prompt{gen_txt}")
     finally:
         T.make_lm_train_step = make_step
+        train_cli.DEFAULT_CONFIGS["xlstm"] = full_xlstm
 
 
 # ---------------------------------------------------------------------------
@@ -3029,6 +3063,13 @@ def plain_slstm_scan():
 # besides the prefill's; the last spans two row groups of BR = 8.
 H_SHAPES = ((1, 1, 1, 8), (3, 37, 2, 64), (5, 129, 4, 128), (9, 200, 4, 256))
 H_STAMP_STEPS = 256
+# [9 slstm wide]: H past DH 256 (the 2-head and 1-head xLSTMs of width 1024)
+# and at a DH that is no multiple of 8 (run padded to 304), at the prefill's
+# length; the head counts of the width-1024 xLSTMs prefilled through it.
+H_WIDE_SHAPES = ((BATCH, PROMPT + 6, 2, 512), (BATCH, PROMPT + 6, 1, 1024), (BATCH, PROMPT + 6, 2, 300))
+H_WIDE_HEADS = (2, 1)
+WIDE_GEN_TOKENS = 32
+WIDE_STEPS = 16  # teacher-forced steps of [9 slstm wide step], each format
 
 
 def slstm_inputs(torch, b: int, t: int, h: int, dh: int, seed: int = SEED):
@@ -3099,6 +3140,7 @@ def phase_x_slstm(torch, report: dict, psk=None) -> None:
     h_a, s_a = sk.slstm_scan(wx, r, bias, cs=alt)
     alt_abs, alt_rel, _ = slstm_check((h_a, *s_a), (h_p, *s_p), (h_n, *s_n))
     need(alt_rel <= tol, f"slstm_scan with clusters of {alt} disagrees with slstm_sequential: rel {alt_rel:.3e}")
+    bits = parent_bits(torch, psk, wx, r, bias, (h_k, *s_k))
 
     log = build.library_path().parent / "build.log"
     launched = tuple(f"slstm_cluster_kernel<{min(b, sk.ROWS)}, {cs}>" for cs in (main_cs, alt))
@@ -3109,7 +3151,7 @@ def phase_x_slstm(torch, report: dict, psk=None) -> None:
         say(f"[9 slstm launch] cs {geo.cs} x br {geo.rows}: {geo.groups} row group(s), grid {geo.grid} = "
             f"{geo.blocks} blocks of {geo.threads} threads, {geo.smem} B of dynamic shared memory a block "
             f"({geo.slab} B of R); cudaOccupancyMaxActiveClusters "
-            f"{sk.max_active_clusters(geo, b, t, h, dh)}")
+            f"{sk.max_active_clusters(geo, b, t, h)}")
     say(f"[9 slstm launch] ptxas: " + ("; ".join(usage) if usage else "not in the build log"))
 
     def run(cs):
@@ -3144,18 +3186,34 @@ def phase_x_slstm(torch, report: dict, psk=None) -> None:
         f"clusters of {alt}: max_abs {alt_abs:.3e} rel {alt_rel:.3e}; kernel (cs {main_cs}) {ms:.4f} ms = "
         f"{1e3 * ms / t:.3f} us/step host-paced, in a CUDA graph cs {main_cs} {graph_txt(main_cs)}, cs {alt} "
         f"{graph_txt(alt)} (in turns {main_cs}, {alt}, {alt}, {main_cs}; each call includes pack_r_slabs, "
-        f"{fmt_ms(pack_ms)} alone in a graph); {parent_txt}; plain scan {plain_ms:.4f} ms, bound "
+        f"{fmt_ms(pack_ms)} alone in a graph); {parent_txt}; {bits}; plain scan {plain_ms:.4f} ms, bound "
         f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}), library none")
     for cs in (main_cs, alt):
         say(f"[9 slstm stamps] {slstm_stamps(torch, sk, wx, r, bias, cs)}")
+    if psk is not None:
+        say(f"[9 slstm stamps parent] {slstm_stamps(torch, psk, wx, r, bias, main_cs)}")
     report["slstm_scan"] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **cost}
-    phase_x_slstm_shapes(torch, sk)
+    phase_x_slstm_shapes(torch, sk, psk)
     phase_x_slstm_repeat(torch, sk, wx, r, bias)
 
 
-def phase_x_slstm_shapes(torch, sk) -> None:
+def parent_bits(torch, psk, wx, r, bias, outs) -> str:
+    """With the parent tree's slstm_kernel `psk`: whether its H gives `outs`
+    (this tree's h and final state) bit for bit on the same inputs."""
+    if psk is None:
+        return "the parent tree's H not compared (no --parent)"
+    h_q, s_q = psk.slstm_scan(wx, r, bias)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b_) for a, b_ in zip(outs, (h_q, *s_q)))
+    need(same, f"kernel H at DH {wx.shape[-1]} differs from the parent tree's")
+    return "bit for bit with the parent tree's H"
+
+
+def phase_x_slstm_shapes(torch, sk, psk=None) -> None:
     """[9 slstm shapes] H against the plain scan at H_SHAPES, held as [9
-    slstm]; then the refusals: shapes the kernel does not take raise."""
+    slstm] (and, with the parent tree's slstm_kernel `psk`, bit for bit with
+    the parent's H); then the refusals: shapes the kernel does not take
+    raise (a head past WIDE_DH, a cluster that does not split DH)."""
     from musicgen_tpu_torch.ops.slstm import slstm_sequential
 
     for b, t, h, dh in H_SHAPES:
@@ -3163,6 +3221,7 @@ def phase_x_slstm_shapes(torch, sk) -> None:
         sk.slstm_scan.launches = 0
         h_k, s_k = sk.slstm_scan(wx, r, bias)
         need(sk.slstm_scan.launches == 1, "slstm_scan did not launch its kernel")
+        bits = parent_bits(torch, psk, wx, r, bias, (h_k, *s_k))
         h_p, s_p = slstm_sequential(wx, r, bias)
         h_n, s_n = slstm_sequential(wx * (1.0 + 1e-6 * torch.randn(wx.shape, device=DEVICE, generator=gen)), r,
                                     bias)
@@ -3172,15 +3231,16 @@ def phase_x_slstm_shapes(torch, sk) -> None:
         tol = max(TOL_H, 2.0 * floor)
         geo = sk.scan_geometry(b, t, h, dh)
         say(f"[9 slstm shapes] (B,T,H,DH)=({b},{t},{h},{dh}): {geo.groups} row group(s) of {geo.rows}, grid "
-            f"{geo.grid}, {geo.smem} B shared a block; max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol {tol:.3e})")
+            f"{geo.grid}, {geo.smem} B shared a block; max_abs {worst_abs:.3e} rel {worst_rel:.3e} (tol {tol:.3e}); "
+            f"{bits}")
         need(worst_rel <= tol, f"slstm_scan {(b, t, h, dh)} disagrees with slstm_sequential")
     refused = []
-    for dh in (12, 264):
+    for dh, cs in ((sk.WIDE_DH + 8, None), (24, sk.CLUSTER)):
         wx, r, bias, _ = slstm_inputs(torch, 1, 4, 1, dh)
         try:
-            sk.slstm_scan(wx, r, bias)
+            sk.slstm_scan(wx, r, bias, cs=cs)
         except ValueError as e:
-            refused.append(f"DH = {dh}: {str(e)[:80]}")
+            refused.append(f"DH = {dh}{'' if cs is None else f' in clusters of {cs}'}: {str(e)[:80]}")
     say(f"[9 slstm shapes] refused: {'; '.join(refused)}")
     need(len(refused) == 2, "slstm_scan took a shape its kernel does not take")
 
@@ -3265,35 +3325,188 @@ def phase_x_prefill(torch, corpus: Path, meta_path: Path, psk=None) -> dict:
 
 
 def phase_x_slstm_wide(torch, xctx: dict) -> None:
-    """[9 slstm wide] the route of the sLSTM scan by shape: a 2-head xLSTM
-    of width 1024 (DH 512, which kernel H refuses) prefills on the card
-    through the plain scan, chosen before any launch (0 launches of H,
-    finite logits); the reference model (DH 256) still launches H 4 times."""
+    """[9 slstm wide] kernel H past DH 256 and at a padded DH: H against the
+    plain scan at H_WIDE_SHAPES within TOL_X_PREFILL, its ms a launch
+    host-paced and in a CUDA graph beside its bound and the plain scan's;
+    then the xLSTMs of width 1024 with 2 heads (DH 512) and 1 head (DH
+    1024): each prefill launches H 4 times, its last logits against the
+    same prefill with the plain scan, both timed; kernel G at those heads
+    (phase_x_wide_step); last a short greedy generation of each, grammatical,
+    through G's step (phase_x_wide_generate)."""
     from musicgen_tpu_torch.config import XLSTMConfig
-    from musicgen_tpu_torch.models.xlstm import empty_model, init_weights_, runs_kernel_h
-    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.models.xlstm import empty_model, init_weights_
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops import slstm_kernel as sk
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
+    from musicgen_tpu_torch.ops.slstm import slstm_sequential
+    from musicgen_tpu_torch.sample import sampler
+
+    for b, t, h, dh in H_WIDE_SHAPES:
+        wx, r, bias, _ = slstm_inputs(torch, b, t, h, dh, seed=SEED + dh)
+        sk.slstm_scan.launches = 0
+        h_k, s_k = sk.slstm_scan(wx, r, bias)
+        need(sk.slstm_scan.launches == 1, f"slstm_scan at DH {dh} did not launch its kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h_p, s_p = slstm_sequential(wx, r, bias)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        errs = [rel_err(a, b_) for a, b_ in zip((h_k, *s_k), (h_p, *s_p))]
+        worst_abs, worst_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        need(all(bool(torch.isfinite(a).all()) for a in (h_k, *s_k)), f"slstm_scan at DH {dh}: non-finite output")
+        ms = cuda_ms(torch, lambda: sk.slstm_scan(wx, r, bias), iters=5, warmup=1)
+        dev_ms = graph_ms(torch, lambda: sk.slstm_scan(wx, r, bias), calls=2, replays=3)
+        cost = bound(nbytes(wx, r, bias, h_k, *s_k), 2.0 * b * t * 4 * h * dh * dh, F32_FLOPS)
+        geo = sk.scan_geometry(b, t, h, dh)
+        say(f"[9 slstm wide] (B,T,H,DH)=({b},{t},{h},{dh}): run at DH {geo.dh}, grid {geo.grid} of {geo.threads} "
+            f"threads, {geo.smem} B shared a block ({geo.resident} of {geo.dh // geo.cs} rows of each K slice of R "
+            f"resident, the rest read from L2 every step); h and final state max_abs {worst_abs:.3e} rel "
+            f"{worst_rel:.3e} (tol {TOL_X_PREFILL}); kernel {ms:.4f} ms host-paced ({1e3 * ms / t:.3f} us/step), "
+            f"{fmt_ms(dev_ms)} in a CUDA graph; plain scan {plain_ms:.1f} ms; bound {cost['bound_ms']:.4f} ms "
+            f"({cost['bound_by']})")
+        need(worst_rel <= TOL_X_PREFILL, f"slstm_scan at DH {dh} disagrees with slstm_sequential")
+        del wx, r, bias, h_k, s_k, h_p, s_p
 
     prompt, meta = xctx["prompt"], xctx["meta"]
-    wide = init_weights_(empty_model(XLSTMConfig(num_heads=2), DEVICE), SEED).eval()
-    routes = {}
-    for name, model in (("wide", wide), ("reference", xctx["model"])):
-        layer = model.layers.blocks[model.cfg.slstm_at[0]].xlstm
-        wx = torch.empty(BATCH, PROMPT + 6, 4, layer.num_heads, layer.dh, device=DEVICE)
-        slstm_scan.launches = 0
-        t0 = time.perf_counter()
-        logits, _ = model.prefill(prompt, meta)
+    for heads in H_WIDE_HEADS:
+        model = init_weights_(empty_model(XLSTMConfig(num_heads=heads), DEVICE), SEED).eval()
+        dh = model.cfg.embedding_dim // heads
+        sk.slstm_scan.launches = 0
+        logits_k, states = model.prefill(prompt, meta)
         torch.cuda.synchronize()
-        route = "kernel H" if runs_kernel_h(wx) else "plain"
-        routes[name] = (route, layer.num_heads, layer.dh, slstm_scan.launches, time.perf_counter() - t0,
-                        bool(torch.isfinite(logits).all()))
-    del wide
-    torch.cuda.empty_cache()
-    say("[9 slstm wide] " + "; ".join(
-        f"{name} xLSTM ({h} heads of DH {dh}): route {route}, {n} launches of H, prefill {1e3 * sec:.1f} ms, "
-        f"logits {'finite' if fin else 'NOT finite'}" for name, (route, h, dh, n, sec, fin) in routes.items()))
-    need(routes["wide"][0] == "plain" and routes["wide"][3] == 0, "the DH 512 prefill launched kernel H")
-    need(routes["reference"][0] == "kernel H" and routes["reference"][3] == 4, "the reference prefill skipped H")
-    need(routes["wide"][5] and routes["reference"][5], "an xLSTM prefill's logits are not finite")
+        launches = sk.slstm_scan.launches
+        ms = median_ms(torch, lambda: model.prefill(prompt, meta))
+        dev_ms = graph_ms(torch, lambda: model.prefill(prompt, meta), calls=1, replays=3)
+        with plain_slstm_scan():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_p, _ = model.prefill(prompt, meta)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+        err, rel_e = rel_err(logits_k[:, -1], logits_p[:, -1])
+        say(f"[9 slstm wide prefill] XLSTMLM of width {model.cfg.embedding_dim}, {heads} head(s) of DH {dh}, (B, T) = "
+            f"({BATCH}, {PROMPT}+6): {launches} launches of H; last logits vs the plain scan max_abs {err:.3e} rel "
+            f"{rel_e:.3e} (tol {TOL_X_PREFILL}); prefill with H {ms:.3f} ms (median of 5; in a CUDA graph "
+            f"{fmt_ms(dev_ms)}), with the plain scan {plain_ms:.1f} ms")
+        need(bool(torch.isfinite(logits_k).all()), f"the {heads}-head prefill's logits are not finite")
+        need(launches == len(model.cfg.slstm_at), f"the {heads}-head prefill launched H {launches} times")
+        need(rel_e <= TOL_X_PREFILL, f"the {heads}-head prefill with H disagrees with the plain scan")
+        count_path("slstm_scan", "[9 slstm wide prefill]", launches)
+        phase_x_wide_step(torch, xk, model, states, xctx["teacher"])
+        phase_x_wide_generate(torch, sampler, sk, dk, xk, model, prompt, meta)
+        del model, logits_k, logits_p, states
+        torch.cuda.empty_cache()
+
+
+def phase_x_wide_step(torch, xk, model, states, teacher) -> None:
+    """[9 slstm wide step] kernel G at a wide-head xLSTM (DK past 512, DH
+    past 256: the items xm_memory_rows_cq, xm_head_out_wide, the cell reading
+    R from L2, the looped group norm): the chain's xm_gates, xm_memory,
+    xm_out and xs_cell launches of the first blocks against their plain
+    versions at TOL_F32; then in bf16 and int8w, WIDE_STEPS teacher-forced
+    steps from the prefill state, each from a shared state: the one-launch
+    step bit for bit with the chain (logits and all six carry tensors), the
+    chain's logits against the plain chain within max(TOL_T_STEP, 2x the
+    plain chain's response to a 1e-6 perturbation), and the step's ms."""
+    import torch.nn.functional as F
+
+    dims = xk.XDims.create(model.cfg, BATCH)
+    v, heads = dims.vocab_size, dims.heads
+    noise = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def perturbed(cr):
+        cr = clone(cr)
+        for i in (2, 5):  # the f32 normalizers and the sLSTM states
+            cr[i].mul_(1.0 + 1e-6 * torch.randn(cr[i].shape, device=DEVICE, generator=noise))
+        return cr
+
+    for quant in ("bf16", "int8w"):
+        q = XQUANTS[quant]
+        wp = xk.build_xlstm_decode_params(model, BATCH, quant)
+        carry0 = xk.stack_xlstm_states(states, dims)
+        if quant == "bf16":
+            conv_m, s_m, n_m, m_m, conv_s, hcnm_s = (t[0] for t in carry0)
+            x = F.embedding(teacher[:, 0], wp["embed"])
+            up = xk.up_ln_plain(x, wp["m_ln"][0], wp["m_w_up"][0], dims)
+            buf = xk.xm_prep_plain(up, wp["m_conv_w"][0], wp["m_conv_b"][0], conv_m.clone(), wp["m_qkv_w"][0], dims)
+            sc = xk.xm_gates_plain(buf, wp["m_w_gate"][0], wp["m_gate_b"][0], n_m.clone(), m_m.clone(), dims)
+            h = xk.xm_memory_plain(buf, sc, s_m.clone(), dims)
+            xs = xk.xs_prep_plain(x, wp["s_ln"][0], wp["s_conv_w"][0], wp["s_conv_b"][0], conv_s.clone(), dims)
+            wif, wzo = xk.gemv_plain(xs[0], wp["s_w_if"][0], dims), xk.gemv_plain(xs[1], wp["s_w_zo"][0], dims)
+            checks = (
+                ("xm_gates", xk.xm_gates, xk.xm_gates_plain,
+                 (buf, wp["m_w_gate"][0], wp["m_gate_b"][0], n_m, m_m, dims), (3, 4)),
+                ("xm_memory", xk.xm_memory, xk.xm_memory_plain, (buf, sc, s_m, dims), (2,)),
+                ("xm_out", xk.xm_out, xk.xm_out_plain, (h, buf, up, wp["m_outnorm"][0], wp["m_skip"][0], dims), ()),
+                ("xs_cell", xk.xs_cell, xk.xs_cell_plain,
+                 (wif, wzo, wp["s_r_w"][0], wp["s_bias"][0], wp["s_gn"][0], hcnm_s, x, dims), (5, 6)))
+            cells = []
+            for name, kern, plain, args, inplace in checks:
+                a_k, a_p, a_t = ([a.clone() if i in inplace else a for i, a in enumerate(args)] for _ in range(3))
+                out_k, out_p = kern(*a_k), plain(*a_p)
+                torch.cuda.synchronize()
+                outs, refs = [out_k] + [a_k[i] for i in inplace], [out_p] + [a_p[i] for i in inplace]
+                need(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"{name} at {heads} heads: non-finite")
+                rel = max(rel_err(o.float(), r_.float())[1] for o, r_ in zip(outs, refs))
+                ms = cuda_ms(torch, lambda: kern(*a_t), iters=10, warmup=2)
+                cells.append(f"{name} rel {rel:.3e} in {ms:.4f} ms")
+                need(rel <= TOL_F32, f"{name} at {heads} heads (DK {dims.m_dh}, DH {dims.s_dh}) disagrees with its "
+                                     f"plain version (rel {rel:.3e})")
+            say(f"[9 slstm wide step] {heads} heads (DK {dims.m_dh}, DH {dims.s_dh}), the chain's launches of the "
+                f"first blocks against their plain versions (tol rel {TOL_F32}): " + "; ".join(cells))
+        ck, cs = clone(carry0), clone(carry0)
+        worst = worst_noise = 0.0
+        bits = True
+        for step in range(WIDE_STEPS):
+            tok = teacher[:, step]
+            cp, cn = clone(ck), perturbed(ck)
+            lk = xk.xlstm_decode_logits(wp, tok, ck, dims, quant=q)
+            ls = xk.xlstm_step(wp, tok, cs, dims, q)
+            lp = xk.xlstm_decode_logits(wp, tok, cp, dims, ops=xk.PLAIN_OPS, quant=q)
+            ln = xk.xlstm_decode_logits(wp, tok, cn, dims, ops=xk.PLAIN_OPS, quant=q)
+            worst = max(worst, rel_err(lk[:, :v], lp[:, :v])[1])
+            worst_noise = max(worst_noise, rel_err(ln[:, :v], lp[:, :v])[1])
+            bits &= torch.equal(ls, lk) and all(torch.equal(a, b_) for a, b_ in zip(cs, ck))
+        torch.cuda.synchronize()
+        tol = max(TOL_T_STEP, 2.0 * worst_noise)
+        ms = cuda_ms(torch, lambda: xk.xlstm_step(wp, tok, cs, dims, q), iters=20)
+        dev_ms = graph_ms(torch, lambda: xk.xlstm_step(wp, tok, cs, dims, q), calls=8)
+        launch = dict(xk.xlstm_step.launch)
+        say(f"[9 slstm wide step {quant}] {heads} heads: {WIDE_STEPS} teacher-forced steps, the one-launch step "
+            f"({launch['grid']} blocks, {launch['dynamic_smem']} B dynamic shared memory) bit for bit with the chain "
+            f"(logits and all six carry tensors): {bits}; the chain vs the plain chain logits rel {worst:.3e} (tol "
+            f"{tol:.3e}); the step {ms:.4f} ms host-paced, {fmt_ms(dev_ms)} in a CUDA graph; bound "
+            f"{x_step_bound(wp, cs)['bound_ms']:.4f} ms")
+        need(bits, f"{quant}: the one-launch step at {heads} heads differs from the kernel chain")
+        need(worst <= tol, f"{quant}: kernel G at {heads} heads disagrees with the plain chain")
+        del wp, carry0, ck, cs
+
+
+def phase_x_wide_generate(torch, sampler, sk, dk, xk, model, prompt, meta) -> None:
+    """[9 slstm wide generate] sampler.generate (fused=None, as the CLI's
+    auto) of WIDE_GEN_TOKENS greedy tokens on a wide-head xLSTM: H's 4
+    launches in the prefill, every token grammatical, G's step and kernel
+    B's tail once a token."""
+    dims = xk.XDims.create(model.cfg, BATCH)
+    refusal = xk.step_shape_error(dims)
+    need(refusal is None, f"kernel G's step refuses {model.cfg.num_heads} heads: {refusal}")
+    sk.slstm_scan.launches = 0
+    dk.LAUNCHES.clear()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t0 = time.perf_counter()
+    streams = sampler.generate(model, "xlstm", prompt, meta, WIDE_GEN_TOKENS, PROMPT, gen, greedy=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    h_n, g_n = sk.slstm_scan.launches, {k: v for k, v in dk.LAUNCHES.items() if v}
+    want = x_launches(dims, WIDE_GEN_TOKENS, 1, "auto")
+    say(f"[9 slstm wide generate] {model.cfg.num_heads} heads: {WIDE_GEN_TOKENS} greedy tokens in {secs:.1f} s; "
+        f"{'grammatical' if grammatical(torch, streams, prompt.shape[1]) else 'NOT grammatical'}; H {h_n} launches; "
+        f"decode launches {g_n}")
+    need(grammatical(torch, streams, prompt.shape[1]), "the wide-head generation broke the grammar")
+    need(h_n == dims.n_slstm and g_n == want, f"the wide-head generation launched H {h_n} and {g_n}, expected {want}")
+    count_path("slstm_scan", "[9 slstm wide generate]", h_n)
+    for name, n in want.items():
+        count_path(name, "[9 slstm wide generate]", n)
 
 
 def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> dict:
@@ -3683,10 +3896,16 @@ def phase_x_loop(torch, xctx: dict, packs: dict, report: dict, parent: Path | No
                      pack, token, st, hist, bucket, dims, q),
                  "chain": lambda pack, token, st, hist, bucket, i: xk.fused_xlstm_sample_step(
                      pack, token, st, hist, bucket, dims, q, ops=xk.KERNEL_OPS)}
+        parent_bits = None
         if pxk is not None:
             pdims = pxk.XDims.create(model.cfg, BATCH)
             steps["parent"] = lambda pack, token, st, hist, bucket, i: pxk.fused_xlstm_sample_step(
                 pack, token, st, hist, bucket, pdims, q)
+            # The one-launch step from the prefill state, this tree's and the parent's.
+            c_this, c_par = clone(carry0), clone(carry0)
+            l_this = xk.xlstm_step(wp, prompt[:, -1], c_this, dims, q).clone()
+            l_par = pxk.xlstm_step(wp, prompt[:, -1], c_par, pdims, q)
+            parent_bits = torch.equal(l_this, l_par) and all(torch.equal(a, b_) for a, b_ in zip(c_this, c_par))
         order = (["parent"] if pxk else []) + ["step", "chain", "chain", "step"] + (["parent"] if pxk else [])
         secs: dict = {}
         for path in order:
@@ -3722,12 +3941,14 @@ def phase_x_loop(torch, xctx: dict, packs: dict, report: dict, parent: Path | No
                     f"roofline; one step in a CUDA graph {fmt_ms(dev[path])}, {dev_share})")
 
         parent_txt = ("the parent tree's G not measured (no --parent)" if pxk is None else
-                      f"the parent tree's G chain {rate('parent')}")
+                      f"the parent tree's G {rate('parent')} (one step from the prefill state bit for bit with "
+                      f"this tree's, logits and carry: {parent_bits})")
         say(f"[9 loop {quant}] {X_LOOP_TOKENS} tokens a run, in turns ({', '.join(order)}): kernel G one-launch step "
             f"{rate('step')}; kernel chain {rate('chain')}; {parent_txt}; {per_token} B/token = {weights} B of "
             f"weights + {state} B of recurrent state read and written ({bound_ms:.4f} ms/token bound); batch "
             f"{BATCH}; prefill with kernel H {xctx['prefill_ms']:.3f} ms, with the plain scan "
             f"{xctx['plain_prefill_ms']:.3f} ms")
+        need(parent_bits is not False, f"[9 loop {quant}] the one-launch step differs from the parent tree's")
     for name, cnt in totals.items():
         report[name]["launches"] = cnt
     prefill, step = sampler.make_sampler(model, "xlstm")
@@ -3746,7 +3967,8 @@ def phase_xlstm(torch, corpus: Path, meta_path: Path, root: Path, report: dict, 
     psk = parent_module(parent, "slstm_kernel", "[9 slstm]") if parent is not None else None
     phase_x_slstm(torch, report, psk)
     xctx = phase_x_prefill(torch, corpus, meta_path, psk)
-    phase_x_slstm_wide(torch, xctx)
+    with clock("9 slstm wide"):
+        phase_x_slstm_wide(torch, xctx)
     packs = phase_x_decode(torch, xctx, report)
     phase_x_cli(torch, xctx, corpus, meta_path, root, report)
     phase_rows(torch, "xlstm", xctx["model"], corpus, meta_path, root)
@@ -3965,6 +4187,10 @@ P12_LENGTH = 256  # tokens of a [12 sampler ...] run
 P12_CHECK = 64  # leading 'many' tokens held to the plain f32 path
 P12_PROMPT_LEN = 1024  # [12 prompt-len]: prompts of half the window
 P12_PROMPT_TOKENS = 64
+# Phase 12's models: the reference widths at a cut depth (the full run's
+# time makes room for [9 slstm wide] and phase 13). Every launch count there
+# follows the model's own depth; the xLSTM keeps its mLSTM and sLSTM kinds.
+P12_DEPTH = {"mamba": {"n_layers": 4}, "transformer": {"n_layer": 4}, "xlstm": {"num_blocks": 5, "slstm_at": (1, 4)}}
 WIN_PROMPT = 2016  # [12 windowed ...]: 32 tokens fill the 2,048 window, nothing slides
 WIN_TOKENS = 32
 SERVE_SLOTS = 8
@@ -4004,19 +4230,16 @@ def card_line() -> str:
 
 
 def p12_models(torch, root: Path) -> dict:
-    """The reference models of phases 5, 7 and 9 (the same seeded weights),
-    each saved as a .pth beside the corpus for the CLIs."""
-    from musicgen_tpu_torch.config import TransformerConfig, XLSTMConfig
-    from musicgen_tpu_torch.models import transformer, xlstm
+    """The reference models of phases 5, 7 and 9 at the depth of P12_DEPTH
+    (seeded weights), each saved as a .pth beside the corpus for the CLIs."""
+    from musicgen_tpu_torch.config import MambaConfig, TransformerConfig, XLSTMConfig
+    from musicgen_tpu_torch.models import mamba, transformer, xlstm
 
-    models = {"mamba": mamba_model(torch),
-              "transformer": transformer.init_weights_(transformer.empty_model(TransformerConfig(), DEVICE), SEED),
-              "xlstm": xlstm.init_weights_(xlstm.empty_model(XLSTMConfig(), DEVICE), SEED)}
+    models = {kind: module.init_weights_(module.empty_model(cfg(**P12_DEPTH[kind]), DEVICE), SEED).eval()
+              for kind, module, cfg in (("mamba", mamba, MambaConfig), ("transformer", transformer, TransformerConfig),
+                                        ("xlstm", xlstm, XLSTMConfig))}
     for kind, model in models.items():
-        model.eval()
-        ckpt = root / f"{kind}_random.pth"
-        if not ckpt.exists():
-            torch.save(model.state_dict(), ckpt)
+        torch.save(model.state_dict(), root / f"{kind}_random.pth")
     return models
 
 
@@ -4558,6 +4781,185 @@ def phase_serving(torch, root: Path, corpus: Path, meta_path: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: GPTQ packs (--fused-decode int8w-gptq) on kernels B' and G
+# ---------------------------------------------------------------------------
+
+GPTQ_TOKENS = 256  # tokens of each [13 gptq <family>] CLI run
+# Phase 13's models: the reference widths at a cut depth that keeps every
+# kind of calibrated site (the host solve took 118-122 s a family at full
+# depth, 21 and 31 sites).
+GPTQ_DEPTH = {"mamba": {"n_layers": 2}, "xlstm": {"num_blocks": 3, "slstm_at": (1,)}}
+# GPTQ's functional error over RTN's: below 1 at every site, and its median
+# at most this (0.51-0.73 measured on an H100 at random weights), so that a pack that fell
+# back to RTN at some sites (ratio 1) does not pass.
+GPTQ_MAX_MEDIAN = 0.95
+
+
+@contextlib.contextmanager
+def gptq_capture(torch, cli, gptq, seen: dict):
+    """While cli.generate --fused-decode int8w-gptq runs: the moments it
+    collects, each (w, q, s) its quantizer hands the pack builder by site,
+    and the seconds of its calibration forwards, of its pack's build (the
+    GPTQ solves) and of its generation, with the pack it generated on."""
+    real = {"collect": gptq.collect_hessians, "make": gptq.make_gptq_quantizer, "build": cli.build_pack,
+            "generate": cli.generate}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seen[key + "_s"] = seen.get(key + "_s", 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def make(hessians, *a, **k):
+        quantize = real["make"](hessians, *a, **k)
+        seen["hessians"], seen["sites"] = hessians, {}
+
+        def recording(site, w):
+            q, sc = quantize(site, w)
+            seen["sites"][site] = (w, q, sc)
+            return q, sc
+        return recording
+
+    def generate(*a, **k):
+        seen["pack"] = k["decode_pack"]
+        return timed("generate", real["generate"])(*a, **k)
+
+    gptq.collect_hessians, gptq.make_gptq_quantizer = timed("calibrate", real["collect"]), make
+    cli.build_pack, cli.generate = timed("solve", real["build"]), generate
+    try:
+        yield
+    finally:
+        gptq.collect_hessians, gptq.make_gptq_quantizer = real["collect"], real["make"]
+        cli.build_pack, cli.generate = real["build"], real["generate"]
+
+
+def gptq_site_ratios(torch, dk, kind: str, seen: dict) -> dict:
+    """{site: GPTQ's functional error over RTN's} on the calibration inputs:
+    ||X (W - Q)|| = sqrt(rows tr((W - Q) H (W - Q)^T)) with H = X^T X / rows,
+    for W as the CLI's pack builder handed it to the quantizer (the moment
+    zero-padded to a padded K, as the quantizer takes it) and the (q, s) the
+    pack holds; also checks that every int8 matrix of the pack is a
+    calibrated site and that its q is not RTN's."""
+    sites = seen["sites"]
+    need(sorted(sites) == sorted(seen["hessians"]), f"{kind}: the pack's sites {sorted(sites)} are not the "
+         f"calibrated {sorted(seen['hessians'])}")
+    same = [site for site, (w, q, _) in sites.items() if torch.equal(q, dk.quantize_cols(w)[0])]
+    need(not same, f"{kind}: the GPTQ pack holds RTN's int8 matrices at {same}")
+
+    def ferr(w, h, q, sc):
+        deq = q.double() * sc.double().t().repeat_interleave(w.shape[1] // sc.shape[0], dim=1)
+        d = w.double() - deq
+        return float(((d @ h) * d).sum())
+
+    ratios = {}
+    for site, h in seen["hessians"].items():
+        w, q, sc = sites[site]
+        hp = torch.zeros(w.shape[1], w.shape[1], dtype=torch.float64, device=DEVICE)
+        hp[:h.shape[0], :h.shape[0]] = torch.from_numpy(h)
+        ratios[site] = math.sqrt(ferr(w, hp, q, sc) / ferr(w, hp, *dk.quantize_cols(w)))
+    return ratios
+
+
+def gptq_steps(torch, dk, xk, sampler, model, kind: str, pack, src, meta) -> str:
+    """QUANT_STEPS teacher-forced steps (the prompt's first tokens) from the
+    prefill state, each from a shared state: the W8A16 kernel path on the
+    GPTQ pack (Mamba: B's chain with B' W8A16; xLSTM: G's one-launch step)
+    against the plain chain on the same pack, logits and states, within
+    the tolerance of [4q steps] (TOL_STEPS) or of [9 xdecode steps]
+    (max(TOL_T_STEP, twice the plain chain's response to a 1e-6 perturbation
+    of the state)). Returns the row's text."""
+    _, states = model.prefill(src, meta)
+    carry = sampler.kernel_carry(model, kind, "int8w", BATCH)[0](states)
+    noise = torch.Generator(device=DEVICE).manual_seed(SEED)
+    if kind == "mamba":
+        dims = dk.DecodeDims.create(model.cfg, BATCH)
+        v, perturb = dims.vocab_size, (1,)
+        kern = lambda tok, c: dk.decode_logits(pack, tok, c, dims, quant="w8a16")  # noqa: E731
+        plain = lambda tok, c: dk.decode_logits(pack, tok, c, dims, ops=dk.PLAIN_OPS, quant="w8a16")  # noqa: E731
+    else:
+        dims = xk.XDims.create(model.cfg, BATCH)
+        v, perturb = dims.vocab_size, (2, 5)
+        kern = lambda tok, c: xk.xlstm_step(pack, tok, c, dims, "w8a16")  # noqa: E731
+        plain = lambda tok, c: xk.xlstm_decode_logits(pack, tok, c, dims, ops=xk.PLAIN_OPS, quant="w8a16")  # noqa: E731
+    worst_logit = worst_state = worst_noise = 0.0
+    for i in range(QUANT_STEPS):
+        tok = src[:, i]
+        cp, cn = clone(carry), clone(carry)
+        for j in perturb:
+            cn[j].mul_(1.0 + 1e-6 * torch.randn(cn[j].shape, device=DEVICE, generator=noise))
+        lk, lp, ln = kern(tok, carry), plain(tok, cp), plain(tok, cn)
+        worst_logit = max(worst_logit, rel_err(lk[:, :v], lp[:, :v])[1])
+        worst_noise = max(worst_noise, rel_err(ln[:, :v], lp[:, :v])[1])
+        worst_state = max(worst_state, *(rel_err(a.float(), b_.float())[1] for a, b_ in zip(carry, cp)))
+    torch.cuda.synchronize()
+    tol = TOL_STEPS if kind == "mamba" else max(TOL_T_STEP, 2.0 * worst_noise)
+    need(worst_logit <= tol and worst_state <= tol, f"{kind}: the W8A16 kernels on the GPTQ pack disagree with "
+         f"the plain chain: logits rel {worst_logit:.3e}, states rel {worst_state:.3e}, tol {tol:.3e}")
+    route = "B's chain with B' W8A16" if kind == "mamba" else "G's one-launch step in W8A16"
+    return (f"{QUANT_STEPS} teacher-forced steps of {route} on the GPTQ pack vs the plain chain: logits rel "
+            f"{worst_logit:.3e}, states rel {worst_state:.3e} (tol {tol:.3e}; the plain chain's response to a 1e-6 "
+            f"perturbation {worst_noise:.3e})")
+
+
+def phase_gptq(torch, root: Path, corpus: Path, meta_path: Path) -> None:
+    """Phase 13, [13 gptq mamba] and [13 gptq xlstm]: `cli.generate
+    --fused-decode int8w-gptq` at the reference width and the depth of
+    GPTQ_DEPTH (seeded random weights) for GPTQ_TOKENS greedy tokens: the
+    calibration on the
+    synthesized corpus and the solve timed, every token grammatical, exact
+    launches (Mamba: A a layer a calibration forward and a prefill, B'
+    W8A16 and B's mixer a layer and the tail a token; xLSTM: H an sLSTM
+    block a calibration forward and a prefill, G's W8A16 step and the tail
+    a token), tok/s/seq of the generation (prefill included);
+    then, on what the CLI calibrated and solved: GPTQ's functional error
+    below RTN's at every site, its median at most GPTQ_MAX_MEDIAN, no int8
+    matrix RTN's (gptq_site_ratios), and the W8A16 kernels on the GPTQ pack
+    against their plain versions (gptq_steps)."""
+    from musicgen_tpu_torch.cli import generate as cli
+    from musicgen_tpu_torch.config import MambaConfig, XLSTMConfig
+    from musicgen_tpu_torch.models import mamba, xlstm
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops import gptq
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
+    from musicgen_tpu_torch.sample import sampler
+
+    for kind, module, cfg in (("mamba", mamba, MambaConfig), ("xlstm", xlstm, XLSTMConfig)):
+        model = module.init_weights_(module.empty_model(cfg(**GPTQ_DEPTH[kind]), DEVICE), SEED).eval()
+        torch.save(model.state_dict(), root / f"{kind}_random.pth")
+        seen: dict = {}
+        with gptq_capture(torch, cli, gptq, seen):
+            streams, secs, pre, dec = run_generate_cli(torch, kind, root, corpus, meta_path, f"gptq {kind}",
+                                                       "--fused-decode", "int8w-gptq", "--greedy", "--length",
+                                                       str(GPTQ_TOKENS))
+        want_pre = prefill_launches(model, kind, 4 + 1)  # the 4 calibration forwards and the prefill
+        want_dec = {**logits_step_launches(model, kind, GPTQ_TOKENS, "int8w"), "sample_tail": GPTQ_TOKENS}
+        ratios = gptq_site_ratios(torch, dk, kind, seen)
+        worst = max(ratios, key=ratios.get)
+        src, meta = cli_prompts(torch, corpus, meta_path, PROMPT)
+        steps = gptq_steps(torch, dk, xk, sampler, model, kind, seen["pack"], src, meta)
+        say(f"[13 gptq {kind}] cli.generate --fused-decode int8w-gptq, {GPTQ_TOKENS} greedy tokens at batch {BATCH} "
+            f"after a {PROMPT}-token prompt in {secs:.1f} s: calibration forwards {seen['calibrate_s']:.2f} s, "
+            f"GPTQ solve of {len(seen['hessians'])} sites {seen['solve_s']:.2f} s (host numpy), generation "
+            f"{seen['generate_s']:.2f} s = {GPTQ_TOKENS / seen['generate_s']:.1f} tok/s/seq (prefill included); "
+            f"{'grammatical' if grammatical(torch, streams, PROMPT) else 'NOT grammatical'}; launches {pre} and "
+            f"{dec}; GPTQ's functional error over RTN's at every site: worst {ratios[worst]:.4f} ({worst}), best "
+            f"{min(ratios.values()):.4f}, median {statistics.median(ratios.values()):.4f}; {steps}")
+        need(grammatical(torch, streams, PROMPT), f"[13 gptq {kind}]: a generated token breaks the grammar")
+        need(pre == want_pre and dec == want_dec, f"[13 gptq {kind}]: launches {pre}, {dec}; expected {want_pre}, "
+             f"{want_dec}")
+        need(ratios[worst] < 1.0, f"[13 gptq {kind}]: GPTQ's functional error is not below RTN's at {worst}")
+        need(statistics.median(ratios.values()) <= GPTQ_MAX_MEDIAN,
+             f"[13 gptq {kind}]: GPTQ's median functional error over RTN's exceeds {GPTQ_MAX_MEDIAN}")
+        count_row(f"[13 gptq {kind}]", pre, dec)
+        del model, seen
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the two Hopper probes (kernel I, the bf16 weight-streaming
 # product; kernel J, the ablated Mamba decode step)
 # ---------------------------------------------------------------------------
@@ -4855,15 +5257,15 @@ def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
 
 
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|9|10|11|12|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR]; None where
-    absent or wrong."""
+    """(only, parent) from [--only 7|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR];
+    None where absent or wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
         opts[rest[0]] = rest[1]
         rest = rest[2:]
     only = opts.get("--only")
-    if rest or only not in (None, "7", "9", "10", "11", "12", "int8", "bf16", "flash", "resident", "tail", "mixer",
-                            "ssd"):
+    if rest or only not in (None, "7", "9", "10", "11", "12", "gptq", "int8", "bf16", "flash", "resident", "tail",
+                            "mixer", "ssd"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -4932,11 +5334,19 @@ def phase_resident_paths(torch, report: dict, parent: Path | None) -> None:
         phase_cli_resident(torch, model, corpus, meta_path, root, report, resident_only=True)
 
 
+@contextlib.contextmanager
+def clock(name: str):
+    """Prints the seconds the block took on a line of its own, [seconds <name>]."""
+    t0 = time.perf_counter()
+    yield
+    say(f"[seconds {name}] {time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|9|10|11|12|int8|bf16|flash|resident|tail|mixer|ssd] "
+        print("usage: python3 chip_smoke.py [--only 7|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] "
               "[--parent DIR]",
               file=sys.stderr)
         return 2
@@ -4952,7 +5362,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = phase_device(torch)
-    phase_build()
+    with clock("2 build"):
+        phase_build()
     report: dict = {}
     torch.set_grad_enabled(False)
     if only == "7":
@@ -4961,10 +5372,17 @@ def main() -> int:
             phase_transformer(torch, *synth_corpus(root), root, report)
         return finish(torch, card, report, T_KERNELS, t_start)
     if only == "9":
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, clock("9 xlstm"):
             root = Path(tmp)
             phase_xlstm(torch, *synth_corpus(root), root, report, parent)
         return finish(torch, card, report, X_KERNELS, t_start)
+    if only == "gptq":
+        with tempfile.TemporaryDirectory() as tmp, clock("13 gptq"):
+            root = Path(tmp)
+            phase_gptq(torch, root, *synth_corpus(root))
+        for name, rows in PATH_LAUNCHES.items():
+            say(f"[{name} launches] on phase 13's paths: " + " + ".join(f"{n} {row}" for row, n in rows.items()))
+        return finish(torch, card, report, [], t_start)
     if only == "10":
         phase_probes(torch, report)
         return finish(torch, card, report, PROBE_KERNELS, t_start)
@@ -5002,44 +5420,62 @@ def main() -> int:
     if only == "ssd":
         phase_ssd_paths(torch, report, parent)
         return finish(torch, card, report, ["ssd_scan"], t_start)
-    phase_ssd(torch, report, parent)
+    with clock("3 ssd_scan"):
+        phase_ssd(torch, report, parent)
 
     model = mamba_model(torch)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         corpus, meta_path = synth_corpus(root)
-        ctx = decode_context(torch, model, corpus, meta_path)
-        phase_decode(torch, model, ctx, report, parent)
-        phase_mixer(torch, ctx, parent)
-        phase_tail(torch, ctx, parent)
-        phase_gemv_ragged(torch)
-        phase_int8(torch, model, ctx, report)
-        phase_cli(torch, model, corpus, meta_path, root, report)
-        packs = phase_resident(torch, model, ctx, report)
-        phase_loop(torch, ctx, packs, report, parent)
-        phase_cli_resident(torch, model, corpus, meta_path, root, report)
-        phase_rows(torch, "mamba", model, corpus, meta_path, root)
+        with clock("4 decode"):
+            ctx = decode_context(torch, model, corpus, meta_path)
+            phase_decode(torch, model, ctx, report, parent)
+            phase_mixer(torch, ctx, parent)
+            phase_tail(torch, ctx, parent)
+            phase_gemv_ragged(torch)
+        with clock("4q int8"):
+            phase_int8(torch, model, ctx, report)
+        with clock("5 cli"):
+            phase_cli(torch, model, corpus, meta_path, root, report)
+        with clock("6 resident"):
+            packs = phase_resident(torch, model, ctx, report)
+            phase_loop(torch, ctx, packs, report, parent)
+            phase_cli_resident(torch, model, corpus, meta_path, root, report)
+        with clock("rows mamba"):
+            phase_rows(torch, "mamba", model, corpus, meta_path, root)
         del model, ctx, packs
         torch.cuda.empty_cache()
 
-        phase_transformer(torch, corpus, meta_path, root, report)
+        with clock("7 transformer"):
+            phase_transformer(torch, corpus, meta_path, root, report)
         torch.cuda.empty_cache()
 
-        phase_flash_bwd(torch, report)
+        with clock("8 flash-bwd"):
+            phase_flash_bwd(torch, report)
         torch.cuda.empty_cache()
-        phase_grad(torch, corpus, meta_path)
+        with clock("8 grad"):
+            phase_grad(torch, corpus, meta_path)
         torch.cuda.empty_cache()
-        phase_train_steps(torch, corpus, meta_path)
-        phase_train_cli(torch, corpus, meta_path, root, report)
+        with clock("8 steps"):
+            phase_train_steps(torch, corpus, meta_path)
+        with clock("8 cli"):
+            phase_train_cli(torch, corpus, meta_path, root, report)
         torch.cuda.empty_cache()
 
-        phase_xlstm(torch, corpus, meta_path, root, report, parent)
+        with clock("9 xlstm"):
+            phase_xlstm(torch, corpus, meta_path, root, report, parent)
         torch.cuda.empty_cache()
-        phase_research(torch, corpus, meta_path, root)
+        with clock("11 research"):
+            phase_research(torch, corpus, meta_path, root)
         torch.cuda.empty_cache()
-        phase_serving(torch, root, corpus, meta_path)
+        with clock("12 serving"):
+            phase_serving(torch, root, corpus, meta_path)
+        torch.cuda.empty_cache()
+        with clock("13 gptq"):
+            phase_gptq(torch, root, corpus, meta_path)
     torch.cuda.empty_cache()
-    phase_probes(torch, report)
+    with clock("10 probes"):
+        phase_probes(torch, report)
     return finish(torch, card, report, list(KERNEL_INFO), t_start)
 
 

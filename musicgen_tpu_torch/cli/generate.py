@@ -30,6 +30,12 @@ kernel G. --fused-decode int8 / int8w run the decode kernels on an int8 pack
 resident-int8w run a Mamba model's whole token loop in one kernel launch
 (bf16 / W8A16) and the other families' per-token path; sb16 / int8w-sb16
 (xLSTM only) store the mLSTM matrix memory in bf16 (bf16 / W8A16 weights).
+int8w-gptq (Mamba and xLSTM) runs W8A16 on a GPTQ pack: the model's
+forward on 4 batches of 2 random 512-token crops of the corpus gives each
+int8 matrix's input moment (ops/gptq.collect_hessians), and the host solver
+quantizes against it (ops/gptq.make_gptq_quantizer), as musicgen_tpu/cli/
+generate.py does. The pack holds no batch size: it is built once, and every
+band and row group runs on it.
 --sampler many|top5 runs the same kernels' logits step without the sampler
 tail, and resident runs the per-token kernels there. A Transformer whose
 prompt does not fill its window (--prompt-len below --block-len, or a
@@ -50,7 +56,8 @@ from ..config import DEFAULT_CONFIG
 from ..data.dataset import TokenDataset
 from ..interop import family, load_checkpoint, load_model
 from ..midi import decode, note_to_midi
-from ..sample.sampler import generate, reference_windowed_generate
+from ..ops.decode_kernel import MAX_ROWS
+from ..sample.sampler import build_pack, generate, reference_windowed_generate
 
 _MODELS = ["mamba", "xlstm", "transformer"]
 # --fused-decode value -> (fused, quant, resident), as musicgen_tpu/cli/generate.py maps them.
@@ -64,10 +71,7 @@ _FUSED = {
     "resident-int8w": (True, "int8w", True),
     "sb16": (True, "bf16-sb16", False),
     "int8w-sb16": (True, "int8w-sb16", False),
-}
-# The JAX CLI's other values, and what they wait for.
-_FUSED_NOT_PORTED = {
-    "int8w-gptq": "GPTQ calibration (ops/gptq.collect_hessians, ROADMAP queue 1 item 7)",
+    "int8w-gptq": (True, "int8w", False),
 }
 
 
@@ -93,7 +97,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--prompt-len", type=int, default=None, help="prompt crop length (default: --block-len)")
     p.add_argument("--decode-skip", type=int, default=None,
                    help="decode stream[skip:] instead of the last length+300 tokens")
-    p.add_argument("--fused-decode", choices=list(_FUSED) + list(_FUSED_NOT_PORTED), default="auto",
+    p.add_argument("--fused-decode", choices=list(_FUSED), default="auto",
                    help="auto: on the GPU the decode kernels (Mamba without residuals: kernels "
                         "B; Transformer, when the prompt fills its window: kernel F; xLSTM: "
                         "kernel G), else the plain step, and plain PyTorch on the CPU; "
@@ -101,7 +105,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "xLSTM) and int8w (W8A16) run them on an int8 pack; resident and "
                         "resident-int8w run a Mamba model's whole loop in one kernel; sb16 "
                         "and int8w-sb16 (xLSTM only) store the mLSTM matrix memory in bf16; "
-                        "int8w-gptq is not yet ported")
+                        "int8w-gptq (Mamba and xLSTM) runs W8A16 on a GPTQ pack calibrated on the corpus")
     p.add_argument("--reference-windowing", action="store_true",
                    help="the reference's semantics: re-forward the slid window for every token "
                         "(O(window) a token; validation only)")
@@ -119,14 +123,40 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def calibration_batches(data: str, metadata: str, seed: int, device: torch.device) -> list:
+    """--fused-decode int8w-gptq's calibration set (musicgen_tpu/cli/
+    generate.py:122-133): 4 batches of 2 random 512-token crops of the whole
+    corpus, drawn by np.random.default_rng(seed), as (tokens, meta)."""
+    ds = TokenDataset.from_directory(data, metadata, block_len=512, crop="random")
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(4):
+        idx = rng.integers(0, len(ds), 2)
+        toks = np.stack([ds[int(i)][0] for i in idx]).astype(np.int64)
+        meta = np.stack([ds[int(i)][2] for i in idx]).astype(np.int64)
+        batches.append((torch.from_numpy(toks).to(device), torch.from_numpy(meta).to(device)))
+    return batches
+
+
+def gptq_pack(model, args: argparse.Namespace, quant: str, device: torch.device) -> dict:
+    """The decode pack of --fused-decode int8w-gptq: the moments of the
+    family's sites from the model's forward on calibration_batches, and the
+    pack's int8 matrices solved against them."""
+    from ..ops import gptq
+
+    print("calibrating GPTQ hessians on the corpus ...")
+    sites = gptq.CALIB_SITES if args.model == "mamba" else gptq.XLSTM_CALIB_SITES
+    batches = calibration_batches(args.data, args.metadata, args.seed, device)
+    quantizer = gptq.make_gptq_quantizer(gptq.collect_hessians(model, batches, sites))
+    return build_pack(model, args.model, min(args.batch, MAX_ROWS), quant, quantizer)
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
     """Runs the CLI; returns {band: (batch, prompt + length) token streams}."""
     args = parse_args(argv)
-    if args.fused_decode in _FUSED_NOT_PORTED:
-        raise NotImplementedError(
-            f"--fused-decode {args.fused_decode} is not yet ported to musicgen_tpu_torch: "
-            f"it needs {_FUSED_NOT_PORTED[args.fused_decode]}"
-        )
+    gptq = args.fused_decode == "int8w-gptq"
+    if gptq and args.model not in ("mamba", "xlstm"):
+        raise ValueError("--fused-decode int8w-gptq: GPTQ packs exist for --model mamba and xlstm")
     fused, quant, resident = _FUSED[args.fused_decode]
     device = _device(args.device)
     if quant.endswith("-sb16") and args.model != "xlstm":
@@ -142,6 +172,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
         bands = sorted(d for d in os.listdir(args.data) if os.path.isdir(os.path.join(args.data, d)))
     block_len = args.block_len or DEFAULT_CONFIG.values.block_len
     prompt_len = args.prompt_len or block_len
+    pack = gptq_pack(model, args, quant, device) if gptq else None
 
     suffix = "_no_meta" if args.no_metadata else ""
     results: Dict[str, np.ndarray] = {}
@@ -171,7 +202,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
             if args.model == "transformer" and src.shape[1] > block_len:
                 src = src[:, -block_len:]  # the ring holds block_len positions
             streams = generate(model, args.model, src, meta, args.length, block_len, generator, greedy=args.greedy,
-                               mode=args.sampler, fused=fused, quant=quant, resident=resident)
+                               mode=args.sampler, fused=fused, quant=quant, resident=resident, decode_pack=pack)
         streams = streams.cpu().numpy()
         results[band] = streams
         for i in range(streams.shape[0]):

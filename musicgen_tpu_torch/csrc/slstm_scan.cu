@@ -48,6 +48,9 @@
 //    at (B, T, H, DH) = (2, 2054, 4, 256) (PERF.md, kernel H).
 //  * wx is off the dependent path: each cell thread loads its four gate
 //    inputs of step t + 1 into registers at the start of step t.
+// Heads wider than 256 run slstm_wide_kernel (below): the same partition
+// with part of each rank's slab read from L2 at every step. A head width
+// that is no multiple of 8 is padded by the wrapper with zero units.
 // Row groups are independent clusters; nothing crosses clusters, so they
 // need not be co-resident. The TPU kernel's T chunks, padding and pad
 // masking were artefacts of its grid: this loops over the real T.
@@ -61,7 +64,8 @@
 namespace {
 
 constexpr int kThreads = 256;  // = the largest DH: one K slice x quad of columns a thread
-constexpr int kMaxDh = 256;
+constexpr int kMaxDh = 256;     // slstm_cluster_kernel's largest DH: the whole slab in shared memory
+constexpr int kMaxWideDh = 1024;  // slstm_wide_kernel's: one thread per K slice x quad of columns
 constexpr int kMaxRows = 8;    // BR, the rows of a cluster's group
 constexpr int kSmemLimit = 232448;  // 227 KB, the most shared memory a block can take
 constexpr uint32_t kSuspendNs = 1000000;  // an mbarrier wait's suspend-time hint
@@ -286,12 +290,193 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_cluster_kernel(
   }
 }
 
+// Wide heads, kMaxDh < DH <= kMaxWideDh: the slab (DH, 4U) no longer fits
+// in shared memory (256 KB a rank at DH = 512, 1 MB at DH = 1024). Shared
+// memory holds one buffer of partial sums (CS, NB, 4U), the two h buffers
+// and, in what is left, the first KR rows of each K slice of the slab
+// (CS, KR, 4U); the other U - KR rows of each slice are read from global
+// memory at every step, where the head's R_h (4 MB at DH = 512, 16 MB at
+// DH = 1024) stays in the 50 MB L2. The partition, the sums' order (d in
+// order within a slice, slices in order), the cell and the pushes are
+// slstm_cluster_kernel's; a block has one thread per (K slice, quad of
+// columns), DH threads rounded up to a warp. One buffer of partial sums
+// serves every step: the cells read it before the step's closing barrier,
+// and the next step's products write it after.
+__host__ __device__ inline size_t wide_smem_bytes(int DH, int CS, int NB, int KR) {
+  const size_t NC = 4 * (size_t)(DH / CS);
+  return 4 * ((size_t)CS * KR * NC + (size_t)CS * NB * NC + 2 * (size_t)NB * DH);
+}
+
+// The rows of each K slice that stay in shared memory, read back from the
+// launch's smem bytes (-1 where no KR gives them).
+inline int wide_resident_rows(int DH, int CS, int NB, int smem) {
+  const size_t fixed = wide_smem_bytes(DH, CS, NB, 0), row = 4 * (size_t)CS * 4 * (DH / CS);
+  if ((size_t)smem < fixed || ((size_t)smem - fixed) % row) return -1;
+  return (int)(((size_t)smem - fixed) / row);
+}
+
+template <int NB>
+__device__ __forceinline__ void fma_rows(float (&acc)[NB][4], const float* hk, int DH, float4 w) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const float x = hk[b * DH];
+    acc[b][0] = fmaf(x, w.x, acc[b][0]);
+    acc[b][1] = fmaf(x, w.y, acc[b][1]);
+    acc[b][2] = fmaf(x, w.z, acc[b][2]);
+    acc[b][3] = fmaf(x, w.w, acc[b][3]);
+  }
+}
+
+template <int NB, int CS>
+__global__ void __launch_bounds__(kMaxWideDh, 1) slstm_wide_kernel(
+    const float* __restrict__ wx, const float* __restrict__ slabs, const float* __restrict__ bias,
+    float* __restrict__ h_out, float* __restrict__ state, int B, int T, int H, int DH, int KR,
+    unsigned long long* __restrict__ stamps, int n_stamp_steps) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t mbar[2][CS];  // [parity of the h buffer][source rank]
+  const int U = DH / CS, NC = 4 * U, nthreads = blockDim.x;
+  const int rank = (int)cluster_rank(), h = blockIdx.y, b0 = blockIdx.z * NB, nb = min(NB, B - b0);
+  const int j = threadIdx.x, lane = j & 31;
+  float* res = smem;                             // (CS, KR, NC): rows s U .. s U + KR - 1 of the slab
+  float* part = res + (size_t)CS * KR * NC;      // (CS, NB, NC)
+  float* hbuf = part + (size_t)CS * NB * NC;     // (2, NB, DH)
+
+  const float* src = slabs + ((size_t)h * CS + rank) * DH * NC;
+  for (int i = j; i < CS * KR * U; i += nthreads) {  // U quads a row
+    const int s = i / (KR * U);
+    cp_async16(smem_u32(res + 4 * (size_t)i), src + (size_t)s * U * NC + 4 * (size_t)(i - s * KR * U), true);
+  }
+  cp_async_commit();
+  for (int i = j; i < 2 * NB * DH; i += nthreads) hbuf[i] = 0.f;
+  const uint32_t slice_bytes = 4u * nb * U;
+  if (j < 2 * CS) {
+    mbar_init(&mbar[j / CS][j % CS]);
+    mbar_expect(&mbar[j / CS][j % CS], slice_bytes);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  const bool prod = j < DH;
+  const int ks = j / U, q = j % U;
+  const bool cell = j < nb * U, cell_warp = j - lane < nb * U;
+  const int cb = j / U, cu = j % U, e = rank * U + cu;
+  const size_t wrow = (size_t)H * DH;
+  const float* wxc = wx + (size_t)(b0 + cb) * T * 4 * wrow + (size_t)h * DH + e;
+  float bg[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) bg[g] = cell ? __ldg(bias + ((size_t)g * H + h) * DH + e) : 0.f;
+  float c = 0.f, n = 0.f, m = -INFINITY, hv = 0.f;
+  float wcur[4] = {0.f, 0.f, 0.f, 0.f}, wnext[4] = {0.f, 0.f, 0.f, 0.f};
+  if (cell) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) wcur[g] = __ldg(wxc + (size_t)g * wrow);
+  }
+  const bool stamp = stamps != nullptr && j == 0 && rank == 0 && blockIdx.y == 0 && blockIdx.z == 0;
+  if (stamp) {
+    stamps[0] = globaltimer();
+    stamps[1] = clock64();
+  }
+
+  cp_async_wait_all();
+  cluster_sync();
+  for (int t = 0; t < T; ++t) {
+    const bool st_on = stamp && t < n_stamp_steps;
+    unsigned long long* st = st_on ? stamps + 4 + 3 * (size_t)t : nullptr;
+    if (st_on) st[0] = clock64();
+    if (cell && t + 1 < T) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) wnext[g] = __ldg(wxc + ((size_t)(t + 1) * 4 + g) * wrow);
+    }
+    if (prod) {
+      if (t > 0) {
+        mbar_wait(&mbar[t & 1][ks], (((t + 1) >> 1) - 1) & 1);
+        if (q == 0) mbar_expect(&mbar[t & 1][ks], slice_bytes);
+      }
+      const float* rs = res + (size_t)ks * KR * NC + 4 * q;  // resident rows 0 .. KR - 1 of slice ks
+      const float* gs = src + (size_t)ks * U * NC + 4 * q;   // the slice's rows in global memory
+      const float* hk = hbuf + (t & 1) * NB * DH + ks * U;
+      float acc[NB][4];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b][0] = acc[b][1] = acc[b][2] = acc[b][3] = 0.f;
+      for (int d = 0; d < KR; ++d) fma_rows<NB>(acc, hk + d, DH, *reinterpret_cast<const float4*>(rs + (size_t)d * NC));
+      int d = KR;
+      for (; d + 4 <= U; d += 4) {  // four loads in flight before their products
+        float4 w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = __ldg(reinterpret_cast<const float4*>(gs + (size_t)(d + k) * NC));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) fma_rows<NB>(acc, hk + d + k, DH, w[k]);
+      }
+      for (; d < U; ++d) fma_rows<NB>(acc, hk + d, DH, __ldg(reinterpret_cast<const float4*>(gs + (size_t)d * NC)));
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        *reinterpret_cast<float4*>(part + ((size_t)ks * NB + b) * NC + 4 * q) =
+            make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+    }
+    __syncthreads();
+    if (st_on) st[1] = clock64();
+    if (cell) {
+      float pre[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float* p = part + (size_t)cb * NC + g * U + cu;
+        float rec = 0.f;
+#pragma unroll
+        for (int s = 0; s < CS; ++s) rec += p[(size_t)s * NB * NC];
+        pre[g] = (wcur[g] + rec) + bg[g];
+      }
+      const float m_new = fmaxf(pre[1] + m, pre[0]);
+      const float i_act = expf(pre[0] - m_new);
+      const float f_act = m == -INFINITY ? 0.f : expf(pre[1] + m - m_new);
+      c = f_act * c + i_act * tanhf(pre[2]);
+      n = f_act * n + i_act;
+      m = m_new;
+      hv = sigmoidf_(pre[3]) * c / n;
+    }
+    if (t + 1 < T && cell_warp) {
+      const float* dst = hbuf + ((t + 1) & 1) * NB * DH + cb * DH + e;
+      const uint64_t* bar = &mbar[(t + 1) & 1][rank];
+      if (U % 4 == 0) {
+        const int g0 = lane & ~3;
+        const float4 v4 = make_float4(__shfl_sync(0xffffffffu, hv, g0), __shfl_sync(0xffffffffu, hv, g0 + 1),
+                                      __shfl_sync(0xffffffffu, hv, g0 + 2), __shfl_sync(0xffffffffu, hv, g0 + 3));
+        if (cell) {
+#pragma unroll
+          for (int r = lane & 3; r < CS; r += 4) push(dst - (cu & 3), (uint32_t)r, v4, bar);
+        }
+      } else if (cell) {
+#pragma unroll
+        for (int r = 0; r < CS; ++r) push(dst, (uint32_t)r, hv, bar);
+      }
+    }
+    if (st_on) st[2] = clock64();
+    __syncthreads();
+    if (cell) h_out[(((size_t)(b0 + cb) * T + t) * H + h) * DH + e] = hv;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) wcur[g] = wnext[g];
+  }
+  cluster_sync();
+  if (stamp) {
+    stamps[2] = globaltimer();
+    stamps[3] = clock64();
+  }
+  if (cell) {
+    const size_t o = ((size_t)(b0 + cb) * H + h) * DH + e, plane = (size_t)B * H * DH;
+    state[o] = hv;
+    state[plane + o] = c;
+    state[2 * plane + o] = n;
+    state[3 * plane + o] = m;
+  }
+}
+
 // The launch's shape as the wrapper's scan_geometry gives it; false where
 // the kernel does not take it.
 bool geometry_ok(int B, int T, int H, int DH, int CS, int NB, int smem) {
-  return B >= 1 && T >= 1 && H >= 1 && DH >= 8 && DH <= kMaxDh && DH % 8 == 0 && (CS == 8 || CS == 16) &&
-         DH % CS == 0 && NB >= 1 && NB <= kMaxRows && NB <= B && (size_t)smem == smem_bytes(DH, CS, NB) &&
-         smem + 2 * CS * (int)sizeof(uint64_t) <= kSmemLimit;
+  if (!(B >= 1 && T >= 1 && H >= 1 && DH >= 8 && DH <= kMaxWideDh && DH % 8 == 0 && (CS == 8 || CS == 16) &&
+        DH % CS == 0 && NB >= 1 && NB <= kMaxRows && NB <= B && smem + 2 * CS * (int)sizeof(uint64_t) <= kSmemLimit))
+    return false;
+  if (DH <= kMaxDh) return (size_t)smem == smem_bytes(DH, CS, NB);
+  const int kr = wide_resident_rows(DH, CS, NB, smem);
+  return kr >= 0 && kr <= DH / CS;
 }
 
 template <int NB, int CS>
@@ -319,14 +504,43 @@ cudaError_t launch(const float* wx, const float* slabs, const float* bias, float
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+template <int NB, int CS>
+cudaError_t launch_wide(const float* wx, const float* slabs, const float* bias, float* h_out, float* state, int B,
+                        int T, int H, int DH, int smem, unsigned long long* stamps, int n_stamp_steps,
+                        int* max_clusters, cudaStream_t stream) {
+  auto kernel = slstm_wide_kernel<NB, CS>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && CS > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS, H, (B + NB - 1) / NB);
+  cfg.blockDim = dim3((DH + 31) / 32 * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  const int kr = wide_resident_rows(DH, CS, NB, smem);
+  e = cudaLaunchKernelEx(&cfg, kernel, wx, slabs, bias, h_out, state, B, T, H, DH, kr, stamps, n_stamp_steps);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <int CS>
 cudaError_t dispatch_rows(const float* wx, const float* slabs, const float* bias, float* h_out, float* state, int B,
                           int T, int H, int DH, int NB, int smem, unsigned long long* stamps, int n_stamp_steps,
                           int* max_clusters, cudaStream_t stream) {
   switch (NB) {
-#define MG_SLSTM_NB(k) \
-  case k:              \
-    return launch<k, CS>(wx, slabs, bias, h_out, state, B, T, H, DH, smem, stamps, n_stamp_steps, max_clusters, stream);
+#define MG_SLSTM_NB(k)                                                                                              \
+  case k:                                                                                                           \
+    return DH > kMaxDh ? launch_wide<k, CS>(wx, slabs, bias, h_out, state, B, T, H, DH, smem, stamps, n_stamp_steps, \
+                                            max_clusters, stream)                                                    \
+                       : launch<k, CS>(wx, slabs, bias, h_out, state, B, T, H, DH, smem, stamps, n_stamp_steps,      \
+                                       max_clusters, stream);
     MG_SLSTM_NB(1)
     MG_SLSTM_NB(2)
     MG_SLSTM_NB(3)

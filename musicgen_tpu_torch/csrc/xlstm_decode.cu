@@ -147,7 +147,7 @@ __global__ void __launch_bounds__(TEAM) xm_memory_kernel(const float* __restrict
                                                          S* __restrict__ s_st, float* __restrict__ mpart,
                                                          unsigned* __restrict__ tickets, float* __restrict__ h_att,
                                                          int H, int di) {
-  __shared__ float red[4 * TEAM];
+  __shared__ float red[XM_MAX_DK];  // rpp x DV <= XM_MAX_DK floats
   const int DK = di / H, nrc = DK / xm_rows_per_item(DK);
   const int bh = blockIdx.x / nrc, b = bh / H, h = bh % H;
   const float* g = sc + (size_t)bh * 4;
@@ -241,9 +241,7 @@ MG_EXPORT int mg_xm_gates(const float* buf, const float* w_gate, const float* ga
 
 // The shapes of the matrix memory's items (xlstm_ops.cuh xm_memory_rows).
 static bool xm_memory_shape_ok(int H, int di) {
-  if (H < 1 || di % H != 0) return false;
-  const int DK = di / H;
-  return DK % 4 == 0 && kThreads % (DK / 4) == 0 && DK % xm_rows_per_item(DK) == 0;
+  return H >= 1 && di % H == 0 && xm_shape_ok(di / H);
 }
 
 // s_bf16: 0 for an f32 matrix memory, 1 for bf16 storage (-sb16). mpart:
@@ -281,7 +279,7 @@ MG_EXPORT int mg_xs_prep(const float* x, const float* ln, const float* conv_w, c
 MG_EXPORT int mg_xs_cell(const float* wif, const float* wzo, const void* r_w, const float* bias, const float* gn,
                          float* hcnm, float* hnew, void* tickets, float* x, int B, int H, int DH, float eps,
                          void* stream) {
-  if (B < 1 || B > MAXR || H < 1 || DH < XS_UNITS || DH % XS_UNITS != 0 || DH > kThreads)
+  if (B < 1 || B > MAXR || H < 1 || DH < XS_UNITS || DH % XS_UNITS != 0 || DH > XS_MAX_DH)
     return (int)cudaErrorInvalidValue;
   const int smem = xs_cell_smem_bytes(B, DH);
   if (smem > 48 * 1024) {

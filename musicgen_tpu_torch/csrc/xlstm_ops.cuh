@@ -22,19 +22,24 @@
 //   xm_norm_denom    the normalizer n of one (b, h) and max(|q.n|, e^-m) (a team);
 //   xm_head_out      the step's head item: the gates, xm_norm_denom, the
 //                    readout and xm_out_item's output gate in one, the
-//                    same arithmetic, its loads issued first;
+//                    same arithmetic, its loads issued first (DK <= 512);
+//                    xm_head_out_wide the same at DK up to 2,048, its
+//                    partials read as they are added;
 //   xm_memory_rows   RC rows of one (b, h)'s matrix memory S and their
 //                    readout partial q.S over those rows (a team: 8 rows a
-//                    thread in flight, 16-byte vectors);
+//                    thread in flight, 16-byte vectors; past DV 1,024 each
+//                    thread holds XM_CQ column quads);
 //   xm_head_readout  a head's readout: the row chunks' partials in order, / denom;
 //   xm_out_item      head norm, skip and the silu(z) gate of one (b, h) (a team);
 //   xs_prep_item     LayerNorm (f64 row sums, as the GEMV prologue's), conv
 //                    step and silu of 128 columns of one row (a team);
 //   xs_cell_item     the sLSTM recurrence of XS_UNITS units of one head, all
 //                    four gates, both batch rows on one read of R (a team:
-//                    the R tile staged by cp.async, each pre-activation a
+//                    up to DH = XS_TILE_DH the R tile staged by cp.async,
+//                    past it R read from L2; each pre-activation a
 //                    sequential sum over dd as the TPU kernel's);
-//   xs_gn_item       the group norm of one (b, h), the residual and the new h;
+//   xs_gn_item       the group norm of one (b, h), the residual and the new h
+//                    (DH <= 1,024);
 //   gemv_list        decode_ops.cuh's GEMV over a list of tiles (a team),
 //                    with a hook after each tile's epilogue.
 //
@@ -48,6 +53,9 @@
 namespace mg {
 
 constexpr int XM_NJ = 8;           // rows of S a thread holds in flight
+constexpr int XM_MAX_DK = 8 * TEAM;  // the widest mLSTM head: two column quads a thread
+constexpr int XS_TILE_DH = TEAM;   // the widest sLSTM head whose R tile a cell item stages
+constexpr int XS_MAX_DH = 4 * TEAM;  // the widest sLSTM head
 constexpr int XS_UNITS = 16;       // sLSTM units of a cell item
 constexpr int XS_COLS = 4 * XS_UNITS;  // R columns of a cell item (four gates)
 constexpr int XS_PREP_COLS = 128;  // columns of an sLSTM prep item
@@ -67,8 +75,16 @@ __device__ __forceinline__ float team_sum(float v, float* red, int tid, int bar)
   return s;
 }
 
-// rows of S per item: XM_NJ for each of the rows a pass covers (TEAM / (DV / 4)).
-__host__ __device__ inline int xm_rows_per_item(int DV) { return XM_NJ * (TEAM / (DV / 4)); }
+// rows of S per item: XM_NJ for each of the rows a pass covers (TEAM / (DV /
+// 4)); past DV = 4 TEAM a pass covers one row, XM_CQ(DV) quads a thread.
+__host__ __device__ inline int xm_rows_per_item(int DV) { return XM_NJ * (DV / 4 <= TEAM ? TEAM / (DV / 4) : 1); }
+__host__ __device__ inline int xm_quads_per_thread(int DV) { return DV / 4 <= TEAM ? 1 : DV / (4 * TEAM); }
+// Whether the matrix memory's items take head width DK (= DV).
+__host__ __device__ inline bool xm_shape_ok(int DK) {
+  if (DK < 4 || DK % 4 != 0 || DK > XM_MAX_DK) return false;
+  const int c4 = DK / 4;
+  return (c4 <= TEAM ? TEAM % c4 == 0 : c4 % TEAM == 0) && DK % xm_rows_per_item(DK) == 0;
+}
 
 // ---------------------------------------------------------------------------
 // mLSTM
@@ -209,47 +225,57 @@ struct NoPrelude {
 // xm_rows_per_item(DV)): S = f' S + (i' k / sqrt(DK)) v^T, stored in S's
 // dtype in place, and the readout partial q.S (the f32 update) over those
 // rows into mpart[((b H + h) nrc + rc) DV + col]. Thread (sub, c4) owns
-// columns 4 c4 .. 4 c4 + 3 of rows rc RC + sub + j rpp, j < XM_NJ; it loads
-// them, their q and k, and v before anything else, then runs prelude(tid)
-// (the step's warp 0 computes f' and i' there), and after the team barrier
-// reads f', i' from fi[0], fi[1]. Its rows are added in j order, then the
-// rpp subs in order (red: rpp x DV floats of shared memory).
-template <typename S, class Prelude>
-static __device__ __noinline__ void xm_memory_rows(const float* buf, S* s_st, const float* fi, float* mpart, int b,
-                                                      int h, int rc, int H, int di, int tid, int bar, float* red,
-                                                      Prelude prelude) {
-  const int DK = di / H, DV = DK, cols4 = DV / 4, rpp = TEAM / cols4, nrc = DK / (XM_NJ * rpp);
+// columns 4 c4 .. 4 c4 + 3 (and, with CQ = 2, the quad TEAM columns on) of
+// rows rc RC + sub + j rpp, j < XM_NJ; it loads them, their q and k, and v
+// before anything else, then runs prelude(tid) (the step's warp 0 computes
+// f' and i' there), and after the team barrier reads f', i' from fi[0],
+// fi[1]. Its rows are added in j order, then the rpp subs in order (red:
+// rpp x DV floats of shared memory).
+template <typename S, class Prelude, int CQ>
+static __device__ __noinline__ void xm_memory_rows_cq(const float* buf, S* s_st, const float* fi, float* mpart,
+                                                         int b, int h, int rc, int H, int di, int tid, int bar,
+                                                         float* red, Prelude prelude) {
+  const int DK = di / H, DV = DK, cols4 = DV / (4 * CQ), rpp = TEAM / cols4, nrc = DK / (XM_NJ * rpp);
   const int c4 = tid % cols4, sub = tid / cols4, r0 = rc * XM_NJ * rpp + sub;
   const float rs = 1.0f / sqrtf((float)DK);
   S* base = s_st + ((size_t)b * H + h) * DK * DV + 4 * c4;
   const float* q = buf + (size_t)b * 4 * di + (size_t)h * DK;
   const float* k = q + di;
   const float* v = q + 2 * (size_t)di + 4 * c4;
-  float sv[XM_NJ][4], qv[XM_NJ], kv[XM_NJ];
+  float sv[XM_NJ][CQ][4], qv[XM_NJ], kv[XM_NJ], vv[CQ][4];
 #pragma unroll
   for (int j = 0; j < XM_NJ; ++j) {
-    load_s4(base + (size_t)(r0 + j * rpp) * DV, sv[j]);
+#pragma unroll
+    for (int u = 0; u < CQ; ++u) load_s4(base + (size_t)(r0 + j * rpp) * DV + 4 * u * cols4, sv[j][u]);
     qv[j] = q[r0 + j * rpp];
     kv[j] = k[r0 + j * rpp];
   }
-  const float vv[4] = {v[0], v[1], v[2], v[3]};
+#pragma unroll
+  for (int u = 0; u < CQ; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) vv[u][i] = v[4 * u * cols4 + i];
   prelude(tid);
   team_sync(bar);
   const float f_act = fi[0], i_act = fi[1];
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[CQ][4] = {};
 #pragma unroll
   for (int j = 0; j < XM_NJ; ++j) {
     const float ik = i_act * (kv[j] * rs);
-    float sn[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sn[i] = sv[j][i] * f_act + ik * vv[i];
-      acc[i] = fmaf(qv[j], sn[i], acc[i]);
+    for (int u = 0; u < CQ; ++u) {
+      float sn[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sn[i] = sv[j][u][i] * f_act + ik * vv[u][i];
+        acc[u][i] = fmaf(qv[j], sn[i], acc[u][i]);
+      }
+      store_s4(base + (size_t)(r0 + j * rpp) * DV + 4 * u * cols4, sn);
     }
-    store_s4(base + (size_t)(r0 + j * rpp) * DV, sn);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) red[(size_t)sub * DV + 4 * c4 + i] = acc[i];
+  for (int u = 0; u < CQ; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[(size_t)sub * DV + 4 * (c4 + u * cols4) + i] = acc[u][i];
   team_sync(bar);
   float* out = mpart + (((size_t)b * H + h) * nrc + rc) * DV;
   for (int col = tid; col < DV; col += TEAM) {
@@ -258,6 +284,18 @@ static __device__ __noinline__ void xm_memory_rows(const float* buf, S* s_st, co
     out[col] = s;
   }
   team_sync(bar);
+}
+
+// xm_memory_rows_cq at the quads a thread holds for this head width
+// (xm_shape_ok's widths).
+template <typename S, class Prelude>
+static __device__ __forceinline__ void xm_memory_rows(const float* buf, S* s_st, const float* fi, float* mpart, int b,
+                                                      int h, int rc, int H, int di, int tid, int bar, float* red,
+                                                      Prelude prelude) {
+  if (xm_quads_per_thread(di / H) == 1)
+    xm_memory_rows_cq<S, Prelude, 1>(buf, s_st, fi, mpart, b, h, rc, H, di, tid, bar, red, prelude);
+  else
+    xm_memory_rows_cq<S, Prelude, 2>(buf, s_st, fi, mpart, b, h, rc, H, di, tid, bar, red, prelude);
 }
 
 // h_att (B, di) over head (b, h): the nrc row chunks' partials of each
@@ -388,6 +426,70 @@ static __device__ __noinline__ void xm_head_out(const float* gpart, const float*
   }
 }
 
+// xm_head_out past its register budget (DK > 2 TEAM or more than 32 row
+// blocks: the 1- and 2-head models of width 1,024), up to XM_MAX_DK: the
+// same operations in the same order, each thread's columns in a loop and
+// the row blocks' partials read as they are added.
+static __device__ __noinline__ void xm_head_out_wide(const float* gpart, const float* gate_b, float* m_st,
+                                                        float* n_st, const float* buf, const float* mpart,
+                                                        const float* up, const float* outnorm, const float* skip,
+                                                        float* y, int b, int h, int H, int di, float eps, int tid,
+                                                        int bar, float* red, float* sc) {
+  constexpr int E = XM_MAX_DK / TEAM;
+  const int DK = di / H, DV = DK, nrc = DV / xm_rows_per_item(DV), nch = di / XM_CHUNK;
+  const float rs = 1.0f / sqrtf((float)DK);
+  float* n = n_st + ((size_t)b * H + h) * DK;
+  const float* q = buf + (size_t)b * 4 * di + (size_t)h * DK;
+  const float* k = q + di;
+  const float* pm = mpart + ((size_t)b * H + h) * nrc * DV;
+  if (tid < 32) {
+    const float* pg = gpart + (size_t)b * 2 * H * nch;
+    xm_gates_warp(pg + (size_t)h * nch, pg + (size_t)(H + h) * nch, nch, gate_b, m_st[(size_t)b * H + h], H, h, tid,
+                  sc);
+  }
+  team_sync(bar);
+  const float f_act = sc[0], i_act = sc[1], m_new = sc[2];
+  float qn = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int kk = tid + e * TEAM;
+    if (kk < DK) {
+      const float nn = f_act * n[kk] + i_act * (k[kk] * rs);
+      n[kk] = nn;
+      qn = fmaf(q[kk], nn, qn);
+    }
+  }
+  qn = team_sum(qn, red, tid, bar);
+  const float denom = fmaxf(fabsf(qn), expf(-m_new));
+  if (tid == 0) m_st[(size_t)b * H + h] = m_new;
+  float hv[E], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int kk = tid + e * TEAM;
+    hv[e] = 0.f;
+    if (kk < DV) {
+      float s = 0.f;
+      for (int rc = 0; rc < nrc; ++rc) s += __ldcg(pm + (size_t)rc * DV + kk);
+      hv[e] = s / denom;
+      s1 += hv[e];
+      s2 += hv[e] * hv[e];
+    }
+  }
+  s1 = team_sum(s1, red, tid, bar);
+  s2 = team_sum(s2, red, tid, bar);
+  const float mean = s1 / DV, var = s2 / DV - mean * mean;
+  const float inv = 1.f / sqrtf(var + eps);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int kk = tid + e * TEAM, c = h * DV + kk;
+    if (kk < DV) {
+      const float hn = (hv[e] - mean) * inv * __ldg(outnorm + c) + __ldg(skip + c) * buf[((size_t)b * 4 + 3) * di + c];
+      const float z = up[(size_t)b * 2 * di + di + c];
+      y[(size_t)b * di + c] = hn * (z * sigmoidf_(z));
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // sLSTM
 // ---------------------------------------------------------------------------
@@ -436,12 +538,12 @@ static __device__ __noinline__ void xs_prep_item(const float* x, const float* ln
   }
 }
 
-// Shared memory of a cell item: the R tile (DH rows of XS_COLS bf16), bf16(h)
-// of every row (B x DH f32), the pre-activations and the input products
-// (B x XS_COLS f32 each), the bias (XS_COLS) and the old c, n, m of the
-// item's units (3 x B x XS_UNITS).
+// Shared memory of a cell item: the R tile (DH rows of XS_COLS bf16, up to
+// DH = XS_TILE_DH), bf16(h) of every row (B x DH f32), the pre-activations
+// and the input products (B x XS_COLS f32 each), the bias (XS_COLS) and the
+// old c, n, m of the item's units (3 x B x XS_UNITS).
 __host__ __device__ inline int xs_cell_smem_bytes(int B, int DH) {
-  return DH * XS_COLS * 2 + (B * DH + 2 * B * XS_COLS + XS_COLS + 3 * B * XS_UNITS) * 4;
+  return (DH <= XS_TILE_DH ? DH * XS_COLS * 2 : 0) + (B * DH + 2 * B * XS_COLS + XS_COLS + 3 * B * XS_UNITS) * 4;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -453,14 +555,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // dd sequential from dd = 0, as the TPU kernel's), then the exp-gated cell:
 // c, n, m advance in place in hcnm (4, B, H, DH); the new h goes to hnew
 // (B, d), for xs_gn_item (every item of the head reads the old h first).
-// Every global load is issued up front, beside the R tile's copies.
+// Every global load is issued up front, beside the R tile's copies. Past
+// XS_TILE_DH the tile would not fit beside the step's other team: each
+// product reads its column of R_h from L2 (the same terms in the same
+// order).
 static __device__ __noinline__ void xs_cell_item(const float* wif, const float* wzo, const __nv_bfloat16* r_w,
                                                     const float* bias, float* hcnm, float* hnew, int B, int H, int DH,
                                                     int h, int ug, int tid, int bar, char* smem) {
   const int d = H * DH;
+  const bool tile = DH <= XS_TILE_DH;
   const size_t plane = (size_t)B * H * DH;
   __nv_bfloat16* rt = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* hb = reinterpret_cast<float*>(smem + DH * XS_COLS * 2);
+  float* hb = reinterpret_cast<float*>(smem + (tile ? DH * XS_COLS * 2 : 0));
   float* pre = hb + B * DH;
   float* wx = pre + B * XS_COLS;
   float* bs = wx + B * XS_COLS;
@@ -468,7 +574,7 @@ static __device__ __noinline__ void xs_cell_item(const float* wif, const float* 
   // The tile: row dd holds gate g's 16 units at [16 g, 16 g + 16), two
   // 16-byte copies a gate.
   const __nv_bfloat16* rh = r_w + (size_t)h * DH * 4 * DH + (size_t)ug * XS_UNITS;
-  for (int i = tid; i < DH * 8; i += TEAM) {
+  for (int i = tid; tile && i < DH * 8; i += TEAM) {
     const int dd = i / 8, g = (i % 8) / 2, half = i % 2;
     cp_async16(rt + (size_t)dd * XS_COLS + g * XS_UNITS + 8 * half, rh + (size_t)dd * 4 * DH + g * DH + 8 * half);
   }
@@ -491,8 +597,14 @@ static __device__ __noinline__ void xs_cell_item(const float* wif, const float* 
     const int b = p / XS_COLS, col = p % XS_COLS;
     const float* hr = hb + (size_t)b * DH;
     float acc = 0.f;
+    if (tile) {
 #pragma unroll 16
-    for (int dd = 0; dd < DH; ++dd) acc = fmaf(hr[dd], __bfloat162float(rt[(size_t)dd * XS_COLS + col]), acc);
+      for (int dd = 0; dd < DH; ++dd) acc = fmaf(hr[dd], __bfloat162float(rt[(size_t)dd * XS_COLS + col]), acc);
+    } else {
+      const __nv_bfloat16* rc = rh + (size_t)(col / XS_UNITS) * DH + col % XS_UNITS;
+#pragma unroll 16
+      for (int dd = 0; dd < DH; ++dd) acc = fmaf(hr[dd], __bfloat162float(__ldg(rc + (size_t)dd * 4 * DH)), acc);
+    }
     pre[p] = (wx[p] + acc) + bs[col];
   }
   team_sync(bar);
@@ -517,17 +629,42 @@ static __device__ __noinline__ void xs_cell_item(const float* wif, const float* 
 }
 
 // Head (b, h): the group norm of the new h, x += gn(h) * gn_scale, and h
-// into the state (hcnm plane 0). DH <= TEAM.
+// into the state (hcnm plane 0). A unit a thread up to DH = TEAM; past it,
+// each thread's units in a loop (DH <= XS_MAX_DH).
 static __device__ __noinline__ void xs_gn_item(const float* hnew, const float* gn, float* hcnm, float* x, int H, int DH,
                                                   float eps, int b, int h, int tid, int bar, float* red) {
-  const int d = H * DH, c = h * DH + tid;
-  const float hv = tid < DH ? __ldcg(hnew + (size_t)b * d + c) : 0.f;
-  const float s1 = team_sum(hv, red, tid, bar);
-  const float s2 = team_sum(tid < DH ? hv * hv : 0.f, red, tid, bar);
-  if (tid < DH) {
-    const float mean = s1 / DH, inv = 1.f / sqrtf(s2 / DH - mean * mean + eps);
-    x[(size_t)b * d + c] = x[(size_t)b * d + c] + (hv - mean) * inv * __ldg(gn + c);
-    hcnm[((size_t)b * H + h) * DH + tid] = hv;
+  const int d = H * DH;
+  if (DH <= TEAM) {
+    const int c = h * DH + tid;
+    const float hv = tid < DH ? __ldcg(hnew + (size_t)b * d + c) : 0.f;
+    const float s1 = team_sum(hv, red, tid, bar);
+    const float s2 = team_sum(tid < DH ? hv * hv : 0.f, red, tid, bar);
+    if (tid < DH) {
+      const float mean = s1 / DH, inv = 1.f / sqrtf(s2 / DH - mean * mean + eps);
+      x[(size_t)b * d + c] = x[(size_t)b * d + c] + (hv - mean) * inv * __ldg(gn + c);
+      hcnm[((size_t)b * H + h) * DH + tid] = hv;
+    }
+    return;
+  }
+  constexpr int E = XS_MAX_DH / TEAM;
+  float hv[E], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int u = tid + e * TEAM;
+    hv[e] = u < DH ? __ldcg(hnew + (size_t)b * d + h * DH + u) : 0.f;
+    s1 += hv[e];
+    s2 += hv[e] * hv[e];
+  }
+  s1 = team_sum(s1, red, tid, bar);
+  s2 = team_sum(s2, red, tid, bar);
+  const float mean = s1 / DH, inv = 1.f / sqrtf(s2 / DH - mean * mean + eps);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int u = tid + e * TEAM, c = h * DH + u;
+    if (u < DH) {
+      x[(size_t)b * d + c] = x[(size_t)b * d + c] + (hv[e] - mean) * inv * __ldg(gn + c);
+      hcnm[((size_t)b * H + h) * DH + u] = hv[e];
+    }
   }
 }
 

@@ -45,6 +45,11 @@
 //  * Every item is a function of xlstm_ops.cuh or decode_ops.cuh that the
 //    chain runs too, in the same order, so the step equals the chain bit
 //    for bit (chip_smoke.py [9 xstep]).
+//  * Fewer, wider heads (1 or 2 at width 1,024: DK 2,048 or 1,024, DH 1,024
+//    or 512) run the same stages: matrix-memory items of 8 rows (two column
+//    quads a thread at DK 2,048), the head item xm_head_out_wide (its row
+//    blocks' partials read in a loop), cell items that read R from L2
+//    instead of staging it, the group norm in a loop over the units.
 //
 // The states (conv, the matrix memory S, n, m, the sLSTM h, c, n, m) advance
 // in place. The launch never falls back: if the grid cannot be co-resident
@@ -329,6 +334,7 @@ __global__ void __launch_bounds__(NT, 1) xstep_kernel(StepArgs a) {
   char* dyn = reinterpret_cast<char*>(dyn_smem) + (size_t)team_in * a.region;
   const int B = a.B, d = a.d, H = a.H, di = a.di, DK = di / H, DH = d / H, ffn = a.ffn;
   const int nrc = DK / xm_rows_per_item(DK), n_dh = DH / XS_UNITS, n_prep = (d + XS_PREP_COLS - 1) / XS_PREP_COLS;
+  const bool head_in_regs = DK <= 2 * TEAM && nrc <= 32;  // xm_head_out's registers, else xm_head_out_wide
   load_team_plan(a, team, tp, tid, bar);
 
   int stage = 0, prev_total = 0;
@@ -398,9 +404,15 @@ __global__ void __launch_bounds__(NT, 1) xstep_kernel(StepArgs a) {
         wait_prev({kMOut, mi, si});
         for (int i = 0; i < tp.count[kMOut]; ++i) {
           const int bh = items(kMOut)[i];
-          xm_head_out(a.gpart, a.m_gate_b + (size_t)mi * 2 * H, a.m_m + (size_t)mi * B * H,
-                      a.n_m + (size_t)mi * B * H * DK, a.buf, a.mpart, a.up, a.m_outnorm + (size_t)mi * di,
-                      a.m_skip + (size_t)mi * di, a.y, bh / H, bh % H, H, di, kGroupEps, tid, bar, red, sc);
+          const float *gate_b = a.m_gate_b + (size_t)mi * 2 * H, *outnorm = a.m_outnorm + (size_t)mi * di,
+                      *skip = a.m_skip + (size_t)mi * di;
+          float *m_st = a.m_m + (size_t)mi * B * H, *n_st = a.n_m + (size_t)mi * B * H * DK;
+          if (head_in_regs)
+            xm_head_out(a.gpart, gate_b, m_st, n_st, a.buf, a.mpart, a.up, outnorm, skip, a.y, bh / H, bh % H, H, di,
+                        kGroupEps, tid, bar, red, sc);
+          else
+            xm_head_out_wide(a.gpart, gate_b, m_st, n_st, a.buf, a.mpart, a.up, outnorm, skip, a.y, bh / H, bh % H, H,
+                             di, kGroupEps, tid, bar, red, sc);
         }
         signal(tp.count[kMOut]);
       }
@@ -508,12 +520,11 @@ bool step_shape_ok(const StepArgs& a, int fmt) {
   if (a.B < 1 || a.B > MAXR || a.H < 1 || a.n_blocks < 1 || a.n_blocks > 31) return false;
   if (a.d % a.H != 0 || a.di % a.H != 0) return false;
   const int DK = a.di / a.H, DH = a.d / a.H;
-  // The matrix memory's items: 4 columns a thread, whole passes of the team.
-  if (DK % 4 != 0 || TEAM % (DK / 4) != 0 || DK % xm_rows_per_item(DK) != 0) return false;
-  // The head item holds two columns a thread and at most 32 row blocks.
-  if (DK > 2 * TEAM || DK / xm_rows_per_item(DK) > 32) return false;
+  // The matrix memory's items: 4 or 8 columns a thread, whole passes of the
+  // team (DK <= XM_MAX_DK; the head item past 512 is xm_head_out_wide).
+  if (!xm_shape_ok(DK)) return false;
   if (a.di % (4 * XM_CHUNK) != 0 || 2 * a.H * a.B > TEAM || 4 * a.B > TEAM) return false;
-  if (DH % XS_UNITS != 0 || DH > TEAM || DH % 8 != 0) return false;
+  if (DH % XS_UNITS != 0 || DH > XS_MAX_DH || DH % 8 != 0) return false;
   const int qg_ffn = fmt == kBf16 ? QGROUP : (a.ffn % QGROUP == 0 ? QGROUP : a.ffn);
   return gemv_shape_ok(a.B, a.d, 2 * a.di, fmt) && gemv_shape_ok(a.B, a.di, a.d, fmt) &&
          gemv_shape_ok(a.B, a.d, 2 * a.d, fmt) && gemv_shape_ok(a.B, a.d, a.ffn, fmt) &&
@@ -521,13 +532,14 @@ bool step_shape_ok(const StepArgs& a, int fmt) {
 }
 
 // Dynamic shared memory of one team: the largest of the GEMVs' sums and
-// staged rows, the cell item's tile, and the matrix memory's readout sums.
+// staged rows, the cell item's tile, and the matrix memory's readout sums
+// (rpp x DV floats: 4 TEAM, or DV past DV = 4 TEAM).
 size_t team_region(const StepArgs& a, int fmt) {
-  const int DH = a.d / a.H;
+  const int DH = a.d / a.H, DK = a.di / a.H;
   const int qg = fmt == kBf16 ? 0 : QGROUP, qg_ffn = fmt == kBf16 ? 0 : (a.ffn % QGROUP == 0 ? QGROUP : a.ffn);
   size_t r = std::max({gemv_smem_bytes(a.B, a.d, qg, fmt), gemv_smem_bytes(a.B, a.di, qg, fmt),
                        gemv_smem_bytes(a.B, a.ffn, qg_ffn, fmt), (size_t)xs_cell_smem_bytes(a.B, DH),
-                       (size_t)TEAM * 4 * sizeof(float)});
+                       (size_t)std::max(4 * TEAM, DK) * sizeof(float)});
   return (r + 127) / 128 * 128;
 }
 

@@ -23,8 +23,9 @@ head-wise form at load).
 
 `forward` and `prefill` run the sLSTM recurrence through kernel H
 (ops/slstm_kernel) where `runs_kernel_h` picks it: a CUDA tensor outside grad
-mode (kernel H has no backward) at a shape the kernel takes; training, the
-CPU and head widths over 256 run the plain scan, as the JAX package does.
+mode (kernel H has no backward) at a shape the kernel takes (every head
+width up to 1,024); training, the CPU and wider heads run the plain scan, as
+the JAX package does.
 `step` is plain PyTorch, and the one-token decode step of the whole stack
 has its kernel G in ops/xdecode_kernel. The projections stay `torch`
 matmuls, as the JAX package left them to XLA.
@@ -189,9 +190,9 @@ class MLSTMLayer(nn.Module):
 def runs_kernel_h(wx: torch.Tensor) -> bool:
     """Whether the sLSTM scan on `wx` (B, T, 4, H, DH) runs kernel H,
     decided before any launch: on a CUDA tensor outside grad mode at a shape
-    the kernel takes (slstm_kernel.refusal). Under grad (it has no
-    backward), on the CPU and at a shape it refuses (DH > 256, say) the plain
-    scan runs, as the JAX package's default does."""
+    the kernel takes (slstm_kernel.refusal: any DH up to 1,024). Under grad
+    (it has no backward), on the CPU and at a shape it refuses (DH > 1,024)
+    the plain scan runs, as the JAX package's default does."""
     bsz, t, _, heads, dh = wx.shape
     return wx.is_cuda and not torch.is_grad_enabled() and slstm_kernel.refusal(bsz, t, heads, dh) is None
 

@@ -146,7 +146,7 @@ def quantize_cols(w: torch.Tensor, group: int = QUANT_GROUP) -> Tuple[torch.Tens
 
 
 @torch.no_grad()
-def build_decode_params(model, batch: int, quant: str = "bf16") -> dict:
+def build_decode_params(model, batch: int, quant: str = "bf16", quantizer=None) -> dict:
     """Pack a MambaLM's weights for the decode kernels.
 
     Matrices stay in torch's (out, in) layout, which is K-contiguous: a warp
@@ -157,7 +157,11 @@ def build_decode_params(model, batch: int, quant: str = "bf16") -> dict:
     quant="bf16" stores bf16 matrices; "int8" and "int8w" store in_proj,
     out_proj and lm_head as int8 with (K / 256, N) group scales `w_in_s`,
     `w_out_s` and `lm_s` (quantize_cols). The int8 pack is the same for
-    both; W8A8 and W8A16 differ only in how the products run."""
+    both; W8A8 and W8A16 differ only in how the products run. `quantizer`,
+    a (site, w) -> (q, s) callable in quantize_cols' layout (e.g.
+    ops/gptq.make_gptq_quantizer), replaces quantize_cols for each int8
+    matrix; its sites are 'layer_{i}/in_proj', 'layer_{i}/out_proj' and
+    'lm_head', as the JAX package names them."""
     if quant not in QUANT_MODES:
         raise ValueError(f"quant must be one of {sorted(QUANT_MODES)}, got {quant!r}")
     cfg = model.cfg
@@ -193,13 +197,15 @@ def build_decode_params(model, batch: int, quant: str = "bf16") -> dict:
         "gram": gram,  # (5, padded_vocab) grammar rows by previous-token field
     }
     if quant != "bf16":
-        def pack(mats):
-            qs = [quantize_cols(w.detach()) for w in mats]
+        qfn = quantizer or (lambda _site, w: quantize_cols(w))
+
+        def pack(site, mats):
+            qs = [qfn(f"layer_{i}/{site}", w.detach()) for i, w in enumerate(mats)]
             return torch.stack([q for q, _ in qs]), torch.stack([sc for _, sc in qs])
 
-        dp["w_in"], dp["w_in_s"] = pack([m.in_proj.weight for m in layers])  # (L, G, d_in_proj)
-        dp["w_out"], dp["w_out_s"] = pack([m.out_proj.weight for m in layers])  # (L, G, d_model)
-        dp["lm_w"], dp["lm_s"] = quantize_cols(lm_w)  # (G, padded_vocab)
+        dp["w_in"], dp["w_in_s"] = pack("in_proj", [m.in_proj.weight for m in layers])  # (L, G, d_in_proj)
+        dp["w_out"], dp["w_out_s"] = pack("out_proj", [m.out_proj.weight for m in layers])  # (L, G, d_model)
+        dp["lm_w"], dp["lm_s"] = qfn("lm_head", lm_w)  # (G, padded_vocab)
     return dp
 
 

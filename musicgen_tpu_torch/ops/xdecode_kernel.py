@@ -84,6 +84,9 @@ TEAM = 256  # threads of a work item (csrc/decode_ops.cuh TEAM)
 XM_CHUNK = 16  # channels of a gate chunk: one up-projection tile (csrc/xlstm_ops.cuh)
 XM_NJ = 8  # rows of S a thread holds in flight (XM_NJ)
 XS_UNITS = 16  # sLSTM units of a recurrence item (XS_UNITS)
+XM_MAX_DK = 8 * TEAM  # the widest mLSTM head the items take (XM_MAX_DK)
+XS_MAX_DH = 4 * TEAM  # the widest sLSTM head (XS_MAX_DH); past XS_TILE_DH = TEAM a cell item reads R from L2
+XS_TILE_DH = TEAM
 XS_PREP_COLS = 128  # columns of an sLSTM prep item (XS_PREP_COLS)
 LANE = 128  # the FFN width is padded to a multiple of this, as in the TPU pack
 # The pack a --fused-decode quant builds -> how its products run.
@@ -97,8 +100,9 @@ Carry = Tuple[torch.Tensor, ...]  # (conv_m, s_m, n_m, m_m, conv_s, hcnm_s)
 
 def mem_rows_per_item(dv: int) -> int:
     """Rows of S a matrix-memory item updates: XM_NJ passes of TEAM threads
-    with 4 columns each (csrc/xlstm_ops.cuh xm_rows_per_item)."""
-    return XM_NJ * (TEAM // (dv // 4))
+    with 4 columns each, one row a pass past DV = 4 TEAM (each thread then
+    holds DV / (4 TEAM) column quads; csrc/xlstm_ops.cuh xm_rows_per_item)."""
+    return XM_NJ * (TEAM // (dv // 4) if dv // 4 <= TEAM else 1)
 
 
 def fusable(cfg: XLSTMConfig) -> bool:
@@ -172,10 +176,13 @@ class XDims:
 
 # The matrices a token streams, and their int8 scales' keys.
 BIG = ("m_w_up", "m_w_down", "s_w_if", "s_w_zo", "s_ffn_up", "s_ffn_down", "lm_w")
+# BIG's int8 matrices by the quantizer's site under 'stack/block_{b}/', as the JAX package names them.
+_SITES = {"m_w_up": "mlstm/up_proj", "m_w_down": "mlstm/down_proj", "s_w_if": "slstm/w_i", "s_w_zo": "slstm/w_z",
+          "s_ffn_up": "ffn/up", "s_ffn_down": "ffn/down"}
 
 
 @torch.no_grad()
-def build_xlstm_decode_params(model, batch: int, quant: str = "bf16") -> dict:
+def build_xlstm_decode_params(model, batch: int, quant: str = "bf16", quantizer=None) -> dict:
     """Pack an XLSTMLM's weights for kernel G (build_xlstm_decode_params
     :682), stacked over the mLSTM blocks (m_*) and the sLSTM blocks (s_*).
     Matrices stay in torch's (out, in) layout, K-contiguous. The FFN is
@@ -186,7 +193,11 @@ def build_xlstm_decode_params(model, batch: int, quant: str = "bf16") -> dict:
     kernel becomes per-head (H, DH, 4 DH) bf16 blocks, R_h[d, g*DH + e] =
     R[g, h, d, e]. quant="int8w" (or "int8") stores the seven big matrices
     as int8 with (K / 256, N) group scales `<name>_s` (quantize_cols; the
-    FFN down-projection, K = ffn_pad not a multiple of 256, has one group)."""
+    FFN down-projection, K = ffn_pad not a multiple of 256, has one group).
+    `quantizer`, a (site, w) -> (q, s) callable in quantize_cols' layout
+    (e.g. ops/gptq.make_gptq_quantizer), replaces quantize_cols for each
+    int8 matrix, its sites 'stack/block_{b}/<_SITES>' and 'lm_head' (a
+    concatenated pair, w_i|w_f or w_z|w_o, under its first member's)."""
     if quant not in ("bf16", "int8", "int8w"):
         raise ValueError(f"quant must be 'bf16', 'int8' or 'int8w', got {quant!r}")
     cfg = model.cfg
@@ -245,14 +256,17 @@ def build_xlstm_decode_params(model, batch: int, quant: str = "bf16") -> dict:
         "gram": gram,  # (5, padded_vocab)
     }
     wp["s_r_w"] = wp["s_r_w"].to(bf16)
+    qfn = quantizer or (lambda _site, w: quantize_cols(w))
+    block_of = {"m": [i for i in range(len(blocks)) if i not in dims.slstm_at],
+                "s": [i for i in range(len(blocks)) if i in dims.slstm_at]}
     for name in BIG:
         w = wp[name]
         if quant == "bf16":
             wp[name] = w.to(bf16)
         elif name == "lm_w":
-            wp[name], wp["lm_s"] = quantize_cols(w)
+            wp[name], wp["lm_s"] = qfn("lm_head", w)
         else:
-            qs = [quantize_cols(m) for m in w]
+            qs = [qfn(f"stack/block_{b}/{_SITES[name]}", m) for b, m in zip(block_of[name[0]], w)]
             wp[name] = torch.stack([q for q, _ in qs])
             wp[name + "_s"] = torch.stack([s for _, s in qs])  # (n, G, N)
     return wp
@@ -801,14 +815,14 @@ def step_shape_error(dims: XDims) -> Optional[str]:
     DK, DH = dims.m_dh, dims.s_dh
     if dims.n_blocks > 31:
         return f"the step takes at most 31 blocks, got {dims.n_blocks}"
-    if DK % 4 or TEAM % (DK // 4) or DK % mem_rows_per_item(DK):
-        return f"the matrix memory's items need DK / 4 to divide {TEAM}, got DK = {DK}"
-    if DK > 2 * TEAM or DK // mem_rows_per_item(DK) > 32:
-        return f"the head items take DK <= {2 * TEAM} in at most 32 row blocks, got DK = {DK}"
+    c4 = DK // 4
+    if DK % 4 or DK > XM_MAX_DK or (TEAM % c4 if c4 <= TEAM else c4 % TEAM) or DK % mem_rows_per_item(DK):
+        return (f"the matrix memory's items need DK / 4 to divide {TEAM} or be a multiple of it, DK <= {XM_MAX_DK}, "
+                f"got DK = {DK}")
     if dims.m_inner % (4 * XM_CHUNK) or 2 * dims.heads * dims.batch > TEAM:
         return f"the gate chunks need di % {4 * XM_CHUNK} == 0 and 2 H B <= {TEAM}"
-    if DH % XS_UNITS or DH > TEAM:
-        return f"the recurrence items need DH % {XS_UNITS} == 0 and DH <= {TEAM}, got {DH}"
+    if DH % XS_UNITS or DH > XS_MAX_DH:
+        return f"the recurrence items need DH % {XS_UNITS} == 0 and DH <= {XS_MAX_DH}, got {DH}"
     return None
 
 
@@ -825,9 +839,10 @@ def step_region_bytes(dims: XDims, quant: str) -> int:
     """Dynamic shared memory of one team (csrc/xlstm_step.cu team_region)."""
     B, d, di, ffn, DH = dims.batch, dims.d_model, dims.m_inner, dims.ffn_pad, dims.s_dh
     qg_ffn = QUANT_GROUP if ffn % QUANT_GROUP == 0 else ffn
-    cell = DH * 4 * XS_UNITS * 2 + (B * DH + 9 * B * XS_UNITS + 4 * XS_UNITS) * 4  # xs_cell_smem_bytes
+    tile = DH * 4 * XS_UNITS * 2 if DH <= XS_TILE_DH else 0
+    cell = tile + (B * DH + 9 * B * XS_UNITS + 4 * XS_UNITS) * 4  # xs_cell_smem_bytes
     r = max(_gemv_smem(B, d, quant, QUANT_GROUP), _gemv_smem(B, di, quant, QUANT_GROUP),
-            _gemv_smem(B, ffn, quant, qg_ffn), cell, TEAM * 4 * 4)
+            _gemv_smem(B, ffn, quant, qg_ffn), cell, max(4 * TEAM, dims.m_dh) * 4)
     return -(-r // 128) * 128
 
 

@@ -522,6 +522,7 @@ def generate(
     fused: bool | None = None,
     quant: str = "bf16",
     resident: bool = False,
+    decode_pack: dict | None = None,
 ) -> torch.Tensor:
     """Conditioned generation (reference scripts/generate.py `generate`).
     Returns (B, P + num_tokens) streams. kind: "mamba", "transformer" or
@@ -550,7 +551,12 @@ def generate(
     than MAX_ROWS (8) rows, the most one decode launch carries, the rows are
     generated in groups of MAX_ROWS, each whole (prefill, pack, token loop)
     and in turn, their draws from `generator` in that order; each group
-    streams the weights once a token, so 16 rows read them twice."""
+    streams the weights once a token, so 16 rows read them twice.
+
+    decode_pack: a prebuilt pack of the family's decode kernels (build_pack's
+    format for `quant`, e.g. a GPTQ pack from ops/gptq), used in place of
+    the one built here; it requires the kernel path (JAX sampler.py
+    :723-730). A pack holds no batch size, so each group of rows takes it."""
     _require_ported(kind)
     _require_mode(mode)
     sb16 = quant.endswith("-sb16")
@@ -569,13 +575,15 @@ def generate(
     if kind == "transformer":
         fused = fused and _transformer_fusable(model.cfg, prompt_len, block_len)
     fused = fused or resident
+    if decode_pack is not None and not fused:
+        raise ValueError("decode_pack requires the fused decode path")
     if fused and batch > MAX_ROWS:
         return torch.cat([generate(model, kind, prompt[i:i + MAX_ROWS], meta[i:i + MAX_ROWS], num_tokens, block_len,
-                                   generator, greedy, mode, fused, quant, resident)
+                                   generator, greedy, mode, fused, quant, resident, decode_pack)
                           for i in range(0, batch, MAX_ROWS)])
     pack, quant = None, kernel_quant(kind, quant)
     if fused:
-        pack = build_pack(model, kind, batch, quant)
+        pack = build_pack(model, kind, batch, quant) if decode_pack is None else decode_pack
     prefill, step = make_sampler(model, kind, pack, quant, block_len)
     init_logits, state = prefill(prompt, meta)
     if resident:
@@ -601,20 +609,23 @@ def kernel_quant(kind: str, quant: str) -> str:
     return quant
 
 
-def build_pack(model, kind: str, batch: int, quant: str) -> dict:
+def build_pack(model, kind: str, batch: int, quant: str, quantizer=None) -> dict:
     """The family's decode-kernel pack for `batch` rows (<= MAX_ROWS), in
-    the format of kernel_quant(kind, quant)."""
+    the format of kernel_quant(kind, quant); `quantizer` (Mamba and xLSTM
+    int8 packs, e.g. ops/gptq.make_gptq_quantizer) quantizes its matrices."""
     if kind == "mamba":
         from ..ops.decode_kernel import build_decode_params
 
-        return build_decode_params(model, batch, quant)
+        return build_decode_params(model, batch, quant, quantizer)
     if kind == "transformer":
+        if quantizer is not None:
+            raise ValueError("quantizer: the Transformer's pack has no calibrated format")
         from ..ops.tdecode_kernel import build_transformer_decode_params
 
         return build_transformer_decode_params(model, batch, quant)
     from ..ops.xdecode_kernel import build_xlstm_decode_params
 
-    return build_xlstm_decode_params(model, batch, quant.removesuffix("-sb16"))
+    return build_xlstm_decode_params(model, batch, quant.removesuffix("-sb16"), quantizer)
 
 
 def fused_tail_step(model, kind: str, batch: int, quant: str):

@@ -56,7 +56,25 @@ def test_cli_greedy_is_deterministic(workdir, tmp_path):
 @pytest.mark.parametrize("extra", [["--fused-decode", "int8w-gptq", "--model", "xlstm"],
                                    ["--fused-decode", "int8w-gptq"],
                                    ["--fused-decode", "int8w-gptq", "--model", "transformer"]])
-def test_cli_unported_options_raise(workdir, tmp_path, extra):
-    """GPTQ calibration is not ported, for any family."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(_argv(workdir, tmp_path) + extra)
+def test_cli_unported_options_raise(workdir, tmp_path, extra, monkeypatch):
+    """--fused-decode int8w-gptq, once refused as unported: Mamba and the
+    xLSTM calibrate on the corpus and generate on a GPTQ pack (W8A16, their
+    plain versions here) that differs from the RTN pack; the Transformer,
+    which has no such pack, raises before any calibration."""
+    from musicgen_tpu_torch.sample import sampler
+
+    model = extra[extra.index("--model") + 1] if "--model" in extra else "mamba"
+    args = _argv(workdir, tmp_path, *extra[:2], "--greedy", model=model)
+    if model == "transformer":
+        with pytest.raises(ValueError, match="GPTQ packs exist for --model mamba and xlstm"):
+            cli.main(args)
+        return
+    packs, real = [], sampler.generate
+    monkeypatch.setattr(cli, "generate", lambda *a, **k: packs.append(k["decode_pack"]) or real(*a, **k))
+    streams = cli.main(args)
+    _check_streams(streams, tmp_path, model)
+    assert len(packs) == 2 and packs[0] is not None and packs[1] is packs[0]  # one pack, every band
+    rtn = sampler.build_pack(cli.load_model(cli.load_checkpoint(args[args.index("--ckpt") + 1]), "cpu"), model,
+                             2, "int8w")
+    assert sorted(packs[0]) == sorted(rtn) and packs[0]["lm_s"].shape == rtn["lm_s"].shape
+    assert not torch.equal(packs[0]["lm_w"], rtn["lm_w"])

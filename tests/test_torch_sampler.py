@@ -164,6 +164,23 @@ def test_auto_fused_follows_the_jax_rule():
     assert not ts._auto_fused("xlstm", XLSTMConfig(), cpu, prompt_len=64, block_len=64)
 
 
+@pytest.mark.parametrize("heads,batch", [(4, 2), (4, 8), (2, 2), (2, 8), (1, 2), (1, 8)])
+def test_auto_fused_takes_g_at_every_head_count_of_width_1024(heads, batch):
+    """On CUDA auto takes kernel G's one-launch step for the xLSTM of width
+    1024 at 4, 2 and 1 heads (DK 512, 1024, 2048; DH 256, 512, 1024): the
+    step takes each of them (xdecode_kernel.step_shape_error) and plans them
+    on 132 and 114 SMs. Nothing routes a head width to the plain step."""
+    from musicgen_tpu_torch.config import XLSTMConfig
+    from musicgen_tpu_torch.ops import xdecode_kernel as xk
+
+    cfg = XLSTMConfig(num_heads=heads)
+    assert ts._auto_fused("xlstm", cfg, torch.device("cuda"), 64, 64)
+    dims = xk.XDims.create(cfg, batch)
+    assert xk.step_shape_error(dims) is None
+    for n_sm in (132, 114):
+        assert xk.xlstm_plan(dims, n_sm).n_blocks == n_sm
+
+
 @pytest.mark.parametrize("opts", [dict(resident=True), dict(resident=True, quant="int8w", greedy=True),
                                   dict(quant="int8w", fused=True), dict(quant="int8", fused=True)],
                          ids=["resident", "resident_int8w_greedy", "int8w", "int8"])

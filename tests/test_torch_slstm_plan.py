@@ -104,11 +104,48 @@ def test_scan_geometry_splits_the_batch_into_row_groups():
     assert sk.scan_geometry(3, 37, 2, 24).cs == 8 and sk.scan_geometry(3, 37, 2, 64).cs == 16
 
 
-@pytest.mark.parametrize("args", [(2, 10, 4, 264), (2, 10, 4, 12), (0, 10, 4, 64), (2, 0, 4, 64),
-                                  (2, 10, 4, 24, 16), (2, 10, 4, 64, 4)])
+@pytest.mark.parametrize("args", [(0, 10, 4, 64), (2, 0, 4, 64), (2, 10, 4, 24, 16), (2, 10, 4, 64, 4),
+                                  (2, 10, 1, sk.WIDE_DH + 8)])
 def test_scan_geometry_refuses_what_the_kernel_does_not_take(args):
+    """An empty shape, a cluster that does not split DH, and a head past
+    the wide kernel's 1,024 threads."""
     with pytest.raises(ValueError):
         sk.scan_geometry(*args)
+
+
+@pytest.mark.parametrize("shape,dp,cs,threads,resident", [
+    ((2, 10, 4, 264), 264, 8, 288, 33), ((2, 10, 4, 12), 16, 16, 256, 1), ((2, 2054, 2, 512), 512, 16, 512, 25),
+    ((2, 2054, 1, 1024), 1024, 16, 1024, 11), ((2, 2054, 2, 300), 304, 16, 320, 19),
+    ((9, 200, 1, 1024), 1024, 16, 1024, 2)])
+def test_scan_geometry_takes_wide_and_padded_heads(shape, dp, cs, threads, resident):
+    """Heads past 256 (the wide kernel: DH threads rounded up to a warp,
+    `resident` rows of each K slice in shared memory, the rest read from
+    L2) and head widths that are no multiple of 8 (padded with zero units),
+    once refused, are taken; the whole slab stays resident up to DH = 256."""
+    geo = sk.scan_geometry(*shape)
+    u = dp // cs
+    assert (geo.dh, geo.cs, geo.threads, geo.resident) == (dp, cs, threads, resident)
+    assert geo.slab == 4 * cs * resident * 4 * u and geo.smem + 16 * cs <= sk.SMEM_LIMIT
+    if dp > sk.MAX_DH:
+        assert geo.smem == sk.wide_smem_bytes(dp, cs, geo.rows, resident)  # as many rows as fit
+        assert resident == u or sk.wide_smem_bytes(dp, cs, geo.rows, resident + 1) + 16 * cs > sk.SMEM_LIMIT
+    else:
+        assert geo.smem == sk.smem_bytes(dp, cs, geo.rows) and resident == u
+
+
+@pytest.mark.parametrize("shape,cs", [((2, 5, 2, 264), 8), ((1, 5, 2, 300), 16), ((2, 4, 1, 512), 16),
+                                      ((1, 3, 1, 1024), 16)])
+def test_wide_and_padded_partition_matches_the_plain_scan_and_the_tpu_kernel(shape, cs):
+    """The partition at DH 264 (clusters of 8), 300 (padded to 304), 512
+    and 1024: the plain scan and the TPU kernel (interpret) to 1e-5."""
+    wx, r, bias = _inputs(5, *shape)
+    got_h, got_s = sk.scan_partitioned(*(torch.from_numpy(a) for a in (wx, r, bias)), cs=cs)
+    want_h, want_s = slstm_sequential(*(torch.from_numpy(a) for a in (wx, r, bias)))
+    tpu_h, tpu_s = slstm_pallas(jnp.asarray(wx), jnp.asarray(r), jnp.asarray(bias), chunk=8, interpret=True)
+    assert got_h.shape == want_h.shape == shape[:2] + shape[2:]
+    for got, want, tpu in zip((got_h, *got_s), (want_h, *want_s), (tpu_h, *tpu_s)):
+        assert _rel(got, want) < 1e-5
+        assert _rel(got, tpu) < 1e-5
 
 
 def test_kernel_path_raises_for_inconsistent_or_untaken_shapes():
@@ -120,8 +157,9 @@ def test_kernel_path_raises_for_inconsistent_or_untaken_shapes():
         sk.launch_geometry(wx, r[:, :1], bias)
     with pytest.raises(ValueError, match="inconsistent"):
         sk.slstm_scan(wx.as_subclass(_OnCard), r, bias[:, :, :8])
-    wx12, r12, b12 = (torch.from_numpy(a) for a in _inputs(4, 1, 3, 1, 12))
+    wide = sk.WIDE_DH + 8  # past the wide kernel (DH 12 and 264, refused here once, are taken now)
+    wxw, rw, bw = torch.zeros(1, 2, 4, 1, wide), torch.zeros(4, 1, wide, wide), torch.zeros(4, 1, wide)
     sk.slstm_scan.launches = 0
     with pytest.raises(ValueError, match="DH"):
-        sk.slstm_scan(wx12.as_subclass(_OnCard), r12, b12)
+        sk.slstm_scan(wxw.as_subclass(_OnCard), rw, bw)
     assert sk.slstm_scan.launches == 0

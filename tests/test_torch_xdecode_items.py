@@ -64,3 +64,28 @@ def test_item_split_matches_the_plain_versions_at_the_reference_size(state_dtype
         assert _rel(got, want) < (BF16_ULP if i == 4 and state_dtype == torch.bfloat16 else SPLIT_REL), i
     parts = xk.gate_partials_plain(buf, w_gate, dims)
     assert parts.shape == (b, 2 * H, di // xk.XM_CHUNK)
+
+
+@pytest.mark.parametrize("heads", [2, 1])
+def test_item_split_matches_the_plain_versions_at_wide_heads(heads):
+    """The matrix memory at the wide heads of width 1024 (2 heads: DK 1024,
+    128 row blocks of 8 rows; 1 head: DK 2048, 256 row blocks of 8 rows, two
+    column quads a thread in the kernel), batch 1: sc, n, m, h and S of the
+    split against the unsplit plain versions."""
+    dims = xk.XDims.create(XLSTMConfig(num_heads=heads), 1)
+    assert xk.mem_rows_per_item(dims.m_dh) == xk.XM_NJ and dims.m_dh == 2048 // heads
+    g = torch.Generator().manual_seed(heads)
+    b, H, DK, di = 1, dims.heads, dims.m_dh, dims.m_inner
+    buf = torch.randn(b, 4, di, generator=g)
+    w_gate = torch.randn(2 * H, 3 * di, generator=g) / di ** 0.5
+    gate_b = torch.randn(2 * H, generator=g)
+    n0, m0 = torch.randn(b, H, DK, generator=g), torch.randn(b, H, generator=g)
+    s0 = torch.randn(b, H, DK, DK, generator=g)
+    outs = []
+    for gates, memory in ((xk.xm_gates_plain, xk.xm_memory_plain),
+                          (xk.xm_gates_items_plain, xk.xm_memory_items_plain)):
+        n, m, s = n0.clone(), m0.clone(), s0.clone()
+        sc = gates(buf, w_gate, gate_b, n, m, dims)
+        outs.append((sc, n, m, memory(buf, sc, s, dims), s))
+    for i, (got, want) in enumerate(zip(outs[1], outs[0])):
+        assert _rel(got, want) < SPLIT_REL, i

@@ -179,13 +179,14 @@ def test_slstm_prefill_refuses_grad_on_the_kernel_path():
     assert layer.slstm_cell._recurrent_kernel_.grad is not None
 
 
-@pytest.mark.parametrize("heads, dh, kernel", [(4, 256, True), (4, 128, True), (2, 512, False), (4, 264, False),
-                                               (4, 12, False)])
+@pytest.mark.parametrize("heads, dh, kernel", [(4, 256, True), (4, 128, True), (2, 512, True), (4, 264, True),
+                                               (4, 12, True), (1, 1032, False)])
 def test_slstm_route_by_head_width(heads, dh, kernel):
     """Outside grad mode a CUDA tensor runs kernel H exactly at the shapes
-    slstm_kernel.refusal lets through (DH <= 256, 4 DH a multiple of 32);
-    a wider head takes the plain scan, decided before any launch. A CPU
-    tensor always takes the plain scan."""
+    slstm_kernel.refusal lets through: every DH up to 1,024, wide (512,
+    264) and padded (12) heads included; a head past 1,024 takes the plain
+    scan, decided before any launch. A CPU tensor always takes the plain
+    scan."""
     wx = torch.zeros(2, 8, 4, heads, dh)
     with torch.no_grad():
         assert runs_kernel_h(wx.as_subclass(_OnCard)) is kernel

@@ -4,8 +4,9 @@ which of the persistent grid's teams runs each item of each stage.
 
 Checked at the main path's dims (the reference xLSTM at batch 2, and batch
 8, the most rows a GEMV carries) on an H100 SXM (132 SMs) and PCIe (114),
-and at a small config of 2 blocks (one mLSTM, one sLSTM), in both weight
-formats:
+at a small config of 2 blocks (one mLSTM, one sLSTM), and at the wide heads
+of width 1024 (2 heads: DK 1024, DH 512; 1 head: DK 2048, DH 1024), in both
+weight formats:
   * every item of every kind is assigned exactly once, and no team holds
     more than the kernel's plan buffer takes;
   * the stages come in dependency order: each stage reads only the
@@ -24,8 +25,11 @@ from musicgen_tpu_torch.ops import xdecode_kernel as xk
 
 FULL = XLSTMConfig()
 SMALL = XLSTMConfig(embedding_dim=256, num_blocks=2, slstm_at=(1,))
-CASES = [(FULL, 2, 132), (FULL, 2, 114), (FULL, 8, 132), (SMALL, 2, 132), (SMALL, 1, 114)]
-IDS = ["full-b2-sxm", "full-b2-pcie", "full-b8-sxm", "small-b2-sxm", "small-b1-pcie"]
+WIDE2, WIDE1 = XLSTMConfig(num_heads=2), XLSTMConfig(num_heads=1)
+CASES = [(FULL, 2, 132), (FULL, 2, 114), (FULL, 8, 132), (SMALL, 2, 132), (SMALL, 1, 114), (WIDE2, 2, 132),
+         (WIDE2, 8, 114), (WIDE1, 2, 132), (WIDE1, 8, 114)]
+IDS = ["full-b2-sxm", "full-b2-pcie", "full-b8-sxm", "small-b2-sxm", "small-b1-pcie", "wide2-b2-sxm", "wide2-b8-pcie",
+       "wide1-b2-sxm", "wide1-b8-pcie"]
 QUANTS = ["none", "w8a16"]
 # What each kind of csrc/xlstm_step.cu reads and writes: the per-block
 # intermediates ("up", "buf", ...), the residual stream "x" and the states.
@@ -157,10 +161,16 @@ def test_shared_memory_fits_and_the_tensor_decodes(cfg, batch, n_sm, quant):
 
 
 def test_the_plan_refuses_what_the_kernel_cannot_take():
-    """The matrix memory's items need DK / 4 to divide a team's 256 threads;
-    the plan needs enough SMs for its team buffers."""
+    """The matrix memory's items need DK / 4 to divide a team's 256 threads
+    or be a multiple of them, up to DK 2048; the recurrence items take DH up
+    to 1024; the plan needs enough SMs for its team buffers."""
     with pytest.raises(ValueError, match="matrix memory"):
         plan_for(XLSTMConfig(embedding_dim=96, num_blocks=2, slstm_at=(1,), num_heads=1), 2, 132)
+    with pytest.raises(ValueError, match="matrix memory"):  # DK 4096
+        plan_for(XLSTMConfig(embedding_dim=2048, num_blocks=2, slstm_at=(1,), num_heads=1), 2, 132)
+    with pytest.raises(ValueError, match="recurrence"):  # DH 2048
+        plan_for(XLSTMConfig(embedding_dim=2048, num_blocks=2, slstm_at=(1,), num_heads=1, mlstm_proj_factor=1.0),
+                 2, 132)
     with pytest.raises(ValueError, match="too few"):
         plan_for(FULL, 2, 8)
 
