@@ -101,15 +101,27 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      version; [8 grad] the Transformer's loss and every gradient
      through D and E against the same model with their plain versions on the
      card (and, as information, the f32 attention), with exact launch counts;
-     [8 steps] five Adam steps of the Transformer, of Mamba and of the
-     xLSTM (cut to X_TRAIN_DEPTH: 3 blocks, sLSTM at 1) on one batch (the
-     loss falls at every step), ms/step, train tokens/s
-     and peak memory; [8 cli] `cli.train` for each family (2 epochs, batch
-     2, block 2048; the xLSTM's X_TRAIN_CLI_BLOCK at X_TRAIN_DEPTH) writing a checkpoint
-     directory that `cli.generate --ckpt <dir>/model.pth` reads, with exact
-     launch counts (a Mamba model and an xLSTM train through no kernel; the
-     xLSTM's validation forwards launch H, and its trained checkpoint
-     generates through H and G).
+     [8 grad bf16] the same in the bf16 compute dtype (cli.train --bf16: D
+     and E on bf16 activations, upcast around the kernels);
+     [8 steps <family>] and [8 steps <family> bf16] five Adam steps of the
+     Transformer, of Mamba and of the xLSTM (cut to X_TRAIN_DEPTH: 3 blocks,
+     sLSTM at 1) on one batch in f32 and in bf16 (the loss falls at every
+     step), ms/step, train tokens/s and peak memory; [8 split <family>
+     <f32|bf16>] a step's forward, loss, backward and Adam by CUDA events,
+     its device time by kernel group (GEMMs, D/E, Adam, the rest) from
+     torch.profiler with the device's idle share, and the loss and grammar
+     filter alone; [8 cli <family>] and [8 cli <family> bf16] `cli.train`
+     (the second with --bf16) for each family (2 epochs, batch 2, block
+     2048; the xLSTM's X_TRAIN_CLI_BLOCK at X_TRAIN_DEPTH) writing a
+     checkpoint directory of f32 weights that `cli.generate --ckpt
+     <dir>/model.pth` reads, with exact launch counts (a Mamba model and an
+     xLSTM train through no kernel; the xLSTM's validation forwards launch
+     H, in bf16 too, and its trained checkpoint generates through H and G);
+     [8 ddp] train/distributed.py in a one-rank NCCL group: six DDP steps
+     of the bf16 Transformer bit for bit with the unwrapped deterministic
+     step, exact launches; [8 cli parallel] `python -m torch.distributed.run
+     --standalone --nproc_per_node 1 -m musicgen_tpu_torch.cli.train
+     --parallel --bf16` for the Transformer, rc 0, its checkpoint read back.
   9. the xLSTM at the reference size (11 blocks, d_model 1024, sLSTM at
      (1, 4, 7, 10); seeded random weights), kernels H and G: [9 slstm] kernel
      H against its plain scan at (2, 2054, 4, 256), with the scan's own noise
@@ -255,9 +267,11 @@ with the launches of [5 cli] (the full run's adds F's and G's CLI runs).
 `--only flash` runs
 phases 1 and 2 and every row that launches kernel D or E: [7 flash],
 [7 prefill], [7 wrap], the bf16 [7 cli] runs, [8 flash-bwd] with its repeat
-and ragged rows, [8 grad], and [8 steps] and [8 cli] for the Transformer;
+and ragged rows, [8 grad] and [8 grad bf16], [8 steps], [8 split] and [8
+cli] for the Transformer in f32 and bf16, [8 ddp] and [8 cli parallel];
 its kernels line holds D's, D with LSE's and E's five launches from those
-CLI runs, each counted from zero.
+CLI runs and [8 ddp], each counted from zero. `--only 8` runs phases 1 and
+2 and every row of phase 8, for every family.
 The last lines are one JSON object with every kernel ({"kernels": [...]}: its
 launches on the main path, error, time, plain time, bound and library time)
 and {"ok": true, "device": {...}}.
@@ -268,7 +282,9 @@ reference the kernels are held to.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import os
 import math
 import statistics
 import subprocess
@@ -384,6 +400,15 @@ E_LAUNCHES = ("flash_bwd_stage", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dre
 FLASH_BWD_RAGGED_B = (1, 3)
 TOL_LOSS = 1e-4
 TOL_GRAD = 2e-2
+# [8 grad bf16]: the same comparison in the bf16 compute dtype. D's output and
+# E's gradients are rounded to bf16 on the way out (the TPU wrapper's casts),
+# so an f32 order difference inside the kernel flips whole bf16 roundings
+# (2^-8 relative) and the bf16 activations of 8 blocks carry the flips on: 5x
+# the f32 tolerances, still far below the O(1) a wrong or missing term makes.
+TOL_LOSS_BF16 = 5e-4
+TOL_GRAD_BF16 = 1e-1
+# The compute dtypes of phase 8's rows: f32 and cli.train --bf16's.
+DTYPES = {"f32": lambda torch: torch.float32, "bf16": lambda torch: torch.bfloat16}
 TRAIN_STEPS = 5
 TRAIN_EPOCHS = 2
 GEN_AFTER_TRAIN = 32
@@ -2809,17 +2834,21 @@ def train_batch(torch, corpus: Path, meta_path: Path):
     return tuple(torch.from_numpy(np.stack(x).astype(np.int64)).to(DEVICE) for x in zip(*items))
 
 
-def phase_grad(torch, corpus: Path, meta_path: Path) -> None:
-    """[8 grad] the full-width Transformer's loss and every parameter's
-    gradient through kernels D and E against the same model with their plain
-    versions on the card; the f32 attention's beside it."""
+def phase_grad(torch, corpus: Path, meta_path: Path, dtype: str = "f32") -> None:
+    """[8 grad] (f32) and [8 grad bf16] (the bf16 compute dtype of cli.train
+    --bf16, D and E on bf16 activations upcast around them): the full-width
+    Transformer's loss and every parameter's gradient through kernels D and
+    E against the same model with their plain versions on the card; the
+    plain attention's (f32, or bf16 with its softmax in f32) beside it."""
     from musicgen_tpu_torch.config import TransformerConfig
     from musicgen_tpu_torch.models.transformer import empty_model, init_weights_
     from musicgen_tpu_torch.ops import attention_kernel as ak
     from musicgen_tpu_torch.train.loss import filtered_cross_entropy
 
-    model = init_weights_(empty_model(TransformerConfig(dropout=0.0), DEVICE), SEED)
+    model = init_weights_(empty_model(TransformerConfig(dropout=0.0), DEVICE, DTYPES[dtype](torch)), SEED)
     src, trg, meta = train_batch(torch, corpus, meta_path)
+    row, tol_loss, tol_grad = ("8 grad", TOL_LOSS, TOL_GRAD) if dtype == "f32" else \
+        (f"8 grad {dtype}", TOL_LOSS_BF16, TOL_GRAD_BF16)
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
@@ -2845,22 +2874,27 @@ def phase_grad(torch, corpus: Path, meta_path: Path) -> None:
     w_plain, w_f32 = worst(g_p), worst(g_x)
     w_plain_rest = worst(g_p, "rel_pos_emb")
     want = {"flash_relpos_lse": L, **dict.fromkeys(E_LAUNCHES, L)}
-    say(f"[8 grad] TransformerLM full width, dropout 0, (B, T) = ({BATCH}, {PROMPT}): loss {loss_k:.6f} through D+E, "
-        f"{loss_p:.6f} through their plain versions (rel {abs(loss_k - loss_p) / abs(loss_p):.3e}, tol {TOL_LOSS}); "
-        f"worst gradient vs the plain versions rel {w_plain[0]:.3e} at {w_plain[1]} (tol {TOL_GRAD}; outside "
-        f"rel_pos_emb {w_plain_rest[0]:.3e} at {w_plain_rest[1]}); as information, "
-        f"vs the f32 attention: loss {loss_x:.6f}, worst gradient rel {w_f32[0]:.3e} at {w_f32[1]}; "
-        f"launches a step {launches}")
-    need(abs(loss_k - loss_p) <= TOL_LOSS * abs(loss_p), "the loss through D+E disagrees with the plain versions'")
-    need(w_plain[0] <= TOL_GRAD, "a gradient through D+E disagrees with the plain versions'")
-    need(launches == want, f"a training step launched {launches}, expected {want}")
+    say(f"[{row}] TransformerLM full width, {dtype} compute, dropout 0, (B, T) = ({BATCH}, {PROMPT}): loss "
+        f"{loss_k:.6f} through D+E, {loss_p:.6f} through their plain versions (rel "
+        f"{abs(loss_k - loss_p) / abs(loss_p):.3e}, tol {tol_loss}); worst gradient vs the plain versions rel "
+        f"{w_plain[0]:.3e} at {w_plain[1]} (tol {tol_grad}; outside rel_pos_emb {w_plain_rest[0]:.3e} at "
+        f"{w_plain_rest[1]}); as information, vs the plain {dtype} attention: loss {loss_x:.6f}, worst gradient "
+        f"rel {w_f32[0]:.3e} at {w_f32[1]}; launches a step {launches}")
+    need(abs(loss_k - loss_p) <= tol_loss * abs(loss_p), f"{row}: the loss through D+E disagrees with the plain "
+                                                         f"versions'")
+    need(w_plain[0] <= tol_grad, f"{row}: a gradient through D+E disagrees with the plain versions'")
+    need(all(g.dtype == torch.float32 for g in g_k.values()), f"{row}: a gradient is not f32")
+    need(launches == want, f"{row}: a training step launched {launches}, expected {want}")
 
 
-def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transformer", "mamba", "xlstm")) -> dict:
-    """[8 steps] TRAIN_STEPS Adam steps of each of `families` at full width
-    on one batch: the loss falls at every step. Returns ms/step by family.
-    An xLSTM trains through its plain scans (kernel H has no backward), so
-    its steps launch nothing."""
+def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transformer", "mamba", "xlstm"),
+                      dtypes=("f32", "bf16")) -> dict:
+    """[8 steps <family>] and [8 steps <family> bf16]: TRAIN_STEPS Adam steps
+    of each of `families` at full width on one batch, in each compute dtype
+    of `dtypes` (bf16: cli.train --bf16, f32 parameters and Adam state): the
+    loss falls at every step. Returns ms/step by (family, dtype). An xLSTM
+    trains through its plain scans (kernel H has no backward), so its steps
+    launch nothing."""
     from musicgen_tpu_torch.config import MambaConfig, TransformerConfig, XLSTMConfig
     from musicgen_tpu_torch.models import mamba, transformer, xlstm
     from musicgen_tpu_torch.ops import attention_kernel as ak
@@ -2870,11 +2904,13 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transform
 
     batch = train_batch(torch, corpus, meta_path)
     out = {}
-    for family, module, cfg in (("transformer", transformer, TransformerConfig(dropout=0.0)),
-                                ("mamba", mamba, MambaConfig()), ("xlstm", xlstm, XLSTMConfig(**X_TRAIN_DEPTH))):
+    for (family, module, cfg), dtype in itertools.product(
+            (("transformer", transformer, TransformerConfig(dropout=0.0)), ("mamba", mamba, MambaConfig()),
+             ("xlstm", xlstm, XLSTMConfig(**X_TRAIN_DEPTH))), dtypes):
         if family not in families:
             continue
-        model = module.init_weights_(module.empty_model(cfg, DEVICE), SEED)
+        row = family if dtype == "f32" else f"{family} {dtype}"
+        model = module.init_weights_(module.empty_model(cfg, DEVICE, DTYPES[dtype](torch)), SEED)
         step = T.make_lm_train_step(model, T.make_optimizer(model))
         ak.LAUNCHES.clear()
         ssd_scan.launches = slstm_scan.launches = 0
@@ -2900,29 +2936,32 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transform
                 step(*batch)
                 torch.cuda.synchronize()
                 plain_secs.append(time.perf_counter() - t0)
-            plain = (f"; with the plain f32 attention {1e3 * statistics.median(plain_secs[1:]):.2f} ms/step "
+            plain = (f"; with the plain {dtype} attention {1e3 * statistics.median(plain_secs[1:]):.2f} ms/step "
                      f"(steps {TRAIN_STEPS + 2}-{TRAIN_STEPS + 3})")
-        say(f"[8 steps {family}] {TRAIN_STEPS} Adam steps on one ({BATCH}, {PROMPT}) batch: losses "
+        say(f"[8 steps {row}] {TRAIN_STEPS} Adam steps on one ({BATCH}, {PROMPT}) batch: losses "
             f"{[round(x, 5) for x in losses]}; {ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, host clock around a "
             f"synchronised step), {tokens / (ms / 1e3):.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; "
             f"launches {launches}{plain}")
-        need(all(math.isfinite(x) for x in losses), f"{family}: a loss is not finite")
-        need(all(b_ < a for a, b_ in zip(losses, losses[1:])), f"{family}: the loss did not fall at every step")
+        need(all(math.isfinite(x) for x in losses), f"{row}: a loss is not finite")
+        need(all(b_ < a for a, b_ in zip(losses, losses[1:])), f"{row}: the loss did not fall at every step")
+        need(all(p.dtype == torch.float32 for p in model.parameters()), f"{row}: a parameter is not f32")
         L = getattr(cfg, "n_layer", 0)
         want = {"flash_relpos_lse": L * TRAIN_STEPS, **dict.fromkeys(E_LAUNCHES, L * TRAIN_STEPS)} \
             if family == "transformer" else {}
-        need(launches == want, f"{family}: {TRAIN_STEPS} steps launched {launches}, expected {want}")
-        out[family] = {"ms": ms, "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak}
+        need(launches == want, f"{row}: {TRAIN_STEPS} steps launched {launches}, expected {want}")
+        out[family, dtype] = {"ms": ms, "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak}
         del model, step
         torch.cuda.empty_cache()
     return out
 
 
 def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: dict,
-                    families=("transformer", "mamba", "xlstm")) -> None:
-    """[8 cli] `cli.train` for each of `families` at full width (TRAIN_EPOCHS
+                    families=("transformer", "mamba", "xlstm"), dtypes=("f32", "bf16")) -> None:
+    """[8 cli <family>] and [8 cli <family> bf16]: `cli.train` (with --bf16
+    for the second) for each of `families` at full width (TRAIN_EPOCHS
     epochs, batch 2, block 2048; the xLSTM's block X_TRAIN_CLI_BLOCK) on the
-    synthesized corpus, each run counted from zero: a checkpoint directory,
+    synthesized corpus, each run counted from zero: a checkpoint directory of
+    f32 weights,
     exact launch counts (D with LSE and E 8 times a train step and D 8 times
     a validation step for the Transformer; H 4 times a validation step for
     the xLSTM, whose train steps run the plain scan; nothing for Mamba), then
@@ -2959,12 +2998,15 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
     full_xlstm = train_cli.DEFAULT_CONFIGS["xlstm"]
     train_cli.DEFAULT_CONFIGS["xlstm"] = lambda: full_xlstm(**X_TRAIN_DEPTH)
     try:
-        for family in families:
-            ckpt_dir = root / f"train8_{family}"
+        for family, dtype in itertools.product(families, dtypes):
+            row = family if dtype == "f32" else f"{family} {dtype}"
+            tag = row.replace(" ", "_")
+            ckpt_dir = root / f"train8_{tag}"
             block = X_TRAIN_CLI_BLOCK if family == "xlstm" else PROMPT
             argv = ["--model", family, "--data", str(corpus), "--metadata", str(meta_path), "--ckpt-dir",
-                    str(ckpt_dir), "--log", str(root / f"train8_{family}.json"), "--epochs", str(TRAIN_EPOCHS),
-                    "--batch-size", str(BATCH), "--block-len", str(block), "--seed", str(SEED), "--device", DEVICE]
+                    str(ckpt_dir), "--log", str(root / f"train8_{tag}.json"), "--epochs", str(TRAIN_EPOCHS),
+                    "--batch-size", str(BATCH), "--block-len", str(block), "--seed", str(SEED), "--device", DEVICE,
+                    *(["--bf16"] if dtype == "bf16" else [])]
             step_secs.clear()
             ak.LAUNCHES.clear()
             dk.LAUNCHES.clear()
@@ -2979,28 +3021,37 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
                         **({"slstm_scan": slstm_scan.launches} if slstm_scan.launches else {})}
             n_steps, L = state.step, getattr(state.model.cfg, "n_layer", 0)
             trained_cfg = state.model.cfg
+            need(state.model.dtype == DTYPES[dtype](torch), f"{row}: the model computes in {state.model.dtype}")
             n_slstm = len(getattr(trained_cfg, "slstm_at", ()))
             del state
             torch.cuda.empty_cache()
             saved = sorted(ckpt_dir.iterdir())
             need(len(saved) == 1 and sorted(p.name for p in saved[0].iterdir()) == ["model.pth", "optimizer.pth"],
-                 f"{family}: checkpoint directory {[p.name for p in saved]}")
+                 f"{row}: checkpoint directory {[p.name for p in saved]}")
+            sd = torch.load(saved[0] / "model.pth", map_location="cpu", weights_only=True)
+            need(all(v.dtype == torch.float32 for v in sd.values() if v.is_floating_point()),
+                 f"{row}: the checkpoint holds a tensor that is not f32")
+            del sd
             want = {}
             if family == "transformer":
                 want = {"flash_relpos_lse": L * n_steps, **dict.fromkeys(E_LAUNCHES, L * n_steps),
                         "flash_relpos": L * TRAIN_EPOCHS}  # one validation batch an epoch, under no_grad
+                if dtype != "f32":  # the f32 run's launches are D's and E's own phase count
+                    for name, n in want.items():
+                        count_path(name, f"[8 cli {row}]", n)
             elif family == "xlstm":
                 want = {"slstm_scan": n_slstm * TRAIN_EPOCHS}  # the validation forwards, under no_grad
-                count_path("slstm_scan", "[8 cli xlstm]", want["slstm_scan"])
+                count_path("slstm_scan", f"[8 cli {row}]", want["slstm_scan"])
             ms = 1e3 * statistics.median(step_secs[1:] or step_secs)
-            say(f"[8 cli {family}] cli.train --block-len {block}: {n_steps} steps in {TRAIN_EPOCHS} epochs in "
+            say(f"[8 cli {row}] cli.train --block-len {block}{' --bf16' if dtype == 'bf16' else ''}: {n_steps} "
+                f"steps in {TRAIN_EPOCHS} epochs in "
                 f"{secs:.1f} s (with validation and the checkpoint); {ms:.2f} ms/step (median after the first), "
                 f"{BATCH * block / (ms / 1e3):.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
                 f"{launches}; checkpoint {saved[0].name}")
-            need(n_steps == 2 * TRAIN_EPOCHS and len(step_secs) == n_steps, f"{family}: {n_steps} train steps")
-            need(launches == want, f"{family} training launched {launches}, expected {want}")
+            need(n_steps == 2 * TRAIN_EPOCHS and len(step_secs) == n_steps, f"{row}: {n_steps} train steps")
+            need(launches == want, f"{row} training launched {launches}, expected {want}")
             for name in ("flash_relpos_lse", *E_LAUNCHES):
-                if family == "transformer":
+                if family == "transformer" and dtype == "f32":
                     report[name]["launches"] = want[name]
 
             dk.LAUNCHES.clear()
@@ -3008,27 +3059,306 @@ def phase_train_cli(torch, corpus: Path, meta_path: Path, root: Path, report: di
             streams = gen_cli.main(["--model", family, "--ckpt", str(saved[0] / "model.pth"), "--data", str(corpus),
                                     "--metadata", str(meta_path), "--composers", "Mozart", "--batch", str(BATCH),
                                     "--block-len", str(PROMPT), "--length", str(GEN_AFTER_TRAIN), "--output",
-                                    str(root / f"gen8_{family}"), "--seed", str(SEED), "--device", DEVICE])
+                                    str(root / f"gen8_{tag}"), "--seed", str(SEED), "--device", DEVICE])
             torch.cuda.synchronize()
             st = torch.from_numpy(streams["Mozart"])
-            need(tuple(st.shape) == (BATCH, PROMPT + GEN_AFTER_TRAIN), f"{family}: stream shape {tuple(st.shape)}")
+            need(tuple(st.shape) == (BATCH, PROMPT + GEN_AFTER_TRAIN), f"{row}: stream shape {tuple(st.shape)}")
             need(bool((mask[field_bucket(st[:, PROMPT - 1:-1]), st[:, PROMPT:]] > 0).all()),
-                 f"{family}: a token generated from the trained checkpoint breaks the grammar")
+                 f"{row}: a token generated from the trained checkpoint breaks the grammar")
             gen_txt = ""
             if family == "xlstm":  # the trained, dense-gated checkpoint through H and G
                 gen = {**dk.LAUNCHES, "slstm_scan": slstm_scan.launches}
                 want = {**x_launches(xk.XDims.create(trained_cfg, BATCH), GEN_AFTER_TRAIN, 1, "auto"),
                         "slstm_scan": n_slstm}
-                need(gen == want, f"xlstm generation from the trained checkpoint launched {gen}, expected {want}")
-                count_path("slstm_scan", "[8 cli xlstm generate]", n_slstm)
-                count_path("xlstm_step", "[8 cli xlstm generate]", GEN_AFTER_TRAIN)
-                count_path("sample_tail", "[8 cli xlstm generate] (G)", GEN_AFTER_TRAIN)
+                need(gen == want, f"{row}: generation from the trained checkpoint launched {gen}, expected {want}")
+                count_path("slstm_scan", f"[8 cli {row} generate]", n_slstm)
+                count_path("xlstm_step", f"[8 cli {row} generate]", GEN_AFTER_TRAIN)
+                count_path("sample_tail", f"[8 cli {row} generate] (G)", GEN_AFTER_TRAIN)
                 gen_txt = f"; launches {gen}"
-            say(f"[8 cli {family} generate] cli.generate --ckpt {saved[0].name}/model.pth: {GEN_AFTER_TRAIN} "
+            say(f"[8 cli {row} generate] cli.generate --ckpt {saved[0].name}/model.pth: {GEN_AFTER_TRAIN} "
                 f"grammatical tokens at batch {BATCH} after a {PROMPT}-token prompt{gen_txt}")
     finally:
         T.make_lm_train_step = make_step
         train_cli.DEFAULT_CONFIGS["xlstm"] = full_xlstm
+
+
+# [8 split]: the kernels of kernel D and E (csrc/flash_relpos*.cu, in an
+# anonymous namespace) and the name fragments of the library's GEMM and Adam
+# kernels, by which a training step's device time is grouped.
+DE_KERNELS = ("stage_bf16_kernel", "flash_relpos_kernel", "stage_kernel", "dq_kernel", "dkv_kernel", "drel_kernel",
+              "combine_kernel")
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitKreduce")
+ADAM_NAMES = ("multi_tensor_apply",)
+SPLIT_STEPS = {"transformer": 3, "mamba": 3, "xlstm": 1}  # CUDA-event steps a row (an xLSTM step is 3-4 s)
+
+
+def kernel_group(name: str) -> str:
+    """[8 split]'s group of a device kernel by its name."""
+    if "anonymous namespace" in name and any(f"::{k}" in name for k in DE_KERNELS):
+        return "D/E"
+    if any(k in name for k in GEMM_NAMES):
+        return "GEMMs"
+    if any(k in name for k in ADAM_NAMES):
+        return "Adam"
+    return "other"
+
+
+def device_groups(torch, fn) -> tuple[dict, float] | None:
+    """(device ms by kernel_group, host ms) of one fn() under torch.profiler
+    (device activity only: recording every CPU op of the xLSTM's Python
+    scan took minutes); None where the trace holds no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    if ProfilerActivity.CUDA not in supported_activities():
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0)
+    groups: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
+            g = kernel_group(ev.name)
+            groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return (groups, host) if groups else None
+
+
+def phase_train_split(torch, corpus: Path, meta_path: Path, families=("transformer", "mamba", "xlstm"),
+                      dtypes=("f32", "bf16")) -> dict:
+    """[8 split <family> <dtype>]: where a full-width training step's time
+    goes (the [8 steps] model, batch and Adam). CUDA events around the
+    forward to the logits, the loss (the grammar filter and the CE), the
+    backward and Adam's step (medians of SPLIT_STEPS steps after one to warm
+    up); the device time of one more step by kernel group from
+    torch.profiler (GEMMs, kernels D and E, Adam's multi-tensor kernels,
+    and the rest: elementwise ops, reductions, softmax, copies), its host
+    time and the device's idle share; and, alone, the loss and the grammar
+    filter forward and backward on detached logits (CUDA events, 3 calls).
+    Returns {(family, dtype): {"forward", "loss", "backward", "adam",
+    "step", "groups", "idle", "loss_alone"}} in ms."""
+    from musicgen_tpu_torch.config import MambaConfig, TransformerConfig, XLSTMConfig
+    from musicgen_tpu_torch.models import mamba, transformer, xlstm
+    from musicgen_tpu_torch.train import trainer as T
+    from musicgen_tpu_torch.train.loss import filtered_cross_entropy
+
+    src, trg, meta = train_batch(torch, corpus, meta_path)
+    out = {}
+    for (family, module, cfg), dtype in itertools.product(
+            (("transformer", transformer, TransformerConfig(dropout=0.0)), ("mamba", mamba, MambaConfig()),
+             ("xlstm", xlstm, XLSTMConfig(**X_TRAIN_DEPTH))), dtypes):
+        if family not in families:
+            continue
+        model = module.init_weights_(module.empty_model(cfg, DEVICE, DTYPES[dtype](torch)), SEED).train()
+        opt = T.make_optimizer(model)
+        marks = []
+
+        def step():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                ev[0].record()
+                logits = model(src, meta)
+                ev[1].record()
+                loss = filtered_cross_entropy(src, logits, trg)
+                ev[2].record()
+                loss.backward()
+                ev[3].record()
+            opt.step()
+            ev[4].record()
+            marks.append(ev)
+
+        step()  # warm-up: Adam's state, the first launches
+        marks.clear()
+        for _ in range(SPLIT_STEPS[family]):
+            step()
+        torch.cuda.synchronize()
+        parts = {k: statistics.median(m[i].elapsed_time(m[i + 1]) for m in marks)
+                 for i, k in enumerate(("forward", "loss", "backward", "adam"))}
+        parts["step"] = statistics.median(m[0].elapsed_time(m[4]) for m in marks)
+        prof = device_groups(torch, step)
+        with torch.no_grad():
+            logits = model(src, meta).detach()
+        alone = []
+        for _ in range(3):
+            lg = logits.clone().requires_grad_()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            with torch.enable_grad():
+                filtered_cross_entropy(src, lg, trg).backward()
+            e1.record()
+            torch.cuda.synchronize()
+            alone.append(e0.elapsed_time(e1))
+        parts["loss_alone"] = statistics.median(alone)
+        if prof is None:
+            parts["groups"], parts["idle"] = None, None
+            groups = "device time by kernel group not measured (the trace held no device kernel)"
+        else:
+            parts["groups"], host = prof
+            busy = sum(parts["groups"].values())
+            parts["idle"] = max(0.0, 1.0 - busy / parts["step"])
+            groups = (f"device ms of one step by kernel group (torch.profiler): "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in sorted(parts["groups"].items(), key=lambda kv: -kv[1]))
+                      + f" (sum {busy:.2f}: the device idle {100 * parts['idle']:.1f}% of the unprofiled step's "
+                      f"{parts['step']:.2f} ms; the profiled step {host:.2f} ms of host time)")
+        say(f"[8 split {family} {dtype}] ({BATCH}, {PROMPT}), CUDA events, median of {SPLIT_STEPS[family]} steps: "
+            f"forward {parts['forward']:.2f} ms, loss (grammar filter + CE) {parts['loss']:.2f}, backward "
+            f"{parts['backward']:.2f}, Adam {parts['adam']:.2f}; step {parts['step']:.2f}; {groups}; the loss and "
+            f"grammar filter alone, forward and backward on detached logits: {parts['loss_alone']:.2f} ms")
+        out[family, dtype] = parts
+        del model, opt, logits, lg
+        marks.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+DDP_STEPS = 6  # [8 ddp]: the steps held bit for bit; ms/step is the median of steps 3-6 (DDP rebuilds its buckets
+# after the first)
+
+
+def phase_ddp(torch, corpus: Path, meta_path: Path) -> None:
+    """[8 ddp]: train/distributed.py on the card in a one-rank NCCL group of
+    this process (a launcher's environment set here): DDP_STEPS steps of the
+    bf16 Transformer at full width through make_distributed_train_step
+    against the same steps of the unwrapped deterministic step (eval-mode
+    dropout, the same loss, Adam) on a copy of the model; the losses and
+    every parameter bit for bit (a difference is printed with its size),
+    exact launches of D and E in both, the ms/step of each."""
+    import torch.distributed as dist
+
+    from musicgen_tpu_torch.config import TransformerConfig
+    from musicgen_tpu_torch.models.transformer import empty_model, init_weights_
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.train import distributed
+    from musicgen_tpu_torch.train import trainer as T
+    from musicgen_tpu_torch.train.loss import filtered_cross_entropy
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    batch = train_batch(torch, corpus, meta_path)
+    try:
+        rank, world, dev = distributed.init_from_env(DEVICE)
+        need((rank, world) == (0, 1) and dist.get_backend() == "nccl", f"[8 ddp] group {rank}/{world}")
+        ddp_model, ref = (init_weights_(empty_model(TransformerConfig(), DEVICE, torch.bfloat16), SEED)
+                          for _ in range(2))
+        _, ddp_step = distributed.build_distributed_training(ddp_model)
+        ref_opt = T.make_optimizer(ref)
+
+        @torch.enable_grad()
+        def ref_step(src, trg, meta):
+            ref.eval()
+            ref_opt.zero_grad(set_to_none=True)
+            loss = filtered_cross_entropy(src, ref(src, meta), trg)
+            loss.backward()
+            ref_opt.step()
+            return loss.detach()
+
+        runs = {}
+        for name, fn in (("ddp", ddp_step), ("unwrapped", ref_step)):
+            ak.LAUNCHES.clear()
+            losses, secs = [], []
+            for _ in range(DDP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(fn(*batch)))
+                secs.append(time.perf_counter() - t0)
+            runs[name] = (losses, dict(ak.LAUNCHES), 1e3 * statistics.median(secs[2:]))
+        L = ref.cfg.n_layer
+        want = {"flash_relpos_lse": L * DDP_STEPS, **dict.fromkeys(E_LAUNCHES, L * DDP_STEPS)}
+        diffs = [(float((a.detach() - b.detach()).abs().max()), int((a != b).sum()), n)
+                 for (n, a), b in zip(ddp_model.named_parameters(), ref.parameters())]
+        worst = max(diffs)
+        differing = sum(d[1] for d in diffs)
+        say(f"[8 ddp] a one-rank NCCL group, the bf16 Transformer at full width, {DDP_STEPS} steps on one "
+            f"({BATCH}, {PROMPT}) batch: losses {runs['ddp'][0]} through DDP, {runs['unwrapped'][0]} unwrapped; "
+            f"parameters after the steps: {differing} elements differ (largest {worst[0]:.3e} at {worst[2]}); "
+            f"{runs['ddp'][2]:.2f} ms/step through DDP, {runs['unwrapped'][2]:.2f} unwrapped (median of steps "
+            f"3-{DDP_STEPS}, host clock around a synchronised step); launches {runs['ddp'][1]} / "
+            f"{runs['unwrapped'][1]}")
+        need(runs["ddp"][0] == runs["unwrapped"][0], "[8 ddp]: the losses through DDP differ from the unwrapped step's")
+        need(differing == 0, "[8 ddp]: a parameter after the DDP steps differs from the unwrapped steps'")
+        for name in ("ddp", "unwrapped"):
+            need(runs[name][1] == want, f"[8 ddp] {name}: launched {runs[name][1]}, expected {want}")
+        for name, n in want.items():
+            count_path(name, "[8 ddp]", n)
+        del ddp_model, ref, ddp_step, ref_opt
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.cuda.empty_cache()
+
+
+CLI_PARALLEL_TIMEOUT = 300
+
+
+def phase_cli_parallel(torch, corpus: Path, meta_path: Path, root: Path) -> None:
+    """[8 cli parallel]: `python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m musicgen_tpu_torch.cli.train --parallel --bf16`
+    for the Transformer at full width (one epoch, batch 2, block 2048) in a
+    process group of its own (NCCL): rc 0, rank 0's log line with the mesh,
+    one checkpoint directory whose model.pth (no DDP 'module.' prefix, f32)
+    loads into a TransformerLM whose no-grad forward (through kernel D) is
+    finite. The launcher runs in a process group of its own and is killed with its
+    workers if it outlives CLI_PARALLEL_TIMEOUT seconds."""
+    import signal
+
+    from musicgen_tpu_torch.interop import load_model
+
+    ckpt_dir, log = root / "train8_parallel", root / "train8_parallel.json"
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
+            "musicgen_tpu_torch.cli.train", "--model", "transformer", "--parallel", "--bf16", "--data", str(corpus),
+            "--metadata", str(meta_path), "--ckpt-dir", str(ckpt_dir), "--log-json", str(log), "--epochs", "1",
+            "--batch-size", str(BATCH), "--block-len", str(PROMPT), "--seed", str(SEED), "--device", DEVICE]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=CLI_PARALLEL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"[8 cli parallel] did not finish within {CLI_PARALLEL_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    tail = "\n".join(text.splitlines()[-20:])
+    need(proc.returncode == 0, f"[8 cli parallel] rc {proc.returncode}:\n{tail}")
+    need("Training started! mesh={'data': 1, 'model': 1}" in text, f"[8 cli parallel] no mesh line:\n{tail}")
+    need(log.exists(), "[8 cli parallel] rank 0 wrote no --log-json file")
+    saved = sorted(ckpt_dir.iterdir())
+    need(len(saved) == 1, f"[8 cli parallel] checkpoint directories {[p.name for p in saved]}")
+    sd = torch.load(saved[0] / "model.pth", map_location="cpu", weights_only=True)
+    need(not any(k.startswith("module.") for k in sd), "[8 cli parallel] the checkpoint's keys carry 'module.'")
+    need(all(v.dtype == torch.float32 for v in sd.values() if v.is_floating_point()),
+         "[8 cli parallel] the checkpoint holds a tensor that is not f32")
+    model = load_model(sd, DEVICE).eval()
+    src, _, meta = train_batch(torch, corpus, meta_path)
+    with torch.no_grad():
+        logits = model(src, meta)
+    need(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (BATCH, PROMPT, model.cfg.vocab_size),
+         f"[8 cli parallel] the read-back model's logits {tuple(logits.shape)} are not finite")
+    steps = [ln for ln in text.splitlines() if ln.startswith("Epoch [1/1]")]
+    say(f"[8 cli parallel] torch.distributed.run --nproc_per_node 1 ... cli.train --parallel --bf16: rc 0 in "
+        f"{secs:.1f} s (the launcher, a fresh process and its CUDA context included); {steps}; checkpoint "
+        f"{saved[0].name}, {len(sd)} f32 tensors without a 'module.' prefix, read back into a TransformerLM whose "
+        f"forward is finite")
+    del model, sd, logits
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -5222,8 +5552,43 @@ def phase_flash_paths(torch, report: dict) -> None:
         torch.cuda.empty_cache()
         phase_grad(torch, corpus, meta_path)
         torch.cuda.empty_cache()
+        phase_grad(torch, corpus, meta_path, "bf16")
+        torch.cuda.empty_cache()
         phase_train_steps(torch, corpus, meta_path, ("transformer",))
+        phase_train_split(torch, corpus, meta_path, ("transformer",))
         phase_train_cli(torch, corpus, meta_path, root, report, ("transformer",))
+        phase_ddp(torch, corpus, meta_path)
+        phase_cli_parallel(torch, corpus, meta_path, root)
+
+
+def phase_training(torch, report: dict) -> None:
+    """--only 8: phases 1 and 2 and every row of phase 8 (training): [8
+    flash-bwd] with its repeat and ragged rows, [8 grad] and [8 grad bf16],
+    [8 steps] and [8 split] of each family in f32 and bf16, [8 cli] of each
+    family in f32 and bf16, [8 ddp] and [8 cli parallel]. Its kernels line
+    holds D with LSE's and E's five launches, those of the f32 Transformer's
+    [8 cli] run plus those of the bf16 run and [8 ddp]."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, meta_path = synth_corpus(root)
+        with clock("8 flash-bwd"):
+            phase_flash_bwd(torch, report)
+        torch.cuda.empty_cache()
+        with clock("8 grad"):
+            phase_grad(torch, corpus, meta_path)
+            torch.cuda.empty_cache()
+            phase_grad(torch, corpus, meta_path, "bf16")
+        torch.cuda.empty_cache()
+        with clock("8 steps"):
+            phase_train_steps(torch, corpus, meta_path)
+        with clock("8 split"):
+            phase_train_split(torch, corpus, meta_path)
+        with clock("8 cli"):
+            phase_train_cli(torch, corpus, meta_path, root, report)
+        torch.cuda.empty_cache()
+        with clock("8 ddp"):
+            phase_ddp(torch, corpus, meta_path)
+            phase_cli_parallel(torch, corpus, meta_path, root)
 
 
 def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
@@ -5257,15 +5622,15 @@ def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
 
 
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR];
+    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR];
     None where absent or wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
         opts[rest[0]] = rest[1]
         rest = rest[2:]
     only = opts.get("--only")
-    if rest or only not in (None, "7", "9", "10", "11", "12", "gptq", "int8", "bf16", "flash", "resident", "tail",
-                            "mixer", "ssd"):
+    if rest or only not in (None, "7", "8", "9", "10", "11", "12", "gptq", "int8", "bf16", "flash", "resident",
+                            "tail", "mixer", "ssd"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -5346,7 +5711,7 @@ def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] "
+        print("usage: python3 chip_smoke.py [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] "
               "[--parent DIR]",
               file=sys.stderr)
         return 2
@@ -5408,6 +5773,9 @@ def main() -> int:
     if only == "flash":
         phase_flash_paths(torch, report)
         return finish(torch, card, report, FLASH_KERNELS, t_start)
+    if only == "8":
+        phase_training(torch, report)
+        return finish(torch, card, report, ["flash_relpos_lse", *E_LAUNCHES], t_start)
     if only == "resident":
         phase_resident_paths(torch, report, parent)
         return finish(torch, card, report, RESIDENT_KERNELS, t_start)
@@ -5455,11 +5823,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         with clock("8 grad"):
             phase_grad(torch, corpus, meta_path)
+            torch.cuda.empty_cache()
+            phase_grad(torch, corpus, meta_path, "bf16")
         torch.cuda.empty_cache()
         with clock("8 steps"):
             phase_train_steps(torch, corpus, meta_path)
+        with clock("8 split"):
+            phase_train_split(torch, corpus, meta_path)
         with clock("8 cli"):
             phase_train_cli(torch, corpus, meta_path, root, report)
+        torch.cuda.empty_cache()
+        with clock("8 ddp"):
+            phase_ddp(torch, corpus, meta_path)
+            phase_cli_parallel(torch, corpus, meta_path, root)
         torch.cuda.empty_cache()
 
         with clock("9 xlstm"):

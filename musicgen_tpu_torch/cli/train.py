@@ -2,7 +2,8 @@
 musicgen_tpu/cli/train.py, single device).
 
   python -m musicgen_tpu_torch.cli.train --model transformer --data data/np \
-      --metadata data/metadata.json [--resume CKPT] [--epochs N] [--block-len N]
+      --metadata data/metadata.json [--resume CKPT] [--epochs N] [--block-len N] [--bf16]
+  torchrun --nproc_per_node N -m musicgen_tpu_torch.cli.train --parallel ...
 
 Without --resume the family's full-width default config is built and
 initialised from --seed (init_weights_); --resume takes a checkpoint
@@ -18,6 +19,15 @@ and an xLSTM through their plain scans (an xLSTM's validation forward, under
 no_grad, through kernel H). --device cpu runs the plain versions. Dropout and
 augmentation are seeded from --seed. Each run ends with a checkpoint
 directory in --ckpt-dir that `cli.generate --ckpt <dir>/model.pth` reads.
+
+--bf16 computes in bf16 with f32 parameters, Adam state, loss and lm_head
+(models/compute.py, the JAX CLI's --bf16); its checkpoints are the same f32
+`model.pth`. --parallel trains data-parallel (train/distributed.py) under a
+launcher such as torchrun: every rank draws the same global batches of
+--batch-size rows and trains on its share, DDP averages the gradients over
+NCCL (--device cuda, one card a rank) or gloo (--device cpu), the step runs
+without dropout or augmentation as the JAX step does, and rank 0 alone logs
+and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -27,18 +37,18 @@ import os
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import MambaConfig, TrainValues, TransformerConfig, XLSTMConfig
 from ..data.dataset import TokenDataset, make_loaders
 from ..interop import config_from_state_dict, family, load_checkpoint, xlstm_state_dict
 from ..models import mamba, transformer, xlstm
+from ..train import distributed
 from ..train import trainer as T
 
-# The JAX CLI's options that the port does not have yet, and what they wait for.
+# The JAX CLI's options that the port does not have yet, and what they wait
+# for (--tp is ported at 1, the JAX default, and refused above it).
 _NOT_PORTED = {
-    "bf16": "bf16 compute",
-    "parallel": "mesh-sharded data/tensor parallel training",
-    "tp": "tensor parallelism",
     "sp": "sequence-parallel training",
     "pp": "pipeline-parallel training",
     "pp_microbatches": "pipeline-parallel training",
@@ -53,7 +63,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--metadata", required=True, help="metadata.json path")
     p.add_argument("--tokenizations", default=None, help="write the metadata tokenization here")
     p.add_argument("--ckpt-dir", default=None)
-    p.add_argument("--log", default=None)
+    p.add_argument("--log", "--log-json", dest="log", default=None,
+                   help="the JSON step log (--log-json under torchrun, whose own --log-dir and --logs-specs "
+                        "make --log ambiguous there)")
     p.add_argument("--resume", default=None, help="checkpoint directory, or a reference-layout .pth")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -70,9 +82,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device) or cpu (the plain versions)")
-    for flag in ("bf16", "parallel", "multihost"):
-        p.add_argument(f"--{flag}", action="store_true", help="not yet ported")
-    for flag in ("tp", "sp", "pp", "pp-microbatches"):
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute with f32 parameters, Adam state, loss and lm_head")
+    p.add_argument("--parallel", action="store_true",
+                   help="data-parallel training over the ranks of a launcher (torchrun): NCCL with --device "
+                        "cuda, gloo with cpu")
+    p.add_argument("--tp", type=int, default=1, help="model-axis size with --parallel: 1 (tensor "
+                                                     "parallelism is not yet ported)")
+    p.add_argument("--multihost", action="store_true", help="not yet ported")
+    for flag in ("sp", "pp", "pp-microbatches"):
         p.add_argument(f"--{flag}", type=int, default=None, help="not yet ported")
     return p.parse_args(argv)
 
@@ -94,8 +112,8 @@ MODULES = {"mamba": mamba, "transformer": transformer, "xlstm": xlstm}
 def build_model(args: argparse.Namespace, device: torch.device):
     """The model, with --resume's weights (a checkpoint directory's
     model.pth, or a bare .pth) or initialised from --seed. The config comes
-    from --resume's shapes, else the family's default; --attention and
-    --remat apply to either."""
+    from --resume's shapes, else the family's default; --attention, --remat
+    and --bf16 (the compute dtype) apply to either."""
     sd = None
     if args.resume:
         sd = load_checkpoint(args.resume)
@@ -111,7 +129,7 @@ def build_model(args: argparse.Namespace, device: torch.device):
         cfg = dataclasses.replace(cfg, attention_impl=args.attention)
     cfg = dataclasses.replace(cfg, remat=args.remat)
     module = MODULES[args.model]
-    model = module.empty_model(cfg, device)
+    model = module.empty_model(cfg, device, torch.bfloat16 if args.bf16 else torch.float32)
     if sd is None:
         module.init_weights_(model, args.seed)
     else:
@@ -120,13 +138,30 @@ def build_model(args: argparse.Namespace, device: torch.device):
 
 
 def main(argv: Optional[List[str]] = None) -> T.TrainState:
-    """Runs the CLI; returns the final TrainState."""
+    """Runs the CLI; returns the final TrainState (of this rank, with
+    --parallel)."""
     args = parse_args(argv)
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             raise NotImplementedError(f"--{name.replace('_', '-')} is not yet ported to musicgen_tpu_torch ({what})")
+    if args.tp != 1:
+        raise NotImplementedError("--tp above 1 is not yet ported to musicgen_tpu_torch (tensor parallelism)")
+    if args.parallel:
+        if args.augmentation:
+            raise ValueError("--parallel trains without augmentation, as the JAX package's distributed step")
+        rank, world, device = distributed.init_from_env(args.device)
+        try:
+            return _train(args, device, rank, world)
+        finally:
+            dist.destroy_process_group()
     device = cli_device(args.device)
     torch.manual_seed(args.seed)  # nn.Dropout's draws, on every device
+    return _train(args, device)
+
+
+def _train(args: argparse.Namespace, device: torch.device, rank: int = 0, world: int = 0) -> T.TrainState:
+    """The run on one device; `world` > 0 makes it rank `rank` of a
+    data-parallel group."""
     model = build_model(args, device)
 
     defaults = TrainValues()
@@ -135,18 +170,21 @@ def main(argv: Optional[List[str]] = None) -> T.TrainState:
         batch_size=args.batch_size or defaults.batch_size, epochs=args.epochs or defaults.epochs,
         augmentation=args.augmentation,
     )
-    dataset = TokenDataset.from_directory(args.data, args.metadata, args.tokenizations, block_len=values.block_len,
-                                          seed=args.seed)
-    train_iter, test_iter = make_loaders(dataset, values, seed=args.seed)
+    dataset = TokenDataset.from_directory(args.data, args.metadata, args.tokenizations if rank == 0 else None,
+                                          block_len=values.block_len, seed=args.seed)
+    train_iter, test_iter = make_loaders(dataset, values, seed=args.seed)  # the same batches on every rank
+    ckpt_dir = args.ckpt_dir or os.path.join("checkpoints", args.model)
+    log_path = args.log or os.path.join("logs", f"training_log_{args.model}.json")
 
+    if world:
+        optimizer, step = distributed.build_distributed_training(model, values, loss_chunk=args.loss_chunk)
+        return T.run_epochs(T.TrainState(model, optimizer), step, T.make_lm_eval_step(model), train_iter,
+                            test_iter, values, ckpt_dir, log_path,
+                            started=f"Training started! mesh={{'data': {world}, 'model': 1}}", main=rank == 0)
     state = T.TrainState(model, T.make_optimizer(model, values))  # fresh Adam at step 0, resumed or not
     generator = torch.Generator(device=device).manual_seed(args.seed)  # augmentation's draws
-    return T.train_lm(
-        state, train_iter, test_iter, values,
-        ckpt_dir=args.ckpt_dir or os.path.join("checkpoints", args.model),
-        log_path=args.log or os.path.join("logs", f"training_log_{args.model}.json"),
-        generator=generator, loss_chunk=args.loss_chunk,
-    )
+    return T.train_lm(state, train_iter, test_iter, values, ckpt_dir=ckpt_dir, log_path=log_path,
+                      generator=generator, loss_chunk=args.loss_chunk)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,43 @@
+"""The compute dtype of the port's models: flax's `dtype=` contract with f32
+parameters, written out where flax makes its casts.
+
+A model built with `dtype=torch.bfloat16` (cli.train --bf16) keeps f32
+parameters and computes, as the JAX package's models built with
+`dtype=jnp.bfloat16` do:
+
+  * `dense`: nn.Dense(dtype=): input, weight and bias cast to the dtype, the
+    output in the dtype;
+  * `embed`: nn.Embed(dtype=): the looked-up rows cast to the dtype;
+  * `layer_norm`: nn.LayerNorm(dtype=): statistics and affine in f32, the
+    output cast to the dtype;
+  * everywhere else torch's promotion, which is jnp's for these operands: a
+    bf16 tensor times an f32 tensor gives f32.
+
+`torch.autocast` is not this contract: its LayerNorm returns f32 and it would
+run the f32 lm_head in bf16. With the default f32 every helper calls the
+module itself, so the f32 path keeps its bits (and forward hooks on the
+nn.Linear, which ops/gptq's calibration uses, still fire).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Dense(dtype=dtype) on the nn.Linear's f32 parameters."""
+    if layer.weight.dtype == dtype:
+        return layer(x.to(dtype))
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def embed(table: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Embed(dtype=dtype): the rows of the f32 table in `dtype`."""
+    return table(ids).to(dtype)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.LayerNorm(dtype=dtype): normalised in f32, returned in `dtype`."""
+    return norm(x.to(torch.float32)).to(dtype)

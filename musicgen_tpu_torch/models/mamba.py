@@ -17,6 +17,12 @@ CUDA tensors (under torch.no_grad: kernel A has no backward); `forward` and
 autograd, as the JAX package trains through the plain scan. cfg.remat
 recomputes each mixer in the backward pass (torch.utils.checkpoint). The
 in/out projections stay `torch` matmuls, as the JAX package left them to XLA.
+
+`dtype` is the compute dtype (models/compute.py; f32 by default, bf16 for
+cli.train --bf16), with the JAX model's casts: the embeddings, in_proj,
+out_proj and the final LayerNorm in the dtype; the conv promotes to f32
+(f32 taps), the SSD scan runs in f32, the gated norm returns f32 and the
+lm_head stays f32.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import MambaConfig
+from .compute import dense, embed, layer_norm
 from ..ops.ssd_kernel import ssd_scan
 from ..ops.ssm import causal_conv1d, causal_conv1d_step, ssd_chunked, ssd_step
 
@@ -38,8 +45,9 @@ LayerState = Dict[str, torch.Tensor]
 def _rms_norm_gated(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
     """RMSNorm(y * silu(z)) * weight, Mamba-2's gated output norm."""
     y = y * F.silu(z)
-    var = torch.mean(y * y, dim=-1, keepdim=True)
-    return y * torch.rsqrt(var + eps) * weight
+    yf = y.to(torch.float32)
+    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(var + eps)).to(y.dtype) * weight
 
 
 class GatedRMSNorm(nn.Module):
@@ -54,10 +62,11 @@ class GatedRMSNorm(nn.Module):
 
 
 class Mamba2Mixer(nn.Module):
-    def __init__(self, cfg: MambaConfig):
+    def __init__(self, cfg: MambaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = cfg
         self.cfg = cfg
+        self.dtype = dtype
         d_in_proj = 2 * c.d_inner + 2 * c.ngroups * c.d_state + c.nheads
         self.in_proj = nn.Linear(c.d_model, d_in_proj, bias=False)
         # Only the parameters are used: the conv runs as ops/ssm.causal_conv1d.
@@ -87,7 +96,7 @@ class Mamba2Mixer(nn.Module):
         """Shared body of forward/prefill. Returns (out, raw xbc, ssm state)."""
         c = self.cfg
         b, t, _ = u.shape
-        z, x, Bm, Cm, dt = self._split_in_proj(self.in_proj(u))
+        z, x, Bm, Cm, dt = self._split_in_proj(dense(self.in_proj, u, self.dtype))
         xbc_raw = torch.cat([x, Bm, Cm], dim=-1)
         xbc = F.silu(causal_conv1d(xbc_raw, self.conv_w, self.conv1d.bias))
         x, Bm, Cm = self._split_xbc(xbc)
@@ -113,7 +122,7 @@ class Mamba2Mixer(nn.Module):
         y = y + x.reshape(b, t, c.nheads, c.headdim) * self.D[None, None, :, None]
         y = y.reshape(b, t, c.d_inner).to(u.dtype)
         y = self.norm(y, z)
-        return self.out_proj(y), xbc_raw, ssm_state
+        return dense(self.out_proj, y, self.dtype), xbc_raw, ssm_state
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         """u: (B, T, d_model) -> (B, T, d_model), plain PyTorch throughout."""
@@ -134,7 +143,7 @@ class Mamba2Mixer(nn.Module):
         """u: (B, d_model) -> (B, d_model), O(1) state update."""
         c = self.cfg
         b = u.shape[0]
-        z, x, Bm, Cm, dt = self._split_in_proj(self.in_proj(u))
+        z, x, Bm, Cm, dt = self._split_in_proj(dense(self.in_proj, u, self.dtype))
         xbc = torch.cat([x, Bm, Cm], dim=-1)
         conv_out, conv_state = causal_conv1d_step(xbc, state["conv"], self.conv_w, self.conv1d.bias)
         x, Bm, Cm = self._split_xbc(F.silu(conv_out))
@@ -147,24 +156,26 @@ class Mamba2Mixer(nn.Module):
         )
         y = y + xh.to(torch.float32) * self.D[None, :, None]
         y = self.norm(y.reshape(b, c.d_inner).to(u.dtype), z)
-        return self.out_proj(y), {"conv": conv_state, "ssm": ssm_state}
+        return dense(self.out_proj, y, self.dtype), {"conv": conv_state, "ssm": ssm_state}
 
 
 class MambaLM(nn.Module):
     """Composer-conditioned Mamba-2 LM (reference models/mamba/mamba.py)."""
 
-    def __init__(self, cfg: MambaConfig):
+    def __init__(self, cfg: MambaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = cfg
         self.cfg = cfg
+        self.dtype = dtype
         self.token_embedding = nn.Embedding(c.vocab_size, c.d_model)
         self.metadata_embedding = nn.Embedding(c.metadata_vocab_size, c.d_model)
-        self.layers = nn.ModuleList(Mamba2Mixer(c) for _ in range(c.n_layers))
+        self.layers = nn.ModuleList(Mamba2Mixer(c, dtype) for _ in range(c.n_layers))
         self.norm = nn.LayerNorm(c.d_model, eps=1e-6)
         self.output_layer = nn.Linear(c.d_model, c.vocab_size)
 
     def _embed(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self.metadata_embedding(meta), self.token_embedding(tokens)], dim=1)
+        return torch.cat([embed(self.metadata_embedding, meta, self.dtype),
+                          embed(self.token_embedding, tokens, self.dtype)], dim=1)
 
     def _stack(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         # Reference quirk: NO residual between layers (mamba.py:32-33).
@@ -176,11 +187,11 @@ class MambaLM(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
             x = self._stack(x, checkpoint(layer, x, use_reentrant=False) if remat else layer(x))
-        return self.norm(x)
+        return layer_norm(self.norm, x, self.dtype)
 
     def forward(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         """(B, T) tokens + (B, 6) meta -> (B, T, vocab) logits."""
-        return self.output_layer(self.hidden(tokens, meta))[:, meta.shape[1]:]
+        return self.output_layer(self.hidden(tokens, meta).to(torch.float32))[:, meta.shape[1]:]
 
     def prefill(self, tokens: torch.Tensor, meta: torch.Tensor):
         """Returns (logits (B, T, vocab), per-layer decode states)."""
@@ -190,26 +201,27 @@ class MambaLM(nn.Module):
             y, st = layer.prefill(x)
             x = self._stack(x, y)
             states.append(st)
-        logits = self.output_layer(self.norm(x))
+        logits = self.output_layer(layer_norm(self.norm, x, self.dtype).to(torch.float32))
         return logits[:, meta.shape[1]:], tuple(states)
 
     def step(self, token: torch.Tensor, states: Tuple[LayerState, ...]):
         """token (B,) -> (logits (B, vocab), new states)."""
-        x = self.token_embedding(token)
+        x = embed(self.token_embedding, token, self.dtype)
         new_states = []
         for layer, st in zip(self.layers, states):
             y, st = layer.step(x, st)
             x = self._stack(x, y)
             new_states.append(st)
-        return self.output_layer(self.norm(x)), tuple(new_states)
+        return self.output_layer(layer_norm(self.norm, x, self.dtype).to(torch.float32)), tuple(new_states)
 
 
-def empty_model(cfg: MambaConfig, device: torch.device | str) -> MambaLM:
-    """An uninitialised MambaLM on `device`: built on the meta device, so the
-    constructors draw no random numbers and fill nothing that the caller's
-    `load_state_dict` or `init_weights_` overwrites anyway."""
+def empty_model(cfg: MambaConfig, device: torch.device | str, dtype: torch.dtype = torch.float32) -> MambaLM:
+    """An uninitialised MambaLM on `device` computing in `dtype` (its
+    parameters f32): built on the meta device, so the constructors draw no
+    random numbers and fill nothing that the caller's `load_state_dict` or
+    `init_weights_` overwrites anyway."""
     with torch.device("meta"):
-        model = MambaLM(cfg)
+        model = MambaLM(cfg, dtype)
     return model.to_empty(device=device)
 
 

@@ -32,6 +32,13 @@ the attention's out-projection and after the FFN's second linear, active in
 `train()` only and never in `prefill` / `step`; cfg.remat recomputes each
 block in the backward pass (torch.utils.checkpoint). Dropout modules hold no
 state, so reference `.pth` files still load strictly.
+
+`dtype` is the compute dtype (models/compute.py; f32 by default, bf16 for
+cli.train --bf16), with the JAX model's casts: the embeddings, the q/k/v,
+proj, fc and out products and the LayerNorms' outputs in the dtype, the rel
+table cast to it; the plain attention's softmax in f32, cast back to v's
+dtype; kernels D and E upcast their bf16 inputs to f32 and return the
+input's dtype, as the TPU wrapper does; the lm_head stays f32.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import TransformerConfig
 from ..ops.attention import relpos_attention, relpos_attention_step
 from ..ops.attention_kernel import flash_relpos_attention, flash_relpos_attention_train
+from .compute import dense, embed, layer_norm
 
 Cache = Dict[str, torch.Tensor]
 LN_EPS = 1e-6
@@ -66,9 +74,10 @@ class Head(nn.Module):
 class RelPosSelfAttention(nn.Module):
     """Multi-head rel-pos self-attention (reference `MultiHeadAttention`)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.heads = nn.ModuleList(Head(cfg) for _ in range(cfg.n_heads))
         self.proj = nn.Linear(cfg.n_embd, cfg.n_embd)
         self.attn_drop = nn.Dropout(cfg.dropout)
@@ -88,13 +97,17 @@ class RelPosSelfAttention(nn.Module):
         return torch.cat([torch.cat([getattr(h, n).weight for h in self.heads]) for n in ("query", "key", "value")])
 
     def rel_emb(self) -> torch.Tensor:
-        """(H, seq_len, hd)."""
-        return torch.stack([h.rel_pos_emb for h in self.heads])
+        """(H, seq_len, hd), in the compute dtype."""
+        return torch.stack([h.rel_pos_emb for h in self.heads]).to(self.dtype)
+
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """[q | k | v] of x, one bias-free product in the compute dtype."""
+        return F.linear(x.to(self.dtype), self.qkv_weight().to(self.dtype))
 
     def _qkv(self, x: torch.Tensor):
         """(B, T, n_embd) -> q, k, v (B, H, T, hd), head views of one product."""
         b, t, _ = x.shape
-        zx = F.linear(x, self.qkv_weight()).view(b, t, 3, self.cfg.n_heads, self.head_dim)
+        zx = self._project(x).view(b, t, 3, self.cfg.n_heads, self.head_dim)
         return [zx[:, :, i].transpose(1, 2) for i in range(3)]
 
     def _attend(self, q, k, v, differentiable: bool = False) -> torch.Tensor:
@@ -110,7 +123,7 @@ class RelPosSelfAttention(nn.Module):
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
         b, h, t, d = o.shape
-        return self.proj(o.transpose(1, 2).reshape(b, t, h * d))
+        return dense(self.proj, o.transpose(1, 2).reshape(b, t, h * d), self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self._qkv(x)
@@ -127,7 +140,7 @@ class RelPosSelfAttention(nn.Module):
         ages), then attends with the given per-slot ages."""
         c = self.cfg
         b = x.shape[0]
-        q, k, v = F.linear(x, self.qkv_weight()).view(b, 3, c.n_heads, self.head_dim).unbind(1)
+        q, k, v = self._project(x).view(b, 3, c.n_heads, self.head_dim).unbind(1)
         if torch.is_tensor(slot) and slot.dim() == 1:
             rows = torch.arange(b, device=x.device)
             cache["k"][rows, :, slot] = k
@@ -136,59 +149,73 @@ class RelPosSelfAttention(nn.Module):
             cache["k"][:, :, slot] = k
             cache["v"][:, :, slot] = v
         out = relpos_attention_step(q, cache["k"], cache["v"], self.rel_emb(), self.scale, key_ages, rel_base)
-        return self.proj(out.reshape(b, c.n_embd))
+        return dense(self.proj, out.reshape(b, c.n_embd), self.dtype)
 
 
 class FeedForward(nn.Module):
     """4x ReLU MLP (reference `FeedFoward`: net = Linear, ReLU, Linear), with
     the training dropout after it."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.net = nn.Sequential(nn.Linear(cfg.n_embd, 4 * cfg.n_embd), nn.ReLU(),
                                  nn.Linear(4 * cfg.n_embd, cfg.n_embd))
         self.drop = nn.Dropout(cfg.dropout)
 
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """`net` in the compute dtype, without the dropout."""
+        return dense(self.net[2], F.relu(dense(self.net[0], x, self.dtype)), self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop(self.net(x))
+        return self.drop(self.mlp(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.sa = RelPosSelfAttention(cfg)
-        self.ffwd = FeedForward(cfg)
+        self.dtype = dtype
+        self.sa = RelPosSelfAttention(cfg, dtype)
+        self.ffwd = FeedForward(cfg, dtype)
         self.ln1 = nn.LayerNorm(cfg.n_embd, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(cfg.n_embd, eps=LN_EPS)
 
+    def _ln1(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(self.ln1, x, self.dtype)
+
+    def _ln2(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(self.ln2, x, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.sa(self.ln1(x))
-        return x + self.ffwd(self.ln2(x))
+        x = x + self.sa(self._ln1(x))
+        return x + self.ffwd(self._ln2(x))
 
     def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        a, cache = self.sa.prefill(self.ln1(x))
+        a, cache = self.sa.prefill(self._ln1(x))
         x = x + a
-        return x + self.ffwd.net(self.ln2(x)), cache
+        return x + self.ffwd.mlp(self._ln2(x)), cache
 
     def step(self, x, cache: Cache, slot, key_ages, rel_base) -> torch.Tensor:
-        x = x + self.sa.step(self.ln1(x), cache, slot, key_ages, rel_base)
-        return x + self.ffwd.net(self.ln2(x))
+        x = x + self.sa.step(self._ln1(x), cache, slot, key_ages, rel_base)
+        return x + self.ffwd.mlp(self._ln2(x))
 
 
 class TransformerLM(nn.Module):
     """Composer-conditioned decoder-only LM (reference Transformer)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.token_embedding_table = nn.Embedding(cfg.vocab_size, cfg.n_embd)
         self.metadata_embedding_table = nn.Embedding(cfg.metadata_vocab_size, cfg.n_embd)
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layer))
+        self.blocks = nn.ModuleList(Block(cfg, dtype) for _ in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=LN_EPS)
         self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size)
 
     def _embed(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self.metadata_embedding_table(meta), self.token_embedding_table(tokens)], dim=1)
+        return torch.cat([embed(self.metadata_embedding_table, meta, self.dtype),
+                          embed(self.token_embedding_table, tokens, self.dtype)], dim=1)
 
     def hidden(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         """Final-LN hidden states (B, meta+T, n_embd), the lm_head input."""
@@ -196,11 +223,15 @@ class TransformerLM(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        return self.ln_f(x)
+        return layer_norm(self.ln_f, x, self.dtype)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The f32 lm_head on the hidden states, whatever the compute dtype."""
+        return self.lm_head(h.to(torch.float32))
 
     def forward(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         """(B, T) tokens + (B, 6) meta -> (B, T, vocab) logits."""
-        return self.lm_head(self.hidden(tokens, meta))[:, -tokens.shape[1]:]
+        return self._logits(self.hidden(tokens, meta))[:, -tokens.shape[1]:]
 
     def prefill(self, tokens: torch.Tensor, meta: torch.Tensor):
         """Forward that also returns the per-layer KV caches
@@ -216,22 +247,24 @@ class TransformerLM(nn.Module):
             if pad:
                 cache = {n: F.pad(c, (0, 0, 0, pad)) for n, c in cache.items()}
             caches.append(cache)
-        return self.lm_head(self.ln_f(x))[:, -t:], tuple(caches)
+        return self._logits(layer_norm(self.ln_f, x, self.dtype))[:, -t:], tuple(caches)
 
     def step(self, token: torch.Tensor, caches, slot, key_ages: torch.Tensor, rel_base):
         """O(1)-per-token cached decode step: token (B,) -> (logits (B, vocab),
         caches). The caches are updated IN PLACE at `slot` and returned."""
-        x = self.token_embedding_table(token)
+        x = embed(self.token_embedding_table, token, self.dtype)
         for block, cache in zip(self.blocks, caches):
             x = block.step(x, cache, slot, key_ages, rel_base)
-        return self.lm_head(self.ln_f(x)), caches
+        return self._logits(layer_norm(self.ln_f, x, self.dtype)), caches
 
 
-def empty_model(cfg: TransformerConfig, device: torch.device | str) -> TransformerLM:
-    """An uninitialised TransformerLM on `device` (built on the meta device:
-    the constructors draw no random numbers)."""
+def empty_model(cfg: TransformerConfig, device: torch.device | str,
+                dtype: torch.dtype = torch.float32) -> TransformerLM:
+    """An uninitialised TransformerLM on `device` computing in `dtype` (its
+    parameters f32; built on the meta device: the constructors draw no
+    random numbers)."""
     with torch.device("meta"):
-        model = TransformerLM(cfg)
+        model = TransformerLM(cfg, dtype)
     return model.to_empty(device=device)
 
 

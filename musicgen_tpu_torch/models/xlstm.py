@@ -33,6 +33,15 @@ matmuls, as the JAX package left them to XLA.
 `XLSTMClassifier` is the composer classifier (musicgen_tpu/models/xlstm.py
 XLSTMClassifier): the same stack at width 512 on the tokens alone, its last
 hidden state mapped by `fc` to meta logits.
+
+`dtype` is the compute dtype (models/compute.py; f32 by default, bf16 for
+cli.train --bf16), with the JAX model's casts: the embeddings, the
+projections (up/down, the blockwise q/k/v, the sLSTM input gates, the FFN)
+and the LayerNorms' outputs in the dtype; the conv promotes to f32, the
+mLSTM gates and the mLSTM/sLSTM recurrences run in f32 (the sLSTM input
+upcast before the scan, so that kernel H takes it), the head and group
+norms are cast back to the dtype, and the lm_head (the classifier's fc)
+stays f32.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from ..ops.mlstm import mlstm_chunkwise, mlstm_parallel, mlstm_step
 from ..ops.slstm import powerlaw_blockdependent_bias, slstm_sequential, slstm_step
 from ..ops.slstm_kernel import slstm_scan
 from ..ops.ssm import causal_conv1d, causal_conv1d_step
+from .compute import dense, embed, layer_norm
 
 BlockState = Dict[str, object]
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -95,14 +105,15 @@ class BlockwiseDense(nn.Module):
     qkv_proj_blocksize): `weight` (nb, out, in) maps each block of bs
     features on its own."""
 
-    def __init__(self, d: int, block_size: int):
+    def __init__(self, d: int, block_size: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(d // block_size, block_size, block_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         nb, bs, _ = self.weight.shape
-        xb = x.reshape(*x.shape[:-1], nb, bs)
-        return torch.einsum("...ni,nji->...nj", xb, self.weight).reshape(x.shape)
+        xb = x.reshape(*x.shape[:-1], nb, bs).to(self.dtype)
+        return torch.einsum("...ni,nji->...nj", xb, self.weight.to(self.dtype)).reshape(x.shape)
 
 
 def _headnorm(h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -125,16 +136,17 @@ class MLSTMCell(nn.Module):
 class MLSTMLayer(nn.Module):
     """The inner mLSTM layer (on the up-projected width)."""
 
-    def __init__(self, cfg: XLSTMConfig):
+    def __init__(self, cfg: XLSTMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         d, di = cfg.embedding_dim, cfg.mlstm_inner
+        self.dtype = dtype
         self.num_heads, self.d_inner, self.k = cfg.num_heads, di, cfg.conv1d_kernel_size
         self.dh = di // cfg.num_heads
         self.proj_up = nn.Linear(d, 2 * di, bias=False)
         self.conv1d = CausalConv(di, cfg.conv1d_kernel_size)
-        self.q_proj = BlockwiseDense(di, cfg.qkv_proj_blocksize)
-        self.k_proj = BlockwiseDense(di, cfg.qkv_proj_blocksize)
-        self.v_proj = BlockwiseDense(di, cfg.qkv_proj_blocksize)
+        self.q_proj = BlockwiseDense(di, cfg.qkv_proj_blocksize, dtype)
+        self.k_proj = BlockwiseDense(di, cfg.qkv_proj_blocksize, dtype)
+        self.v_proj = BlockwiseDense(di, cfg.qkv_proj_blocksize, dtype)
         self.mlstm_cell = MLSTMCell(di, cfg.num_heads)
         self.learnable_skip = nn.Parameter(torch.ones(di))
         self.proj_down = nn.Linear(di, d, bias=False)
@@ -149,11 +161,11 @@ class MLSTMLayer(nn.Module):
         return q, k, v, cell.igate(gate_in), cell.fgate(gate_in)
 
     def _out(self, h, x_c, z):
-        h = _headnorm(h, self.mlstm_cell.outnorm.weight) + self.learnable_skip * x_c
-        return self.proj_down(h * F.silu(z))
+        h = _headnorm(h, self.mlstm_cell.outnorm.weight).to(self.dtype) + self.learnable_skip * x_c
+        return dense(self.proj_down, h * F.silu(z), self.dtype)
 
     def _inputs(self, x):
-        x_m, z = torch.chunk(self.proj_up(x), 2, dim=-1)
+        x_m, z = torch.chunk(dense(self.proj_up, x, self.dtype), 2, dim=-1)
         x_c = F.silu(self.conv1d(x_m))
         return x_m, z, x_c
 
@@ -179,7 +191,7 @@ class MLSTMLayer(nn.Module):
         return self._out(h[:, :t], x_c, z), {"conv": conv_tail(x_m, self.k), "mlstm": mstate}
 
     def step(self, x: torch.Tensor, state: BlockState) -> Tuple[torch.Tensor, BlockState]:
-        x_m, z = torch.chunk(self.proj_up(x), 2, dim=-1)
+        x_m, z = torch.chunk(dense(self.proj_up, x, self.dtype), 2, dim=-1)
         conv_out, conv_state = self.conv1d.step(x_m, state["conv"])
         x_c = F.silu(conv_out)
         q, k, v, ig, fg = self._gates_qkv(x_c, x_m)
@@ -224,9 +236,10 @@ class SLSTMCell(nn.Module):
 class SLSTMLayer(nn.Module):
     """The inner sLSTM layer with its block-diagonal recurrence."""
 
-    def __init__(self, cfg: XLSTMConfig):
+    def __init__(self, cfg: XLSTMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         d = cfg.embedding_dim
+        self.dtype = dtype
         self.num_heads, self.k = cfg.num_heads, cfg.conv1d_kernel_size
         self.dh = d // cfg.num_heads
         self.conv1d = CausalConv(d, cfg.conv1d_kernel_size)
@@ -239,107 +252,128 @@ class SLSTMLayer(nn.Module):
         self.group_norm = Scale(d)
 
     def _wx(self, x, x_c) -> torch.Tensor:
-        """(B, [T,] 4, H, DH) gate input preactivations in order i, f, z, o."""
-        g = torch.stack([self.igate(x_c), self.fgate(x_c), self.zgate(x), self.ogate(x)], dim=-2)
-        return g.reshape(*g.shape[:-1], self.num_heads, self.dh)
+        """(B, [T,] 4, H, DH) gate input preactivations in order i, f, z, o,
+        computed in the compute dtype and upcast to f32 for the recurrence
+        (slstm_sequential's upcast in JAX; kernel H takes f32 only)."""
+        g = torch.stack([dense(self.igate, x_c, self.dtype), dense(self.fgate, x_c, self.dtype),
+                         dense(self.zgate, x, self.dtype), dense(self.ogate, x, self.dtype)], dim=-2)
+        return g.reshape(*g.shape[:-1], self.num_heads, self.dh).to(torch.float32)
+
+    def _norm(self, h: torch.Tensor) -> torch.Tensor:
+        return _headnorm(h, self.group_norm.weight).to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x_c = F.silu(self.conv1d(x))
         h, _ = scan(self._wx(x, x_c), self.slstm_cell.r(), self.slstm_cell.b())
-        return _headnorm(h, self.group_norm.weight)
+        return self._norm(h)
 
     def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, BlockState]:
         x_c = F.silu(self.conv1d(x))
         h, sstate = scan(self._wx(x, x_c), self.slstm_cell.r(), self.slstm_cell.b())
-        return _headnorm(h, self.group_norm.weight), {"conv": conv_tail(x, self.k), "slstm": sstate}
+        return self._norm(h), {"conv": conv_tail(x, self.k), "slstm": sstate}
 
     def step(self, x: torch.Tensor, state: BlockState) -> Tuple[torch.Tensor, BlockState]:
         conv_out, conv_state = self.conv1d.step(x, state["conv"])
         x_c = F.silu(conv_out)
         h, sstate = slstm_step(self._wx(x, x_c), self.slstm_cell.r(), self.slstm_cell.b(), state["slstm"])
-        return _headnorm(h, self.group_norm.weight), {"conv": conv_state, "slstm": sstate}
+        return self._norm(h), {"conv": conv_state, "slstm": sstate}
 
 
 class FFN(nn.Module):
-    def __init__(self, d: int, inner: int):
+    def __init__(self, d: int, inner: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.proj_up = nn.Linear(d, inner)
         self.proj_down = nn.Linear(inner, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj_down(F.gelu(self.proj_up(x), approximate="tanh"))
+        return dense(self.proj_down, F.gelu(dense(self.proj_up, x, self.dtype), approximate="tanh"), self.dtype)
 
 
 class XLSTMBlock(nn.Module):
     """Pre-LN residual mLSTM, or sLSTM followed by the FFN sub-block."""
 
-    def __init__(self, cfg: XLSTMConfig, is_slstm: bool):
+    def __init__(self, cfg: XLSTMConfig, is_slstm: bool, dtype: torch.dtype = torch.float32):
         super().__init__()
         d = cfg.embedding_dim
         self.is_slstm = is_slstm
+        self.dtype = dtype
         self.xlstm_norm = nn.LayerNorm(d, eps=LN_EPS)
-        self.xlstm = SLSTMLayer(cfg) if is_slstm else MLSTMLayer(cfg)
+        self.xlstm = SLSTMLayer(cfg, dtype) if is_slstm else MLSTMLayer(cfg, dtype)
         if is_slstm:
             self.ffn_norm = nn.LayerNorm(d, eps=LN_EPS)
-            self.ffn = FFN(d, cfg.ffn_inner)
+            self.ffn = FFN(d, cfg.ffn_inner, dtype)
 
     def _ffn(self, x):
-        return x + self.ffn(self.ffn_norm(x)) if self.is_slstm else x
+        return x + self.ffn(layer_norm(self.ffn_norm, x, self.dtype)) if self.is_slstm else x
+
+    def _norm(self, x):
+        return layer_norm(self.xlstm_norm, x, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._ffn(x + self.xlstm(self.xlstm_norm(x)))
+        return self._ffn(x + self.xlstm(self._norm(x)))
 
     def prefill(self, x: torch.Tensor):
-        y, state = self.xlstm.prefill(self.xlstm_norm(x))
+        y, state = self.xlstm.prefill(self._norm(x))
         return self._ffn(x + y), state
 
     def step(self, x: torch.Tensor, state: BlockState):
-        y, state = self.xlstm.step(self.xlstm_norm(x), state)
+        y, state = self.xlstm.step(self._norm(x), state)
         return self._ffn(x + y), state
 
 
 class XLSTMStack(nn.Module):
-    def __init__(self, cfg: XLSTMConfig):
+    def __init__(self, cfg: XLSTMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.blocks = nn.ModuleList(XLSTMBlock(cfg, i in cfg.slstm_at) for i in range(cfg.num_blocks))
+        self.dtype = dtype
+        self.blocks = nn.ModuleList(XLSTMBlock(cfg, i in cfg.slstm_at, dtype) for i in range(cfg.num_blocks))
         self.post_blocks_norm = nn.LayerNorm(cfg.embedding_dim, eps=LN_EPS)
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(self.post_blocks_norm, x, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        return self.post_blocks_norm(x)
+        return self._norm(x)
 
     def prefill(self, x: torch.Tensor):
         states = []
         for block in self.blocks:
             x, st = block.prefill(x)
             states.append(st)
-        return self.post_blocks_norm(x), tuple(states)
+        return self._norm(x), tuple(states)
 
     def step(self, x: torch.Tensor, states):
         new_states = []
         for block, st in zip(self.blocks, states):
             x, st = block.step(x, st)
             new_states.append(st)
-        return self.post_blocks_norm(x), tuple(new_states)
+        return self._norm(x), tuple(new_states)
 
 
 class XLSTMLM(nn.Module):
     """Composer-conditioned xLSTM generator (reference xlstm_model.py)."""
 
-    def __init__(self, cfg: XLSTMConfig):
+    def __init__(self, cfg: XLSTMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         d = cfg.embedding_dim
         self.token_embedding = nn.Embedding(cfg.vocab_size, d)
         self.metadata_embedding = nn.Embedding(cfg.metadata_vocab_size, d)
-        self.layers = XLSTMStack(cfg)
+        self.layers = XLSTMStack(cfg, dtype)
         self.output_layer = nn.Linear(d, cfg.vocab_size)
 
     def _embed(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self.metadata_embedding(meta), self.token_embedding(tokens)], dim=1)
+        return torch.cat([embed(self.metadata_embedding, meta, self.dtype),
+                          embed(self.token_embedding, tokens, self.dtype)], dim=1)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The f32 lm_head on the hidden states, whatever the compute dtype."""
+        return self.output_layer(h.to(torch.float32))
 
     def hidden(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         """Post-norm hidden states (B, meta+T, d): the lm_head input."""
@@ -347,17 +381,17 @@ class XLSTMLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
         """(B, T) tokens + (B, 6) meta -> (B, T, vocab) logits."""
-        return self.output_layer(self.hidden(tokens, meta))[:, meta.shape[1]:]
+        return self._logits(self.hidden(tokens, meta))[:, meta.shape[1]:]
 
     def prefill(self, tokens: torch.Tensor, meta: torch.Tensor):
         """Returns (logits (B, T, vocab), per-block decode states)."""
         x, states = self.layers.prefill(self._embed(tokens, meta))
-        return self.output_layer(x)[:, meta.shape[1]:], states
+        return self._logits(x)[:, meta.shape[1]:], states
 
     def step(self, token: torch.Tensor, states):
         """token (B,) -> (logits (B, vocab), new states)."""
-        x, states = self.layers.step(self.token_embedding(token), states)
-        return self.output_layer(x), states
+        x, states = self.layers.step(embed(self.token_embedding, token, self.dtype), states)
+        return self._logits(x), states
 
 
 class DeadHead(nn.Module):
@@ -376,25 +410,28 @@ class XLSTMClassifier(nn.Module):
     """Composer classifier: tokens (B, T) -> meta logits (B, meta vocab)
     from the last position's post-norm hidden state."""
 
-    def __init__(self, cfg: ClassifierConfig):
+    def __init__(self, cfg: ClassifierConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         d = cfg.embedding_dim
         self.token_embedding = nn.Embedding(cfg.vocab_size, d)
-        self.layers = XLSTMStack(cfg.stack)
+        self.layers = XLSTMStack(cfg.stack, dtype)
         self.fc = nn.Linear(d, cfg.metadata_vocab_size)
         self.output_layer = DeadHead(d, cfg.vocab_size)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.layers(self.token_embedding(tokens))
-        return self.fc(x[:, -1, :])
+        x = self.layers(embed(self.token_embedding, tokens, self.dtype))
+        return self.fc(x[:, -1, :].to(torch.float32))
 
 
-def empty_model(cfg: XLSTMConfig | ClassifierConfig, device: torch.device | str) -> XLSTMLM | XLSTMClassifier:
+def empty_model(cfg: XLSTMConfig | ClassifierConfig, device: torch.device | str,
+                dtype: torch.dtype = torch.float32) -> XLSTMLM | XLSTMClassifier:
     """An uninitialised XLSTMLM (or XLSTMClassifier, for a ClassifierConfig)
-    on `device` (built on the meta device)."""
+    on `device` computing in `dtype`, its parameters f32 (built on the meta
+    device)."""
     with torch.device("meta"):
-        model = XLSTMClassifier(cfg) if isinstance(cfg, ClassifierConfig) else XLSTMLM(cfg)
+        model = XLSTMClassifier(cfg, dtype) if isinstance(cfg, ClassifierConfig) else XLSTMLM(cfg, dtype)
     return model.to_empty(device=device)
 
 

@@ -32,6 +32,12 @@ call.
 `flash_relpos_attention_train` is the differentiable form (a
 torch.autograd.Function: D with LSE forward, E backward). The other two
 launch wrappers refuse to run where autograd would record them.
+
+`flash_relpos_attention` and `flash_relpos_attention_train` take q, k, v and
+rel in any float dtype (a bf16 model's activations) as the TPU wrapper does:
+upcast to f32 around the kernels, the output cast back to q's dtype, and
+autograd carries the gradients back through the casts. The kernels stage to
+bf16 themselves, so bf16 inputs reach them with the same bits.
 """
 from __future__ import annotations
 
@@ -86,6 +92,11 @@ def flash_relpos_attention_plain(q, k, v, rel_emb, scale: float, n_meta: int = N
     if with_lse:
         return out, (m + torch.log(l)).reshape(b * h, t)
     return out
+
+
+def _f32(*xs):
+    """The tensors in f32 (the same tensors where they are f32 already)."""
+    return tuple(x.to(torch.float32) for x in xs)
 
 
 def _check_qkv(what: str, q, k, v) -> None:
@@ -153,11 +164,14 @@ def flash_relpos_attention(q, k, v, rel_emb, scale: float, n_meta: int = NUM_MET
     (H, >= T, 128). Returns (B, H, T, 128) f32, a view of a contiguous
     (B, T, H, 128) tensor (the layout the out-projection reads). On CUDA it
     raises under grad mode if an input requires grad: training goes through
-    flash_relpos_attention_train."""
+    flash_relpos_attention_train. Inputs of another float dtype are upcast
+    to f32 and the output returned in q's dtype."""
+    out_dtype = q.dtype
+    q, k, v, rel_emb = _f32(q, k, v, rel_emb)
     if not q.is_cuda:
-        return flash_relpos_attention_plain(q, k, v, rel_emb, scale, n_meta)
+        return flash_relpos_attention_plain(q, k, v, rel_emb, scale, n_meta).to(out_dtype)
     refuse_grad("flash_relpos_attention (kernel D)", q, k, v, rel_emb)
-    return _launch_forward(q, k, v, rel_emb, scale, n_meta, False)[0]
+    return _launch_forward(q, k, v, rel_emb, scale, n_meta, False)[0].to(out_dtype)
 
 
 def flash_relpos_attention_lse(q, k, v, rel_emb, scale: float, n_meta: int = NUM_META):
@@ -389,5 +403,9 @@ class FlashRelposAttention(torch.autograd.Function):
 
 def flash_relpos_attention_train(q, k, v, rel_emb, scale: float, n_meta: int = NUM_META):
     """The training form of flash_relpos_attention: differentiable in q, k, v
-    and rel_emb (the whole learned buffer; rows >= T get zero gradient)."""
-    return FlashRelposAttention.apply(q, k, v, rel_emb, scale, n_meta)
+    and rel_emb (the whole learned buffer; rows >= T get zero gradient).
+    Inputs of another float dtype are upcast to f32 around the kernels and
+    the output is returned in q's dtype; their gradients come back through
+    the casts in their own dtypes."""
+    out_dtype = q.dtype
+    return FlashRelposAttention.apply(*_f32(q, k, v, rel_emb), scale, n_meta).to(out_dtype)

@@ -8,7 +8,8 @@ Port of musicgen_tpu/ops/ssm.py. These are the plain versions of kernel A
 
 Shapes (G = ngroups, H = heads, P = headdim, N = d_state):
   x: (B, T, H, P)   dt: (B, T, H)   A: (H,)   Bmat/C: (B, T, G, N), H % G == 0
-All arithmetic is f32.
+All arithmetic is f32. The depthwise conv promotes as jnp does: bf16
+activations on f32 taps give f32 (the dtype of a bf16 model's conv).
 """
 from __future__ import annotations
 
@@ -137,9 +138,11 @@ def causal_conv1d(
     """Depthwise causal conv: y[t] = sum_k w[k] * x[t - (K-1) + k] + b.
 
     Written out as shifted products rather than F.conv1d, which cuDNN would
-    run in TF32 on the card."""
+    run in TF32 on the card. x and w are promoted to their common dtype
+    first (jnp's rule): bf16 activations on f32 taps give f32."""
     k = w.shape[0]
     t = x.shape[1]
+    x = x.to(torch.promote_types(x.dtype, w.dtype))
     y = 0
     for i in range(k):
         shift = k - 1 - i
@@ -156,9 +159,11 @@ def causal_conv1d_step(
     w: torch.Tensor,  # (K, C)
     bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """O(1) conv step. Returns (y (B,C), new_conv_state)."""
-    window = torch.cat([conv_state, x[:, None, :]], dim=1)  # (B,K,C)
-    y = torch.einsum("bkc,kc->bc", window, w)
+    """O(1) conv step. Returns (y (B,C), new_conv_state), promoted as
+    causal_conv1d."""
+    window = torch.cat([conv_state, x[:, None, :]], dim=1)  # (B,K,C), in the inputs' common dtype
+    dtype = torch.promote_types(window.dtype, w.dtype)
+    y = torch.einsum("bkc,kc->bc", window.to(dtype), w.to(dtype))
     if bias is not None:
         y = y + bias[None, :]
     return y, window[:, 1:, :]

@@ -225,20 +225,26 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
 
 
 class JsonLogger:
-    def __init__(self, path: Optional[str]):
+    """Prints and keeps the log entries; `enabled=False` (a data-parallel
+    rank other than 0) does neither."""
+
+    def __init__(self, path: Optional[str], enabled: bool = True):
         self.path = path
+        self.enabled = enabled
         self.entries = []
 
     def message(self, msg: str) -> None:
-        self.entries.append({"timestamp": str(datetime.now()), "message": msg})
-        print(msg, flush=True)
+        if self.enabled:
+            self.entries.append({"timestamp": str(datetime.now()), "message": msg})
+            print(msg, flush=True)
 
     def step(self, step: int, loss: float) -> None:
-        self.entries.append({"Step": step, "Loss": f"{loss:.4f}"})
-        print(f"Step: {step}, Loss: {loss:.4f}", flush=True)
+        if self.enabled:
+            self.entries.append({"Step": step, "Loss": f"{loss:.4f}"})
+            print(f"Step: {step}, Loss: {loss:.4f}", flush=True)
 
     def flush(self) -> None:
-        if self.path:
+        if self.enabled and self.path:
             os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
             with open(self.path, "w") as f:
                 json.dump(self.entries, f, indent=2)
@@ -296,6 +302,8 @@ def run_epochs(
     ckpt_dir: str,
     log_path: Optional[str],
     num_epochs: Optional[int] = None,
+    started: str = "Training started!",
+    main: bool = True,
 ) -> TrainState:
     """The epoch loop: train_step(src, trg, meta) -> loss over train_iter,
     validation with eval_step over test_iter each epoch, a checkpoint and a
@@ -303,11 +311,13 @@ def run_epochs(
     error.
 
     Losses stay on the device until the epoch summary; only the
-    eval_interval log line reads one back."""
+    eval_interval log line reads one back. `main=False` (a data-parallel
+    rank other than 0) runs the same steps and validation but logs and
+    saves nothing."""
     device = next(state.model.parameters()).device
-    logger = JsonLogger(log_path)
+    logger = JsonLogger(log_path, enabled=main)
     epochs = num_epochs if num_epochs is not None else values.epochs
-    logger.message("Training started!")
+    logger.message(started)
     # No honest loss exists before the first validation: a crash before it
     # saves as `loss_inf` (never kept as best), not `loss_0.00`.
     avg_val_loss = float("inf")
@@ -328,12 +338,13 @@ def run_epochs(
             avg_val_loss = val_total / max(len(val_losses), 1)
             logger.message(f"Epoch [{epoch+1}/{epochs}], Validation Loss: {avg_val_loss:.4f}")
 
-            if (epoch + 1) % values.save_interval == 0:
+            if main and (epoch + 1) % values.save_interval == 0:
                 save_checkpoint(ckpt_dir, state, avg_val_loss)
                 logger.flush()
     except KeyboardInterrupt:
         logger.message("Interrupted!")
     finally:
-        save_checkpoint(ckpt_dir, state, avg_val_loss)
+        if main:
+            save_checkpoint(ckpt_dir, state, avg_val_loss)
         logger.flush()
     return state
