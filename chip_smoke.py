@@ -218,7 +218,28 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      at most 0.95, no int8 matrix RTN's); the
      W8A16 kernels on the GPTQ pack against their plain chain over 16
      teacher-forced steps. Their launches go to the kernels line.
+ 14. diffusion (no kernel: the UNet is convolutions, group norms and
+     matmuls, plain PyTorch as the JAX package leaves it to XLA), at the
+     CLIs' full width (DiffusionDefaults(image_size=128): 95,004,680
+     parameters, a (4, 128, 128) canvas), seeded random weights on every
+     tensor: [14 unet] the card's f32 forward at batch 1 against the CPU's
+     on the same weights and input (TOL_UNET_F32), bf16 against f32 on the
+     card (TOL_UNET_BF16), ms host-paced and in a CUDA graph at batch 1 and
+     8 in bf16 and f32 beside the bound (the forward's operations, counted
+     by torch's FlopCounterMode, at the dtype's peak), peak memory; [14
+     sample] one p_sample step with ground-truth injection, card against CPU
+     on the same draws; [14 repaint] cli.inpaint's jump schedule (ddim25,
+     jump length 10, 10 samples: 385 steps) through the API on the card, 205
+     UNet forwards by a counter on the model, their device ms from CUDA
+     events; [14 train] ten bf16 Adam steps at batch 8 on one batch of
+     corpus canvases (the loss falls), ms/step, peak memory; [14 cli train]
+     cli.train_diffusion --steps 20 --batch 8 --ckpt on the synthesized
+     corpus, the checkpoint read back equal; [14 cli inpaint] cli.inpaint on
+     a .mid written from the corpus, plain and with --jumps --ema: the .mid
+     parses, its notes and the UNet forwards counted. No kernel's launch
+     counter moves in phase 14.
 Each phase's seconds print as [seconds <phase>].
+`--only diffusion` runs phases 1, 2 and 14 (its kernels line is empty).
 `--only 12` runs phases 1, 2 and 12 (its kernels line is empty; the new
 paths' launches print as [<kernel> launches]); `--only gptq` phases 1, 2
 and 13, the same way.
@@ -282,6 +303,7 @@ reference the kernels are held to.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -5621,8 +5643,325 @@ def phase_tail_paths(torch, report: dict, parent: Path | None) -> None:
         phase_x_decode(torch, xctx, report)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: diffusion, the canvas UNet, the Gaussian/RePaint sampler and the
+# two diffusion CLIs (no kernel of the port: convs, group norms and matmuls)
+# ---------------------------------------------------------------------------
+
+TOL_UNET_F32 = 1e-4  # card against CPU, f32 (TF32 off), of the output's largest value
+TOL_UNET_BF16 = 1e-1  # bf16 against f32 on the card: bf16's rounding over about 100 convs and norms
+TOL_SAMPLE = 1e-4  # [14 sample]'s step, card against CPU, of the largest value
+UNET_BATCHES = (1, 8)
+UNET_GRAPH = dict(calls=5, replays=3)  # a batch-8 f32 forward takes tens of ms
+D_TRAIN_STEPS = 10
+D_TRAIN_LR = 1e-4  # cli.train_diffusion's --lr (at 1e-3 the full-size loss oscillated: 1.003 -> 0.780 -> 1.004)
+D_BATCH = 8
+D_CLI_STEPS = 20
+D_MASK = (32, 96)  # cli.inpaint's default masked columns at width 128
+
+
+def all_launches() -> dict:
+    """Every kernel's launch counter, by name (A and H by their wrapper's
+    attribute, the rest from their modules' LAUNCHES)."""
+    from musicgen_tpu_torch.ops import ablate_kernel, probe_kernel
+    from musicgen_tpu_torch.ops import attention_kernel as ak
+    from musicgen_tpu_torch.ops import decode_kernel as dk
+    from musicgen_tpu_torch.ops.slstm_kernel import slstm_scan
+    from musicgen_tpu_torch.ops.ssd_kernel import ssd_scan
+
+    return {"ssd_scan": ssd_scan.launches, "slstm_scan": slstm_scan.launches, **ak.LAUNCHES, **dk.LAUNCHES,
+            **probe_kernel.LAUNCHES, **ablate_kernel.LAUNCHES}
+
+
+def diffusion_random_(torch, model, seed: int = SEED):
+    """Seeded random values on every tensor of a diffusion model (none zero,
+    the zero-initialised output convs included): kernels N(0, 1/fan_in),
+    norm scales 1 + N(0, 0.01), biases N(0, 0.01); drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            for name, p in m.named_parameters(recurse=False):
+                r = torch.randn(p.shape, generator=gen)
+                if p.ndim > 1:
+                    p.copy_(r * p[0].numel() ** -0.5)
+                elif isinstance(m, torch.nn.GroupNorm) and name == "weight":
+                    p.copy_(1.0 + 0.1 * r)
+                else:
+                    p.copy_(0.1 * r)
+    return model
+
+
+def corpus_canvas(corpus: Path):
+    """The normalised canvas of the corpus's first token file (its first
+    4,000 tokens, as cli.train_diffusion reads them), padded with -1 and
+    cropped to 128 columns, as (1, 4, 128, 128); and its notes."""
+    import numpy as np
+
+    from musicgen_tpu_torch.cli.train_diffusion import build_canvases
+    from musicgen_tpu_torch.data.dataset import find_token_files
+    from musicgen_tpu_torch.midi import decode
+
+    path = find_token_files(corpus)[0]
+    canvas = build_canvases(str(Path(path).parent), 1)[0]
+    if canvas.shape[-1] < 128:
+        canvas = np.pad(canvas, ((0, 0), (0, 0), (0, 128 - canvas.shape[-1])), constant_values=-1.0)
+    return canvas[None, :, :, :128].astype(np.float32), decode([int(t) for t in np.load(path)[:4000]])
+
+
+def unet_flops(torch, model, x, t) -> float:
+    """The operations of model(x, t) by torch's FlopCounterMode (products
+    and convolutions)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        model(x, t)
+    return float(fc.get_total_flops())
+
+
+def phase_diffusion(torch, corpus: Path, root: Path, card: str) -> None:
+    """Phase 14 (the module docstring lists its rows)."""
+    before = all_launches()
+    phase_repaint(torch, *phase_unet_and_sample(torch, corpus, card))
+    torch.cuda.empty_cache()
+    phase_diffusion_train(torch, corpus, card)
+    torch.cuda.empty_cache()
+    phase_diffusion_cli(torch, corpus, root)
+    after = all_launches()
+    names = set(KERNEL_INFO) | set(before) | set(after)
+    moved = {k: after.get(k, 0) - before.get(k, 0) for k in names if after.get(k, 0) != before.get(k, 0)}
+    need(not moved, f"[14] kernels launched on the diffusion paths: {moved}")
+    say(f"[14 launches] no kernel launched in phase 14: {len(names)} launch counters unchanged "
+        f"({sum(before.values())} launches before it, {sum(after.values())} after)")
+
+
+def phase_unet_and_sample(torch, corpus: Path, card: str) -> tuple:
+    """[14 unet] and [14 sample]; returns the UNet's config, its random
+    weights and the corpus canvas, for [14 repaint]."""
+    import numpy as np
+
+    from musicgen_tpu_torch.diffusion import DiffusionDefaults, create_gaussian_diffusion
+    from musicgen_tpu_torch.diffusion import unet
+    from musicgen_tpu_torch.diffusion.factories import unet_config
+
+    d = dataclasses.replace(DiffusionDefaults(image_size=128), timestep_respacing="ddim25")
+    cfg = unet_config(d)
+    m32 = diffusion_random_(torch, unet.empty_model(unet.UNetModel, DEVICE, cfg, torch.float32)).eval()
+    m16 = unet.empty_model(unet.UNetModel, DEVICE, cfg, torch.bfloat16).eval()
+    m16.load_state_dict(m32.state_dict())
+    cpu = unet.empty_model(unet.UNetModel, "cpu", cfg, torch.float32).eval()
+    cpu.load_state_dict(m32.state_dict())
+    n_params = sum(p.numel() for p in m32.parameters())
+    sd = create_gaussian_diffusion(d)
+
+    # [14 sample]: one p_sample step with ground-truth injection at spaced t
+    # 12, on the card and on the CPU, with the same draws (from the CPU).
+    gt, _ = corpus_canvas(corpus)
+    gen = torch.Generator().manual_seed(SEED)
+    shape = gt.shape
+    x, noise, gt_noise = (torch.randn(shape, generator=gen) for _ in range(3))
+    keep = torch.ones(shape)
+    keep[..., D_MASK[0]:D_MASK[1]] = 0.0
+    t = torch.full((1,), 12, dtype=torch.long)
+    outs = {}
+
+    def step(model, dev):
+        seen = []
+
+        def fn(xx, tt):
+            out = model(xx, tt)
+            seen.append((xx, tt, out))
+            return out
+
+        t0 = time.perf_counter()
+        res = sd.base.p_sample(sd.wrap_model(fn), x.to(dev), t.to(dev), noise.to(dev), torch.from_numpy(gt).to(dev),
+                               keep.to(dev), gt_noise.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return [r.cpu() for r in res], [a.cpu() for a in seen[0]], time.perf_counter() - t0
+
+    (card_s, card_x0), card_seen, _ = step(m32, DEVICE)
+    (cpu_s, cpu_x0), cpu_seen, cpu_secs = step(cpu, "cpu")
+    need(torch.equal(card_seen[1], cpu_seen[1]) and int(cpu_seen[1][0]) == int(sd.timestep_map[12]),
+         "[14 sample] the model saw another timestep")
+    f32_err = rel_err(card_seen[2], cpu_seen[2])
+    need(bool(torch.isfinite(card_seen[2]).all()) and f32_err[1] <= TOL_UNET_F32,
+         f"[14 unet] card f32 forward vs CPU: {f32_err} (tolerance {TOL_UNET_F32} of max |out|)")
+    xin = card_seen[0].to(DEVICE)
+    tin = card_seen[1].to(DEVICE)
+    out16 = m16(xin, tin)
+    need(out16.dtype == torch.bfloat16, "[14 unet] the bf16 model's output is not bf16")
+    bf_err = rel_err(out16.float().cpu(), card_seen[2])
+    need(0 < bf_err[1] <= TOL_UNET_BF16, f"[14 unet] bf16 vs f32 on the card: {bf_err} (tolerance {TOL_UNET_BF16})")
+    flops = unet_flops(torch, m32, xin, tin)
+    say(f"[14 unet] UNetModel DiffusionDefaults(image_size=128): {n_params:,} parameters, canvas {tuple(shape[1:])}; "
+        f"card f32 forward (TF32 off) vs CPU f32 at batch 1: max_abs {f32_err[0]:.3e} ({f32_err[1]:.3e} of max |out| "
+        f"{float(cpu_seen[2].abs().max()):.3f}, tolerance {TOL_UNET_F32}; the CPU forward {cpu_secs:.2f} s); bf16 vs "
+        f"f32 on the card {bf_err[0]:.3e} ({bf_err[1]:.3e}, tolerance {TOL_UNET_BF16}); {flops / 1e9:.3f} GFLOP a "
+        f"forward at batch 1 (FlopCounterMode); {card}")
+    for b in UNET_BATCHES:
+        xb = torch.randn((b,) + tuple(shape[1:]), generator=gen).to(DEVICE)
+        tb = torch.randint(0, 1000, (b,), generator=gen).to(DEVICE)
+        for name, model, peak in (("bf16", m16, BF16_FLOPS), ("f32", m32, F32_FLOPS)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            host = median_ms(torch, lambda: model(xb, tb))
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            graph = graph_ms(torch, lambda: model(xb, tb), **UNET_GRAPH)
+            bnd = bound(nbytes(*model.parameters()) + xb.numel() * 4 + 2 * xb.numel() * (2 if name == "bf16" else 4),
+                        b * flops, peak)
+            say(f"[14 unet {name} batch {b}] {host:.3f} ms host-paced (median of 5), {fmt_ms(graph)} in a CUDA graph; "
+                f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}: {b * flops / 1e9:.1f} GFLOP at the "
+                f"{name} peak); peak memory {mem:.2f} GiB")
+    samp_err, x0_err = rel_err(card_s, cpu_s), rel_err(card_x0, cpu_x0)
+    need(samp_err[1] <= TOL_SAMPLE and x0_err[1] <= TOL_SAMPLE and bool(torch.isfinite(card_s).all()),
+         f"[14 sample] card vs CPU: sample {samp_err}, pred_xstart {x0_err} (tolerance {TOL_SAMPLE})")
+    kept = float((card_s - torch.from_numpy(gt)).abs()[keep.bool()].mean())
+    say(f"[14 sample] p_sample at spaced t 12 (timestep {int(sd.timestep_map[12])}) with ground truth and keep "
+        f"mask, f32, card vs CPU on the same draws: sample max_abs {samp_err[0]:.3e} ({samp_err[1]:.3e}), "
+        f"pred_xstart {x0_err[0]:.3e} ({x0_err[1]:.3e}), tolerance {TOL_SAMPLE}; mean |sample - gt| on the kept "
+        f"columns {kept:.4f}")
+    state = m16.state_dict()
+    del m32, m16, cpu
+    torch.cuda.empty_cache()
+    return cfg, state, gt
+
+
+def phase_repaint(torch, cfg, state: dict, gt) -> None:
+    """[14 repaint]: cli.inpaint's jump schedule through the API, in bf16, on
+    the UNet `cfg` with weights `state` and the ground truth `gt`."""
+    from musicgen_tpu_torch.diffusion import DiffusionDefaults, RePaintConf, create_gaussian_diffusion
+    from musicgen_tpu_torch.diffusion import unet
+
+    model = unet.empty_model(unet.UNetModel, DEVICE, cfg, torch.bfloat16).eval()
+    model.load_state_dict(state)
+    sd = create_gaussian_diffusion(dataclasses.replace(DiffusionDefaults(), timestep_respacing="ddim25"))
+    times = RePaintConf(schedule_jump_params=dict(t_T=sd.num_timesteps, n_sample=1, jump_length=10,
+                                                  jump_n_sample=10)).jump_times()
+    pairs = list(zip(times[:-1], times[1:]))
+    downs = sum(b < a for a, b in pairs)
+    need(len(pairs) == 385 and downs == 205, f"[14 repaint] the ladder has {len(pairs)} steps, {downs} denoising")
+    events, outs = [], []
+
+    def fn(x, t):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = model(x, t)
+        ev[1].record()
+        events.append(ev)
+        outs.append(out)
+        return out
+
+    keep = torch.ones(gt.shape, device=DEVICE)
+    keep[..., D_MASK[0]:D_MASK[1]] = 0.0
+    gtd = torch.from_numpy(gt).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sd.p_sample_loop_scan(fn, gt.shape, gen, gt=gtd, gt_keep_mask=keep, times=times)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    need(len(events) == 205, f"[14 repaint] {len(events)} UNet forwards, not 205")
+    finite = all(bool(torch.isfinite(o).all()) for o in outs) and bool(torch.isfinite(out).all())
+    need(finite, "[14 repaint] a UNet output or the sample is not finite")
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    say(f"[14 repaint] ddim25, jump length 10 x 10 samples: {len(pairs)} steps, {len(events)} UNet forwards "
+        f"(bf16, batch 1), every output finite; {secs:.3f} s, {1e3 * secs / len(events):.3f} ms a denoising step "
+        f"(host clock), the UNet forward {statistics.median(dev_ms):.3f} ms median ({sum(dev_ms) / 1e3:.3f} s in "
+        f"all; CUDA events); mean |out - gt| on the kept columns "
+        f"{float((out - gtd).abs()[keep.bool()].mean()):.4f}")
+    del model, outs
+    torch.cuda.empty_cache()
+
+
+def phase_diffusion_train(torch, corpus: Path, card: str) -> None:
+    """[14 train]: D_TRAIN_STEPS bf16 Adam steps at batch D_BATCH on one
+    batch of corpus canvases and one draw of t and noise, from the
+    factories' init."""
+    from musicgen_tpu_torch.cli.train_diffusion import build_canvases
+    from musicgen_tpu_torch.diffusion import DiffusionDefaults, RandomSnippet, create_model_and_diffusion
+    from musicgen_tpu_torch.diffusion.trainer import draw_step, make_diffusion_train_step
+
+    canvases = build_canvases(str(corpus), 200)
+    batch = torch.from_numpy(RandomSnippet(canvases, width=128, seed=SEED).sample(D_BATCH)).to(DEVICE)
+    with torch.enable_grad():
+        model, sd = create_model_and_diffusion(DiffusionDefaults(image_size=128), torch.bfloat16, DEVICE, SEED)
+        t, noise = draw_step(batch, sd.num_timesteps, torch.Generator(device=DEVICE).manual_seed(SEED))
+        ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_diffusion_train_step(model, sd, torch.optim.Adam(model.parameters(), lr=D_TRAIN_LR))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        for _ in range(D_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, terms = step(ema, batch, t, noise)
+            losses.append(float(loss))  # synchronises
+            secs.append(time.perf_counter() - t0)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    need(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"[14 train] losses {losses}")
+    say(f"[14 train] {D_TRAIN_STEPS} bf16 Adam steps (lr {D_TRAIN_LR}, EMA) at batch {D_BATCH} x (4, 128, 128), "
+        f"{len(canvases)} corpus canvases: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"{1e3 * statistics.median(secs[1:]):.2f} ms/step median of steps 2-{D_TRAIN_STEPS} (host clock, "
+        f"synchronised; the first {1e3 * secs[0]:.1f}); peak memory {mem:.2f} GiB; {card}")
+    del model, ema, step
+    torch.cuda.empty_cache()
+
+
+def phase_diffusion_cli(torch, corpus: Path, root: Path) -> None:
+    """[14 cli train] and [14 cli inpaint], the CLIs' main() in this
+    process (so that the launch counters see them)."""
+    from musicgen_tpu_torch.cli import inpaint as inpaint_cli
+    from musicgen_tpu_torch.cli import train_diffusion as train_cli
+    from musicgen_tpu_torch.diffusion import create_model
+    from musicgen_tpu_torch.diffusion.unet import UNetModel
+    from musicgen_tpu_torch.interop import DIFFUSION_FILE
+    from musicgen_tpu_torch.midi import extract_midi, note_to_midi
+
+    ckpt = root / "diffusion14"
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        params, ema = train_cli.main(["--data", str(corpus), "--steps", str(D_CLI_STEPS), "--batch", str(D_BATCH),
+                                      "--ckpt", str(ckpt), "--seed", str(SEED), "--device", DEVICE])
+    secs = time.perf_counter() - t0
+    saved = torch.load(ckpt / DIFFUSION_FILE, map_location="cpu", weights_only=True)
+    model = create_model(train_cli.DEFAULTS, torch.bfloat16, DEVICE)
+    for key, want in (("params", params), ("ema", ema)):
+        model.load_state_dict(saved[key], strict=True)
+        got = model.state_dict()
+        need(all(torch.equal(got[k], want[k]) for k in want), f"[14 cli train] the checkpoint's {key} reload unequal")
+    moved = sum(float((saved["params"][k] - saved["ema"][k]).abs().sum()) for k in saved["params"])
+    say(f"[14 cli train] cli.train_diffusion --steps {D_CLI_STEPS} --batch {D_BATCH} --ckpt: returned in "
+        f"{secs:.1f} s (canvases, init and the steps); {DIFFUSION_FILE} of {len(saved['params'])} f32 tensors, params "
+        f"and EMA read back equal (|params - ema| summed {moved:.4f})")
+    del model, params, ema, saved
+    torch.cuda.empty_cache()
+
+    _, notes = corpus_canvas(corpus)
+    mid = root / "inpaint14_in.mid"
+    note_to_midi(notes, str(mid))
+    forwards = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, args: forwards.append(1) if isinstance(m, UNetModel) else None)
+    try:
+        for tag, extra, n in (("plain", [], 25), ("jumps ema", ["--jumps", "--ema"], 205)):
+            out = root / f"inpaint14_{tag.replace(' ', '_')}.mid"
+            forwards.clear()
+            t0 = time.perf_counter()
+            got = inpaint_cli.main(["--ckpt", str(ckpt), "--midi", str(mid), "--out", str(out), "--device", DEVICE,
+                                    *extra])
+            secs = time.perf_counter() - t0
+            back = extract_midi(str(out))
+            need(len(forwards) == n, f"[14 cli inpaint {tag}] {len(forwards)} UNet forwards, not {n}")
+            need(len(back) > 0, f"[14 cli inpaint {tag}] {out.name} re-extracts with no notes")
+            say(f"[14 cli inpaint {tag}] cli.inpaint --respacing ddim25{''.join(' ' + a for a in extra)}: returned in {secs:.2f} s "
+                f"({len(forwards)} UNet forwards, {1e3 * secs / n:.2f} ms each with the step, init and I/O "
+                f"included); {len(got)} notes written, {len(back)} re-extracted from {out.name}")
+    finally:
+        hook.remove()
+
+
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] [--parent DIR];
+    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|diffusion]
+    [--parent DIR];
     None where absent or wrong."""
     opts, rest = {}, list(argv)
     while len(rest) >= 2 and rest[0] in ("--only", "--parent") and rest[0] not in opts:
@@ -5630,7 +5969,7 @@ def parse_args(argv: list) -> tuple:
         rest = rest[2:]
     only = opts.get("--only")
     if rest or only not in (None, "7", "8", "9", "10", "11", "12", "gptq", "int8", "bf16", "flash", "resident",
-                            "tail", "mixer", "ssd"):
+                            "tail", "mixer", "ssd", "diffusion"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -5711,7 +6050,8 @@ def main() -> int:
     t_start = time.perf_counter()
     args = parse_args(sys.argv[1:])
     if args is None:
-        print("usage: python3 chip_smoke.py [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd] "
+        print("usage: python3 chip_smoke.py [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|"
+              "diffusion] "
               "[--parent DIR]",
               file=sys.stderr)
         return 2
@@ -5747,6 +6087,11 @@ def main() -> int:
             phase_gptq(torch, root, *synth_corpus(root))
         for name, rows in PATH_LAUNCHES.items():
             say(f"[{name} launches] on phase 13's paths: " + " + ".join(f"{n} {row}" for row, n in rows.items()))
+        return finish(torch, card, report, [], t_start)
+    if only == "diffusion":
+        with tempfile.TemporaryDirectory() as tmp, clock("14"):
+            root = Path(tmp)
+            phase_diffusion(torch, synth_corpus(root)[0], root, card)
         return finish(torch, card, report, [], t_start)
     if only == "10":
         phase_probes(torch, report)
@@ -5849,6 +6194,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         with clock("13 gptq"):
             phase_gptq(torch, root, corpus, meta_path)
+        torch.cuda.empty_cache()
+        with clock("14"):
+            phase_diffusion(torch, corpus, root, card)
     torch.cuda.empty_cache()
     with clock("10 probes"):
         phase_probes(torch, report)

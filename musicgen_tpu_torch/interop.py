@@ -33,6 +33,23 @@ holds `token_embedding`, the stack under `layers.`, `fc` and no
 `metadata_embedding`, plus the reference's dead `output_layer` Linear,
 which the loader discards (zeros in its place) and the port writes as
 zeros, so that a reference Classifier loads the port's file strict=True.
+
+The diffusion UNets (`diffusion/unet.py` UNetModel, SuperResModel,
+EncoderUNetModel) keep the flax tree's own layout: each module path of the
+flax params, joined by dots, is the port's (`down_{level}_{i}.conv_in`,
+`down_attn_{level}_{i}.qkv`, `down_{level}_ds.op`, `mid_1`, `mid_attn`,
+`up_{level}_{i}.skip`, `up_{level}_us.conv`, `norm_out`, `conv_out`;
+SuperResModel's under `unet.`; the encoder's `out`, `out1`, `out2`,
+`out_norm_scale`, `attn_pool.positional_embedding`), and
+`diffusion_state_dict` renames only the leaves: a conv `kernel` (kh, kw,
+in, out) becomes `weight` (out, in, kh, kw), a Dense `kernel` (in, out)
+`weight` (out, in), a GroupNorm `scale` `weight`; biases and the other
+parameters keep their names and shapes. The reference's guided-diffusion
+layout is not read: the reference never trained this UNet (its
+`training_losses` is missing), so no checkpoint exists in it.
+`cli.train_diffusion` writes `{"params": state_dict, "ema": state_dict}`
+as `<ckpt>/diffusion.pth` (DIFFUSION_FILE), which `cli.inpaint` reads; it
+is not a `model.pth`, so `load_checkpoint` never takes it for an LM.
 """
 from __future__ import annotations
 
@@ -47,6 +64,7 @@ from .config import NUM_META, ClassifierConfig, MambaConfig, TransformerConfig, 
 
 StateDict = Dict[str, torch.Tensor]
 MODEL_FILE = "model.pth"  # a checkpoint directory's weights (train/trainer.save_checkpoint)
+DIFFUSION_FILE = "diffusion.pth"  # a diffusion checkpoint directory's {params, ema} (cli.train_diffusion)
 
 
 def _mamba_state_dict(p: Dict[str, Any], cfg: MambaConfig) -> Dict[str, np.ndarray]:
@@ -194,6 +212,28 @@ def from_jax_params(variables: Any, cfg: AnyConfig) -> StateDict:
         raise TypeError(f"from_jax_params takes the port's MambaConfig, TransformerConfig, XLSTMConfig or "
                         f"ClassifierConfig, got {type(cfg)}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def diffusion_state_dict(variables: Any) -> StateDict:
+    """Flax params of a diffusion UNet ({'params': ...} or the params tree,
+    numpy leaves) -> the port's state dict of the same module (the layout in
+    the module docstring)."""
+    sd: StateDict = {}
+
+    def walk(tree: Any, prefix: str) -> None:
+        for name, leaf in tree.items():
+            if hasattr(leaf, "items"):
+                walk(leaf, f"{prefix}{name}.")
+                continue
+            a = np.asarray(leaf)
+            if name == "kernel":
+                name, a = "weight", a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            elif name == "scale":
+                name = "weight"
+            sd[prefix + name] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    walk(variables["params"] if "params" in variables else variables, "")
+    return sd
 
 
 def load_checkpoint(path: str) -> StateDict:

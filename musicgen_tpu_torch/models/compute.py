@@ -10,6 +10,8 @@ parameters and computes, as the JAX package's models built with
   * `embed`: nn.Embed(dtype=): the looked-up rows cast to the dtype;
   * `layer_norm`: nn.LayerNorm(dtype=): statistics and affine in f32, the
     output cast to the dtype;
+  * `conv`: nn.Conv(dtype=) (the diffusion UNet's): input, kernel and bias
+    cast to the dtype, the output in the dtype;
   * everywhere else torch's promotion, which is jnp's for these operands: a
     bf16 tensor times an f32 tensor gives f32.
 
@@ -31,6 +33,25 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
         return layer(x.to(dtype))
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Conv(dtype=dtype) on the nn.Conv2d's f32 parameters.
+
+    On the CPU a bf16 convolution is computed from the bf16 operands in f32
+    and rounded once, which is what torch's bf16 convolution computes (the
+    same bits but for rare one-rounding differences): its CPU kernel returns
+    non-finite values at random for a stride-2 3x3 convolution one output
+    column wide (torch 2.13), a shape the diffusion UNet's Downsample
+    reaches on narrow canvases."""
+    if layer.weight.dtype == dtype:
+        return layer(x.to(dtype))
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    if x.device.type == "cpu" and dtype == torch.bfloat16:
+        f32 = torch.float32
+        return layer._conv_forward(x.to(dtype).to(f32), layer.weight.to(dtype).to(f32),
+                                   None if bias is None else bias.to(f32)).to(dtype)
+    return layer._conv_forward(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def embed(table: nn.Embedding, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

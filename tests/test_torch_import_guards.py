@@ -22,6 +22,8 @@ def test_package_never_imports_jax():
     assert "musicgen_tpu_torch.cli.evaluate" in modules and "musicgen_tpu_torch.cli.train_classifier" in modules
     assert "musicgen_tpu_torch.cli.preprocess" in modules and "musicgen_tpu_torch.eval.timing" in modules
     assert "musicgen_tpu_torch.serve.scheduler" in modules and "musicgen_tpu_torch.cli.serve" in modules
+    assert "musicgen_tpu_torch.diffusion.unet" in modules and "musicgen_tpu_torch.diffusion.gaussian" in modules
+    assert "musicgen_tpu_torch.cli.inpaint" in modules and "musicgen_tpu_torch.cli.train_diffusion" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -44,6 +46,8 @@ def test_package_never_imports_the_jax_package():
     assert "musicgen_tpu_torch.experiments.kernel_ablate" in modules and "musicgen_tpu_torch.ops.ablate_kernel" in modules
     assert "musicgen_tpu_torch.eval.accuracy" in modules and "musicgen_tpu_torch.eval.classifier_eval" in modules
     assert "musicgen_tpu_torch.data.preprocess" in modules and "musicgen_tpu_torch.serve" in modules
+    assert "musicgen_tpu_torch.diffusion.unet" in modules and "musicgen_tpu_torch.diffusion.gaussian" in modules
+    assert "musicgen_tpu_torch.cli.inpaint" in modules and "musicgen_tpu_torch.cli.train_diffusion" in modules
     code = (
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
