@@ -238,7 +238,25 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      a .mid written from the corpus, plain and with --jumps --ema: the .mid
      parses, its notes and the UNet forwards counted. No kernel's launch
      counter moves in phase 14.
+ 15. the multi-rank training strategies (musicgen_tpu_torch/parallel/), each
+     in a one-rank NCCL group of this process (one card checks a group of
+     one; groups of 2 and 4 ranks are held by the CPU tests), on one (BATCH,
+     PROMPT) batch at full width in f32: [15 pp transformer] (8 blocks) and
+     [15 pp mamba] (10 mixers) a GPipe pipe of one stage at P15_M
+     microbatches, its loss within TOL_P15_LOSS of the unsharded step's and
+     each gradient within TOL_P15_GRAD of its tensor's largest value, or,
+     for the Transformer, within D and E's own distance from the plain f32
+     attention's gradient (they round p and dS to bf16, so another split of
+     the batch over their launches moves dRel by a few 1e-3); D with LSE and
+     each E launch exactly blocks x M a step; ms/step beside the unsharded
+     step's; [15 tp] the vocabulary-parallel token table and head over a
+     model group of one, swapped into the Transformer, bit for bit with the
+     unsharded model (loss and every gradient); [15 sp mamba] the
+     time-sharded step in a group of one against the unsharded step, no
+     kernel launched.
 Each phase's seconds print as [seconds <phase>].
+`--only parallel` runs phases 1, 2 and 15 (its kernels line is empty; D
+with LSE's and E's launches print as [<kernel> launches]).
 `--only diffusion` runs phases 1, 2 and 14 (its kernels line is empty).
 `--only 12` runs phases 1, 2 and 12 (its kernels line is empty; the new
 paths' launches print as [<kernel> launches]); `--only gptq` phases 1, 2
@@ -338,7 +356,7 @@ TOP3_STRICT_TOKENS = 16
 # a token as the median and the mean of each tree's runs (2 x LOOP_TURNS
 # each: 10 parent/this pairs).
 LOOP_TURNS = 5
-PLAIN_LOOP_TOKENS = 200
+PLAIN_LOOP_TOKENS = 100  # [5 loop]'s plain MambaLM.step, host-paced (10 ms a token)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at 700 W)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
 F32_FLOPS = 67e12  # f32 outside the tensor cores (H100 SXM data sheet)
@@ -381,7 +399,7 @@ WRAP_BLOCK, WRAP_STEPS = 32, 40
 # [7 flash]'s ragged lengths: one partial tile (the metadata columns only in
 # key tile 0), one row past a key tile, and a length between.
 FLASH_RAGGED_T = (38, 129, 200)
-T_PLAIN_LOOP_TOKENS = 100
+T_PLAIN_LOOP_TOKENS = 50  # [7 loop plain], host-paced (13 ms a token)
 # [7 tdecode_attn ragged]: a ring of four splits, the last of 8 slots, at
 # batch 1, 5 (batch groups of 3 and 2) and 8 (two of 4), the newest slot at
 # both ends and at a run whose rel rows wrap.
@@ -464,8 +482,11 @@ TOL_W8A16 = 2e-2  # a W8A16 GEMV against its plain version (bf16 activations, in
 TOL_X_F32 = {"bf16": 0.05, "int8w": 0.12, "bf16-sb16": 0.05, "int8w-sb16": 0.12}
 X_CLI_SHORT = 200  # tokens of the int8w / sb16 / int8w-sb16 CLI runs
 X_CLI_TINY = 64  # tokens of the on / int8 / off CLI runs
-X_LOOP_TOKENS = 500
-X_PLAIN_LOOP_TOKENS = 100
+# [9 loop]'s host-paced runs (4 formats x 4 runs at 3-6 ms a token) and the
+# plain f32 step's (25 ms a token), at counts that keep the full run inside
+# its time.
+X_LOOP_TOKENS = 250
+X_PLAIN_LOOP_TOKENS = 50
 
 KERNEL_INFO = {
     "ssd_scan": ("musicgen_tpu_torch/csrc/ssd_scan.cu", "musicgen_tpu/ops/pallas_ssd.py:27"),
@@ -3248,6 +3269,51 @@ DDP_STEPS = 6  # [8 ddp]: the steps held bit for bit; ms/step is the median of s
 # after the first)
 
 
+@contextlib.contextmanager
+def one_rank_group(torch, row: str):
+    """A one-rank NCCL group of this process ([8 ddp], phase 15), joined as
+    cli.train joins a launcher's (train/distributed.init_from_env), left and
+    its environment restored after."""
+    import torch.distributed as dist
+
+    from musicgen_tpu_torch.train import distributed
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        rank, world, _ = distributed.init_from_env(DEVICE)
+        need((rank, world) == (0, 1) and dist.get_backend() == "nccl", f"[{row}] group {rank}/{world}")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.cuda.empty_cache()
+
+
+def unsharded_step(torch, model, optimizer):
+    """The one-process deterministic step that [8 ddp] and phase 15 hold the
+    multi-rank steps to: eval-mode forward (no dropout), the grammar-filtered
+    CE, Adam."""
+    from musicgen_tpu_torch.train.loss import filtered_cross_entropy
+
+    @torch.enable_grad()
+    def step(src, trg, meta):
+        model.eval()
+        optimizer.zero_grad(set_to_none=True)
+        loss = filtered_cross_entropy(src, model(src, meta), trg)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
 def phase_ddp(torch, corpus: Path, meta_path: Path) -> None:
     """[8 ddp]: train/distributed.py on the card in a one-rank NCCL group of
     this process (a launcher's environment set here): DDP_STEPS steps of the
@@ -3256,35 +3322,18 @@ def phase_ddp(torch, corpus: Path, meta_path: Path) -> None:
     dropout, the same loss, Adam) on a copy of the model; the losses and
     every parameter bit for bit (a difference is printed with its size),
     exact launches of D and E in both, the ms/step of each."""
-    import torch.distributed as dist
-
     from musicgen_tpu_torch.config import TransformerConfig
     from musicgen_tpu_torch.models.transformer import empty_model, init_weights_
     from musicgen_tpu_torch.ops import attention_kernel as ak
     from musicgen_tpu_torch.train import distributed
     from musicgen_tpu_torch.train import trainer as T
-    from musicgen_tpu_torch.train.loss import filtered_cross_entropy
 
-    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
-    saved_env = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     batch = train_batch(torch, corpus, meta_path)
-    try:
-        rank, world, dev = distributed.init_from_env(DEVICE)
-        need((rank, world) == (0, 1) and dist.get_backend() == "nccl", f"[8 ddp] group {rank}/{world}")
+    with one_rank_group(torch, "8 ddp"):
         ddp_model, ref = (init_weights_(empty_model(TransformerConfig(), DEVICE, torch.bfloat16), SEED)
                           for _ in range(2))
         _, ddp_step = distributed.build_distributed_training(ddp_model)
-        ref_opt = T.make_optimizer(ref)
-
-        @torch.enable_grad()
-        def ref_step(src, trg, meta):
-            ref.eval()
-            ref_opt.zero_grad(set_to_none=True)
-            loss = filtered_cross_entropy(src, ref(src, meta), trg)
-            loss.backward()
-            ref_opt.step()
-            return loss.detach()
+        ref_step = unsharded_step(torch, ref, T.make_optimizer(ref))
 
         runs = {}
         for name, fn in (("ddp", ddp_step), ("unwrapped", ref_step)):
@@ -3314,16 +3363,7 @@ def phase_ddp(torch, corpus: Path, meta_path: Path) -> None:
             need(runs[name][1] == want, f"[8 ddp] {name}: launched {runs[name][1]}, expected {want}")
         for name, n in want.items():
             count_path(name, "[8 ddp]", n)
-        del ddp_model, ref, ddp_step, ref_opt
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        torch.cuda.empty_cache()
+        del ddp_model, ref, ddp_step, ref_step
 
 
 CLI_PARALLEL_TIMEOUT = 300
@@ -5959,8 +5999,229 @@ def phase_diffusion_cli(torch, corpus: Path, root: Path) -> None:
         hook.remove()
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the multi-rank training strategies (parallel/), each in a one-rank
+# NCCL group of this process
+# ---------------------------------------------------------------------------
+
+P15_M = 2  # GPipe microbatches of [15 pp ...]: one row each at batch 2
+P15_STEPS = 3  # timed Adam steps of each strategy and of the unsharded step, in turns, after the held step
+TOL_P15_LOSS = 1e-5  # relative, against the unsharded step's loss
+TOL_P15_GRAD = 1e-3  # of each gradient tensor's largest value; the rows print the worst
+
+
+def moved_since(before: dict) -> dict:
+    """Every kernel launch counter's rise since the all_launches() snapshot
+    `before`, where it rose."""
+    now = all_launches()
+    return {n: c - before.get(n, 0) for n, c in now.items() if c != before.get(n, 0)}
+
+
+def held(torch, model, fn) -> tuple:
+    """(loss, {name: gradient}) of fn() (a forward and backward of the
+    model's parameters, under grad mode), from zeroed gradients."""
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss = fn()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def unsharded_loss(model, src, trg, meta):
+    """The unsharded forward's filtered CE, backpropagated."""
+    from musicgen_tpu_torch.train.loss import filtered_cross_entropy
+
+    loss = filtered_cross_entropy(src, model(src, meta), trg)
+    loss.backward()
+    return loss
+
+
+def p15_check(row: str, got: tuple, want: tuple, own: dict | None = None) -> str:
+    """Holds a strategy's (loss, gradients) to the unsharded step's: the loss
+    at TOL_P15_LOSS relative, each gradient at TOL_P15_GRAD of its tensor's
+    largest value, or, where `own` gives it ({name: the unsharded kernel
+    step's distance from the plain f32 attention's gradient}), within the
+    larger of that and the kernels' own distance; returns the numbers for
+    the row's line."""
+    (loss, grads), (ref_loss, ref) = got, want
+    need(sorted(grads) == sorted(ref), f"[{row}] gradients of other tensors than the unsharded step's")
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    need(rel <= TOL_P15_LOSS, f"[{row}] loss {loss} against the unsharded step's {ref_loss} (rel {rel:.3e})")
+    errs = {n: rel_err(grads[n], ref[n]) for n in ref}
+    worst = max((e[1], n) for n, e in errs.items())
+    over = {n for n, e in errs.items() if e[1] > TOL_P15_GRAD}
+    for n in over:
+        need(own is not None and errs[n][0] <= own[n],
+             f"[{row}] gradient {n} off by {errs[n][1]:.3e} of its largest value"
+             + ("" if own is None else f", {errs[n][0]:.3e} against the kernels' own {own[n]:.3e} from f32"))
+    text = (f"loss {loss:.6f} against {ref_loss:.6f} unsharded (rel {rel:.3e}, tol {TOL_P15_LOSS}); worst gradient "
+            f"{worst[0]:.3e} of its tensor's largest at {worst[1]} (tol {TOL_P15_GRAD}"
+            f"{'; within 1e-4' if worst[0] <= 1e-4 else ''})")
+    if own is not None:
+        rest = max((e[1], n) for n, e in errs.items() if n not in over) if len(over) < len(errs) else (0.0, "-")
+        text += (f"; {len(over)} tensors past {TOL_P15_GRAD} ({', '.join(sorted(over)[:4])}{' ...' if len(over) > 4 else ''}), "
+                 f"each within D and E's own distance from the plain f32 attention's gradient (largest ratio "
+                 f"{max((errs[n][0] / own[n] for n in over), default=0.0):.3f}); the rest within {rest[0]:.3e} at "
+                 f"{rest[1]}")
+    return text
+
+
+def p15_times(torch, steps: dict, batch) -> dict:
+    """Median ms/step of each Adam step of `steps` ({name: step(src, trg,
+    meta)}), P15_STEPS of each in turns after a warm-up step each (host
+    clock around a synchronised step)."""
+    secs = {name: [] for name in steps}
+    for i in range(P15_STEPS + 1):
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(*batch))
+            if i:
+                secs[name].append(time.perf_counter() - t0)
+    return {name: 1e3 * statistics.median(v) for name, v in secs.items()}
+
+
+def phase_pp(torch, kind: str, model, batch) -> None:
+    """[15 pp transformer|mamba]: parallel/pipeline.py over a pipe of one
+    stage (the whole model) at P15_M microbatches: pp_loss's loss and
+    gradients against the unsharded step's on one batch, the Transformer's D
+    with LSE and E launched exactly blocks x M times a step (blocks once a
+    step unsharded; Mamba's plain scan launches no kernel), and the ms of
+    each Adam step in turns."""
+    from musicgen_tpu_torch.parallel import pipeline
+    from musicgen_tpu_torch.train import trainer as T
+
+    row = f"15 pp {kind}"
+    src, trg, meta = batch
+    grid = pipeline.make_pipe_grid(1)
+    stage = pipeline.PipelineStage(model, 1, 0)
+    model.eval()
+    L = pipeline.n_layers(model.cfg)
+    before = all_launches()
+    want = held(torch, model, lambda: unsharded_loss(model, src, trg, meta))
+    plain_launches = moved_since(before)
+    before = all_launches()
+    got = held(torch, model, lambda: pipeline.pp_loss(stage, src, trg, meta, grid, P15_M, backward=True))
+    pp_launches = moved_since(before)
+    own = None
+    if kind == "transformer":
+        # D and E round p and dS to bf16: how far the unsharded kernel step's
+        # gradients are from the plain f32 attention's bounds how far another
+        # split of the batch over their launches may move them.
+        impl = model.cfg.attention_impl
+        set_attention(model, "xla")
+        exact = held(torch, model, lambda: unsharded_loss(model, src, trg, meta))
+        set_attention(model, impl)
+        own = {n: rel_err(g, exact[1][n])[0] for n, g in want[1].items()}
+    numbers = p15_check(row, got, want, own)
+    per = {"flash_relpos_lse": L, **dict.fromkeys(E_LAUNCHES, L)} if kind == "transformer" else {}
+    need(plain_launches == per, f"[{row}] the unsharded step launched {plain_launches}, expected {per}")
+    need(pp_launches == {n: P15_M * c for n, c in per.items()},
+         f"[{row}] the pipeline step launched {pp_launches}, expected blocks x M of D with LSE and E")
+    optimizer = T.make_optimizer(model)
+    before = all_launches()
+    ms = p15_times(torch, {"pp": pipeline.make_pp_train_step(stage, optimizer, grid, P15_M),
+                           "unsharded": unsharded_step(torch, model, optimizer)}, batch)
+    timed = moved_since(before)
+    steps = P15_STEPS + 1
+    need(timed == {n: (P15_M + 1) * c * steps for n, c in per.items()}, f"[{row}] the timed steps launched {timed}")
+    for name, c in per.items():
+        count_path(name, f"[{row}]", P15_M * c * (steps + 1))
+    say(f"[{row}] a pipe of one stage ({L} {'blocks' if kind == 'transformer' else 'mixers'} at full width, f32), "
+        f"M = {P15_M} microbatches of ({BATCH // P15_M}, {PROMPT}): {numbers}; launches a step {pp_launches} "
+        f"(the unsharded step {plain_launches}); {ms['pp']:.2f} ms/step through the GPipe schedule, "
+        f"{ms['unsharded']:.2f} unsharded (median of {P15_STEPS} Adam steps in turns, host clock around a "
+        f"synchronised step)")
+
+
+def phase_sp(torch, model, batch) -> None:
+    """[15 sp mamba]: parallel/sp_train.py in a group of one (the whole
+    stream on its rank, SSD chunks of the largest divisor of 2,054 up to
+    64): sp_loss's loss and gradients (summed over the group) against the
+    unsharded step's, and the ms of each Adam step in turns."""
+    from musicgen_tpu_torch.parallel import mesh, sp_train
+    from musicgen_tpu_torch.train import trainer as T
+
+    row = "15 sp mamba"
+    src, trg, meta = batch
+    model.eval()
+    want = held(torch, model, lambda: unsharded_loss(model, src, trg, meta))
+
+    def sp():
+        share = sp_train.sp_loss(model, src, trg, meta)
+        share.backward()
+        mesh.sum_gradients(model.parameters())
+        return share
+
+    before = all_launches()
+    got = held(torch, model, sp)
+    numbers = p15_check(row, got, want)
+    optimizer = T.make_optimizer(model)
+    ms = p15_times(torch, {"sp": sp_train.make_sp_train_step(model, optimizer),
+                           "unsharded": unsharded_step(torch, model, optimizer)}, batch)
+    moved = moved_since(before)
+    need(not moved, f"[{row}] a kernel was launched on the plain scan's path: {moved}")
+    say(f"[{row}] a group of one, {model.cfg.n_layers} mixers at full width (f32), ({BATCH}, {PROMPT}): {numbers}; "
+        f"{ms['sp']:.2f} ms/step time-sharded, {ms['unsharded']:.2f} unsharded (median of {P15_STEPS} Adam steps "
+        f"in turns, host clock); no kernel launched (the plain scan, as JAX's sequence-parallel step)")
+
+
+def phase_tp(torch, model, batch) -> None:
+    """[15 tp]: parallel/mesh.py's vocabulary-parallel token table and head
+    over a model group of one, swapped into the Transformer in place: the
+    loss and every gradient bit for bit with the unsharded model's on one
+    batch, and D with LSE and E launched once a block each."""
+    from musicgen_tpu_torch.parallel import mesh
+
+    row = "15 tp"
+    src, trg, meta = batch
+    model.eval()
+    L = model.cfg.n_layer
+
+    def fn():
+        return unsharded_loss(model, src, trg, meta)
+
+    before = all_launches()
+    want = held(torch, model, fn)
+    mesh.shard_vocab_(model, None, 1, 0)
+    need(isinstance(model.token_embedding_table, mesh.VocabParallelEmbedding)
+         and isinstance(model.lm_head, mesh.VocabParallelHead), f"[{row}] the vocabulary tensors were not swapped")
+    got = held(torch, model, fn)
+    launches = moved_since(before)
+    differing = sum(int((got[1][n] != g).sum()) for n, g in want[1].items())
+    say(f"[{row}] the Transformer at full width (f32) with its token table and head split over a model group of "
+        f"one: loss {got[0]!r} against {want[0]!r} unsharded; {differing} gradient elements differ; launches "
+        f"{launches} over both steps")
+    need(got[0] == want[0] and differing == 0, f"[{row}] not bit for bit with the unsharded step")
+    per = {"flash_relpos_lse": 2 * L, **dict.fromkeys(E_LAUNCHES, 2 * L)}
+    need(launches == per, f"[{row}] launched {launches}, expected {per}")
+    for name, c in per.items():
+        count_path(name, f"[{row}]", c)
+
+
+def phase_parallel(torch, corpus: Path, meta_path: Path) -> None:
+    """Phase 15: [15 pp transformer], [15 tp] (the f32 Transformer at full
+    width), [15 pp mamba] and [15 sp mamba] (the f32 Mamba at full width),
+    each in a one-rank NCCL group of this process, on one (BATCH, PROMPT)
+    batch of the corpus."""
+    from musicgen_tpu_torch.config import MambaConfig, TransformerConfig
+    from musicgen_tpu_torch.models import mamba, transformer
+
+    batch = train_batch(torch, corpus, meta_path)
+    with one_rank_group(torch, "15"):
+        model = transformer.init_weights_(transformer.empty_model(TransformerConfig(dropout=0.0), DEVICE), SEED)
+        phase_pp(torch, "transformer", model, batch)
+        phase_tp(torch, model, batch)
+        del model
+        torch.cuda.empty_cache()
+        model = mamba.init_weights_(mamba.empty_model(MambaConfig(), DEVICE), SEED)
+        phase_pp(torch, "mamba", model, batch)
+        phase_sp(torch, model, batch)
+        del model
+
+
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|diffusion]
+    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|diffusion|parallel]
     [--parent DIR];
     None where absent or wrong."""
     opts, rest = {}, list(argv)
@@ -5969,7 +6230,7 @@ def parse_args(argv: list) -> tuple:
         rest = rest[2:]
     only = opts.get("--only")
     if rest or only not in (None, "7", "8", "9", "10", "11", "12", "gptq", "int8", "bf16", "flash", "resident",
-                            "tail", "mixer", "ssd", "diffusion"):
+                            "tail", "mixer", "ssd", "diffusion", "parallel"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -6051,7 +6312,7 @@ def main() -> int:
     args = parse_args(sys.argv[1:])
     if args is None:
         print("usage: python3 chip_smoke.py [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|"
-              "diffusion] "
+              "diffusion|parallel] "
               "[--parent DIR]",
               file=sys.stderr)
         return 2
@@ -6092,6 +6353,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp, clock("14"):
             root = Path(tmp)
             phase_diffusion(torch, synth_corpus(root)[0], root, card)
+        return finish(torch, card, report, [], t_start)
+    if only == "parallel":
+        with tempfile.TemporaryDirectory() as tmp, clock("15"):
+            phase_parallel(torch, *synth_corpus(Path(tmp)))
+        for name, rows in PATH_LAUNCHES.items():
+            say(f"[{name} launches] on phase 15's paths: " + " + ".join(f"{n} {row}" for row, n in rows.items()))
         return finish(torch, card, report, [], t_start)
     if only == "10":
         phase_probes(torch, report)
@@ -6197,6 +6464,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         with clock("14"):
             phase_diffusion(torch, corpus, root, card)
+        torch.cuda.empty_cache()
+        with clock("15"):
+            phase_parallel(torch, corpus, meta_path)
     torch.cuda.empty_cache()
     with clock("10 probes"):
         phase_probes(torch, report)

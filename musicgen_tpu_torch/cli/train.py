@@ -1,9 +1,11 @@
-"""Training CLI of the PyTorch/CUDA port (reference train.py; port of
-musicgen_tpu/cli/train.py, single device).
+"""Training CLI of the PyTorch/CUDA port (reference train.py / train_parallel.py;
+port of musicgen_tpu/cli/train.py).
 
   python -m musicgen_tpu_torch.cli.train --model transformer --data data/np \
       --metadata data/metadata.json [--resume CKPT] [--epochs N] [--block-len N] [--bf16]
-  torchrun --nproc_per_node N -m musicgen_tpu_torch.cli.train --parallel ...
+  torchrun --nproc_per_node N -m musicgen_tpu_torch.cli.train --parallel [--tp K] ...
+  torchrun --nproc_per_node N -m musicgen_tpu_torch.cli.train --pp N [--pp-microbatches M] ...
+  torchrun --nproc_per_node N -m musicgen_tpu_torch.cli.train --sp N ...
 
 Without --resume the family's full-width default config is built and
 initialised from --seed (init_weights_); --resume takes a checkpoint
@@ -22,12 +24,27 @@ directory in --ckpt-dir that `cli.generate --ckpt <dir>/model.pth` reads.
 
 --bf16 computes in bf16 with f32 parameters, Adam state, loss and lm_head
 (models/compute.py, the JAX CLI's --bf16); its checkpoints are the same f32
-`model.pth`. --parallel trains data-parallel (train/distributed.py) under a
-launcher such as torchrun: every rank draws the same global batches of
---batch-size rows and trains on its share, DDP averages the gradients over
-NCCL (--device cuda, one card a rank) or gloo (--device cpu), the step runs
-without dropout or augmentation as the JAX step does, and rank 0 alone logs
-and writes the checkpoints.
+`model.pth`.
+
+The multi-rank strategies run one process a rank under a launcher such as
+torchrun (NCCL with --device cuda, one card a rank; gloo with --device cpu),
+and the launcher's group must have the size the flags need. Every rank draws
+the same global batches of --batch-size rows; the steps run without dropout
+or augmentation, as the JAX steps do; rank 0 alone logs, and writes each
+checkpoint in the one-process layout (the model and its Adam state gathered
+over the ranks), which `cli.generate` and the one-process loader read.
+  --parallel [--tp K]: data-parallel over world / K ranks (DDP), each data
+      share's K ranks splitting the vocabulary-sized token table and head
+      (train/distributed.py, parallel/mesh.py); the world must divide by K.
+  --pp N [--pp-microbatches M]: GPipe over N ranks, Mamba or the
+      Transformer (parallel/pipeline.py; M defaults to the largest divisor
+      of the batch up to 4N).
+  --sp N: the time axis of a Mamba step over N ranks (parallel/sp_train.py;
+      --block-len + 6 must divide by N).
+--pp and --sp compute in f32 whatever --bf16 says, as the JAX paths do
+(their stream is the f32 tables'). --pp 1 and --sp 1 are the one-process
+step. --multihost joins a multi-node launcher's group (torchrun --nnodes) for
+one of these strategies; the port's groups then span the nodes.
 """
 from __future__ import annotations
 
@@ -39,22 +56,15 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-from ..config import MambaConfig, TrainValues, TransformerConfig, XLSTMConfig
+from ..config import MambaConfig, MeshConfig, TrainValues, TransformerConfig, XLSTMConfig
 from ..data.dataset import TokenDataset, make_loaders
 from ..interop import config_from_state_dict, family, load_checkpoint, xlstm_state_dict
 from ..models import mamba, transformer, xlstm
+from ..parallel.mesh import full_optimizer_state, full_state_dict, make_grid
+from ..parallel.pipeline import PipelineStage, make_pipe_grid, make_pp_eval_step, make_pp_train_step, pp_full_state
+from ..parallel.sp_train import make_sp_train_step, sp_loss_value
 from ..train import distributed
 from ..train import trainer as T
-
-# The JAX CLI's options that the port does not have yet, and what they wait
-# for (--tp is ported at 1, the JAX default, and refused above it).
-_NOT_PORTED = {
-    "sp": "sequence-parallel training",
-    "pp": "pipeline-parallel training",
-    "pp_microbatches": "pipeline-parallel training",
-    "multihost": "multi-host training",
-}
-
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Train a music generator (PyTorch/CUDA)")
@@ -87,11 +97,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--parallel", action="store_true",
                    help="data-parallel training over the ranks of a launcher (torchrun): NCCL with --device "
                         "cuda, gloo with cpu")
-    p.add_argument("--tp", type=int, default=1, help="model-axis size with --parallel: 1 (tensor "
-                                                     "parallelism is not yet ported)")
-    p.add_argument("--multihost", action="store_true", help="not yet ported")
-    for flag in ("sp", "pp", "pp-microbatches"):
-        p.add_argument(f"--{flag}", type=int, default=None, help="not yet ported")
+    p.add_argument("--tp", type=int, default=1,
+                   help="model-axis size with --parallel: the vocabulary-sized token table and head split over "
+                        "this many ranks of each data share (tensor parallelism)")
+    p.add_argument("--sp", type=int, default=0,
+                   help="sequence-parallel Mamba training: the time axis over this many ranks (block_len + 6 "
+                        "must divide by it; f32 compute; parallel/sp_train.py)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline-parallel training of Mamba or the Transformer: the layers over this many ranks "
+                        "(GPipe; each rank holds its stage and its Adam moments; f32 compute; parallel/pipeline.py)")
+    p.add_argument("--pp-microbatches", type=int, default=0,
+                   help="GPipe microbatch count (default: the largest batch divisor <= 4 * pp)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-node launcher's group (torchrun --nnodes) for --parallel, --pp or --sp")
     return p.parse_args(argv)
 
 
@@ -109,11 +127,11 @@ DEFAULT_CONFIGS = {"mamba": MambaConfig, "transformer": TransformerConfig, "xlst
 MODULES = {"mamba": mamba, "transformer": transformer, "xlstm": xlstm}
 
 
-def build_model(args: argparse.Namespace, device: torch.device):
+def build_model(args: argparse.Namespace, device: torch.device, dtype: Optional[torch.dtype] = None):
     """The model, with --resume's weights (a checkpoint directory's
     model.pth, or a bare .pth) or initialised from --seed. The config comes
     from --resume's shapes, else the family's default; --attention, --remat
-    and --bf16 (the compute dtype) apply to either."""
+    and the compute dtype (`dtype`, else --bf16's) apply to either."""
     sd = None
     if args.resume:
         sd = load_checkpoint(args.resume)
@@ -129,7 +147,7 @@ def build_model(args: argparse.Namespace, device: torch.device):
         cfg = dataclasses.replace(cfg, attention_impl=args.attention)
     cfg = dataclasses.replace(cfg, remat=args.remat)
     module = MODULES[args.model]
-    model = module.empty_model(cfg, device, torch.bfloat16 if args.bf16 else torch.float32)
+    model = module.empty_model(cfg, device, dtype or (torch.bfloat16 if args.bf16 else torch.float32))
     if sd is None:
         module.init_weights_(model, args.seed)
     else:
@@ -137,21 +155,43 @@ def build_model(args: argparse.Namespace, device: torch.device):
     return model
 
 
+def strategy(args: argparse.Namespace) -> Optional[str]:
+    """The multi-rank strategy the flags ask for, in the JAX CLI's order
+    ('pp', 'sp', 'parallel'), or None for the one-process step. Raises on
+    what the JAX CLI refuses (--pp for an xLSTM, --sp but for Mamba) and on
+    flags that would quietly train one process: --tp without --parallel,
+    --pp-microbatches without --pp, --multihost without a strategy."""
+    if args.pp > 1:
+        if args.model not in ("mamba", "transformer"):
+            raise SystemExit("--pp implements the mamba and transformer steps only (an xLSTM has no stage forward "
+                             "for its mLSTM/sLSTM mix yet)")
+        chosen = "pp"
+    elif args.sp > 1:
+        if args.model != "mamba":
+            raise SystemExit("--sp implements the mamba step only")
+        chosen = "sp"
+    else:
+        chosen = "parallel" if args.parallel else None
+    if args.tp != 1 and not (args.parallel and args.tp > 1):
+        raise ValueError("--tp splits the vocabulary over the ranks of --parallel: pass --parallel with --tp above 1")
+    if args.pp_microbatches and chosen != "pp":
+        raise ValueError("--pp-microbatches sets the microbatches of --pp above 1: pass --pp")
+    if args.multihost and chosen is None:
+        raise ValueError("--multihost joins a launcher's group for --parallel, --pp or --sp: none is given")
+    if chosen and args.augmentation:
+        raise ValueError(f"--{chosen} trains without augmentation, as the JAX package's multi-device steps")
+    return chosen
+
+
 def main(argv: Optional[List[str]] = None) -> T.TrainState:
-    """Runs the CLI; returns the final TrainState (of this rank, with
-    --parallel)."""
+    """Runs the CLI; returns the final TrainState (of this rank, whose model
+    is its shard or stage, with a multi-rank strategy)."""
     args = parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not yet ported to musicgen_tpu_torch ({what})")
-    if args.tp != 1:
-        raise NotImplementedError("--tp above 1 is not yet ported to musicgen_tpu_torch (tensor parallelism)")
-    if args.parallel:
-        if args.augmentation:
-            raise ValueError("--parallel trains without augmentation, as the JAX package's distributed step")
+    chosen = strategy(args)
+    if chosen:
         rank, world, device = distributed.init_from_env(args.device)
         try:
-            return _train(args, device, rank, world)
+            return _train(args, device, rank, world, chosen)
         finally:
             dist.destroy_process_group()
     device = cli_device(args.device)
@@ -159,10 +199,20 @@ def main(argv: Optional[List[str]] = None) -> T.TrainState:
     return _train(args, device)
 
 
-def _train(args: argparse.Namespace, device: torch.device, rank: int = 0, world: int = 0) -> T.TrainState:
-    """The run on one device; `world` > 0 makes it rank `rank` of a
-    data-parallel group."""
-    model = build_model(args, device)
+def _group_of(world: int, n: int, flag: str) -> None:
+    if world != n:
+        raise ValueError(f"--{flag} {n} needs a group of {n} ranks, the launcher's has {world}: "
+                         f"torchrun --nproc_per_node {n}")
+
+
+def _train(args: argparse.Namespace, device: torch.device, rank: int = 0, world: int = 0,
+           chosen: Optional[str] = None) -> T.TrainState:
+    """The run of this process: one device, or rank `rank` of a group of
+    `world` under strategy `chosen`."""
+    if chosen in ("pp", "sp"):
+        _group_of(world, args.pp if chosen == "pp" else args.sp, chosen)
+    model = build_model(args, torch.device("cpu") if chosen == "pp" else device,
+                        torch.float32 if chosen in ("pp", "sp") else None)
 
     defaults = TrainValues()
     values = dataclasses.replace(  # a Transformer's block defaults to its own (its rel table's rows)
@@ -175,16 +225,46 @@ def _train(args: argparse.Namespace, device: torch.device, rank: int = 0, world:
     train_iter, test_iter = make_loaders(dataset, values, seed=args.seed)  # the same batches on every rank
     ckpt_dir = args.ckpt_dir or os.path.join("checkpoints", args.model)
     log_path = args.log or os.path.join("logs", f"training_log_{args.model}.json")
+    f32_note = " (f32 compute, as the JAX path)" if args.bf16 else ""
 
-    if world:
-        optimizer, step = distributed.build_distributed_training(model, values, loss_chunk=args.loss_chunk)
-        return T.run_epochs(T.TrainState(model, optimizer), step, T.make_lm_eval_step(model), train_iter,
-                            test_iter, values, ckpt_dir, log_path,
-                            started=f"Training started! mesh={{'data': {world}, 'model': 1}}", main=rank == 0)
-    state = T.TrainState(model, T.make_optimizer(model, values))  # fresh Adam at step 0, resumed or not
-    generator = torch.Generator(device=device).manual_seed(args.seed)  # augmentation's draws
-    return T.train_lm(state, train_iter, test_iter, values, ckpt_dir=ckpt_dir, log_path=log_path,
-                      generator=generator, loss_chunk=args.loss_chunk)
+    if chosen is None:
+        state = T.TrainState(model, T.make_optimizer(model, values))  # fresh Adam at step 0, resumed or not
+        generator = torch.Generator(device=device).manual_seed(args.seed)  # augmentation's draws
+        return T.train_lm(state, train_iter, test_iter, values, ckpt_dir=ckpt_dir, log_path=log_path,
+                          generator=generator, loss_chunk=args.loss_chunk)
+
+    def gathered(full):
+        """run_epochs' save: full() (a collective) on every rank, rank 0 writes."""
+        def save(loss: float) -> None:
+            sd, opt = full()
+            if rank == 0:
+                T.save_checkpoint(ckpt_dir, state, loss, model_state=sd, optimizer_state=opt)
+        return save
+
+    if chosen == "pp":
+        grid = make_pipe_grid(args.pp)
+        stage = PipelineStage(model, grid.stages, grid.index).to(device)
+        del model
+        optimizer = T.make_optimizer(stage, values)
+        state = T.TrainState(stage, optimizer)
+        micro = args.pp_microbatches or None
+        return T.run_epochs(state, make_pp_train_step(stage, optimizer, grid, micro),
+                            make_pp_eval_step(stage, grid, micro), train_iter, test_iter, values, ckpt_dir,
+                            log_path, started=f"Training started! pp={args.pp} (layer-sharded GPipe){f32_note}",
+                            main=rank == 0, save=gathered(lambda: pp_full_state(stage, optimizer, grid)))
+    if chosen == "sp":
+        optimizer = T.make_optimizer(model, values)
+        state = T.TrainState(model, optimizer)
+        return T.run_epochs(state, make_sp_train_step(model, optimizer), lambda s, t, m: sp_loss_value(model, s, t, m),
+                            train_iter, test_iter, values, ckpt_dir, log_path,
+                            started=f"Training started! sp={args.sp} (time-sharded){f32_note}", main=rank == 0)
+    grid = make_grid(MeshConfig(model=args.tp))
+    optimizer, step = distributed.build_distributed_training(model, values, loss_chunk=args.loss_chunk, grid=grid)
+    state = T.TrainState(model, optimizer)
+    save = gathered(lambda: (full_state_dict(model), full_optimizer_state(model, optimizer))) if grid.model > 1 else None
+    return T.run_epochs(state, step, T.make_lm_eval_step(model), train_iter, test_iter, values, ckpt_dir, log_path,
+                        started=f"Training started! mesh={{'data': {grid.data}, 'model': {grid.model}}}",
+                        main=rank == 0, save=save)
 
 
 if __name__ == "__main__":

@@ -272,6 +272,22 @@ class ClassifierConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The process grid of multi-rank training (musicgen_tpu/config.py
+    MeshConfig): `data` is the data-parallel axis (DDP's), `model` splits
+    the vocabulary-sized embedding and head over its ranks (tensor
+    parallelism, parallel/mesh.py)."""
+
+    data: int = -1  # -1 = all ranks
+    model: int = 1
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int]:
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else n_devices // model
+        return data, model
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     values: TrainValues = TrainValues()
     classifier: ClassifierConfig = ClassifierConfig()

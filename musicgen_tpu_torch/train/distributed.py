@@ -13,8 +13,17 @@ gradient of the global batch's mean loss, the JAX step's.
 The step is deterministic, as the JAX one: the model runs with its dropout
 off (eval() mode, under grad) and without augmentation. Parameters stay
 replicated: DDP broadcasts rank 0's parameters when it wraps the model, and
-every rank applies the same averaged gradients with its own Adam. Tensor
-parallelism (the JAX mesh's 'model' axis above 1) is not ported.
+every rank applies the same averaged gradients with its own Adam.
+
+Tensor parallelism (`grid`, the JAX mesh's 'model' axis above 1): the ranks
+form a (data, model) grid (parallel/mesh.py). Each model group takes one data
+share of the batch, splits the vocabulary-sized token table and head over
+its ranks (VocabParallelEmbedding, VocabParallelHead) and computes the rest
+replicated; DDP runs over the data group, so each model rank's shards and
+its replicated parameters are averaged over the ranks of its model index.
+This covers kind 'lm' for every family, with and without loss_chunk, and
+kind 'classifier', whose token table splits as JAX's param_shardings splits
+it. `parallel.mesh.full_state_dict` gathers the unsharded state dict.
 
 `init_from_env` joins the group a launcher (torchrun,
 `python -m torch.distributed.run`) describes in RANK, WORLD_SIZE,
@@ -23,7 +32,7 @@ LOCAL_RANK, MASTER_ADDR and MASTER_PORT.
 from __future__ import annotations
 
 import os
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -31,6 +40,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from ..config import TrainValues
+from ..parallel.mesh import Grid, VocabParallelHead, shard_vocab_
 from .loss import chunked_filtered_cross_entropy, classifier_bce, filtered_cross_entropy
 from .trainer import lm_head, make_optimizer
 
@@ -81,7 +91,8 @@ class _Objective(nn.Module):
         if self.loss_chunk:
             head = lm_head(self.model)
             return chunked_filtered_cross_entropy(src, self.model.hidden(src, meta), head.weight, head.bias, trg,
-                                                  chunk=self.loss_chunk)
+                                                  chunk=self.loss_chunk,
+                                                  project=head if isinstance(head, VocabParallelHead) else None)
         return filtered_cross_entropy(src, self.model(src, meta), trg)
 
 
@@ -90,9 +101,12 @@ def make_distributed_train_step(
     optimizer: torch.optim.Optimizer,
     kind: str = "lm",
     loss_chunk: int = 0,
+    grid: Optional[Grid] = None,
 ) -> Callable:
     """Returns step(src, trg, meta) -> loss over the initialised process
-    group: each rank passes the same global batch and trains on its share.
+    group: each rank passes the same global batch and trains on its data
+    index's share (`grid`, parallel/mesh.make_grid; None is data-parallel
+    over every rank).
 
     kind='lm': the grammar-filtered CE of the three generators; loss_chunk
     > 0 takes the chunked CE from the final hidden states (the same loss and
@@ -102,21 +116,21 @@ def make_distributed_train_step(
     rank. `step.module` is the DDP module."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    grid = grid or Grid(dist.get_world_size(), 1, dist.get_rank())
     device = next(model.parameters()).device
-    ddp = DistributedDataParallel(_Objective(model, kind, loss_chunk),
+    ddp = DistributedDataParallel(_Objective(model, kind, loss_chunk), process_group=grid.data_group,
                                   device_ids=[device.index] if device.type == "cuda" else None)
-    rank, world = dist.get_rank(), dist.get_world_size()
 
     @torch.enable_grad()
     def step(src, trg, meta):
         model.eval()  # no dropout: the JAX step applies the model deterministically
         optimizer.zero_grad(set_to_none=True)
-        loss = ddp(*(rank_share(x, rank, world) for x in (src, trg, meta)))
+        loss = ddp(*(rank_share(x, grid.data_index, grid.data) for x in (src, trg, meta)))
         loss.backward()
         optimizer.step()
         total = loss.detach().clone()
-        dist.all_reduce(total)
-        return total / world
+        dist.all_reduce(total, group=grid.data_group)
+        return total / grid.data
 
     step.module = ddp
     return step
@@ -127,10 +141,16 @@ def build_distributed_training(
     values: TrainValues = TrainValues(),
     kind: str = "lm",
     loss_chunk: int = 0,
+    grid: Optional[Grid] = None,
 ) -> Tuple[torch.optim.Optimizer, Callable]:
     """(optimizer, step): Adam as trainer.make_optimizer and
-    make_distributed_train_step's step. Wrapping the model in DDP
-    broadcasts rank 0's parameters to every rank, as the JAX version places
-    one copy of the parameters on every device."""
+    make_distributed_train_step's step. With a grid whose model axis is
+    above 1 the model's vocabulary table and head are first replaced IN
+    PLACE by this rank's shards (parallel/mesh.shard_vocab_; every rank
+    holds the same whole model before). Wrapping the model in DDP broadcasts
+    the first data rank's parameters over each data group, as the JAX
+    version places one copy of the parameters on every device."""
+    if grid is not None and grid.model > 1:
+        shard_vocab_(model, grid.model_group, grid.model, grid.model_index)
     optimizer = make_optimizer(model, values)
-    return optimizer, make_distributed_train_step(model, optimizer, kind, loss_chunk)
+    return optimizer, make_distributed_train_step(model, optimizer, kind, loss_chunk, grid)

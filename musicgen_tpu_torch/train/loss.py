@@ -38,8 +38,10 @@ def filtered_cross_entropy(
     return _nll_sum(prev_tokens, logits, targets, layout) / targets.numel()
 
 
-def _chunk_nll(hc, pc, tc, weight, bias, layout: VocabLayout) -> torch.Tensor:
-    return _nll_sum(pc, torch.nn.functional.linear(hc.to(torch.float32), weight, bias), tc, layout)
+def _chunk_nll(hc, pc, tc, weight, bias, layout: VocabLayout, project=None) -> torch.Tensor:
+    hc = hc.to(torch.float32)
+    logits = project(hc) if project is not None else torch.nn.functional.linear(hc, weight, bias)
+    return _nll_sum(pc, logits, tc, layout)
 
 
 def chunked_filtered_cross_entropy(
@@ -50,19 +52,23 @@ def chunked_filtered_cross_entropy(
     targets: torch.Tensor,  # (B, T)
     chunk: int = 256,
     layout: VocabLayout = VOCAB,
+    project=None,
 ) -> torch.Tensor:
     """filtered_cross_entropy(prev_tokens, head(hidden)[:, -T:], targets)
     without the whole (B, T, V) logits: the head, the grammar filter and the
     CE run per time chunk under checkpoint, so the backward recomputes each
     chunk's logits (one extra head product) and the vocab-sized memory is
-    O(chunk), not O(T). The last chunk may be short."""
+    O(chunk), not O(T). The last chunk may be short. `project` (f32 hidden
+    chunk -> logits) replaces the product with head_weight and head_bias: a
+    vocabulary-parallel head (parallel/mesh.py) gathers its shards' logits,
+    again in the backward's recomputation."""
     b, t = prev_tokens.shape
     h = hidden[:, hidden.shape[1] - t:, :]
     total = hidden.new_zeros((), dtype=torch.float32)
     for lo in range(0, t, chunk):
         hi = min(lo + chunk, t)
         total = total + checkpoint(_chunk_nll, h[:, lo:hi], prev_tokens[:, lo:hi], targets[:, lo:hi],
-                                   head_weight, head_bias, layout, use_reentrant=False)
+                                   head_weight, head_bias, layout, project, use_reentrant=False)
     return total / (b * t)
 
 

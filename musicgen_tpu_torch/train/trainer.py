@@ -186,14 +186,18 @@ def _parsed_loss(path: str) -> float:
         return float("inf")
 
 
-def save_checkpoint(directory: str, state: TrainState, loss: float, keep: int = 3) -> str:
+def save_checkpoint(directory: str, state: TrainState, loss: float, keep: int = 3,
+                    model_state: Optional[dict] = None, optimizer_state: Optional[dict] = None) -> str:
     """Save the weights, the Adam state and the step; prune to the newest
     `keep` checkpoints, always retaining the best-by-loss one (keep <= 0
-    disables pruning). Returns the checkpoint directory."""
+    disables pruning). `model_state` / `optimizer_state` replace the
+    state's own dicts (a sharded model's, gathered to the one-process
+    layout: parallel/). Returns the checkpoint directory."""
     path = os.path.abspath(os.path.join(directory, checkpoint_name(loss)))
     os.makedirs(path, exist_ok=True)
-    torch.save(state.model.state_dict(), os.path.join(path, MODEL_FILE))
-    torch.save({"optimizer": state.optimizer.state_dict(), "step": state.step}, os.path.join(path, OPTIMIZER_FILE))
+    torch.save(state.model.state_dict() if model_state is None else model_state, os.path.join(path, MODEL_FILE))
+    torch.save({"optimizer": state.optimizer.state_dict() if optimizer_state is None else optimizer_state,
+                "step": state.step}, os.path.join(path, OPTIMIZER_FILE))
     if keep > 0:
         entries = sorted((os.path.join(directory, d) for d in os.listdir(directory) if d.startswith("loss_")),
                          key=os.path.getmtime)
@@ -304,6 +308,7 @@ def run_epochs(
     num_epochs: Optional[int] = None,
     started: str = "Training started!",
     main: bool = True,
+    save: Optional[Callable[[float], None]] = None,
 ) -> TrainState:
     """The epoch loop: train_step(src, trg, meta) -> loss over train_iter,
     validation with eval_step over test_iter each epoch, a checkpoint and a
@@ -313,8 +318,16 @@ def run_epochs(
     Losses stay on the device until the epoch summary; only the
     eval_interval log line reads one back. `main=False` (a data-parallel
     rank other than 0) runs the same steps and validation but logs and
-    saves nothing."""
+    saves nothing. `save(loss)`, where given, replaces the checkpoint write
+    and runs on every rank (a sharded model gathers its state there, and
+    its main rank writes it)."""
     device = next(state.model.parameters()).device
+
+    def checkpoint_now(loss: float) -> None:
+        if save is not None:
+            save(loss)
+        elif main:
+            save_checkpoint(ckpt_dir, state, loss)
     logger = JsonLogger(log_path, enabled=main)
     epochs = num_epochs if num_epochs is not None else values.epochs
     logger.message(started)
@@ -338,13 +351,12 @@ def run_epochs(
             avg_val_loss = val_total / max(len(val_losses), 1)
             logger.message(f"Epoch [{epoch+1}/{epochs}], Validation Loss: {avg_val_loss:.4f}")
 
-            if main and (epoch + 1) % values.save_interval == 0:
-                save_checkpoint(ckpt_dir, state, avg_val_loss)
+            if (epoch + 1) % values.save_interval == 0:
+                checkpoint_now(avg_val_loss)
                 logger.flush()
     except KeyboardInterrupt:
         logger.message("Interrupted!")
     finally:
-        if main:
-            save_checkpoint(ckpt_dir, state, avg_val_loss)
+        checkpoint_now(avg_val_loss)
         logger.flush()
     return state

@@ -81,14 +81,33 @@ def test_cli_train_resume_restores_weights_only(workdir, train_corpus, tmp_path,
     assert steps == [1, 2] and again.step == 2
 
 
+# Since the multi-rank strategies were ported, what each of these flag sets
+# does outside a launcher: a strategy raises without the launcher's group
+# (no quiet fallback to one process), and a flag without the strategy it
+# belongs to raises.
+WITHOUT_A_LAUNCHER = {
+    ("--model", "xlstm", "--bf16", "--parallel", "--tp", "2"): (RuntimeError, "launcher"),
+    ("--bf16", "--sp", "2"): (RuntimeError, "launcher"),
+    ("--parallel", "--multihost"): (RuntimeError, "launcher"),
+    ("--tp", "2"): (ValueError, "--tp splits the vocabulary over the ranks of --parallel"),
+    ("--sp", "2"): (RuntimeError, "launcher"),
+    ("--pp", "2"): (RuntimeError, "launcher"),
+    ("--pp-microbatches", "4"): (ValueError, "--pp-microbatches sets the microbatches of --pp"),
+    ("--multihost",): (ValueError, "--multihost joins a launcher's group"),
+}
+
+
 @pytest.mark.parametrize("extra", [["--model", "xlstm", "--bf16", "--parallel", "--tp", "2"], ["--bf16", "--sp", "2"],
                                    ["--parallel", "--multihost"], ["--tp", "2"], ["--sp", "2"],
                                    ["--pp", "2"], ["--pp-microbatches", "4"], ["--multihost"]])
-def test_cli_train_unported_options_raise(workdir, train_corpus, extra):
-    """The options still unported raise, alone and beside --bf16 and
-    --parallel (which are ported)."""
+def test_cli_train_unported_options_raise(workdir, train_corpus, extra, monkeypatch):
+    """The multi-rank options, alone and beside --bf16 and --parallel,
+    raise outside a launcher (WITHOUT_A_LAUNCHER); they are ported, and
+    tests/test_torch_parallel_*.py run them in gloo groups."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     argv = ["--data", str(train_corpus), "--metadata", str(workdir / "metadata.json"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    exc, match = WITHOUT_A_LAUNCHER[tuple(extra)]
+    with pytest.raises(exc, match=match):
         train_cli.main(argv + extra)
 
 

@@ -70,10 +70,13 @@ def test_mixer_math_matches_pallas_body(setup):
     for i in range(cfg.n_layers):
         x_rows = np.zeros((jdims.rows, cfg.d_model), np.float32)
         x_rows[:B] = x
+        # Copies: JAX may alias a host array's memory and read it after the
+        # port's step below has advanced the states in place.
         jx, jcs, js = jd._mixer_math(
             jnp.asarray(x_rows), jdp["w_in"][i], None, jdp["w_out"][i], None, jdp["conv_w"][i],
             jdp["conv_b"][i], jdp["dt_bias"][i], jdp["a_e"][i], jdp["d_e"][i], jdp["e_mat"],
-            jdp["norm_w"][i], jnp.asarray(conv[i].numpy()), jnp.asarray(ssm[i].numpy()), jdims, "none",
+            jdp["norm_w"][i], jnp.asarray(conv[i].numpy().copy()), jnp.asarray(ssm[i].numpy().copy()), jdims,
+            "none",
         )
         zx = dk.in_proj_conv_plain(torch.from_numpy(x), dp["w_in"][i], dp["conv_w"][i], dp["conv_b"][i],
                                    dp["dt_bias"][i], conv[i], dims)

@@ -1,5 +1,6 @@
 """The guards that no module of musicgen_tpu_torch imports jax (the GPU
-machine has none) or anything of the JAX package, nor does chip_smoke.py."""
+machine has none) or anything of the JAX package, nor do chip_smoke.py and
+multirank_smoke.py."""
 import os
 import pkgutil
 import subprocess
@@ -24,6 +25,7 @@ def test_package_never_imports_jax():
     assert "musicgen_tpu_torch.serve.scheduler" in modules and "musicgen_tpu_torch.cli.serve" in modules
     assert "musicgen_tpu_torch.diffusion.unet" in modules and "musicgen_tpu_torch.diffusion.gaussian" in modules
     assert "musicgen_tpu_torch.cli.inpaint" in modules and "musicgen_tpu_torch.cli.train_diffusion" in modules
+    assert "musicgen_tpu_torch.parallel.pipeline" in modules and "musicgen_tpu_torch.parallel.sp_train" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -35,8 +37,8 @@ def test_package_never_imports_jax():
 
 
 def test_package_never_imports_the_jax_package():
-    """Import every module of the port and chip_smoke.py in a fresh
-    interpreter: no module named musicgen_tpu or musicgen_tpu.* may be
+    """Import every module of the port, chip_smoke.py and multirank_smoke.py
+    in a fresh interpreter: no module named musicgen_tpu or musicgen_tpu.* may be
     loaded (the port keeps its own copies of config, midi and interop), nor
     the JAX package's probe scripts under experiments/."""
     modules = [m.name for m in pkgutil.walk_packages(musicgen_tpu_torch.__path__, "musicgen_tpu_torch.")]
@@ -52,6 +54,7 @@ def test_package_never_imports_the_jax_package():
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        "runpy.run_path('multirank_smoke.py', run_name='multirank_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('musicgen_tpu', 'experiments'))\n"
         "assert not bad, bad\n"
     )

@@ -73,10 +73,12 @@ def test_mixer_items_through_a_layer_match_pallas_body(mamba):
     x = np.random.default_rng(1).standard_normal((b, cfg.d_model)).astype(np.float32)
     x_rows = np.zeros((jdims.rows, cfg.d_model), np.float32)
     x_rows[:b] = x
+    # Copies: JAX may alias a host array's memory and read it after the
+    # port's step below has advanced the states in place.
     jx, _, js_new = jd._mixer_math(
         jnp.asarray(x_rows), jdp["w_in"][0], None, jdp["w_out"][0], None, jdp["conv_w"][0], jdp["conv_b"][0],
         jdp["dt_bias"][0], jdp["a_e"][0], jdp["d_e"][0], jdp["e_mat"], jdp["norm_w"][0],
-        jnp.asarray(conv[0].numpy()), jnp.asarray(ssm[0].numpy()), jdims, "none")
+        jnp.asarray(conv[0].numpy().copy()), jnp.asarray(ssm[0].numpy().copy()), jdims, "none")
     zx = dk.in_proj_conv_plain(torch.from_numpy(x), dp["w_in"][0], dp["conv_w"][0], dp["conv_b"][0],
                                dp["dt_bias"][0], conv[0], dims)
     g = dk.mixer_state_items(zx, dp["a_h"][0], dp["d_h"][0], ssm[0], dims)

@@ -100,17 +100,22 @@ def one_rank(cases):
         dist.destroy_process_group()
 
 
-def cli_rank(rank: int, world: int, port: int, runs, ports) -> None:
+def cli_rank(rank: int, world: int, port: int, runs, ports, out: str = "") -> None:
     """Rank function: cli.train.main(argv) for each argv of `runs` in turn,
     each in the group of a launcher's environment on its own port of
-    `ports` (the first run on `port`)."""
+    `ports` (the first run on `port`). With `out`, saves {run index: this
+    rank's final model state dict} to `{out}.{rank}`."""
     from musicgen_tpu_torch.cli import train as train_cli
 
-    for argv, p in zip(runs, [port, *ports]):
+    held = {}
+    for i, (argv, p) in enumerate(zip(runs, [port, *ports])):
         set_rank_env(rank, world, p)
         state = train_cli.main(argv)
         assert not dist.is_initialized(), "cli.train destroys its process group"
         assert state.step > 0
+        held[i] = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    if out:
+        torch.save(held, f"{out}.{rank}")
 
 
 def parallel_cli_runs(root, families: dict) -> tuple:

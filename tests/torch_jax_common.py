@@ -45,24 +45,39 @@ def random_params(jm, *init_args, seed: int = 0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def jax_distributed_steps(jm, params, kind, loss_chunk, cfg, meta_vocab):
-    """ddp.STEPS of JAX's distributed step on a 2x1 ('data', 'model') mesh
-    on the global batches of ddp.batch: (losses, grads a step, params) as
-    port tensors, the grads read off Adam's first moment (mu_t = b1 mu_{t-1}
-    + (1 - b1) g_t)."""
-    mesh = make_mesh(MeshConfig(model=1), devices=jax.devices()[:2])
+def jax_distributed_steps(jm, params, kind, loss_chunk, cfg, meta_vocab, model: int = 1):
+    """ddp.STEPS of JAX's distributed step on a (2, model) ('data', 'model')
+    mesh on the global batches of ddp.batch: run_jax_steps' (losses, grads
+    a step, params)."""
+    mesh = make_mesh(MeshConfig(model=model), devices=jax.devices()[:2 * model])
     opt = jtrainer.make_optimizer(JaxTrainValues())
-    opt_state = opt.init(params)
     step = make_distributed_train_step(jm, opt, mesh, params, kind=kind, loss_chunk=loss_chunk)
+    batches = [ddp.batch(10 + i, kind, cfg.vocab_size, meta_vocab) for i in range(ddp.STEPS)]
+    return run_jax_steps(step, params, opt.init(params), batches, cfg)
+
+
+def run_jax_steps(step, params, opt_state, batches, cfg):
+    """step(params, opt_state, src, trg, meta) -> (params, opt_state, loss)
+    on each numpy batch: (losses, grads a step, params) as port tensors, the
+    grads read off Adam's first moment (mu_t = b1 mu_{t-1} + (1 - b1) g_t)."""
     p, mu_prev, losses, grads = params, jax.tree.map(np.zeros_like, opt_state[0].mu), [], []
-    for i in range(ddp.STEPS):
-        batch = (jnp.asarray(x, jnp.int32) for x in ddp.batch(10 + i, kind, cfg.vocab_size, meta_vocab))
-        p, opt_state, loss = step(p, opt_state, *batch)
+    for batch in batches:
+        p, opt_state, loss = step(p, opt_state, *(jnp.asarray(x, jnp.int32) for x in batch))
         mu = jax.tree.map(np.asarray, opt_state[0].mu)
         grads.append(from_jax_params(jax.tree.map(lambda m, m0: (m - 0.9 * m0) / 0.1, mu, mu_prev), cfg))
         mu_prev = mu
         losses.append(float(loss))
     return losses, grads, from_jax_params(jax.tree.map(np.asarray, p), cfg)
+
+
+def assert_grads_close(got, want, grad_rtol, tag=""):
+    """Every gradient of got (name -> tensor) within grad_rtol of its
+    tensor's largest value in want (at least 1e-3 of the largest gradient)."""
+    floor = 1e-3 * max(float(want[name].abs().max()) for name in got)
+    for name in got:
+        g = want[name]
+        err = float((got[name] - g).abs().max())
+        assert err <= grad_rtol * max(float(g.abs().max()), floor), f"{tag} grad {name}: {err}"
 
 
 def assert_steps_close(got, want, loss_rtol, grad_rtol):
@@ -74,16 +89,12 @@ def assert_steps_close(got, want, loss_rtol, grad_rtol):
     run at any step: Adam's g / (|g| + eps) turns f32 order noise in such a
     g into a change of up to lr, whatever the framework."""
     (gl, gg, gp), (wl, wg, wp) = got, want
-    for i in range(ddp.STEPS):
+    for i in range(len(gl)):
         assert abs(gl[i] - wl[i]) <= loss_rtol * abs(wl[i]), f"step {i} loss {gl[i]} vs {wl[i]}"
-        floor = 1e-3 * max(float(wg[i][name].abs().max()) for name in gg[i])
-        for name in gg[i]:
-            g = wg[i][name]
-            err = float((gg[i][name] - g).abs().max())
-            assert err <= grad_rtol * max(float(g.abs().max()), floor), f"step {i} grad {name}: {err}"
+        assert_grads_close(gg[i], wg[i], grad_rtol, f"step {i}")
     for name in gp:
         keep = torch.ones_like(gp[name], dtype=torch.bool)
-        for i in range(ddp.STEPS):
+        for i in range(len(gl)):
             keep &= (wg[i][name].abs() >= 1e-6) & (gg[i][name].abs() >= 1e-6)
         err = float((gp[name] - wp[name])[keep].abs().max()) if bool(keep.any()) else 0.0
         assert err <= 1e-6, f"param {name}: {err}"
