@@ -53,7 +53,7 @@ Phases (each prints one line of numbers; any failure exits non-zero):
   6. kernel C, the resident whole-generation kernel, in bf16, W8A16 and W8A8:
      [6 resident] the launch's grid, block and shared memory, and 64 greedy
      tokens against the plain chain stepped over the emitted stream; [6
-     chain] 2,000 tokens, greedy and stochastic, against the per-token
+     chain] CHAIN_TOKENS tokens, greedy and stochastic, against the per-token
      kernel chain with the same pick and uniforms (identical streams,
      bitwise-equal final states); [6 loop] C's ms a token (tok/s/seq) and
      its share of the HBM roofline beside its yardstick, kernel B's chain
@@ -203,14 +203,14 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      the cached kernel path, the Transformer's against its plain-attention
      twin, up to the first near-tie; ms a token), and [12 serve <family>
      <quant>] (`cli.serve --slots 8 --chunk 32`, 12 stochastic requests of
-     64-416 tokens: exact launches against the schedule's group-chunks,
+     32-208 tokens: exact launches against the schedule's group-chunks,
      grammar, MIDI, every request's stream bit for bit through
      serve.BatchScheduler at 4 slots in reverse order and at 16; aggregate
      tok/s, time to first chunk, per-request tok/s, the card). Their
      launches go to the kernels line through PATH_LAUNCHES.
  13. GPTQ: [13 gptq mamba] and [13 gptq xlstm] `cli.generate --fused-decode
-     int8w-gptq` on the reference widths at GPTQ_DEPTH (Mamba 2 layers, the
-     xLSTM 3 blocks with sLSTM at 1), 256 greedy tokens: the
+     int8w-gptq` on the reference widths at GPTQ_DEPTH (Mamba 1 layer, the
+     xLSTM 2 blocks with sLSTM at 1), 256 greedy tokens: the
      calibration forwards, the solve and the generation timed (tok/s/seq),
      the grammar, exact launches (B' W8A16 with B's mixer and tail; G's
      W8A16 step and the tail; A or H in the 4 calibration forwards);
@@ -254,7 +254,32 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      unsharded model (loss and every gradient); [15 sp mamba] the
      time-sharded step in a group of one against the unsharded step, no
      kernel launched.
+ 16. data-parallel generation, serving and classification
+     (parallel/serving.py, serve.BatchScheduler(mesh=)) in a one-rank NCCL
+     group of this process, on phase 12's models (the full run runs it right
+     after phase 12): [16 dp generate <family>] generate_data_parallel at
+     batch 2, DP_TOKENS stochastic tokens, bit for bit with sampler.generate
+     and exact launches (A and B, A and C for Mamba resident, D and F, H and
+     G); [16 dp shares] the shares of 2 and 4 ranks of a batch of 8 (Mamba),
+     each generated in turn on its columns of the batch's uniforms, against
+     the batch at once, greedy and stochastic: the rows bit for bit counted,
+     and each greedy row that differs held at its first difference to a
+     near-tie (phase 12's position_check); [16 dp shares resident] kernel
+     C on column slices of one tensor of uniforms, stochastic: a batch of
+     16 in two groups of 8 bit for bit with each group alone, and the
+     shares of 2 and 4 ranks counted against the batch of 8; [16 dp serve <family>] the
+     scheduler over the group against no mesh, greedy and seeded, bit for
+     bit, exact launches; [16 tp serve] the Transformer's vocabulary table
+     and head split over a model group of one, served bit for bit with the
+     unsplit model; [16 dp classify] the full-size classifier's forward
+     over the group through H; [16 leftovers] midi/vectorized on CUDA
+     tensors against the CPU and midi/native (the C++ tokenizer built with
+     g++ into build/) against the Python codec; with --parent DIR, [16 cli
+     draws] cli.generate per token in this tree (the draw rule) and the
+     parent tree, in turns. Its launches go to the kernels line.
 Each phase's seconds print as [seconds <phase>].
+`--only dp` runs phases 1, 2 and 16 (its kernels line is empty; the
+launches print as [<kernel> launches]).
 `--only parallel` runs phases 1, 2 and 15 (its kernels line is empty; D
 with LSE's and E's launches print as [<kernel> launches]).
 `--only diffusion` runs phases 1, 2 and 14 (its kernels line is empty).
@@ -344,6 +369,8 @@ LENGTH = 2000
 TEACHER_STEPS = 64
 QUANT_STEPS = 16
 RESIDENT_CHECK_TOKENS = 64
+CHAIN_TOKENS = 1000  # [6 chain]: C held bit for bit to the per-token chain (host-paced, 3-5 ms a token)
+CLI_SHORT = 200  # tokens of the per-token int8 CLI runs of [6 cli] and [7 cli]
 MIXER_REPEATS = 10  # steps of the state over which [4 mixer_state parent] holds the mixer to the parent's
 # [6 resident] steps the plain chain over the kernel's emitted stream from
 # the shared prefill state, so the two chains drift apart as the chain does
@@ -450,6 +477,7 @@ TOL_GRAD_BF16 = 1e-1
 # The compute dtypes of phase 8's rows: f32 and cli.train --bf16's.
 DTYPES = {"f32": lambda torch: torch.float32, "bf16": lambda torch: torch.bfloat16}
 TRAIN_STEPS = 5
+X_TRAIN_STEPS = 3  # [8 steps xlstm]: its steps run the Python sLSTM scan, 4-6 s each
 TRAIN_EPOCHS = 2
 GEN_AFTER_TRAIN = 32
 # The --block-len of [8 cli xlstm]: it trains through the plain sLSTM scan
@@ -481,6 +509,7 @@ TOL_W8A16 = 2e-2  # a W8A16 GEMV against its plain version (bf16 activations, in
 # (tests/test_pallas_xlstm_decode.py), as a share of the largest logit.
 TOL_X_F32 = {"bf16": 0.05, "int8w": 0.12, "bf16-sb16": 0.05, "int8w-sb16": 0.12}
 X_CLI_SHORT = 200  # tokens of the int8w / sb16 / int8w-sb16 CLI runs
+X_TEACHER_STEPS = 16  # [9 xdecode steps] and [9 xstep]: four plain xLSTM chains a step (15-33 ms each)
 X_CLI_TINY = 64  # tokens of the on / int8 / off CLI runs
 # [9 loop]'s host-paced runs (4 formats x 4 runs at 3-6 ms a token) and the
 # plain f32 step's (25 ms a token), at counts that keep the full run inside
@@ -1715,21 +1744,21 @@ def phase_resident(torch, model, ctx: dict, report: dict, quants: dict = QUANTS)
     for quant, q in quants.items():
         dp = packs[quant]
         for greedy in (True, False):
-            u = None if greedy else torch.rand((LENGTH, BATCH, 2), generator=gen, device=DEVICE)
+            u = None if greedy else torch.rand((CHAIN_TOKENS, BATCH, 2), generator=gen, device=DEVICE)
             carry_r, carry_c = clone(ctx["carry"]), clone(ctx["carry"])
             t0 = time.perf_counter()
-            tr, _, _ = gk.fused_generate(dp, vals0, idxs0, last0, *carry_r, pen0, u, dims, LENGTH, greedy, q)
+            tr, _, _ = gk.fused_generate(dp, vals0, idxs0, last0, *carry_r, pen0, u, dims, CHAIN_TOKENS, greedy, q)
             torch.cuda.synchronize()
             res_s = time.perf_counter() - t0
             t0 = time.perf_counter()
-            tc, _, _ = gk.fused_generate_plain(dp, vals0, idxs0, last0, *carry_c, pen0, u, dims, LENGTH, greedy, q,
-                                               ops=dk.KERNEL_OPS)
+            tc, _, _ = gk.fused_generate_plain(dp, vals0, idxs0, last0, *carry_c, pen0, u, dims, CHAIN_TOKENS, greedy,
+                                               q, ops=dk.KERNEL_OPS)
             torch.cuda.synchronize()
             chain_s = time.perf_counter() - t0
             differ = (tr != tc).any(dim=0).nonzero()
             first = int(differ[0]) if len(differ) else -1
             same_states = torch.equal(carry_r[0], carry_c[0]) and torch.equal(carry_r[1], carry_c[1])
-            say(f"[6 chain {quant} {'greedy' if greedy else 'sampled'}] {LENGTH} tokens: streams "
+            say(f"[6 chain {quant} {'greedy' if greedy else 'sampled'}] {CHAIN_TOKENS} tokens: streams "
                 f"{'identical' if first < 0 else f'differ first at token {first}'}; final states "
                 f"{'bitwise equal' if same_states else 'differ'} (ssm max_abs {rel_err(carry_r[1], carry_c[1])[0]:.3e}); "
                 f"resident {res_s:.3f} s, per-token chain {chain_s:.3f} s")
@@ -1855,7 +1884,8 @@ def phase_loop(torch, ctx: dict, packs: dict, report: dict, parent: Path | None 
 def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, report: dict,
                        int8_only: bool = False, bf16_only: bool = False, resident_only: bool = False) -> None:
     """[6 cli] the CLI with --fused-decode resident (greedy and sampled, two
-    bands), resident-int8w, int8 and int8w (one band each), and
+    bands), resident-int8w, int8 and int8w (one band each; the per-token
+    int8 and int8w runs CLI_SHORT tokens, the others LENGTH), and
     sampler.generate(resident=True, quant="int8"), the one resident format
     no CLI value takes: grammar, MIDI and exact launch counts, each run
     counted from zero. int8_only leaves out the bf16 runs, bf16_only the
@@ -1874,23 +1904,23 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
         torch.save(model.state_dict(), ckpt)
     L, mask = model.cfg.n_layers, grammar_mask()
 
-    def per_token(q):
-        return {f"in_proj_conv_{q}": L * LENGTH, "mixer_state": L * LENGTH, f"out_proj_rms_{q}": L * LENGTH,
-                f"lm_head_ln_{q}": LENGTH, "sample_tail": LENGTH}
+    def per_token(q, n):
+        return {f"in_proj_conv_{q}": L * n, "mixer_state": L * n, f"out_proj_rms_{q}": L * n, f"lm_head_ln_{q}": n,
+                "sample_tail": n}
 
-    runs = [("resident", True, ["Mozart", "Bach"], {"generate_resident_bf16": 2}),
-            ("resident", False, ["Mozart", "Bach"], {"generate_resident_bf16": 2}),
-            ("resident-int8w", False, ["Bach"], {"generate_resident_w8a16": 1}),
-            ("int8", False, ["Mozart"], per_token("w8a8")),
-            ("int8w", False, ["Mozart"], per_token("w8a16"))]
+    runs = [("resident", True, ["Mozart", "Bach"], LENGTH, {"generate_resident_bf16": 2}),
+            ("resident", False, ["Mozart", "Bach"], LENGTH, {"generate_resident_bf16": 2}),
+            ("resident-int8w", False, ["Bach"], LENGTH, {"generate_resident_w8a16": 1}),
+            ("int8", False, ["Mozart"], CLI_SHORT, per_token("w8a8", CLI_SHORT)),
+            ("int8w", False, ["Mozart"], CLI_SHORT, per_token("w8a16", CLI_SHORT))]
     runs = [r for r in runs if ("int8" in r[0] or not int8_only) and ("int8" not in r[0] or not bf16_only)
             and (r[0].startswith("resident") or not resident_only)]
     totals: dict = {}
-    for i, (mode, greedy, bands, want) in enumerate(runs):
+    for i, (mode, greedy, bands, n_tok, want) in enumerate(runs):
         out = root / f"gen6_{i}"
         argv = ["--model", "mamba", "--ckpt", str(ckpt), "--data", str(corpus), "--metadata", str(meta_path),
                 "--composers", ", ".join(bands), "--batch", str(BATCH), "--block-len", str(PROMPT),
-                "--length", str(LENGTH), "--output", str(out), "--seed", str(SEED + i),
+                "--length", str(n_tok), "--output", str(out), "--seed", str(SEED + i),
                 "--fused-decode", mode] + (["--greedy"] if greedy else [])
         ssd_scan.launches = 0
         dk.LAUNCHES.clear()
@@ -1901,7 +1931,7 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
         launches = dict(dk.LAUNCHES)
         need(sorted(streams) == sorted(bands), f"CLI generated for {sorted(streams)}")
         for band, st in streams.items():
-            need(st.shape == (BATCH, PROMPT + LENGTH), f"{band}: stream shape {st.shape}")
+            need(st.shape == (BATCH, PROMPT + n_tok), f"{band}: stream shape {st.shape}")
             st = torch.from_numpy(st)
             need(bool((mask[field_bucket(st[:, PROMPT - 1:-1]), st[:, PROMPT:]] > 0).all()),
                  f"--fused-decode {mode}, {band}: a generated token breaks the grammar")
@@ -1909,7 +1939,7 @@ def phase_cli_resident(torch, model, corpus: Path, meta_path: Path, root: Path, 
         need(len(mids) == len(bands) * BATCH, f"expected {len(bands) * BATCH} .mid files in {out}")
         for mid in mids:
             need(len(extract_midi(str(mid))) > 0, f"{mid.name} re-extracts with no notes")
-        say(f"[6 cli {mode}{' greedy' if greedy else ''}] {len(bands)} band(s) x {LENGTH} tokens at batch {BATCH} in "
+        say(f"[6 cli {mode}{' greedy' if greedy else ''}] {len(bands)} band(s) x {n_tok} tokens at batch {BATCH} in "
             f"{secs:.1f} s; grammatical; .mid files re-extract; launches {launches}, ssd_scan {ssd_scan.launches}")
         need(launches == want, f"--fused-decode {mode}: launches {launches}, expected {want}")
         need(ssd_scan.launches == L * len(bands), f"--fused-decode {mode}: ssd_scan launched {ssd_scan.launches}")
@@ -1960,11 +1990,11 @@ def batch_slice(torch, tree, j: int):
     return type(tree)(batch_slice(torch, v, j) for v in tree)
 
 
-def rows_launches(model, kind: str, mode: str, groups: int) -> tuple[dict, dict]:
-    """The launches of one CLI run of ROWS_TOKENS greedy tokens in `groups`
-    groups of at most 8 rows: (the prefill's kernel, its count), and the
-    decode kernels' counts by name."""
-    t = ROWS_TOKENS * groups
+def rows_launches(model, kind: str, mode: str, groups: int, tokens: int = ROWS_TOKENS) -> tuple[dict, dict]:
+    """The launches of one generation of `tokens` tokens in `groups` groups
+    of at most 8 rows (or `groups` generations): (the prefill's kernel, its
+    count), and the decode kernels' counts by name."""
+    t = tokens * groups
     if kind == "mamba":
         L = model.cfg.n_layers
         if mode == "resident":
@@ -2501,7 +2531,7 @@ def phase_t_wrap(torch, corpus: Path) -> None:
 def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict,
                 int8_only: bool = False, bf16_only: bool = False) -> None:
     """[7 cli] `--model transformer` through the CLI: --fused-decode auto,
-    greedy and stochastic (two bands each), and int8w (one band); every new
+    greedy, stochastic (LENGTH tokens) and int8w (CLI_SHORT), one band each; every new
     token grammatical, the .mid files re-extract, and each run, counted from
     zero, launches kernel D 8 times a prefill and kernel F's 42 launches a
     token. int8_only runs int8w alone, bf16_only the two auto runs."""
@@ -2516,19 +2546,19 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
     ckpt = root / "transformer_random.pth"
     torch.save(model.state_dict(), ckpt)
     L, mask = model.cfg.n_layer, grammar_mask()
-    runs = [("auto", True, ["Mozart", "Bach"]), ("auto", False, ["Mozart", "Bach"]), ("int8w", False, ["Bach"])]
+    runs = [("auto", True, ["Mozart"], LENGTH), ("auto", False, ["Bach"], LENGTH), ("int8w", False, ["Bach"], CLI_SHORT)]
     runs = [r for r in runs if ("int8" in r[0] or not int8_only) and ("int8" not in r[0] or not bf16_only)]
     totals: dict = {}
-    for i, (mode, greedy, bands) in enumerate(runs):
+    for i, (mode, greedy, bands, n_tok) in enumerate(runs):
         out = root / f"gen7_{i}"
         argv = ["--model", "transformer", "--ckpt", str(ckpt), "--data", str(corpus), "--metadata", str(meta_path),
                 "--composers", ", ".join(bands), "--batch", str(BATCH), "--block-len", str(PROMPT),
-                "--length", str(LENGTH), "--output", str(out), "--seed", str(SEED + i),
+                "--length", str(n_tok), "--output", str(out), "--seed", str(SEED + i),
                 "--fused-decode", mode] + (["--greedy"] if greedy else [])
         n = len(bands)
         sfx = "_w8a16" if mode == "int8w" else ""
-        want = {f"t_qkv_ln{sfx}": L * LENGTH * n, "tdecode_attn": L * LENGTH * n, f"t_res{sfx}": 2 * L * LENGTH * n,
-                f"t_fc_relu{sfx}": L * LENGTH * n, f"lm_head_ln{sfx}": LENGTH * n, "sample_tail": LENGTH * n}
+        want = {f"t_qkv_ln{sfx}": L * n_tok * n, "tdecode_attn": L * n_tok * n, f"t_res{sfx}": 2 * L * n_tok * n,
+                f"t_fc_relu{sfx}": L * n_tok * n, f"lm_head_ln{sfx}": n_tok * n, "sample_tail": n_tok * n}
         ssd_scan.launches = 0
         ak.LAUNCHES.clear()
         dk.LAUNCHES.clear()
@@ -2539,7 +2569,7 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
         launches, flash = dict(dk.LAUNCHES), ak.LAUNCHES["flash_relpos"]
         need(sorted(streams) == sorted(bands), f"CLI generated for {sorted(streams)}")
         for band, st in streams.items():
-            need(st.shape == (BATCH, PROMPT + LENGTH), f"{band}: stream shape {st.shape}")
+            need(st.shape == (BATCH, PROMPT + n_tok), f"{band}: stream shape {st.shape}")
             st = torch.from_numpy(st)
             need(bool((mask[field_bucket(st[:, PROMPT - 1:-1]), st[:, PROMPT:]] > 0).all()),
                  f"--model transformer --fused-decode {mode}, {band}: a generated token breaks the grammar")
@@ -2547,8 +2577,8 @@ def phase_t_cli(torch, tctx: dict, corpus: Path, meta_path: Path, root: Path, re
         need(len(mids) == n * BATCH, f"expected {n * BATCH} .mid files in {out}")
         for mid in mids:
             need(len(extract_midi(str(mid))) > 0, f"{mid.name} re-extracts with no notes")
-        per_token = sum(launches.values()) / (LENGTH * n)
-        say(f"[7 cli {mode}{' greedy' if greedy else ''}] {n} band(s) x {LENGTH} tokens at batch {BATCH} after a "
+        per_token = sum(launches.values()) / (n_tok * n)
+        say(f"[7 cli {mode}{' greedy' if greedy else ''}] {n} band(s) x {n_tok} tokens at batch {BATCH} after a "
             f"{PROMPT}-token prompt in {secs:.1f} s; grammatical; .mid files re-extract; kernel D {flash} launches "
             f"({L} a prefill); kernel F {per_token:g} launches a token: {launches}")
         need(launches == want, f"--model transformer --fused-decode {mode}: launches {launches}, expected {want}")
@@ -2933,6 +2963,7 @@ def phase_grad(torch, corpus: Path, meta_path: Path, dtype: str = "f32") -> None
 def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transformer", "mamba", "xlstm"),
                       dtypes=("f32", "bf16")) -> dict:
     """[8 steps <family>] and [8 steps <family> bf16]: TRAIN_STEPS Adam steps
+    (X_TRAIN_STEPS for the xLSTM)
     of each of `families` at full width on one batch, in each compute dtype
     of `dtypes` (bf16: cli.train --bf16, f32 parameters and Adam state): the
     loss falls at every step. Returns ms/step by (family, dtype). An xLSTM
@@ -2953,13 +2984,14 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transform
         if family not in families:
             continue
         row = family if dtype == "f32" else f"{family} {dtype}"
+        n_steps = X_TRAIN_STEPS if family == "xlstm" else TRAIN_STEPS
         model = module.init_weights_(module.empty_model(cfg, DEVICE, DTYPES[dtype](torch)), SEED)
         step = T.make_lm_train_step(model, T.make_optimizer(model))
         ak.LAUNCHES.clear()
         ssd_scan.launches = slstm_scan.launches = 0
         torch.cuda.reset_peak_memory_stats()
         losses, secs = [], []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(n_steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses.append(float(step(*batch)))
@@ -2980,18 +3012,18 @@ def phase_train_steps(torch, corpus: Path, meta_path: Path, families=("transform
                 torch.cuda.synchronize()
                 plain_secs.append(time.perf_counter() - t0)
             plain = (f"; with the plain {dtype} attention {1e3 * statistics.median(plain_secs[1:]):.2f} ms/step "
-                     f"(steps {TRAIN_STEPS + 2}-{TRAIN_STEPS + 3})")
-        say(f"[8 steps {row}] {TRAIN_STEPS} Adam steps on one ({BATCH}, {PROMPT}) batch: losses "
-            f"{[round(x, 5) for x in losses]}; {ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, host clock around a "
+                     f"(steps {n_steps + 2}-{n_steps + 3})")
+        say(f"[8 steps {row}] {n_steps} Adam steps on one ({BATCH}, {PROMPT}) batch: losses "
+            f"{[round(x, 5) for x in losses]}; {ms:.2f} ms/step (median of steps 2-{n_steps}, host clock around a "
             f"synchronised step), {tokens / (ms / 1e3):.1f} train tokens/s; peak memory {peak / 2**30:.2f} GiB; "
             f"launches {launches}{plain}")
         need(all(math.isfinite(x) for x in losses), f"{row}: a loss is not finite")
         need(all(b_ < a for a, b_ in zip(losses, losses[1:])), f"{row}: the loss did not fall at every step")
         need(all(p.dtype == torch.float32 for p in model.parameters()), f"{row}: a parameter is not f32")
         L = getattr(cfg, "n_layer", 0)
-        want = {"flash_relpos_lse": L * TRAIN_STEPS, **dict.fromkeys(E_LAUNCHES, L * TRAIN_STEPS)} \
+        want = {"flash_relpos_lse": L * n_steps, **dict.fromkeys(E_LAUNCHES, L * n_steps)} \
             if family == "transformer" else {}
-        need(launches == want, f"{row}: {TRAIN_STEPS} steps launched {launches}, expected {want}")
+        need(launches == want, f"{row}: {n_steps} steps launched {launches}, expected {want}")
         out[family, dtype] = {"ms": ms, "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak}
         del model, step
         torch.cuda.empty_cache()
@@ -3149,7 +3181,9 @@ def kernel_group(name: str) -> str:
 def device_groups(torch, fn) -> tuple[dict, float] | None:
     """(device ms by kernel_group, host ms) of one fn() under torch.profiler
     (device activity only: recording every CPU op of the xLSTM's Python
-    scan took minutes); None where the trace holds no device kernel."""
+    scan took minutes); None where the trace holds no device kernel. The
+    kernels are read from the profiler's raw (kineto) events: building its
+    Python event list took tens of seconds for the xLSTM's step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, supported_activities
 
@@ -3162,10 +3196,10 @@ def device_groups(torch, fn) -> tuple[dict, float] | None:
         torch.cuda.synchronize()
         host = 1e3 * (time.perf_counter() - t0)
     groups: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
-            g = kernel_group(ev.name)
-            groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us() / 1e3
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
+            g = kernel_group(ev.name())
+            groups[g] = groups.get(g, 0.0) + ev.duration_ns() / 1e6
     return (groups, host) if groups else None
 
 
@@ -3904,7 +3938,7 @@ def phase_x_wide_generate(torch, sampler, sk, dk, xk, model, prompt, meta) -> No
 def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> dict:
     """[9 xdecode] each kernel G launch against its plain version on the same
     inputs (the first mLSTM and sLSTM block): every launch in bf16, the
-    GEMVs in W8A16, the matrix memory stored in bf16. Then TEACHER_STEPS
+    GEMVs in W8A16, the matrix memory stored in bf16. Then X_TEACHER_STEPS
     teacher-forced steps per format from the prefill state: each step's
     kernel chain against the plain chain from the same state (and from that
     state perturbed by 1e-6, the noise floor) and against the f32
@@ -4041,7 +4075,7 @@ def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> d
         worst_plain = worst_noise = worst_state = worst_val = worst_f32 = worst_step = 0.0
         idx_checked = idx_equal = 0
         step_bits = True
-        for step in range(TEACHER_STEPS):
+        for step in range(X_TEACHER_STEPS):
             tok = xctx["teacher"][:, step]
             pen = push_token(pen, tok)
             bucket = field_bucket(tok)
@@ -4077,14 +4111,14 @@ def phase_x_decode(torch, xctx: dict, report: dict, quants: dict = XQUANTS) -> d
                                                                          ops=chain), calls=2)
         plain_step_ms = cuda_ms(torch, lambda: xk.fused_xlstm_sample_step(wp, tok, cp, pen.hist, bucket, dims, q,
                                                                           ops=xk.PLAIN_OPS), iters=5, warmup=1)
-        say(f"[9 xdecode steps {quant}] {TEACHER_STEPS} teacher-forced steps, each from a shared state: vs the plain "
+        say(f"[9 xdecode steps {quant}] {X_TEACHER_STEPS} teacher-forced steps, each from a shared state: vs the plain "
             f"chain logits rel {worst_plain:.3e}, states rel {worst_state:.3e}, top-3 values rel {worst_val:.3e} "
             f"(tol {tol:.3e} = max({TOL_T_STEP}, 2x the plain chain's response to a 1e-6 perturbation, "
             f"{worst_noise:.3e})); top-3 indices equal at {idx_equal}/{idx_checked} separated candidates; vs the f32 "
             f"XLSTMLM.step logits rel {worst_f32:.3e} (tol {TOL_X_F32[quant]}); step with the kernel chain "
             f"{step_ms:.4f} ms (device, CUDA graph of the step's {dims.launches_per_token()} launches: "
             f"{fmt_ms(step_dev_ms)}), plain chain {plain_step_ms:.4f} ms")
-        say(f"[9 drift {quant}] after {TEACHER_STEPS} free-running steps from the prefill state: kernel chain vs "
+        say(f"[9 drift {quant}] after {X_TEACHER_STEPS} free-running steps from the prefill state: kernel chain vs "
             f"plain chain logits rel {drift_kernel:.3e}; plain chain vs itself from a state perturbed by 1e-6: "
             f"{drift_noise:.3e}")
         need(max(worst_plain, worst_val, worst_state) <= tol, f"{quant} kernel G steps disagree with the plain chain")
@@ -4136,7 +4170,7 @@ def x_step_check(torch, xk, wp, tok, cs, ck, pen, bucket, dims, q, quant, step_b
     cost = x_step_bound(wp, cs)
     name = xk.step_name(q, quant.endswith("-sb16"))
     say(f"[9 xstep {quant}] one launch a token ({launch['grid']} blocks x {launch['threads']} threads, "
-        f"{launch['dynamic_smem']} B dynamic + {launch['static_smem']} B static shared memory): {TEACHER_STEPS} "
+        f"{launch['dynamic_smem']} B dynamic + {launch['static_smem']} B static shared memory): {X_TEACHER_STEPS} "
         f"teacher-forced steps bit for bit with the chain (logits, top-3 values and indices, all six carry tensors): "
         f"{step_bits}; a CUDA-graph replay bit for bit with a direct launch: {replay_bits}; logits max_abs vs the "
         f"plain chain {worst_step:.3e}; step with the tail {ms:.4f} ms host-paced, {fmt_ms(dev_ms)} in a CUDA graph "
@@ -4186,7 +4220,7 @@ def chain_launches(dims, n: int, quant: str) -> dict:
 def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, report: dict,
                 int8_only: bool = False, bf16_only: bool = False) -> None:
     """[9 cli] `--model xlstm` through the CLI: --fused-decode auto, greedy
-    (two bands) and stochastic (one band), LENGTH tokens; int8w, sb16 and
+    and stochastic (one band each), LENGTH tokens; int8w, sb16 and
     int8w-sb16 for X_CLI_SHORT tokens; on, int8 and off (the plain step) for
     X_CLI_TINY: every new token grammatical, the .mid files re-extract, and
     each run, counted from zero, launches kernel H 4 times a prefill and
@@ -4207,7 +4241,7 @@ def phase_x_cli(torch, xctx: dict, corpus: Path, meta_path: Path, root: Path, re
     torch.save(model.state_dict(), ckpt)
     dims = xk.XDims.create(model.cfg, BATCH)
     mask = grammar_mask()
-    runs = [("auto", True, ["Mozart", "Bach"], LENGTH), ("auto", False, ["Mozart"], LENGTH),
+    runs = [("auto", True, ["Bach"], LENGTH), ("auto", False, ["Mozart"], LENGTH),
             ("int8w", False, ["Bach"], X_CLI_SHORT), ("sb16", False, ["Bach"], X_CLI_SHORT),
             ("int8w-sb16", True, ["Mozart"], X_CLI_SHORT), ("on", False, ["Bach"], X_CLI_TINY),
             ("int8", True, ["Bach"], X_CLI_TINY), ("off", True, ["Mozart"], X_CLI_TINY)]
@@ -4587,7 +4621,7 @@ WIN_PROMPT = 2016  # [12 windowed ...]: 32 tokens fill the 2,048 window, nothing
 WIN_TOKENS = 32
 SERVE_SLOTS = 8
 SERVE_CHUNK = 32
-SERVE_LENGTHS = tuple(range(64, 417, 32))  # 12 requests, 2,880 tokens
+SERVE_LENGTHS = tuple(range(32, 209, 16))  # 12 requests, 1,440 tokens
 SERVE_GREEDY_LENGTHS = (40, 104, 72)  # greedy requests held to sampler.generate at batch 1
 # Two routes' greedy picks are compared position by position, each position
 # from the same prefix and state, so that no drift carries over (the random
@@ -4705,14 +4739,15 @@ def check_mids(out: Path, pattern: str, n: int) -> None:
         need(len(extract_midi(str(mid))) > 0, f"{mid.name} re-extracts with no notes")
 
 
-def cli_prompts(torch, corpus: Path, meta_path: Path, prompt_len: int):
-    """The (prompt, meta) batch cli.generate draws for band Mozart."""
+def cli_prompts(torch, corpus: Path, meta_path: Path, prompt_len: int, rows: int = BATCH):
+    """The (prompt, meta) batch cli.generate draws for band Mozart (its
+    first BATCH rows; `rows` of them)."""
     import numpy as np
 
     from musicgen_tpu_torch.data.dataset import TokenDataset
 
     ds = TokenDataset.from_directory(corpus / "Mozart", meta_path, block_len=prompt_len, seed=SEED)
-    items = [ds[i % len(ds)] for i in range(BATCH)]
+    items = [ds[i % len(ds)] for i in range(rows)]
     src = torch.from_numpy(np.stack([x for x, _, _ in items]).astype(np.int64)).to(DEVICE)
     meta = torch.from_numpy(np.stack([m for _, _, m in items]).astype(np.int64)).to(DEVICE)
     return src, meta
@@ -5158,10 +5193,11 @@ def phase_p12_serve(torch, models: dict, root: Path, corpus: Path, meta_path: Pa
         torch.cuda.empty_cache()
 
 
-def phase_serving(torch, root: Path, corpus: Path, meta_path: Path) -> None:
+def phase_serving(torch, root: Path, corpus: Path, meta_path: Path) -> dict:
     """Phase 12: [12 sampler ...], [12 prompt-len], [12 windowed ...] and
     [12 serve ...] on the reference models of phases 5, 7 and 9. Their
-    kernels' launches go to PATH_LAUNCHES."""
+    kernels' launches go to PATH_LAUNCHES. Returns the models (phase 16
+    runs on them)."""
     t0 = time.perf_counter()
     card = card_line()
     models = p12_models(torch, root)
@@ -5170,6 +5206,7 @@ def phase_serving(torch, root: Path, corpus: Path, meta_path: Path) -> None:
     phase_p12_windowed(torch, models, root, corpus, meta_path)
     phase_p12_serve(torch, models, root, corpus, meta_path, card)
     say(f"[12 done] phase 12 in {time.perf_counter() - t0:.1f} s on {card}")
+    return models
 
 
 # ---------------------------------------------------------------------------
@@ -5180,7 +5217,7 @@ GPTQ_TOKENS = 256  # tokens of each [13 gptq <family>] CLI run
 # Phase 13's models: the reference widths at a cut depth that keeps every
 # kind of calibrated site (the host solve took 118-122 s a family at full
 # depth, 21 and 31 sites).
-GPTQ_DEPTH = {"mamba": {"n_layers": 2}, "xlstm": {"num_blocks": 3, "slstm_at": (1,)}}
+GPTQ_DEPTH = {"mamba": {"n_layers": 1}, "xlstm": {"num_blocks": 2, "slstm_at": (1,)}}
 # GPTQ's functional error over RTN's: below 1 at every site, and its median
 # at most this (0.51-0.73 measured on an H100 at random weights), so that a pack that fell
 # back to RTN at some sites (ratio 1) does not pass.
@@ -6220,8 +6257,405 @@ def phase_parallel(torch, corpus: Path, meta_path: Path) -> None:
         del model
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: data-parallel generation, serving and classification
+# (parallel/serving.py, serve.BatchScheduler(mesh=)), and the leftovers
+# ---------------------------------------------------------------------------
+
+DP_TOKENS = 64  # tokens of each [16 dp generate] and [16 dp shares] run
+DP_ROWS = 8  # [16 dp shares]: the batch of 8 that 2 and 4 ranks share
+DP_SERVE_LENGTHS = (64, 40, 96)  # [16 dp serve]: requests over SERVE_SLOTS slots in chunks of SERVE_CHUNK
+TOL_DP_CLASSIFY = 1e-6  # [16 dp classify], of the largest logit
+
+
+def one_group_grid():
+    """The data grid of the one-rank group (parallel/mesh.make_grid)."""
+    from musicgen_tpu_torch.parallel import mesh
+
+    grid = mesh.make_grid()
+    need((grid.data, grid.model, grid.data_index) == (1, 1, 0), f"[16] grid {grid}")
+    return grid
+
+
+def phase_dp_generate(torch, models: dict, src, meta) -> None:
+    """[16 dp generate <family>]: parallel/serving.generate_data_parallel
+    over the one-rank NCCL group against sampler.generate on the same
+    batch, stochastic 'combined' (a CUDA generator seeded alike; Mamba also
+    resident), bit for bit, with exact launches of the kernels of the
+    family's path (A and B, C; D and F; H and G)."""
+    from musicgen_tpu_torch.parallel.serving import generate_data_parallel
+    from musicgen_tpu_torch.sample.sampler import generate
+
+    grid = one_group_grid()
+    runs = [("mamba", "auto"), ("mamba", "resident"), ("transformer", "auto"), ("xlstm", "auto")]
+    for kind, mode in runs:
+        model, row = models[kind], f"16 dp generate {kind}" + (" resident" if mode == "resident" else "")
+        opts = {"resident": True} if mode == "resident" else {}
+        gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)  # noqa: E731
+        reset_launches()
+        t0 = time.perf_counter()
+        got = generate_data_parallel(model, kind, src, meta, DP_TOKENS, PROMPT, gen(), grid, **opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pre, dec = read_launches()
+        want = generate(model, kind, src, meta, DP_TOKENS, PROMPT, gen(), **opts)
+        want_pre, want_dec = rows_launches(model, kind, mode, 1, DP_TOKENS)
+        differ = int((got != want).sum())
+        say(f"[{row}] generate_data_parallel over a one-rank NCCL group, batch {src.shape[0]}, {DP_TOKENS} "
+            f"stochastic tokens after {PROMPT}: {differ} tokens differ from sampler.generate; launches {dec}, "
+            f"prefill {pre}; {secs:.2f} s")
+        need(differ == 0, f"[{row}] the data-parallel streams differ from sampler.generate's")
+        need(grammatical(torch, got, PROMPT), f"[{row}] a token breaks the grammar")
+        need(pre == want_pre and dec == want_dec, f"[{row}] launches {dec}, prefill {pre}; expected {want_dec}, "
+             f"{want_pre}")
+        count_row(f"[{row}]", dec, pre)
+
+
+def forced_logits(torch, model, src, meta, stream, n: int) -> list:
+    """Kernel B's logits route at src's batch, teacher-forced along the
+    first n new tokens of `stream`: the logits predicting new tokens 0..n."""
+    prefill, step = kernel_route(model, "mamba", src.shape[0])
+    p = src.shape[1]
+    with torch.no_grad():
+        logits, carry = prefill(src, meta)
+        out = [logits.float()]
+        for i in range(n):
+            logits, carry = step(stream[:, p + i], carry, p + i)
+            out.append(logits.float())
+    return out
+
+
+def share_holds(torch, model, src, meta, full, got, world: int) -> tuple:
+    """[16 dp shares]' hold of greedy rows: (rows equal, [(row, first
+    difference, tie ratio, error share, whether the teacher-forced picks
+    are the two streams' tokens)]). Each row that differs is teacher-forced
+    along the batch's stream at the batch and at its share's rows: at its
+    first difference the two routes' weights must lie at a near-tie of the
+    batch's (tie_ratio <= 1) at the logit error measured there, within
+    STEP_TOL['mamba'] of the row's largest logit (phase 12's test; the
+    picks are the host's argmax of the logits, the streams' the kernel
+    tail's, which may part at an exact tie)."""
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    diffs = first_diffs(torch, got, full, PROMPT)
+    bad = [r for r, d in enumerate(diffs) if d is not None]
+    if not bad:
+        return len(diffs), []
+    n = max(diffs[r] for r in bad)
+    ref = forced_logits(torch, model, src, meta, full, n)
+    rows = src.shape[0] // world
+    held = []
+    for share in sorted({r // rows for r in bad}):
+        lo = share * rows
+        mine = forced_logits(torch, model, src[lo:lo + rows], meta[lo:lo + rows], full[lo:lo + rows], n)
+        for r in (r for r in bad if r // rows == share):
+            d = diffs[r]
+            cfg = sm.SamplerConfig(num_tokens=DP_TOKENS, ring_size=max(PROMPT, 2048), greedy=True)
+            pen = sm.init_penalty_state(full[r:r + 1, :PROMPT], cfg.ring_size)
+            for i in range(d):
+                pen = sm.push_token(pen, full[r:r + 1, PROMPT + i])
+            last = full[r:r + 1, PROMPT + d - 1]
+            pick, ref_pick, ratio, share_err = position_check(torch, last, pen, cfg, mine[d][r - lo:r - lo + 1],
+                                                              ref[d][r:r + 1])
+            same = int(pick) == int(got[r, PROMPT + d]) and int(ref_pick) == int(full[r, PROMPT + d])
+            held.append((r, d, float(ratio), float(share_err), same))
+    for r, d, ratio, share_err, _ in held:
+        need(ratio <= 1.0 and share_err <= STEP_TOL["mamba"],
+             f"[16 dp shares] row {r} differs at token {d} past a near-tie: tie ratio {ratio:.4f}, logit error "
+             f"{share_err:.3e} of the largest")
+    return len(diffs) - len(bad), held
+
+
+def phase_dp_shares(torch, model, src, meta) -> None:
+    """[16 dp shares]: on one card, the shares of 2 and 4 ranks of a batch
+    of DP_ROWS (train/distributed.rank_share's rows, each generated alone
+    with its columns of the batch's uniforms, no group) against the batch
+    generated at once, greedy and stochastic, through kernels A and B: the
+    rows equal bit for bit, and each greedy row that differs held at its
+    first difference to a near-tie (share_holds): the prefill and the
+    decode steps are not batch-invariant in their bits on the card."""
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    b = src.shape[0]
+    for greedy in (True, False):
+        cfg = sm.SamplerConfig(num_tokens=DP_TOKENS, greedy=greedy)
+        u = sm.draw_uniforms(cfg, b, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        run = lambda rows: sm.generate(model, "mamba", src[rows], meta[rows], DP_TOKENS, PROMPT,  # noqa: E731
+                                       None, greedy=greedy, uniforms=None if u is None else u[:, rows])
+        reset_launches()
+        full = run(slice(0, b))
+        parts = {}
+        for world in (2, 4):
+            n = b // world
+            parts[world] = torch.cat([run(slice(i * n, (i + 1) * n)) for i in range(world)])
+        torch.cuda.synchronize()
+        pre, dec = read_launches()
+        want_pre, want_dec = rows_launches(model, "mamba", "auto", 1 + 2 + 4, DP_TOKENS)
+        need(pre == want_pre and dec == want_dec, f"[16 dp shares] launches {dec}, prefill {pre}; expected "
+             f"{want_dec}, {want_pre}")
+        count_row("[16 dp shares]", dec, pre)
+        for world, got in parts.items():
+            need(grammatical(torch, got, PROMPT), f"[16 dp shares] a token of the {world}-rank shares breaks the "
+                 "grammar")
+            if greedy:
+                equal, held = share_holds(torch, model, src, meta, full, got, world)
+                text = (f"; each other row at a near-tie at its first difference (row, token, tie ratio, logit "
+                        f"error share, the teacher-forced picks the streams' tokens): "
+                        f"{[(r, d, round(x, 4), f'{e:.3e}', same) for r, d, x, e, same in held]}" if held else "")
+            else:
+                equal = sum(d is None for d in first_diffs(torch, got, full, PROMPT))
+                text = ("; stochastic rows that differ are not held: the prefill's rounding at another batch moves "
+                        "a pick past an inversion boundary" if equal < b else "")
+            say(f"[16 dp shares] Mamba ({model.cfg.n_layers} layers), {b} rows of {PROMPT} + {DP_TOKENS} "
+                f"{'greedy' if greedy else 'stochastic'} tokens: the shares of {world} ranks generated in turn "
+                f"against the batch at once: {equal}/{b} rows bit for bit{text}")
+
+
+def phase_dp_shares_resident(torch, model, src, meta) -> None:
+    """[16 dp shares resident]: kernel C on column slices of one tensor of
+    uniforms, stochastic, as the groups of 8 of a wider batch and the
+    ranks' shares take them. The rows of src twice (2 x DP_ROWS) run at
+    once in two groups of 8, each group bit for bit with its rows run alone
+    on a copy of their columns; the shares of 2 and 4 ranks of the first
+    DP_ROWS rows, each generated in turn on its columns, against those rows
+    at once: the rows equal counted (stochastic rows that differ are not
+    held, as in [16 dp shares])."""
+    from musicgen_tpu_torch.sample import sampler as sm
+
+    b = src.shape[0]
+    src2, meta2 = torch.cat([src, src]), torch.cat([meta, meta])
+    u = sm.draw_uniforms(sm.SamplerConfig(num_tokens=DP_TOKENS), 2 * b,
+                         torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+
+    def run(rows, uniforms):
+        return sm.generate(model, "mamba", src2[rows], meta2[rows], DP_TOKENS, PROMPT, None, resident=True,
+                           uniforms=uniforms)
+
+    reset_launches()
+    wide = run(slice(0, 2 * b), u)
+    alone = torch.cat([run(slice(g * b, (g + 1) * b), u[:, g * b:(g + 1) * b].clone()) for g in (0, 1)])
+    shares = {world: torch.cat([run(slice(i * (b // world), (i + 1) * (b // world)),
+                                    u[:, i * (b // world):(i + 1) * (b // world)]) for i in range(world)])
+              for world in (2, 4)}
+    torch.cuda.synchronize()
+    pre, dec = read_launches()
+    want_pre, want_dec = rows_launches(model, "mamba", "resident", 2 + 2 + 2 + 4, DP_TOKENS)
+    need(pre == want_pre and dec == want_dec, f"[16 dp shares resident] launches {dec}, prefill {pre}; expected "
+         f"{want_dec}, {want_pre}")
+    count_row("[16 dp shares resident]", dec, pre)
+    differ = int((wide != alone).sum())
+    need(differ == 0, f"[16 dp shares resident] the batch of {2 * b} differs from its groups run alone at {differ} "
+         "tokens")
+    equal = {}
+    for world, got in shares.items():
+        need(grammatical(torch, got, PROMPT), f"[16 dp shares resident] a token of the {world}-rank shares breaks "
+             "the grammar")
+        equal[world] = sum(d is None for d in first_diffs(torch, got, wide[:b], PROMPT))
+    say(f"[16 dp shares resident] kernel C, {DP_TOKENS} stochastic tokens after {PROMPT}: a batch of {2 * b} rows "
+        f"(two groups of 8 on column slices of the uniforms) bit for bit with each group run alone ({differ} tokens "
+        f"differ); the shares of 2 and 4 ranks of its first {b} rows, generated in turn on their columns, against "
+        f"those rows at once: {equal[2]}/{b} and {equal[4]}/{b} rows bit for bit; launches {dec}, prefill {pre}")
+
+
+def serve_once(model, kind: str, reqs, greedy: bool, mesh=None, **opts) -> tuple:
+    """BatchScheduler over SERVE_SLOTS slots in chunks of SERVE_CHUNK:
+    ([tokens of each request], the scheduler)."""
+    from musicgen_tpu_torch.serve import BatchScheduler
+
+    sched = BatchScheduler(model, kind, prompt_len=PROMPT, slots=SERVE_SLOTS, chunk=SERVE_CHUNK, block_len=PROMPT,
+                           greedy=greedy, mesh=mesh, **opts)
+    rids = [sched.submit(p, m, n, s) for p, m, n, s in reqs]
+    got = sched.run()
+    return [got[rid] for rid in rids], sched
+
+
+def phase_dp_serve(torch, models: dict, src, meta) -> None:
+    """[16 dp serve <family>]: serve.BatchScheduler(mesh=) over the one-rank
+    group against no mesh, greedy and seeded, bit for bit, with exact
+    launches (A, D or H a prefill; B's or G's logits step a token of each
+    group-chunk; the Transformer's plain step). [16 tp serve]: the
+    Transformer's vocabulary table and head split over a model group of one
+    (parallel/mesh.vocab_sharded, a copy), served through the
+    vocabulary-parallel plain step, bit for bit with the unsplit model."""
+    import numpy as np
+
+    from musicgen_tpu_torch.parallel import mesh
+
+    grid = one_group_grid()
+    reqs = [(src[i].cpu().numpy(), meta[i].cpu().numpy(), n, SEED + i) for i, n in enumerate(DP_SERVE_LENGTHS)]
+    chunks = serve_group_chunks(DP_SERVE_LENGTHS, SERVE_SLOTS, SERVE_CHUNK)
+    for kind in ("mamba", "xlstm", "transformer"):
+        model, row = models[kind], f"16 dp serve {kind}"
+        parts = []
+        for greedy in (True, False):
+            reset_launches()
+            t0 = time.perf_counter()
+            got, sched = serve_once(model, kind, reqs, greedy, grid)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            pre, dec = read_launches()
+            want, _ = serve_once(model, kind, reqs, greedy)
+            same = sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+            want_dec = {} if kind == "transformer" else logits_step_launches(model, kind, chunks * SERVE_CHUNK)
+            want_pre = prefill_launches(model, kind, len(reqs))
+            need(dec == want_dec and pre == want_pre and sched.group_chunks == chunks,
+                 f"[{row}] launches {dec}, prefill {pre}, {sched.group_chunks} group-chunks; expected {want_dec}, "
+                 f"{want_pre}, {chunks}")
+            count_row(f"[{row}]", dec, pre)
+            need(same == len(reqs), f"[{row}] {'greedy' if greedy else 'seeded'}: {same}/{len(reqs)} requests bit "
+                 f"for bit with no mesh")
+            parts.append(f"{'greedy' if greedy else 'seeded'} {same}/{len(reqs)} bit for bit in {secs:.2f} s")
+        say(f"[{row}] BatchScheduler(mesh=) over a one-rank NCCL group, {SERVE_SLOTS} slots, chunks of "
+            f"{SERVE_CHUNK}, requests of {DP_SERVE_LENGTHS} tokens after {PROMPT}, against no mesh: "
+            f"{'; '.join(parts)}; launches {dec or 'none (plain step)'}, prefill {pre}")
+    model = models["transformer"]
+    want, _ = serve_once(model, "transformer", reqs, False)
+    split_model = mesh.vocab_sharded(model, None, 1, 0)
+    reset_launches()
+    got, _ = serve_once(split_model, "transformer", reqs, False, mesh.Grid(1, 1, 0), fused=False)
+    pre, dec = read_launches()
+    split = sorted(n for n, m in split_model.named_modules() if isinstance(m, mesh.VocabParallelHead))
+    del split_model
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+    count_row("[16 tp serve]", dec, pre)
+    say(f"[16 tp serve] the Transformer with its token table and head split over a model group of one ({split}): "
+        f"{same}/{len(reqs)} seeded requests bit for bit with the unsplit model; launches {dec or 'none'}, prefill "
+        f"{pre}")
+    need(split == ["lm_head"] and same == len(reqs) and dec == {}, "[16 tp serve] not bit for bit with the "
+         "unsplit model's plain step")
+
+
+def phase_dp_classify(torch, corpus: Path, meta_path: Path) -> None:
+    """[16 dp classify]: classify_data_parallel of the full-size classifier
+    over the one-rank group against its own forward, (BATCH, PROMPT),
+    within TOL_DP_CLASSIFY of the largest logit, both through kernel H (4
+    launches a forward)."""
+    from musicgen_tpu_torch.config import ClassifierConfig
+    from musicgen_tpu_torch.models.xlstm import empty_model, init_weights_
+    from musicgen_tpu_torch.parallel.serving import classify_data_parallel
+
+    model = init_weights_(empty_model(ClassifierConfig(), DEVICE), SEED).eval()
+    src = train_batch(torch, corpus, meta_path)[0]
+    reset_launches()
+    got = classify_data_parallel(model, src, one_group_grid())
+    torch.cuda.synchronize()
+    pre, _ = read_launches()
+    want = model(src)
+    err, rel = rel_err(got, want)
+    count_row("[16 dp classify]", pre)
+    say(f"[16 dp classify] the classifier's forward over a one-rank NCCL group, ({BATCH}, {PROMPT}): max_abs "
+        f"{err:.3e}, {rel:.3e} of the largest logit (tol {TOL_DP_CLASSIFY}); launches {pre}")
+    need(rel <= TOL_DP_CLASSIFY and pre == {"slstm_scan": len(model.cfg.slstm_at)},
+         "[16 dp classify] the data-parallel forward disagrees with the model's, or H did not run")
+
+
+def phase_leftovers(torch, corpus: Path, root: Path) -> None:
+    """[16 leftovers]: midi/vectorized's encode and decode on CUDA tensors
+    equal the CPU's on a corpus file's notes (and the host codec's tokens);
+    midi/native builds the C++ tokenizer from native/midi_tokenizer.cc and
+    its tokens of MIDI written from the corpus equal the Python codec's."""
+    import numpy as np
+
+    from musicgen_tpu_torch.midi import (MidiNote, adjust_note_time, decode, encode, extract_midi, native,
+                                         note_to_midi)
+    from musicgen_tpu_torch.midi import vectorized as vec
+
+    t0 = time.perf_counter()
+    files = sorted(corpus.rglob("*.npy"))
+    notes = decode(np.load(files[0]).tolist())
+    grid_notes = [MidiNote(**vars(n)) for n in notes]
+    adjust_note_time(grid_notes)
+    cols = [[getattr(g, f) for g in grid_notes] for f in ("pitch", "channel", "dynamic", "time_start", "time_end")]
+    cols.append([int(g.tempo) for g in grid_notes])
+    cpu = vec.GridNotes(*(torch.tensor(c) for c in cols), valid=torch.ones(len(grid_notes), dtype=torch.bool))
+    cuda = vec.GridNotes(*(t.to(DEVICE) for t in cpu))
+    tok_c, n_c = vec.encode_notes_grid(cpu)
+    tok_g, n_g = vec.encode_notes_grid(cuda)
+    dec_c, dec_g = vec.decode_tokens(tok_c), vec.decode_tokens(tok_g)
+    same_dec = all(torch.equal(a, b.cpu()) for a, b in zip(dec_c, dec_g))
+    need(torch.equal(tok_c, tok_g.cpu()) and int(n_c) == int(n_g) and same_dec,
+         "[16 leftovers] the vectorized codec on CUDA tensors differs from the CPU's")
+    need(tok_c[:int(n_c)].tolist() == encode(notes), "[16 leftovers] the vectorized codec differs from the codec")
+    need(native.available(), f"[16 leftovers] the native tokenizer did not build: {native.build_error()}")
+    mids = root / "leftovers_mid"
+    mids.mkdir()
+    same = 0
+    for f in files:
+        path = str(mids / f"{f.stem}.mid")
+        note_to_midi(decode(np.load(f).tolist()), path)
+        same += bool(np.array_equal(native.tokenize_file(path), np.asarray(encode(extract_midi(path)), np.int64)))
+    say(f"[16 leftovers] vectorized codec: {len(grid_notes)} notes, {int(n_c)} tokens, CUDA equal to CPU (encode "
+        f"and decode) and to the host codec; native tokenizer built at {native.library_path().relative_to(REPO)}: "
+        f"{same}/{len(files)} MIDI files token for token with the Python codec; {time.perf_counter() - t0:.1f} s")
+    need(same == len(files), "[16 leftovers] the native tokenizer differs from the Python codec")
+
+
+DRAW_TURNS = 2  # [16 cli draws]: rounds of (parent, this, this, parent)
+
+
+def phase_cli_draws(torch, root: Path, corpus: Path, meta_path: Path, parent: Path) -> None:
+    """[16 cli draws] (with --parent DIR): `cli.generate --model mamba` of
+    this tree and of the parent tree (its package imported as parent_mtt,
+    its kernels built into DIR/build) on phase 12's Mamba, per token
+    ('combined', stochastic: the draw rule against two torch.multinomial
+    draws a token), BATCH rows of LENGTH tokens after PROMPT on band
+    Mozart, in DRAW_TURNS rounds of parent, this, this, parent: tok/s/seq
+    of each run (the prefill included), and each tree's median."""
+    import importlib
+
+    from musicgen_tpu_torch.cli import generate as cli
+
+    parent_module(parent, "decode_kernel", "[16 cli draws]")
+    pcli = importlib.import_module("parent_mtt.cli.generate")
+    rates = {"parent": [], "this": []}
+    for turn in range(DRAW_TURNS):
+        for tree in ("parent", "this", "this", "parent"):
+            out = root / f"draws_{tree}_{turn}_{len(rates[tree])}"
+            argv = ["--model", "mamba", "--ckpt", str(root / "mamba_random.pth"), "--data", str(corpus),
+                    "--metadata", str(meta_path), "--composers", "Mozart", "--batch", str(BATCH), "--block-len",
+                    str(PROMPT), "--length", str(LENGTH), "--output", str(out), "--seed", str(SEED), "--device",
+                    DEVICE]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            streams = (pcli if tree == "parent" else cli).main(argv)["Mozart"]
+            torch.cuda.synchronize()
+            rates[tree].append(LENGTH / (time.perf_counter() - t0))
+            need(grammatical(torch, streams, PROMPT), f"[16 cli draws] a {tree} token breaks the grammar")
+    say(f"[16 cli draws] cli.generate --model mamba per token (stochastic 'combined', {LENGTH} tokens at batch "
+        f"{BATCH} after {PROMPT}, prefill included; phase 12's Mamba at {P12_DEPTH['mamba']}): this tree's draw "
+        f"rule {statistics.median(rates['this']):.1f} tok/s/seq (runs {[round(r, 1) for r in rates['this']]}), "
+        f"the parent tree's multinomial draws {statistics.median(rates['parent']):.1f} "
+        f"({[round(r, 1) for r in rates['parent']]}); medians of {2 * DRAW_TURNS} runs each in rounds of parent, "
+        f"this, this, parent")
+
+
+def phase_dp(torch, corpus: Path, meta_path: Path, root: Path, models: dict | None = None,
+             parent: Path | None = None) -> None:
+    """Phase 16, in a one-rank NCCL group of this process, on phase 12's
+    models (built here when none are given): [16 dp generate ...], [16 dp
+    shares], [16 dp shares resident], [16 dp serve ...], [16 tp serve],
+    [16 dp classify] and [16 leftovers]; with --parent DIR also [16 cli
+    draws]. Its launches go to
+    the kernels line through PATH_LAUNCHES."""
+    t0 = time.perf_counter()
+    card = card_line()
+    models = models or p12_models(torch, root)
+    src, meta = cli_prompts(torch, corpus, meta_path, PROMPT, DP_ROWS)
+    with one_rank_group(torch, "16"):
+        phase_dp_generate(torch, models, src[:BATCH], meta[:BATCH])
+        phase_dp_shares(torch, models["mamba"], src, meta)
+        phase_dp_shares_resident(torch, models["mamba"], src, meta)
+        phase_dp_serve(torch, models, src, meta)
+        phase_dp_classify(torch, corpus, meta_path)
+    phase_leftovers(torch, corpus, root)
+    rows_s = time.perf_counter() - t0
+    if parent is not None:
+        phase_cli_draws(torch, root, corpus, meta_path, parent)
+    say(f"[16 done] phase 16 in {time.perf_counter() - t0:.1f} s ({rows_s:.1f} s before [16 cli draws]) on {card}")
+
+
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|diffusion|parallel]
+    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|diffusion|parallel|dp]
     [--parent DIR];
     None where absent or wrong."""
     opts, rest = {}, list(argv)
@@ -6230,7 +6664,7 @@ def parse_args(argv: list) -> tuple:
         rest = rest[2:]
     only = opts.get("--only")
     if rest or only not in (None, "7", "8", "9", "10", "11", "12", "gptq", "int8", "bf16", "flash", "resident",
-                            "tail", "mixer", "ssd", "diffusion", "parallel"):
+                            "tail", "mixer", "ssd", "diffusion", "parallel", "dp"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -6312,7 +6746,7 @@ def main() -> int:
     args = parse_args(sys.argv[1:])
     if args is None:
         print("usage: python3 chip_smoke.py [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|"
-              "diffusion|parallel] "
+              "diffusion|parallel|dp] "
               "[--parent DIR]",
               file=sys.stderr)
         return 2
@@ -6359,6 +6793,13 @@ def main() -> int:
             phase_parallel(torch, *synth_corpus(Path(tmp)))
         for name, rows in PATH_LAUNCHES.items():
             say(f"[{name} launches] on phase 15's paths: " + " + ".join(f"{n} {row}" for row, n in rows.items()))
+        return finish(torch, card, report, [], t_start)
+    if only == "dp":
+        with tempfile.TemporaryDirectory() as tmp, clock("16 dp"):
+            root = Path(tmp)
+            phase_dp(torch, *synth_corpus(root), root, parent=parent)
+        for name, rows in PATH_LAUNCHES.items():
+            say(f"[{name} launches] on phase 16's paths: " + " + ".join(f"{n} {row}" for row, n in rows.items()))
         return finish(torch, card, report, [], t_start)
     if only == "10":
         phase_probes(torch, report)
@@ -6457,7 +6898,10 @@ def main() -> int:
             phase_research(torch, corpus, meta_path, root)
         torch.cuda.empty_cache()
         with clock("12 serving"):
-            phase_serving(torch, root, corpus, meta_path)
+            models = phase_serving(torch, root, corpus, meta_path)
+        with clock("16 dp"):
+            phase_dp(torch, corpus, meta_path, root, models, parent)
+        del models
         torch.cuda.empty_cache()
         with clock("13 gptq"):
             phase_gptq(torch, root, corpus, meta_path)

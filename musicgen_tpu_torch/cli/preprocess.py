@@ -1,6 +1,8 @@
 """Corpus preprocessing CLI of the port (port of musicgen_tpu/cli/
 preprocess.py; reference processing.preprocess_midi_files): MIDI tree ->
-.npy token streams, on the host with the port's Python codec.
+.npy token streams, on the host: the C++ tokenizer (midi/native, built
+from native/midi_tokenizer.cc at first use) where a compiler builds it, the
+port's Python codec otherwise, as in the JAX package.
 
   python -m musicgen_tpu_torch.cli.preprocess --midi data/midi --out data/np
 

@@ -4,10 +4,11 @@ Port of musicgen_tpu/data/preprocess.py (reference processing/processing.py
 :24-55): mirrors the <model>/<band>/<song> directory layout under the output
 folder, skips files whose output already exists or whose name ends in a
 numeric suffix, drops pieces with fewer than `min_notes` notes, and reports
-(rather than silently drops) per-file codec errors. Tokens come from the
-port's Python codec (midi/codec `extract_midi`, `encode`) alone: the port
-does not load the JAX package's C++ tokenizer (native/), whose output the
-JAX package's tests hold equal to the same codec's.
+(rather than silently drops) per-file codec errors. Tokens come from the C++
+tokenizer (midi/native, built from native/midi_tokenizer.cc at first use)
+where it is available and `use_native`, otherwise from the Python codec
+(midi/codec `extract_midi`, `encode`), as in the JAX package; the two give
+the same tokens (tests/test_torch_leftovers.py).
 """
 from __future__ import annotations
 
@@ -32,10 +33,13 @@ def find_files_by_extensions(root: str, exts: Iterable[str]) -> List[str]:
 
 
 def preprocess_midi_files(midi_folder: str, preprocess_folder: str, min_notes: int = 200,
-                          verbose: bool = True) -> int:
+                          verbose: bool = True, use_native: bool = True) -> int:
     """Tokenizes every .mid / .midi file under `midi_folder` into
     `preprocess_folder/<model>/<band>/<song>.npy` (int64); returns the number
     of files written."""
+    from ..midi import native
+
+    native_ok = use_native and native.available()
     midi_paths = find_files_by_extensions(midi_folder, [".mid", ".midi"])
     os.makedirs(preprocess_folder, exist_ok=True)
     count = 0
@@ -49,10 +53,16 @@ def preprocess_midi_files(midi_folder: str, preprocess_folder: str, min_notes: i
         if os.path.exists(new_path + ".npy") or re.search(r"\.\d+$", new_path):
             continue
         try:
-            notes = codec.extract_midi(path)
-            if len(notes) < min_notes:
-                continue
-            np.save(new_path + ".npy", np.asarray(codec.encode(notes), dtype=np.int64))
+            if native_ok:
+                tokens = native.tokenize_file(path, min_notes=min_notes)
+                if tokens.size == 0:
+                    continue
+            else:
+                notes = codec.extract_midi(path)
+                if len(notes) < min_notes:
+                    continue
+                tokens = np.asarray(codec.encode(notes), dtype=np.int64)
+            np.save(new_path + ".npy", tokens)
             count += 1
         except Exception as e:  # noqa: BLE001 - a broken file is reported and skipped, as the reference skips it
             if verbose:

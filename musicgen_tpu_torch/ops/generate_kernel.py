@@ -15,8 +15,9 @@ sample/sampler.sample_tokens_fused_tail (seeded by the prefill top-3).
 
 Random numbers come from outside, as in the TPU kernel: `uniforms` is
 (num_tokens, B, 2) f32, lane 0 driving the k-choice and lane 1 the pick.
-The k-choice and pick are the same distributions as the per-token sampler's
-multinomial draws, but another stream.
+The per-token routes of sample/sampler.py invert the same uniforms with the
+same rule (`pick_plain`), so kernel C's stream equals theirs on one tensor
+of uniforms (the sampler's draw rule).
 
 `fused_generate_plain` is the same stage order in PyTorch. With
 ops=PLAIN_OPS it is the plain version of the kernel; with ops=KERNEL_OPS it
@@ -334,20 +335,21 @@ fused_generate.launch = {}
 
 @torch.no_grad()
 def generate_resident(dp: dict, init_logits: torch.Tensor, carry, prompt: torch.Tensor, num_tokens: int,
-                      dims: DecodeDims, generator: torch.Generator, greedy: bool = False,
+                      dims: DecodeDims, uniforms: Optional[torch.Tensor], greedy: bool = False,
                       quant: str = "none", ring: int = 2048) -> torch.Tensor:
     """Drop-in for sample_tokens_fused_tail that runs the whole loop in one
     launch. The first top-3 comes from the prefill logits through the plain
-    tail; the uniforms are drawn once from `generator` on the prompt's
-    device. Returns (B, P + num_tokens) streams (prompt prepended); `carry`
-    advances in place."""
+    tail; token t of row i inverts uniforms[t, i] ((num_tokens, B, 2) on the
+    prompt's device, the sampler's draw_uniforms; None when greedy), any
+    layout: a group's or a rank's columns of the batch's tensor are copied
+    to the contiguous block the kernel reads. Returns (B, P + num_tokens)
+    streams (prompt prepended); `carry` advances in place."""
+    if uniforms is not None:
+        uniforms = uniforms.contiguous()
     last0 = prompt[:, -1]
     pen0 = init_penalty_state(prompt, ring)
     w0 = filtered_logits(last0, init_logits) / penalty_divisor(pen0.hist)
     vals0, idxs0 = _iter_top_k(w0, 3)
-    u = None
-    if not greedy:
-        u = torch.rand((num_tokens, prompt.shape[0], 2), generator=generator, device=prompt.device)
-    toks, _, _ = fused_generate(dp, vals0, idxs0, last0, carry[0], carry[1], pen0, u, dims, num_tokens,
+    toks, _, _ = fused_generate(dp, vals0, idxs0, last0, carry[0], carry[1], pen0, uniforms, dims, num_tokens,
                                 greedy, quant)
     return torch.cat([prompt, toks], dim=1)

@@ -5,8 +5,9 @@ off-by-one field ranges) are documented there. The filtered value is
 -log_softmax(logits) * mask: the sampler treats it as an unnormalised
 probability vector.
 
-Only the live 'linspace' length weighting is ported; the empirical
-weighting of ops/length_distribution.py is not used by any sampler path.
+The length row takes the live 'linspace' weighting by default, or the
+frozen corpus-measured tensor of ops/length_distribution.py
+(length_weights="empirical"), which no sampler or trainer path passes.
 """
 from __future__ import annotations
 
@@ -15,11 +16,18 @@ import torch
 from ..config import VOCAB, VocabLayout
 
 
+LENGTH_WEIGHTS = ("linspace", "empirical")
+
+
 def grammar_mask(
-    layout: VocabLayout = VOCAB, device: torch.device | str | None = None
+    layout: VocabLayout = VOCAB, device: torch.device | str | None = None, length_weights: str = "linspace"
 ) -> torch.Tensor:
     """(5, vocab) float32 allowed-next-token weights, one row per field of
-    the previous token (0 pitch, 1 dyn, 2 length, 3 time, 4 tempo)."""
+    the previous token (0 pitch, 1 dyn, 2 length, 3 time, 4 tempo).
+    length_weights: 'linspace' (the reference's live path, train.py:18) or
+    'empirical' (ops/length_distribution.py's frozen tensor)."""
+    if length_weights not in LENGTH_WEIGHTS:
+        raise ValueError(f"length_weights must be one of {LENGTH_WEIGHTS}, got {length_weights!r}")
     d = layout.disc
     v = layout.vocab_size
     ids = torch.arange(v, device=device)
@@ -28,7 +36,13 @@ def grammar_mask(
         return ((ids >= lo) & (ids < hi)).to(torch.float32)
 
     row0 = in_range(layout.dyn_start, layout.length_start - 1)
-    lin = 1.0 + 2.0 * (ids - layout.length_start).to(torch.float32) / float(d.length - 2)
+    if length_weights == "empirical":
+        from .length_distribution import empirical_length_weights
+
+        emp = empirical_length_weights(d.length - 1, device)
+        lin = emp[torch.clamp(ids - layout.length_start, 0, d.length - 2)]
+    else:
+        lin = 1.0 + 2.0 * (ids - layout.length_start).to(torch.float32) / float(d.length - 2)
     row1 = in_range(layout.length_start, layout.time_start - 1) * lin
     row2 = in_range(layout.time_start, layout.tempo_start - 1) + in_range(layout.tempo_start, v)
     row3 = in_range(layout.tempo_start, v)

@@ -36,6 +36,7 @@ sums, as GSPMD's.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, Iterable, List, Tuple
 
@@ -227,6 +228,15 @@ def shard_vocab_(model: nn.Module, group: Any, parts: int, index: int) -> nn.Mod
     for name, cls in vocab_parallel(model).items():
         setattr(model, name, cls(getattr(model, name), group, parts, index))
     return model
+
+
+def vocab_sharded(model: nn.Module, group: Any, parts: int, index: int) -> nn.Module:
+    """A shallow copy of the model whose vocabulary table and head are this
+    rank's shards (shard_vocab_ on the copy). It shares every other module
+    with `model`, which stays whole."""
+    view = copy.copy(model)
+    view.__dict__["_modules"] = dict(model._modules)
+    return shard_vocab_(view, group, parts, index)
 
 
 def _gather_rows(t: torch.Tensor, shard: _VocabShard) -> torch.Tensor:

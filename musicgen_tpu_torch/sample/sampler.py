@@ -26,8 +26,21 @@ step, fused_xlstm_logits_step) under `sample_tokens`, as the JAX package
 does. On CPU the kernels' plain versions run. `generate(resident=True)` runs
 a Mamba model's whole 'combined' loop in one kernel launch instead
 (ops/generate_kernel). `reference_windowed_generate` re-forwards the slid
-window for every token (validation only). Every random draw comes from the
-caller's torch.Generator, which lives on the device of the tensors.
+window for every token (validation only).
+
+The draw rule: `generate` draws ONE (num_tokens, B, 2) f32 tensor of
+uniforms from the caller's torch.Generator (which lives on the device of the
+tensors), for the whole batch and before any split of the rows
+(`draw_uniforms`). Row i's token t inverts the CDF of u[t, i] on every route:
+'combined' takes lane 0 for the random k and lane 1 for the pick among the
+top k, as kernel C does (ops/generate_kernel.pick_plain); 'top5' takes lane
+1 for its pick among the top 5 (`invert_pick`). 'many' and greedy draw
+nothing. A row's stream is thus a function of (weights, prompt_i, meta_i,
+u[:, i]) alone, whichever rows share its call: the per-token loop, the fused
+tail, kernel C, each group of 8 rows (u[:, i:i + 8]) and each rank's share
+(parallel/serving.py) take slices of one tensor, as the JAX package's
+replicated key gives each device the same draws. The distributions are the
+reference's; the stream is not the JAX package's.
 """
 from __future__ import annotations
 
@@ -232,6 +245,27 @@ def _pick_next(w, k, generator: torch.Generator, max_topk: int, greedy: bool) ->
     return _pick_from_topk(vals, idxs, k, generator, greedy=False)
 
 
+def invert_pick(vals: torch.Tensor, idxs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A pick among the candidates (vals, idxs) (B, K) in proportion to vals
+    (>= 0) by CDF inversion of u (B,) in [0, 1): the number of running sums
+    of vals that u * their total reaches. A zero weight is never picked:
+    u * total < total, and a zero adds nothing to the running sum."""
+    cum = torch.cumsum(vals, dim=1)
+    r = u * cum[:, -1]
+    choice = (r[:, None] >= cum[:, :-1]).sum(dim=1)
+    return torch.gather(idxs, 1, choice[:, None])[:, 0]
+
+
+def draw_uniforms(cfg: "SamplerConfig", batch: int, generator: torch.Generator,
+                  device: torch.device | str) -> torch.Tensor | None:
+    """The draw rule (module docstring): the (cfg.num_tokens, batch, 2) f32
+    uniforms of a whole stochastic generation from `generator`, or None where
+    nothing is drawn (greedy, and 'many', an argmax)."""
+    if cfg.greedy or cfg.mode == "many":
+        return None
+    return torch.rand((cfg.num_tokens, batch, 2), generator=generator, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Token loops
 # ---------------------------------------------------------------------------
@@ -262,14 +296,17 @@ def pick_token(logits: torch.Tensor, last: torch.Tensor, pen, cfg: SamplerConfig
                layout: VocabLayout = VOCAB, uniforms: torch.Tensor | None = None):
     """One token (B,) of the mode from the step's logits and the previous
     token, and the window after it (JAX sample_tokens' body, :345-360).
-    uniforms (B, 2), 'combined' mode only: a stochastic pick inverts their
-    CDF among the top 3 as kernel C does (ops/generate_kernel.pick_plain)
-    instead of drawing from `generator`."""
+    uniforms (B, 2): a stochastic pick inverts their CDF (the draw rule,
+    module docstring) instead of drawing from `generator`; without them
+    (reference_windowed_generate) it draws from `generator`."""
     w = filtered_logits(last, logits, layout)
     if cfg.mode == "many":
         tok = torch.argmax(w / count_penalty_divisor(pen.hist, layout), dim=-1)
         return tok, push_count_window(pen, tok)
     if cfg.mode == "top5":
+        if uniforms is not None and not cfg.greedy:
+            vals, idxs = _iter_top_k(w, 5)
+            return invert_pick(vals, idxs, uniforms[:, 1]), pen
         k = torch.full_like(last, 5)
         return _pick_next(w, k, generator, 5, cfg.greedy), pen
     w = w / penalty_divisor(pen.hist, layout)
@@ -293,17 +330,22 @@ def sample_tokens(
     cfg: SamplerConfig,
     generator: torch.Generator,
     layout: VocabLayout = VOCAB,
+    uniforms: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Generate cfg.num_tokens tokens of cfg.mode with the plain sampler
-    around `step_fn`. (B, num_tokens)."""
+    around `step_fn`. (B, num_tokens). Token t of row i inverts uniforms[t,
+    i] (num_tokens, B, 2), drawn here from `generator` by draw_uniforms
+    where not given."""
     _require_mode(cfg.mode)
     p = prompt.shape[1]
     last = prompt[:, -1]
     pen = init_window(prompt, cfg, layout)
+    if uniforms is None:
+        uniforms = draw_uniforms(cfg, prompt.shape[0], generator, prompt.device)
     logits, state = init_logits, init_model_state
     out = []
     for i in range(cfg.num_tokens):
-        tok, pen = pick_token(logits, last, pen, cfg, generator, layout)
+        tok, pen = pick_token(logits, last, pen, cfg, None, layout, None if uniforms is None else uniforms[i])
         logits, state = step_fn(tok, state, p + i)
         last = tok
         out.append(tok)
@@ -320,18 +362,25 @@ def sample_tokens_fused_tail(
     generator: torch.Generator,
     fused_step: Callable,
     layout: VocabLayout = VOCAB,
+    uniforms: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """'combined' sampling with the grammar/penalty/top-3 tail inside the
-    decode step: only the (B, 3) candidates leave it. Same semantics as
-    `sample_tokens`. The step is `fused_step(pack, token, state, hist,
-    bucket, stream_idx) -> (vals, idxs, state)`, the family's kernel step
-    with the tail (fused_tail_step)."""
+    decode step: only the (B, 3) candidates leave it. Same semantics and
+    draws as `sample_tokens`: each pick is ops/generate_kernel.pick_plain's
+    inversion of uniforms[t] (drawn here by draw_uniforms where not given).
+    The step is `fused_step(pack, token, state, hist, bucket, stream_idx) ->
+    (vals, idxs, state)`, the family's kernel step with the tail
+    (fused_tail_step)."""
+    from ..ops.generate_kernel import pick_plain
+
     _require_combined(cfg)
     # The tail computes exactly 3 candidates.
     if cfg.max_topk > 3:
         raise ValueError(f"the fused tail computes top-3; got max_topk={cfg.max_topk}")
     last = prompt[:, -1]
     pen = init_penalty_state(prompt, cfg.ring_size, layout)
+    if uniforms is None:
+        uniforms = draw_uniforms(cfg, prompt.shape[0], generator, prompt.device)
     # The first pick comes from the prefill logits through the plain tail.
     w0 = filtered_logits(last, init_logits, layout) / penalty_divisor(pen.hist, layout)
     vals, idxs = _iter_top_k(w0, 3)
@@ -339,8 +388,7 @@ def sample_tokens_fused_tail(
     p = prompt.shape[1]
     out = []
     for i in range(cfg.num_tokens):
-        k = None if cfg.greedy else _sample_k(last, generator, layout)
-        tok = _pick_from_topk(vals, idxs, k, generator, cfg.greedy)
+        tok = pick_plain(vals, idxs, last, None if uniforms is None else uniforms[i], cfg.greedy)
         pen = push_token(pen, tok, layout)
         vals, idxs, carry = fused_step(dp, tok, carry, pen.hist, field_bucket(tok, layout), p + i)
         last = tok
@@ -523,6 +571,7 @@ def generate(
     quant: str = "bf16",
     resident: bool = False,
     decode_pack: dict | None = None,
+    uniforms: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Conditioned generation (reference scripts/generate.py `generate`).
     Returns (B, P + num_tokens) streams. kind: "mamba", "transformer" or
@@ -541,17 +590,21 @@ def generate(
     of their kernels) or "int8w" (W8A16); for an xLSTM also "bf16-sb16" and
     "int8w-sb16", the mLSTM matrix memory stored in bf16 (f32 math), which no
     other kind takes. resident=True (Mamba, 'combined' mode) runs the whole
-    token loop in one kernel launch (ops/generate_kernel) and implies fused;
-    its stochastic picks invert the CDF of uniforms drawn from `generator`
-    (same distributions, another stream than the per-token sampler's). In
-    another mode, and for another family, resident is ignored and the
+    token loop in one kernel launch (ops/generate_kernel) and implies fused.
+    In another mode, and for another family, resident is ignored and the
     per-token path runs, as in the JAX package (sampler.py:720).
+
+    The draws follow the draw rule (module docstring): the stochastic modes
+    draw `uniforms` (num_tokens, B, 2) once from `generator`, before any
+    split of the rows, unless the caller passes them; row i's tokens invert
+    uniforms[:, i] on every route (the per-token loop, the fused tail,
+    kernel C), so a row's stream does not depend on the rows beside it.
 
     Any batch >= 1 is taken. Where the kernels run and the batch has more
     than MAX_ROWS (8) rows, the most one decode launch carries, the rows are
     generated in groups of MAX_ROWS, each whole (prefill, pack, token loop)
-    and in turn, their draws from `generator` in that order; each group
-    streams the weights once a token, so 16 rows read them twice.
+    and in turn, group g on uniforms[:, 8g:8g + 8]; each group streams the
+    weights once a token, so 16 rows read them twice.
 
     decode_pack: a prebuilt pack of the family's decode kernels (build_pack's
     format for `quant`, e.g. a GPTQ pack from ops/gptq), used in place of
@@ -577,9 +630,15 @@ def generate(
     fused = fused or resident
     if decode_pack is not None and not fused:
         raise ValueError("decode_pack requires the fused decode path")
+    if uniforms is None:
+        uniforms = draw_uniforms(cfg, batch, generator, prompt.device)
+    elif tuple(uniforms.shape) != (num_tokens, batch, 2):
+        raise ValueError(f"uniforms must be (num_tokens, batch, 2) = {(num_tokens, batch, 2)}, "
+                         f"got {tuple(uniforms.shape)}")
     if fused and batch > MAX_ROWS:
         return torch.cat([generate(model, kind, prompt[i:i + MAX_ROWS], meta[i:i + MAX_ROWS], num_tokens, block_len,
-                                   generator, greedy, mode, fused, quant, resident, decode_pack)
+                                   generator, greedy, mode, fused, quant, resident, decode_pack,
+                                   None if uniforms is None else uniforms[:, i:i + MAX_ROWS])
                           for i in range(0, batch, MAX_ROWS)])
     pack, quant = None, kernel_quant(kind, quant)
     if fused:
@@ -591,12 +650,12 @@ def generate(
         from ..ops.generate_kernel import generate_resident
 
         return generate_resident(pack, init_logits, state, prompt, num_tokens, DecodeDims.create(model.cfg, batch),
-                                 generator, greedy, QUANT_MODES[quant], cfg.ring_size)
+                                 uniforms, greedy, QUANT_MODES[quant], cfg.ring_size)
     if fused and mode == "combined":
         toks = sample_tokens_fused_tail(pack, init_logits, state, prompt, cfg, generator,
-                                        fused_tail_step(model, kind, batch, quant))
+                                        fused_tail_step(model, kind, batch, quant), uniforms=uniforms)
     else:
-        toks = sample_tokens(step, init_logits, state, prompt, cfg, generator)
+        toks = sample_tokens(step, init_logits, state, prompt, cfg, generator, uniforms=uniforms)
     return torch.cat([prompt, toks], dim=1)
 
 
@@ -677,7 +736,11 @@ def reference_windowed_generate(
     one and the token takes the last column. The forward is the model's own:
     on the card a Transformer's runs kernel D and an xLSTM's kernel H
     (models/xlstm.runs_kernel_h); a Mamba model's stays plain, as JAX's
-    MambaLM.__call__ does."""
+    MambaLM.__call__ does.
+
+    Its stochastic picks draw from `generator` token by token (pick_token
+    without uniforms), not by the draw rule of `generate`: a one-process
+    validation path, which the JAX package never shards either."""
     _require_mode(mode)
     b, p = prompt.shape
     cfg = SamplerConfig(num_tokens=num_tokens, ring_size=max(block_len, 2048), greedy=greedy, mode=mode)

@@ -34,9 +34,23 @@ Block-synchronous continuous batching, as in the JAX package:
     than the JAX package's fold_in draws, with the same distributions.
     Greedy streams equal sample/sampler.generate's.
 
-Not ported: the `mesh=` path (ROADMAP queue 1 item 9) and the TPU VMEM
-estimator and its fallback to the XLA step (ROADMAP "Do not port"): on the
-card a kernel that fails to build or launch fails the call.
+Serving over ranks (`mesh=`, a parallel/mesh.Grid of the group a launcher
+started, as the JAX package's mesh shards the slot pool over 'data'): SPMD,
+every rank receives the same `submit` calls, so admission and retirement
+run alike on every rank. Each rank prefills and steps only its own
+contiguous slots // data slots (its groups of up to 8 through kernel B, B'
+or G, or the plain step), and one all-gather of the (slots // data, chunk)
+tokens over the data group a chunk gives every rank's `run()` the
+one-process result. The kernel pack is built for the local slot count, as
+JAX builds `_kernel_slots`. A grid whose 'model' axis is above 1 serves a
+copy of the model with its vocabulary table and head split over each model
+group (parallel/serving.shard_vocab) through the plain step: it takes
+fused=False (a Transformer, which serves through its plain step, also
+fused=None), and refuses fused=True as JAX does.
+
+Not ported: the TPU VMEM estimator and its fallback to the XLA step (ROADMAP
+"Do not port"): on the card a kernel that fails to build or launch fails the
+call.
 """
 from __future__ import annotations
 
@@ -50,6 +64,7 @@ import torch
 
 from ..config import NUM_META
 from ..ops.decode_kernel import MAX_ROWS
+from ..parallel.serving import gather_rows, shard_vocab
 from ..sample.sampler import (
     SamplerConfig,
     _auto_fused,
@@ -132,15 +147,19 @@ class BatchScheduler:
     versions on CPU tensors), fused=False the plain step. quant as for
     `generate`: "bf16", "int8" (W8A8 for Mamba, W8A16 for an xLSTM),
     "int8w", and for an xLSTM "bf16-sb16" and "int8w-sb16" (its matrix
-    memory stored in bf16 through the chunk)."""
+    memory stored in bf16 through the chunk).
+
+    mesh: a parallel/mesh.Grid (make_grid) of the initialised process
+    group; this rank serves its data index's slots (module docstring).
+    Raises where the data axis does not divide `slots`, and on a grid whose
+    model axis is above 1 unless fused=False (a Transformer also takes
+    None); there the scheduler's model is parallel/serving.shard_vocab's
+    copy, and the caller's stays whole."""
 
     def __init__(self, model, kind: str, prompt_len: int = 2048, slots: int = 8, chunk: int = 32,
                  block_len: int = 2048, greedy: bool = False, fused: Optional[bool] = None, quant: str = "bf16",
                  mesh=None):
         _require_ported(kind)
-        if mesh is not None:
-            raise NotImplementedError("serving over a device mesh is not yet ported to musicgen_tpu_torch "
-                                      "(ROADMAP queue 1 item 9): pass mesh=None")
         if quant.endswith("-sb16") and kind != "xlstm":
             raise ValueError("'-sb16' state storage is an xLSTM option")
         if kind == "transformer" and not prompt_len <= block_len <= model.cfg.block_len:
@@ -148,6 +167,18 @@ class BatchScheduler:
                              f"block_len {block_len} <= the model's block_len {model.cfg.block_len}")
         if slots < 1 or chunk < 1:
             raise ValueError(f"slots and chunk must be >= 1, got {slots} and {chunk}")
+        self.mesh = mesh
+        self._local = range(slots)  # the slots this rank prefills and steps
+        if mesh is not None:
+            if slots % mesh.data:
+                raise ValueError(f"slots {slots} must divide the 'data' axis ({mesh.data})")
+            if mesh.model > 1:
+                if fused or (fused is None and kind != "transformer"):
+                    raise ValueError("fused decode kernels serve data-parallel only; use a grid with model axis 1 "
+                                     "(or fused=False for TP)")
+                model = shard_vocab(model, mesh)
+            n = slots // mesh.data
+            self._local = range(mesh.data_index * n, (mesh.data_index + 1) * n)
         self.model, self.kind = model, kind
         self.prompt_len, self.slots, self.chunk, self.greedy = prompt_len, slots, chunk, greedy
         self.block_len = block_len
@@ -157,7 +188,8 @@ class BatchScheduler:
             fused = _auto_fused(kind, model.cfg, self.device, prompt_len, block_len)
         self.fused = bool(fused) and kind != "transformer"
         self.quant = kernel_quant(kind, quant)
-        self.pack = build_pack(model, kind, min(slots, MAX_ROWS), self.quant) if self.fused else None
+        local = len(self._local)
+        self.pack = build_pack(model, kind, min(local, MAX_ROWS), self.quant) if self.fused else None
         self.cfg = SamplerConfig(ring_size=self.ring_size, greedy=greedy)
         if kind == "transformer":
             self._step = self._transformer_step
@@ -167,8 +199,8 @@ class BatchScheduler:
         self._queue: deque[Request] = deque()
         self._active: Dict[int, Request] = {}  # slot -> request
         self._requests: Dict[int, Request] = {}  # rid -> request (all)
-        self._gens: Dict[int, torch.Generator] = {}  # slot -> its request's generator
-        self._groups: List[Optional[dict]] = [None] * (-(-slots // MAX_ROWS))
+        self._gens: Dict[int, torch.Generator] = {}  # local slot -> its request's generator
+        self._groups: List[Optional[dict]] = [None] * (-(-local // MAX_ROWS))  # of the local slots
         self._next_rid = 0
 
     # -- public API ---------------------------------------------------------
@@ -201,7 +233,8 @@ class BatchScheduler:
                 if len(req.tokens) >= req.num_tokens:
                     req.t_done = now
                     done[req.rid] = np.asarray(req.tokens, np.int64)
-                    del self._active[s], self._gens[s]
+                    del self._active[s]
+                    self._gens.pop(s, None)
             self._admit_all()
         return done
 
@@ -228,8 +261,10 @@ class BatchScheduler:
 
     # -- internals ----------------------------------------------------------
 
-    def _group_rows(self, g: int) -> int:
-        return min(MAX_ROWS, self.slots - g * MAX_ROWS)
+    def _group_slots(self, g: int) -> range:
+        """The slots of local group g."""
+        lo = self._local.start + g * MAX_ROWS
+        return range(lo, min(lo + MAX_ROWS, self._local.stop))
 
     @torch.no_grad()
     def _admit_all(self) -> None:
@@ -240,19 +275,21 @@ class BatchScheduler:
                 continue
             req = self._queue.popleft()
             req.t_admit = time.perf_counter()
+            self._active[s] = req
+            if s not in self._local:  # another rank's slot
+                continue
             prompt = torch.from_numpy(req.prompt)[None].to(self.device)
             meta = torch.from_numpy(req.meta)[None].to(self.device)
             logits, state = self.model.prefill(prompt, meta)
             row = {"logits": logits[:, -1, :].float(), "model": state,
                    "pen": init_penalty_state(prompt, self.ring_size), "last": prompt[:, -1],
                    "lstep": torch.zeros(1, dtype=torch.int64, device=self.device)}
-            g, j = divmod(s, MAX_ROWS)
+            g, j = divmod(s - self._local.start, MAX_ROWS)
             if self._groups[g] is None:  # the group's rows start as copies of its first request's
-                n = self._group_rows(g)
+                n = len(self._group_slots(g))
                 self._groups[g] = _rows(row, lambda t: t.expand(n, *t.shape[1:]).clone())
             _write_row(self._groups[g], row, j)
             self._gens[s] = torch.Generator(device=self.device).manual_seed(req.seed)
-            self._active[s] = req
 
     def _transformer_step(self, tok, caches, lstep):
         """TransformerLM.step with each row at its own stream offset."""
@@ -261,11 +298,12 @@ class BatchScheduler:
 
     @torch.no_grad()
     def _run_chunk(self) -> np.ndarray:
-        """Advance every group holding a request `chunk` tokens; (S, chunk)
-        tokens on the host (rows of idle slots are garbage)."""
-        out = np.zeros((self.slots, self.chunk), np.int64)
+        """Advance every local group holding a request `chunk` tokens; (S,
+        chunk) tokens on the host, gathered over the data group under a mesh
+        (rows of idle slots are garbage)."""
+        out = torch.zeros((len(self._local), self.chunk), dtype=torch.int64, device=self.device)
         for g, st in enumerate(self._groups):
-            slots = range(g * MAX_ROWS, g * MAX_ROWS + self._group_rows(g))
+            slots = self._group_slots(g)
             if not any(s in self._active for s in slots):
                 continue
             to_carry = from_carry = lambda state: state  # noqa: E731
@@ -286,5 +324,7 @@ class BatchScheduler:
             self._groups[g] = {"logits": logits, "model": from_carry(carry), "pen": pen, "last": last,
                                "lstep": lstep}
             self.group_chunks += 1
-            out[slots.start:slots.stop] = torch.stack(toks, dim=1).cpu().numpy()
-        return out
+            out[slots.start - self._local.start:slots.stop - self._local.start] = torch.stack(toks, dim=1)
+        if self.mesh is not None:
+            out = gather_rows(out, self.mesh)
+        return out.cpu().numpy()

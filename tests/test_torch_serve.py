@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from musicgen_tpu_torch.config import NUM_META
+from musicgen_tpu_torch.parallel.mesh import Grid
 from musicgen_tpu_torch.sample.cache import step_geometry, token_slot
 from musicgen_tpu_torch.serve import BatchScheduler
 from musicgen_tpu_torch.serve.scheduler import ring_geometry
@@ -151,8 +152,13 @@ def test_ring_geometry_is_step_geometry_by_row():
 
 def test_refusals():
     port = family("mamba")[2]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BatchScheduler(port, "mamba", prompt_len=P, mesh="data")
+    # A grid's refusals come before any collective, so no process group is needed.
+    with pytest.raises(ValueError, match="divide"):
+        BatchScheduler(port, "mamba", prompt_len=P, slots=6, mesh=Grid(8, 1, 0))
+    with pytest.raises(ValueError, match="data-parallel"):
+        BatchScheduler(port, "mamba", prompt_len=P, slots=8, mesh=Grid(4, 2, 0), fused=True)
+    with pytest.raises(ValueError, match="data-parallel"):  # the kernels' family asks for fused=False
+        BatchScheduler(port, "mamba", prompt_len=P, slots=8, mesh=Grid(4, 2, 0))
     with pytest.raises(ValueError, match="xLSTM option"):
         BatchScheduler(port, "mamba", prompt_len=P, quant="bf16-sb16")
     with pytest.raises(ValueError, match="within its window"):
