@@ -277,7 +277,15 @@ Phases (each prints one line of numbers; any failure exits non-zero):
      g++ into build/) against the Python codec; with --parent DIR, [16 cli
      draws] cli.generate per token in this tree (the draw rule) and the
      parent tree, in turns. Its launches go to the kernels line.
+ 17. the seq2seq translator (models/seq2seq.py; no kernel, plain PyTorch as
+     the JAX package leaves it to XLA) at its default width, built and
+     seeded through models.registry: [17 seq2seq] a (2, 512) source encoded
+     once and 64 greedy tokens on the card, timed by utils.profiling's
+     StepTimer, each step's log-probs within TOL_S2S of the same model's on
+     the CPU over the card's prefix (f32, TF32 off), the greedy picks equal
+     but at a near-tie, profiling.device_memory(), no launch counter moved.
 Each phase's seconds print as [seconds <phase>].
+`--only seq2seq` runs phases 1, 2 and 17 (its kernels line is empty).
 `--only dp` runs phases 1, 2 and 16 (its kernels line is empty; the
 launches print as [<kernel> launches]).
 `--only parallel` runs phases 1, 2 and 15 (its kernels line is empty; D
@@ -6654,8 +6662,95 @@ def phase_dp(torch, corpus: Path, meta_path: Path, root: Path, models: dict | No
     say(f"[16 done] phase 16 in {time.perf_counter() - t0:.1f} s ({rows_s:.1f} s before [16 cli draws]) on {card}")
 
 
+# Phase 17, the seq2seq translator (models/seq2seq.py; no kernel: the JAX
+# model is plain XLA) at its default width: a (BATCH, S2S_SRC) source encoded
+# once, S2S_TOKENS greedy tokens decoded on the card, each step's log-probs
+# held to the same seeded model on the CPU over the card's prefix. Both sides
+# are f32 with TF32 off and differ only in the order of f32 sums; the
+# log-probs lie near -log(1,024) = -6.93, so 1e-4 is some 100 f32 ulps of
+# them, where a wrong term (a missing table, the wrong norm) moves them by O(1).
+S2S_SRC = 512
+S2S_TOKENS = 64
+TOL_S2S = 1e-4
+
+
+def phase_seq2seq(torch) -> None:
+    """[17 seq2seq]: the default Seq2SeqTransformer (embed 256, 2 blocks, 4
+    heads, vocabularies of 1,024, max_len 5,000) built and seeded through
+    models.registry on the card and on the CPU (bit for bit the same
+    weights and positional table), a (2, 512) source encoded once, 64 greedy
+    tokens on the card timed by utils.profiling.StepTimer (a synchronised
+    step a tick), each step's log-probs and greedy pick held to the CPU
+    model's over the card's prefix, profiling.device_memory() printed; no
+    kernel's launch counter moves."""
+    from musicgen_tpu_torch.config import Seq2SeqConfig
+    from musicgen_tpu_torch.models import registry
+    from musicgen_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    before = all_launches()
+    cfg = Seq2SeqConfig()
+    model = registry.init_model(registry.new_model("seq2seq", cfg, DEVICE), "seq2seq", SEED).eval()
+    cpu = registry.init_model(registry.new_model("seq2seq", cfg, "cpu"), "seq2seq", SEED).eval()
+    on_card = [t for t in (*model.parameters(), *model.buffers()) if t.device.type != "cuda"]
+    need(not on_card, f"[17 seq2seq] {len(on_card)} tensors of the model are not on the card")
+    cpu_sd = cpu.state_dict()
+    need(all(torch.equal(t.cpu(), cpu_sd[k]) for k, t in model.state_dict().items())
+         and torch.equal(model.pe.cpu(), cpu.pe), "[17 seq2seq] the card's seeded model differs from the CPU's")
+    gen = torch.Generator().manual_seed(SEED)
+    src = torch.randint(0, cfg.encoder_vocab_size, (BATCH, S2S_SRC), generator=gen)
+    first = torch.randint(0, cfg.output_vocab_size, (BATCH, 1), generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    timer = profiling.StepTimer(tokens_per_step=BATCH, window=S2S_TOKENS)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter()
+        memory = model.encode(src.to(DEVICE))
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t_enc) * 1e3
+        seq, steps = first.to(DEVICE), []
+        timer.tick()
+        for _ in range(S2S_TOKENS):
+            lp = model.decode(memory, seq)
+            seq = torch.cat([seq, lp[:, -1].argmax(-1, keepdim=True)], dim=1)
+            steps.append(lp)
+            torch.cuda.synchronize()
+            timer.tick()
+        memory_stats = profiling.device_memory()
+        seq = seq.cpu()
+        want_memory = cpu.encode(src)
+        mem_err = float((memory.cpu() - want_memory).abs().max())
+        err, differ, worst_gap = 0.0, 0, float("inf")
+        for i, lp in enumerate(steps):
+            want = cpu.decode(want_memory, seq[:, :i + 1])
+            err = max(err, float((lp.cpu() - want).abs().max()))
+            top2 = want[:, -1].topk(2, dim=-1).values
+            picks_differ = want[:, -1].argmax(-1) != seq[:, i + 1]
+            differ += int(picks_differ.sum())
+            if picks_differ.any():
+                worst_gap = min(worst_gap, float((top2[:, 0] - top2[:, 1])[picks_differ].min()))
+    stats = timer.stats()
+    moved = moved_since(before)
+    say(f"[17 seq2seq] default width ({cfg.embed_dim} wide, {cfg.num_blocks} blocks, {cfg.num_heads} heads, "
+        f"vocabularies {cfg.encoder_vocab_size}/{cfg.output_vocab_size}, max_len {cfg.max_len}), source "
+        f"({BATCH}, {S2S_SRC}), {S2S_TOKENS} greedy tokens on the card: encode {enc_ms:.3f} ms; decode "
+        f"{stats['mean_step_ms']:.4f} ms a step ({stats['steps_per_sec']:.1f} steps/s, "
+        f"{stats['tokens_per_sec']:.1f} tok/s at batch {BATCH}; StepTimer, a synchronised step a tick); "
+        f"against the CPU's model: memory max_abs {mem_err:.3e}, log-probs max_abs {err:.3e} over the "
+        f"{S2S_TOKENS} steps (tol {TOL_S2S}), greedy picks differing {differ}/{BATCH * S2S_TOKENS}"
+        + (f" (smallest CPU top-2 gap there {worst_gap:.3e})" if differ else "")
+        + f"; device_memory {json.dumps(memory_stats)}; launches moved {moved}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    need(err <= TOL_S2S and mem_err <= TOL_S2S, "[17 seq2seq] the card's log-probs disagree with the CPU's")
+    need(differ == 0 or worst_gap <= 2 * TOL_S2S, "[17 seq2seq] a greedy pick differs from the CPU's off a near-tie")
+    need(not moved, f"[17 seq2seq] kernels launched on the seq2seq path: {moved}")
+    need(all(v["bytes_in_use"] > 0 and v["bytes_limit"] > 0 for v in memory_stats.values()) and memory_stats,
+         "[17 seq2seq] profiling.device_memory() read nothing")
+
+
 def parse_args(argv: list) -> tuple:
-    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|diffusion|parallel|dp]
+    """(only, parent) from [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|diffusion|parallel|dp|
+    seq2seq]
     [--parent DIR];
     None where absent or wrong."""
     opts, rest = {}, list(argv)
@@ -6664,7 +6759,7 @@ def parse_args(argv: list) -> tuple:
         rest = rest[2:]
     only = opts.get("--only")
     if rest or only not in (None, "7", "8", "9", "10", "11", "12", "gptq", "int8", "bf16", "flash", "resident",
-                            "tail", "mixer", "ssd", "diffusion", "parallel", "dp"):
+                            "tail", "mixer", "ssd", "diffusion", "parallel", "dp", "seq2seq"):
         return None
     return only, (Path(opts["--parent"]).resolve() if "--parent" in opts else None)
 
@@ -6746,7 +6841,7 @@ def main() -> int:
     args = parse_args(sys.argv[1:])
     if args is None:
         print("usage: python3 chip_smoke.py [--only 7|8|9|10|11|12|gptq|int8|bf16|flash|resident|tail|mixer|ssd|"
-              "diffusion|parallel|dp] "
+              "diffusion|parallel|dp|seq2seq] "
               "[--parent DIR]",
               file=sys.stderr)
         return 2
@@ -6800,6 +6895,10 @@ def main() -> int:
             phase_dp(torch, *synth_corpus(root), root, parent=parent)
         for name, rows in PATH_LAUNCHES.items():
             say(f"[{name} launches] on phase 16's paths: " + " + ".join(f"{n} {row}" for row, n in rows.items()))
+        return finish(torch, card, report, [], t_start)
+    if only == "seq2seq":
+        with clock("17 seq2seq"):
+            phase_seq2seq(torch)
         return finish(torch, card, report, [], t_start)
     if only == "10":
         phase_probes(torch, report)
@@ -6911,6 +7010,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         with clock("15"):
             phase_parallel(torch, corpus, meta_path)
+    torch.cuda.empty_cache()
+    with clock("17 seq2seq"):
+        phase_seq2seq(torch)
     torch.cuda.empty_cache()
     with clock("10 probes"):
         phase_probes(torch, report)

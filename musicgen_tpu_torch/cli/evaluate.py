@@ -40,7 +40,8 @@ from ..eval.accuracy import evaluate_accuracy
 from ..eval.classifier_eval import evaluate_success_rates
 from ..eval.timing import device_memory_stats, time_forward
 from ..interop import config_from_state_dict, family, load_checkpoint, load_model
-from .train import DEFAULT_CONFIGS, MODULES, cli_device
+from ..models.registry import KINDS, init_model, new_model
+from .train import DEFAULT_CONFIGS, cli_device
 
 # The batch `timing` times, (rows, tokens), as the JAX package's.
 TIMING_SHAPE = (2, 2048)
@@ -51,7 +52,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pa = sub.add_parser("accuracy")
-    pa.add_argument("--model", choices=list(MODULES), required=True)
+    pa.add_argument("--model", choices=list(KINDS), required=True)
     pa.add_argument("--ckpt", required=True, help="checkpoint directory, or a .pth")
     pa.add_argument("--data", required=True)
     pa.add_argument("--metadata", required=True)
@@ -78,7 +79,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     pc.add_argument("--out", default=None)
 
     pt = sub.add_parser("timing")
-    pt.add_argument("--model", choices=list(MODULES), required=True)
+    pt.add_argument("--model", choices=list(KINDS), required=True)
     pt.add_argument("--ckpt", default=None, help="checkpoint directory, or a .pth (default: seed-0 weights)")
     pt.add_argument("--iters", type=int, default=100)
     pt.add_argument("--out", default=None)
@@ -134,8 +135,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if args.ckpt:
             model = load(args.model, args.ckpt, device)
         else:
-            module = MODULES[args.model]
-            model = module.init_weights_(module.empty_model(DEFAULT_CONFIGS[args.model](), device), 0).eval()
+            model = init_model(new_model(args.model, DEFAULT_CONFIGS[args.model](), device), args.model, 0).eval()
         rng = np.random.default_rng(0)
         src = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, TIMING_SHAPE), device=device)
         meta = torch.zeros(TIMING_SHAPE[0], 6, dtype=torch.int64, device=device)

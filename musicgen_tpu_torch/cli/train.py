@@ -56,10 +56,10 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-from ..config import MambaConfig, MeshConfig, TrainValues, TransformerConfig, XLSTMConfig
+from ..config import MeshConfig, TrainValues, TransformerConfig, XLSTMConfig
 from ..data.dataset import TokenDataset, make_loaders
 from ..interop import config_from_state_dict, family, load_checkpoint, xlstm_state_dict
-from ..models import mamba, transformer, xlstm
+from ..models.registry import CONFIGS, KINDS, init_model, new_model
 from ..parallel.mesh import full_optimizer_state, full_state_dict, make_grid
 from ..parallel.pipeline import PipelineStage, make_pipe_grid, make_pp_eval_step, make_pp_train_step, pp_full_state
 from ..parallel.sp_train import make_sp_train_step, sp_loss_value
@@ -68,7 +68,7 @@ from ..train import trainer as T
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Train a music generator (PyTorch/CUDA)")
-    p.add_argument("--model", choices=["mamba", "xlstm", "transformer"], default="mamba")
+    p.add_argument("--model", choices=list(KINDS), default="mamba")
     p.add_argument("--data", required=True, help=".npy token corpus root")
     p.add_argument("--metadata", required=True, help="metadata.json path")
     p.add_argument("--tokenizations", default=None, help="write the metadata tokenization here")
@@ -123,8 +123,8 @@ def cli_device(name: str) -> torch.device:
     return device
 
 
-DEFAULT_CONFIGS = {"mamba": MambaConfig, "transformer": TransformerConfig, "xlstm": XLSTMConfig}
-MODULES = {"mamba": mamba, "transformer": transformer, "xlstm": xlstm}
+# Each family's default config (a patch point of the tests and chip_smoke.py).
+DEFAULT_CONFIGS = {kind: CONFIGS[kind] for kind in KINDS}
 
 
 def build_model(args: argparse.Namespace, device: torch.device, dtype: Optional[torch.dtype] = None):
@@ -146,10 +146,9 @@ def build_model(args: argparse.Namespace, device: torch.device, dtype: Optional[
     if isinstance(cfg, TransformerConfig):
         cfg = dataclasses.replace(cfg, attention_impl=args.attention)
     cfg = dataclasses.replace(cfg, remat=args.remat)
-    module = MODULES[args.model]
-    model = module.empty_model(cfg, device, dtype or (torch.bfloat16 if args.bf16 else torch.float32))
+    model = new_model(args.model, cfg, device, dtype or (torch.bfloat16 if args.bf16 else torch.float32))
     if sd is None:
-        module.init_weights_(model, args.seed)
+        init_model(model, args.model, args.seed)
     else:
         model.load_state_dict(sd, strict=True)
     return model

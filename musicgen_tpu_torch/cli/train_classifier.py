@@ -28,7 +28,7 @@ import torch
 
 from ..config import ClassifierConfig, TrainValues
 from ..data.dataset import BatchIterator, TokenDataset, make_loaders
-from ..models import xlstm
+from ..models.registry import init_model, new_model
 from ..train import trainer as T
 from .train import cli_device
 
@@ -66,7 +66,7 @@ def main(argv: Optional[List[str]] = None) -> T.TrainState:
     args = parse_args(argv)
     device = cli_device(args.device)
     torch.manual_seed(args.seed)
-    model = xlstm.init_weights_(xlstm.empty_model(ClassifierConfig(), device), args.seed)
+    model = init_model(new_model("classifier", ClassifierConfig(), device), "classifier", args.seed)
     block_len = model.cfg.context_length
     defaults = TrainValues()
     values = TrainValues(batch_size=args.batch_size or defaults.batch_size, epochs=args.epochs or defaults.epochs,

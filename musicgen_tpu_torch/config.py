@@ -288,9 +288,30 @@ class MeshConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class Seq2SeqConfig:
+    """The encoder-decoder tutorial translator (musicgen_tpu/models/seq2seq.py
+    Seq2SeqConfig; models/seq2seq.py here): tutorial-scale defaults."""
+
+    embed_dim: int = 256
+    num_blocks: int = 2
+    num_heads: int = 4
+    encoder_vocab_size: int = 1024
+    output_vocab_size: int = 1024
+    max_len: int = 5000
+    dropout: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
+    """Each model kind's default config (models/registry.py reads the field
+    named after the kind) and the training values."""
+
     values: TrainValues = TrainValues()
+    transformer: TransformerConfig = TransformerConfig()
+    mamba: MambaConfig = MambaConfig()
+    xlstm: XLSTMConfig = XLSTMConfig()
     classifier: ClassifierConfig = ClassifierConfig()
+    seq2seq: Seq2SeqConfig = Seq2SeqConfig()
 
 
 DEFAULT_CONFIG = Config()

@@ -50,12 +50,22 @@ layout is not read: the reference never trained this UNet (its
 `cli.train_diffusion` writes `{"params": state_dict, "ema": state_dict}`
 as `<ckpt>/diffusion.pth` (DIFFUSION_FILE), which `cli.inpaint` reads; it
 is not a `model.pth`, so `load_checkpoint` never takes it for an LM.
+
+The seq2seq translator (`models/seq2seq.py`) has no torch layout in the JAX
+package and no reference checkpoint, so its keys are the port's own and no
+`.pth` loader reads it: `seq2seq_state_dict` maps the flax tree, `enc_{i}`
+/ `dec_{i}` as `enc_blocks.{i}` / `dec_blocks.{i}`, `TutorialLayerNorm_0`
+as `norm`, a Dense `kernel` (in, out) as `weight` (out, in), a
+DenseGeneral's (D, H, Dh) kernel as a (H*Dh, D) `weight` and its (H, Dh)
+bias flat, an Embed's `embedding` as `weight`; `scale` and `shift` keep
+their names.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -236,6 +246,32 @@ def diffusion_state_dict(variables: Any) -> StateDict:
     return sd
 
 
+def seq2seq_state_dict(variables: Any) -> StateDict:
+    """Flax Seq2SeqTransformer params ({'params': ...} or the params tree,
+    numpy leaves) -> the port's models/seq2seq state dict (the layout in the
+    module docstring)."""
+    sd: StateDict = {}
+
+    def walk(tree: Any, prefix: str) -> None:
+        for name, leaf in tree.items():
+            if hasattr(leaf, "items"):
+                block = re.fullmatch(r"(enc|dec)_(\d+)", name)
+                name = f"{block[1]}_blocks.{block[2]}" if block else "norm" if name == "TutorialLayerNorm_0" else name
+                walk(leaf, f"{prefix}{name}.")
+                continue
+            a = np.asarray(leaf)
+            if name == "kernel":
+                name, a = "weight", a.reshape(a.shape[0], -1).T
+            elif name == "bias":
+                a = a.reshape(-1)
+            elif name == "embedding":
+                name = "weight"
+            sd[prefix + name] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    walk(variables["params"] if "params" in variables else variables, "")
+    return sd
+
+
 def load_checkpoint(path: str) -> StateDict:
     """A `.pth` state dict in reference layout, or a checkpoint directory's
     `model.pth` (DDP's 'module.' prefix dropped, and the reference
@@ -376,15 +412,11 @@ def family(cfg) -> str:
 def load_model(sd: StateDict, device: torch.device | str):
     """The MambaLM, TransformerLM, XLSTMLM or XLSTMClassifier on `device`
     holding `sd` (every key and shape checked)."""
-    cfg = config_from_state_dict(sd)
-    if isinstance(cfg, TransformerConfig):
-        from .models.transformer import empty_model
-    elif isinstance(cfg, (XLSTMConfig, ClassifierConfig)):
-        from .models.xlstm import empty_model
+    from .models.registry import new_model
 
+    cfg = config_from_state_dict(sd)
+    if isinstance(cfg, (XLSTMConfig, ClassifierConfig)):
         sd = xlstm_state_dict(sd, cfg)
-    else:
-        from .models.mamba import empty_model
-    model = empty_model(cfg, device)
+    model = new_model(family(cfg), cfg, device)
     model.load_state_dict(sd, strict=True)
     return model.eval()

@@ -34,6 +34,7 @@ from torch import nn
 from ..config import TrainValues
 from ..data.augment import augment
 from ..interop import MODEL_FILE
+from ..utils.ckpt_sanity import parsed_loss as _parsed_loss
 from .loss import chunked_filtered_cross_entropy, classifier_bce, filtered_cross_entropy
 
 OPTIMIZER_FILE = "optimizer.pth"
@@ -176,14 +177,6 @@ def checkpoint_name(loss: float) -> str:
     if math.isnan(loss):
         loss = float("inf")  # a NaN tag would confuse best-by-loss parsing
     return f"loss_{loss:.2f}_time_{now}"
-
-
-def _parsed_loss(path: str) -> float:
-    try:
-        v = float(os.path.basename(path).split("_")[1])
-        return float("inf") if math.isnan(v) else v
-    except (IndexError, ValueError):
-        return float("inf")
 
 
 def save_checkpoint(directory: str, state: TrainState, loss: float, keep: int = 3,

@@ -9,6 +9,7 @@ import torch
 
 from musicgen_tpu_torch.cli import generate as cli
 from musicgen_tpu_torch.cli import train as train_cli
+from musicgen_tpu_torch.models.registry import new_model
 from tests.torch_cli_common import BLOCK, make_train_corpus, make_workdir
 from tests.torch_cli_common import argv as _argv
 from tests.torch_cli_common import check_streams as _check_streams
@@ -38,7 +39,7 @@ def test_cli_train_bf16_then_generate(workdir, train_corpus, tmp_path, model):
     (saved,) = sorted((tmp_path / "ckpt").iterdir())
     assert sorted(os.listdir(saved)) == ["model.pth", "optimizer.pth"]
     sd = torch.load(saved / "model.pth", weights_only=True)
-    f32 = train_cli.MODULES[model].empty_model(state.model.cfg, "cpu").state_dict()
+    f32 = new_model(model, state.model.cfg, "cpu").state_dict()
     assert {k: v.dtype for k, v in sd.items()} == {k: v.dtype for k, v in f32.items()}
     assert all(v.dtype == torch.float32 for v in sd.values() if v.is_floating_point())
     opt = torch.load(saved / "optimizer.pth", weights_only=True)["optimizer"]["state"]

@@ -26,6 +26,8 @@ def test_package_never_imports_jax():
     assert "musicgen_tpu_torch.diffusion.unet" in modules and "musicgen_tpu_torch.diffusion.gaussian" in modules
     assert "musicgen_tpu_torch.cli.inpaint" in modules and "musicgen_tpu_torch.cli.train_diffusion" in modules
     assert "musicgen_tpu_torch.parallel.pipeline" in modules and "musicgen_tpu_torch.parallel.sp_train" in modules
+    assert "musicgen_tpu_torch.models.seq2seq" in modules and "musicgen_tpu_torch.models.registry" in modules
+    assert "musicgen_tpu_torch.utils.ckpt_sanity" in modules and "musicgen_tpu_torch.utils.profiling" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -50,6 +52,8 @@ def test_package_never_imports_the_jax_package():
     assert "musicgen_tpu_torch.data.preprocess" in modules and "musicgen_tpu_torch.serve" in modules
     assert "musicgen_tpu_torch.diffusion.unet" in modules and "musicgen_tpu_torch.diffusion.gaussian" in modules
     assert "musicgen_tpu_torch.cli.inpaint" in modules and "musicgen_tpu_torch.cli.train_diffusion" in modules
+    assert "musicgen_tpu_torch.models.seq2seq" in modules and "musicgen_tpu_torch.models.registry" in modules
+    assert "musicgen_tpu_torch.utils.ckpt_sanity" in modules and "musicgen_tpu_torch.utils.profiling" in modules
     code = (
         "import importlib, runpy, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
